@@ -1,0 +1,15 @@
+"""Hand-written Hopper kernel tier of the port.
+
+Every kernel here ships two implementations, a CUDA kernel built from
+``csrc/`` for ``sm_90a`` and a plain PyTorch version that is its spec,
+selected by ``dispatch``.  Importing this package registers the kernel set
+(and builds nothing: a kernel's library is built at its first launch).
+"""
+from deeplearning4j_tpu_torch.ops.kernels import dispatch, matmul, tiles  # noqa: F401
+from deeplearning4j_tpu_torch.ops.kernels.tiles import (  # noqa: F401
+    DEFAULT_TILES,
+    TileConfig,
+    shape_class,
+)
+
+dispatch.register("fused_dense", supports=matmul.dense_supports)

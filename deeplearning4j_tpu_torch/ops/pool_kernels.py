@@ -1,0 +1,45 @@
+"""NHWC max pooling with ``lax.reduce_window`` semantics.
+
+Port of the forward of ``deeplearning4j_tpu/ops/pool_kernels.py``.  The
+padding rules are lax's: ``"VALID"`` pads nothing and drops the ragged
+tail, ``"SAME"`` pads ``(Ho - 1) * s + k - H`` in total with the smaller
+half first (asymmetric when odd), and explicit ``((lo, hi), (lo, hi))``
+pads as given.  Padding is filled with ``-inf``, so a padded cell never
+wins.  Runs ``max_pool2d`` on an NCHW view of the NHWC tensor (a
+channels-last view, no copy).  The taps backward comes with training.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def resolve_pad(padding, H, W, kernel, stride):
+    """Per-dim (lo, hi) pads matching lax.reduce_window's semantics."""
+    kh, kw = kernel
+    sh, sw = stride
+    if padding == "VALID":
+        return (0, 0), (0, 0)
+    if padding == "SAME":
+        Ho, Wo = -(-H // sh), -(-W // sw)
+        th = max((Ho - 1) * sh + kh - H, 0)
+        tw = max((Wo - 1) * sw + kw - W, 0)
+        return (th // 2, th - th // 2), (tw // 2, tw - tw // 2)
+    (plh, phh), (plw, phw) = padding
+    return (int(plh), int(phh)), (int(plw), int(phw))
+
+
+def pad_nchw(x: torch.Tensor, pads, value: float) -> torch.Tensor:
+    (plh, phh), (plw, phw) = pads
+    if plh or phh or plw or phw:
+        x = F.pad(x, (plw, phw, plh, phh), value=value)
+    return x
+
+
+def max_pool2d(x: torch.Tensor, kernel, stride, padding="VALID") -> torch.Tensor:
+    """NHWC max pool; `padding`: "SAME" | "VALID" | ((lo,hi),(lo,hi))."""
+    xc = x.permute(0, 3, 1, 2)
+    pads = resolve_pad(padding, xc.shape[2], xc.shape[3], kernel, stride)
+    y = F.max_pool2d(pad_nchw(xc, pads, float("-inf")), tuple(kernel),
+                     tuple(stride))
+    return y.permute(0, 2, 3, 1)
