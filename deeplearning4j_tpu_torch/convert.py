@@ -1,8 +1,11 @@
-"""Carry parameters between the JAX package and the port.
+"""Carry parameters and layer state between the JAX package and the port.
 
 The JAX package keeps a network's parameters as a tree of arrays,
-``{layer_name: {param_key: array}}``; the port keeps them as
-``nn.Parameter``s of the same names (``layer_0.W``, ``layer_0.b``, ...).
+``{layer_name: {param_key: array}}`` (a ComputationGraph's keys are its
+vertex names); the port keeps them as ``nn.Parameter``s of the same names
+(``layer_0.W``, ``vertices.s0b0_a_conv.W``, ...).  Layer state (the
+BatchNormalization running ``mean`` and ``var``) is a tree of the same
+shape, ``net.state_``, in both packages and in the same layout.
 The layouts differ only where PyTorch's idiom does: a Dense ``W`` stays
 ``[n_in, n_out]`` (the kernel computes ``x @ W``), a conv ``W`` is HWIO in
 the JAX tree and OIHW in the port (``Layer.TORCH_LAYOUT``).  Arrays cross
@@ -11,7 +14,7 @@ JAX tree into numpy first (``jax.tree_util.tree_map(np.asarray, params)``).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -61,10 +64,67 @@ def params_from_jax(net, tree: Tree) -> None:
         if set(tree[name]) != set(sub):
             raise ValueError(f"{name}: param keys differ: "
                              f"{sorted(tree[name])} vs {sorted(sub)}")
-        layer = net.layer_by_name(name)
         for k, p in sub.items():
-            t = from_jax_layout(layer, k, tree[name][k])
+            t = from_jax_layout(net.layer_by_name(name), k, tree[name][k])
             if tuple(t.shape) != tuple(p.shape):
                 raise ValueError(f"{name}.{k}: shape {tuple(t.shape)} (port "
                                  f"layout) != {tuple(p.shape)}")
             p.copy_(t)
+
+
+def jax_leaves(params) -> List[Tuple[str, str]]:
+    """(name, key) of every parameter in ``jax.tree_util.tree_leaves``
+    order: dict keys sorted as strings (``layer_10`` before ``layer_2``,
+    ``W`` before ``b``)."""
+    return [(name, k) for name in sorted(params) for k in sorted(params[name])]
+
+
+def flat_params(net) -> np.ndarray:
+    """The network's parameters as one flat vector in the JAX package's
+    order and layouts."""
+    tree = params_to_jax(net)
+    leaves = [tree[n][k].ravel() for n, k in jax_leaves(tree)]
+    return np.concatenate(leaves) if leaves else np.zeros((0,), np.float32)
+
+
+def set_flat_params(net, flat) -> None:
+    """Load a flat vector in the JAX package's order into the network."""
+    flat = np.asarray(flat)
+    tree = params_to_jax(net)
+    off = 0
+    for n, k in jax_leaves(tree):
+        shape = tree[n][k].shape
+        size = int(np.prod(shape))
+        tree[n][k] = flat[off:off + size].reshape(shape)
+        off += size
+    if off != flat.size:
+        raise ValueError(f"Param count mismatch: {flat.size} vs {off}")
+    params_from_jax(net, tree)
+
+
+def state_to_jax(net) -> Tree:
+    """The network's layer state as a tree of numpy arrays (bf16 widens to
+    f32)."""
+    return {name: {k: (v.detach().float() if v.dtype == torch.bfloat16
+                       else v.detach()).cpu().numpy()
+                   for k, v in sub.items()}
+            for name, sub in net.state_.items()}
+
+
+@torch.no_grad()
+def state_from_jax(net, tree: Tree) -> None:
+    """Load a JAX state tree of numpy arrays into the network's state
+    tensors, in place; names, keys and shapes must match."""
+    state = net.state_
+    if set(tree) != set(state):
+        raise ValueError(f"layer names differ: {sorted(tree)} vs {sorted(state)}")
+    for name, sub in state.items():
+        if set(tree[name]) != set(sub):
+            raise ValueError(f"{name}: state keys differ: "
+                             f"{sorted(tree[name])} vs {sorted(sub)}")
+        for k, t in sub.items():
+            arr = np.asarray(tree[name][k])
+            if tuple(arr.shape) != tuple(t.shape):
+                raise ValueError(f"{name}.{k}: shape {tuple(arr.shape)} != "
+                                 f"{tuple(t.shape)}")
+            t.copy_(torch.from_numpy(np.array(arr)))

@@ -3,8 +3,10 @@
 Layer configs stay dataclasses with the JAX package's fields and JSON form,
 so a configuration reads and writes the same JSON in both packages.  A
 layer's parameters are tensors: ``initialize`` makes them and ``apply``
-runs the forward over them.  The network (``nn.multilayer``) owns them as
-``nn.Parameter``s named after the JAX parameter tree.
+runs the forward over them, in inference or (``train=True``) training
+mode; autograd gives the backward.  The network (``nn.multilayer``,
+``nn.graph``) owns them as ``nn.Parameter``s named after the JAX
+parameter tree.
 
 Public activations are NHWC and ``InputType.convolutional`` is (H, W, C),
 as in the JAX package.  A parameter is stored in PyTorch's layout
@@ -65,7 +67,9 @@ class Layer:
 
     Per-layer hyperparameters override the global defaults set on
     `NeuralNetConfiguration`.  Subclasses implement `initialize` (params +
-    output InputType) and `apply` (inference forward).
+    output InputType) and `apply` (forward).  The class attributes below
+    are fields in the JAX package that never reach the JSON; here they are
+    plain class attributes.
     """
 
     name: Optional[str] = None
@@ -84,6 +88,12 @@ class Layer:
     #: {param key: permutation} taking a parameter from the JAX package's
     #: layout to the layout this port stores (empty: the same layout)
     TORCH_LAYOUT = {}
+    #: param keys subject to l1/l2/weight decay (biases excluded)
+    REGULARIZABLE = ("W",)
+    #: does this layer carry non-trainable state (BN running stats)?
+    HAS_STATE = False
+    #: does apply() draw random numbers in train mode (dropout)?
+    STOCHASTIC = False
 
     def initialize(self, gen: torch.Generator, input_type: InputType,
                    dtype=torch.float32, device=None
@@ -91,10 +101,27 @@ class Layer:
         """Returns (params, state, output_type)."""
         raise NotImplementedError
 
-    def apply(self, params: Params, state: Dict, x: torch.Tensor
+    def apply(self, params: Params, state: Dict, x: torch.Tensor, *,
+              train: bool = False, rng: Optional[torch.Generator] = None
               ) -> Tuple[torch.Tensor, Dict]:
-        """Inference forward; returns (output, new_state)."""
+        """Forward; returns (output, new_state).  `train` selects batch
+        statistics and input dropout; `rng` draws the dropout masks."""
         raise NotImplementedError
+
+    def regularizable_mask(self, params: Params) -> Dict[str, bool]:
+        """True where l1/l2/weight decay apply, per param key."""
+        return {k: (k in self.REGULARIZABLE) for k in params}
+
+    def maybe_input_dropout(self, x, train, rng):
+        """`dropout` on a layer config drops the layer's *input* in train
+        mode (retain probability `dropout`, inverted scaling).  The mask
+        comes from `rng`, a torch.Generator on x's device, so it matches
+        the JAX package in distribution only."""
+        if not train or self.dropout is None or self.dropout >= 1.0 or rng is None:
+            return x
+        p = self.dropout
+        keep = torch.rand(x.shape, generator=rng, device=x.device) < p
+        return torch.where(keep, x / p, torch.zeros((), dtype=x.dtype, device=x.device))
 
     # ---- config resolution helpers ----
     def act_fn(self, default="identity"):

@@ -1,7 +1,8 @@
 """Feed-forward and convolutional layers (the port of ``nn/layers.py``).
 
-The serving slice ports Dense, Output, Activation, Dropout, Convolution
-and Subsampling, with the JAX package's config fields and semantics:
+Ported: Dense, Output, Loss, Activation, Dropout, Convolution,
+Subsampling, GlobalPooling and BatchNormalization, with the JAX package's
+config fields and semantics:
 
 * activations are NHWC at every layer boundary.  Convolution and pooling
   run on an NCHW view of the NHWC tensor (``permute``; a channels-last
@@ -16,10 +17,14 @@ and Subsampling, with the JAX package's config fields and semantics:
   ``ops.kernels.matmul.fused_dense`` whatever its dtype (the Hopper kernel
   on CUDA tensors, which raises for a dtype the kernel does not take);
   any other activation (the Output layer's softmax) runs the plain
-  product and then the activation, as in the JAX package.
-
-Forward only: dropout is the identity at inference, and training comes in a
-later slice.
+  product and then the activation, as in the JAX package;
+* a 3x3 stride-1 SAME undilated conv whose backward autograd records
+  (grad mode on, and x or W requiring grad) runs through
+  ``ops.conv_kernels.conv3x3_same``, whose backward is the hand-written
+  wgrad/dgrad pair, and adds its bias afterwards, as ``layers.py:313-331``
+  of the JAX package does; inference keeps the library conv with its bias;
+* ``train=True`` selects batch statistics in BatchNormalization and input
+  dropout (drawn from the ``rng`` generator) in the layers that take it.
 """
 from __future__ import annotations
 
@@ -33,7 +38,9 @@ from deeplearning4j_tpu_torch.nn.core import InputType, Layer
 from deeplearning4j_tpu_torch.ops.initializers import init_weights
 from deeplearning4j_tpu_torch.ops.kernels.matmul import (EPILOGUE_ACTIVATIONS,
                                                           fused_dense)
-from deeplearning4j_tpu_torch.ops.losses import get_loss
+from deeplearning4j_tpu_torch.ops.conv_kernels import (conv3x3_eligible,
+                                                       conv3x3_same)
+from deeplearning4j_tpu_torch.ops.losses import apply_loss, get_loss
 from deeplearning4j_tpu_torch.ops.pool_kernels import (max_pool2d, pad_nchw,
                                                         resolve_pad)
 
@@ -55,6 +62,7 @@ class DenseLayer(Layer):
 
     n_out: int = 0
     has_bias: bool = True
+    STOCHASTIC = True    # input dropout
 
     def initialize(self, gen, input_type, dtype=torch.float32, device=None):
         n_in = input_type.flat_size() if input_type.kind != "recurrent" else input_type.shape[-1]
@@ -68,7 +76,8 @@ class DenseLayer(Layer):
                     else InputType.feed_forward(self.n_out))
         return params, {}, out_type
 
-    def apply(self, params, state, x):
+    def apply(self, params, state, x, *, train=False, rng=None):
+        x = self.maybe_input_dropout(x, train, rng)
         if x.ndim > 2 and x.ndim != 3:
             x = x.reshape(x.shape[0], -1)
         w = params["W"]
@@ -87,8 +96,9 @@ class DenseLayer(Layer):
 @dataclasses.dataclass(kw_only=True)
 class OutputLayer(DenseLayer):
     """Dense + loss head.  At inference it is a Dense layer with its
-    configured activation (softmax for the zoo classifiers); the loss is
-    validated here and computed by the training slice."""
+    configured activation (softmax for the zoo classifiers).  The loss
+    takes the raw pre-activations for the logit losses (MCXENT/XENT), the
+    stable path, promoted to at least f32."""
 
     loss: Any = "mcxent"
 
@@ -99,17 +109,53 @@ class OutputLayer(DenseLayer):
         self.loss_fn()
         return super().initialize(gen, input_type, dtype, device)
 
+    def compute_loss(self, params, state, x, labels, *, train=True, rng=None,
+                     mask=None):
+        x = self.maybe_input_dropout(x, train, rng)
+        if x.ndim > 2 and x.ndim != 3:
+            x = x.reshape(x.shape[0], -1)
+        # the head gets the f32 master W and, under bf16 compute, a bf16
+        # input: the product is taken in the promoted type, as jnp does
+        acc = torch.promote_types(x.dtype, params["W"].dtype)
+        pre = x.to(acc) @ params["W"].to(acc)
+        if self.has_bias:
+            pre = pre + params["b"]
+        # loss math (softmax/log) in >= f32: upcasts bf16 logits, leaves
+        # f64 untouched
+        pre = pre.to(torch.promote_types(pre.dtype, torch.float32))
+        return apply_loss(self.loss, self.act_fn(), pre, labels, mask)
+
+
+@dataclasses.dataclass(kw_only=True)
+class LossLayer(Layer):
+    """Loss-only head, no params."""
+
+    loss: Any = "mcxent"
+    REGULARIZABLE = ()
+
+    def initialize(self, gen, input_type, dtype=torch.float32, device=None):
+        get_loss(self.loss)
+        return {}, {}, input_type
+
+    def apply(self, params, state, x, *, train=False, rng=None):
+        return self.act_fn()(x), state
+
+    def compute_loss(self, params, state, x, labels, *, train=True, rng=None,
+                     mask=None):
+        return apply_loss(self.loss, self.act_fn(), x, labels, mask)
+
 
 @dataclasses.dataclass(kw_only=True)
 class ActivationLayer(Layer):
     """Standalone activation; `activation_args` parameterizes it."""
 
     activation_args: Optional[Dict[str, Any]] = None
+    REGULARIZABLE = ()
 
     def initialize(self, gen, input_type, dtype=torch.float32, device=None):
         return {}, {}, input_type
 
-    def apply(self, params, state, x):
+    def apply(self, params, state, x, *, train=False, rng=None):
         fn = self.act_fn()
         if self.activation_args:
             return fn(x, **self.activation_args), state
@@ -122,12 +168,14 @@ class DropoutLayer(Layer):
     identity at inference."""
 
     dropout: Optional[float] = 0.5
+    REGULARIZABLE = ()
+    STOCHASTIC = True
 
     def initialize(self, gen, input_type, dtype=torch.float32, device=None):
         return {}, {}, input_type
 
-    def apply(self, params, state, x):
-        return x, state
+    def apply(self, params, state, x, *, train=False, rng=None):
+        return self.maybe_input_dropout(x, train, rng), state
 
 
 # ---------------------------------------------------------------------------
@@ -184,16 +232,25 @@ class ConvolutionLayer(Layer):
         oh, ow = self._spatial((h, w))
         return params, {}, InputType.convolutional(oh, ow, self.n_out)
 
-    def apply(self, params, state, x):
+    def apply(self, params, state, x, *, train=False, rng=None):
+        x = self.maybe_input_dropout(x, train, rng)
+        w = params["W"]
+        b = params.get("b") if self.has_bias else None
+        pad = _padding_2d(self.convolution_mode, self.padding)
+        if (torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)
+                and conv3x3_eligible(x.shape, w.shape, None, _pair(self.stride),
+                                     pad, _pair(self.dilation))):
+            y = conv3x3_same(x, w)
+            if b is not None:
+                y = y + b
+            return self.act_fn()(y), state
         xc = x.permute(0, 3, 1, 2)
         kh, kw = _pair(self.kernel_size)
         dh, dw = _pair(self.dilation)
-        pads = resolve_pad(_padding_2d(self.convolution_mode, self.padding),
-                           xc.shape[2], xc.shape[3],
+        pads = resolve_pad(pad, xc.shape[2], xc.shape[3],
                            ((kh - 1) * dh + 1, (kw - 1) * dw + 1),
                            _pair(self.stride))
         (plh, phh), (plw, phw) = pads
-        b = params.get("b") if self.has_bias else None
         if plh == phh and plw == phw:
             y = F.conv2d(xc, params["W"], b, _pair(self.stride), (plh, plw),
                          (dh, dw))
@@ -218,6 +275,7 @@ class SubsamplingLayer(Layer):
     padding: Any = (0, 0)
     convolution_mode: str = "Truncate"
     pnorm: int = 2
+    REGULARIZABLE = ()
 
     def initialize(self, gen, input_type, dtype=torch.float32, device=None):
         h, w, c = input_type.shape
@@ -227,7 +285,7 @@ class SubsamplingLayer(Layer):
         oh, ow = helper._spatial((h, w))
         return {}, {}, InputType.convolutional(oh, ow, c)
 
-    def apply(self, params, state, x):
+    def apply(self, params, state, x, *, train=False, rng=None):
         k = _pair(self.kernel_size)
         s = _pair(self.stride)
         pad = _padding_2d(self.convolution_mode, self.padding)
@@ -251,3 +309,90 @@ class SubsamplingLayer(Layer):
             p = float(self.pnorm)
             y = window_sum(xc.abs() ** p) ** (1.0 / p)
         return y.permute(0, 2, 3, 1), state
+
+
+@dataclasses.dataclass(kw_only=True)
+class GlobalPoolingLayer(Layer):
+    """Global pooling over the spatial (or time) dims: MAX | AVG | SUM |
+    PNORM.  The JAX layer's sequence mask is not ported (no graph in the
+    port passes one)."""
+
+    pooling_type: str = "MAX"
+    pnorm: int = 2
+    REGULARIZABLE = ()
+
+    def initialize(self, gen, input_type, dtype=torch.float32, device=None):
+        if input_type.kind in ("convolutional", "recurrent"):
+            return {}, {}, InputType.feed_forward(input_type.shape[-1])
+        return {}, {}, input_type
+
+    def apply(self, params, state, x, *, train=False, rng=None):
+        dims = tuple(range(1, x.ndim - 1))
+        pt = self.pooling_type.upper()
+        if pt == "MAX":
+            y = torch.amax(x, dim=dims)
+        elif pt in ("AVG", "AVERAGE"):
+            y = torch.mean(x, dim=dims)
+        elif pt == "SUM":
+            y = torch.sum(x, dim=dims)
+        elif pt == "PNORM":
+            p = float(self.pnorm)
+            y = torch.sum(x.abs() ** p, dim=dims) ** (1.0 / p)
+        else:
+            raise ValueError(f"Unknown pooling type {self.pooling_type}")
+        return y, state
+
+
+# ---------------------------------------------------------------------------
+# Normalization
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(kw_only=True)
+class BatchNormalizationLayer(Layer):
+    """Batch normalization over the last (channel) axis.  Running stats
+    follow the reference's `decay` convention: running = decay * running +
+    (1 - decay) * batch.  Statistics are taken in at least f32 (bf16
+    compute keeps f32 statistics); running stats keep their dtype."""
+
+    decay: float = 0.9
+    eps: float = 1e-5
+    lock_gamma_beta: bool = False
+    REGULARIZABLE = ()
+    HAS_STATE = True
+
+    def initialize(self, gen, input_type, dtype=torch.float32, device=None):
+        c = input_type.shape[-1]
+        dev = gen.device if device is None else device
+        params = {} if self.lock_gamma_beta else {
+            "gamma": torch.ones((c,), dtype=dtype, device=dev),
+            "beta": torch.zeros((c,), dtype=dtype, device=dev)}
+        state = {"mean": torch.zeros((c,), dtype=dtype, device=dev),
+                 "var": torch.ones((c,), dtype=dtype, device=dev)}
+        return params, state, input_type
+
+    def apply(self, params, state, x, *, train=False, rng=None):
+        dims = tuple(range(x.ndim - 1))
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        if train:
+            # one-pass moments shifted by the running mean (the JAX
+            # package's shifted-moments form): E[xs]^2 << E[xs^2] keeps the
+            # f32 subtraction from cancelling on large-mean activations
+            shift = state["mean"].to(xf.dtype)
+            xs = xf - shift
+            m1 = torch.mean(xs, dim=dims)
+            mean = m1 + shift
+            var = torch.clamp(torch.mean(xs * xs, dim=dims) - m1 * m1, min=0.0)
+            new_state = {
+                "mean": (self.decay * state["mean"] + (1 - self.decay)
+                         * mean.detach().to(state["mean"].dtype)),
+                "var": (self.decay * state["var"] + (1 - self.decay)
+                        * var.detach().to(state["var"].dtype)),
+            }
+        else:
+            mean = state["mean"].to(torch.float32)
+            var = state["var"].to(torch.float32)
+            new_state = state
+        y = ((xf - mean) / torch.sqrt(var + self.eps)).to(x.dtype)
+        if not self.lock_gamma_beta:
+            y = y * params["gamma"] + params["beta"]
+        return self.act_fn()(y), new_state

@@ -28,7 +28,8 @@ from torch import nn
 
 from deeplearning4j_tpu_torch import convert
 from deeplearning4j_tpu_torch.nn.core import InputType, Layer
-from deeplearning4j_tpu_torch.train.updaters import IUpdater, Sgd
+from deeplearning4j_tpu_torch.train.updaters import (IUpdater, Sgd, tree_leaves,
+                                                     tree_map)
 from deeplearning4j_tpu_torch.utils.devices import resolve_device
 
 Params = Dict[str, Dict[str, torch.Tensor]]
@@ -41,6 +42,26 @@ def torch_dtype(name: str) -> torch.dtype:
     if name not in _DTYPES:
         raise ValueError(f"unsupported dtype {name!r}; want one of {sorted(_DTYPES)}")
     return _DTYPES[name]
+
+
+def _masked_leaves(params, mask):
+    """Yield param leaves where the layer's regularizable_mask is True
+    (mask may mark whole subtrees)."""
+    if isinstance(mask, dict):
+        for k, m in mask.items():
+            yield from _masked_leaves(params[k], m)
+    elif mask:
+        yield from tree_leaves(params)
+
+
+def _add_scaled_where(upd, params, mask, scale):
+    """upd + scale * params wherever mask is True (decoupled weight decay)."""
+    if isinstance(mask, dict):
+        return {k: _add_scaled_where(upd[k], params[k], mask[k], scale)
+                for k in upd}
+    if mask:
+        return tree_map(lambda u, p: u + scale * p, upd, params)
+    return upd
 
 
 # ---------------------------------------------------------------------------
@@ -288,9 +309,7 @@ class MultiLayerNetwork(nn.Module):
 
     # ---- flat-param view (JAX tree_leaves order) ----
     def _jax_leaves(self) -> List[Tuple[str, str]]:
-        params = self.params_
-        return [(name, k) for name in sorted(params)
-                for k in sorted(params[name])]
+        return convert.jax_leaves(self.params_)
 
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
@@ -298,19 +317,7 @@ class MultiLayerNetwork(nn.Module):
     def params(self) -> np.ndarray:
         """Single flat parameter vector in the JAX package's order and
         layouts."""
-        tree = convert.params_to_jax(self)
-        leaves = [tree[n][k].ravel() for n, k in self._jax_leaves()]
-        return np.concatenate(leaves) if leaves else np.zeros((0,), np.float32)
+        return convert.flat_params(self)
 
     def set_params(self, flat: np.ndarray) -> None:
-        flat = np.asarray(flat)
-        tree = convert.params_to_jax(self)
-        off = 0
-        for n, k in self._jax_leaves():
-            shape = tree[n][k].shape
-            size = int(np.prod(shape))
-            tree[n][k] = flat[off:off + size].reshape(shape)
-            off += size
-        if off != flat.size:
-            raise ValueError(f"Param count mismatch: {flat.size} vs {off}")
-        convert.params_from_jax(self, tree)
+        convert.set_flat_params(self, flat)

@@ -127,6 +127,12 @@ def library() -> ctypes.CDLL:
             lib.dl4j_fused_dense_tile.argtypes = [
                 ctypes.POINTER(ctypes.c_int)] * 3
             lib.dl4j_fused_dense_tile.restype = None
+            lib.dl4j_conv3x3_wgrad.argtypes = (
+                [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+            lib.dl4j_conv3x3_wgrad.restype = ctypes.c_int
+            lib.dl4j_conv3x3_dgrad.argtypes = (
+                [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+            lib.dl4j_conv3x3_dgrad.restype = ctypes.c_int
             lib.dl4j_error_string.argtypes = [ctypes.c_int]
             lib.dl4j_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -12,7 +12,8 @@ x's dtype:
 
 :func:`fused_dense` asks ``dispatch.resolve`` which one runs: CPU tensors
 take the plain version, CUDA tensors the kernel, and ``reference`` mode the
-plain version anywhere.  ``LAUNCHES`` counts kernel launches, and only
+plain version anywhere.  The kernel's backward is the plain version's VJP
+(:class:`FusedDense`).  ``LAUNCHES`` counts kernel launches, and only
 those.  The weight-only and int8 products of the JAX module
 (``q_matmul``, ``int8_matmul``) are not ported yet.
 """
@@ -83,11 +84,36 @@ def fused_dense(x: torch.Tensor, w: torch.Tensor,
                 activation: Optional[str] = None) -> torch.Tensor:
     """Dense forward with bias + activation fused into the matmul epilogue:
     the kernel for CUDA tensors, the plain version for CPU tensors or in
-    ``reference`` mode.  Forward only: the backward comes with training."""
+    ``reference`` mode.  Differentiable either way: the kernel's backward
+    is the VJP of the plain version (:class:`FusedDense`)."""
     if dispatch.resolve("fused_dense", x, w, bias=bias,
                         activation=activation) == "reference":
         return fused_dense_reference(x, w, bias, activation)
-    return _launch(x, w, bias, activation)
+    return FusedDense.apply(x, w, bias, activation)
+
+
+class FusedDense(torch.autograd.Function):
+    """The kernel's forward; its backward recomputes the plain version and
+    takes that VJP, as the JAX package's ``_fused_dense_bwd`` does (no
+    epilogue residuals are kept)."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, activation):
+        ctx.save_for_backward(x, w, bias)
+        ctx.activation = activation
+        return _launch(x, w, bias, activation)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, bias = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            ins = [None if t is None else t.detach().requires_grad_(n)
+                   for t, n in zip((x, w, bias), needs)]
+            y = fused_dense_reference(ins[0], ins[1], ins[2], ctx.activation)
+            wanted = [t for t, n in zip(ins, needs) if n]
+            grads = iter(torch.autograd.grad(y, wanted, g) if wanted else ())
+        return (*(next(grads) if n else None for n in needs), None)
 
 
 def _check_tile(lib) -> None:

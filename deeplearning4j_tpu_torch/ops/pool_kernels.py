@@ -6,7 +6,15 @@ tail, ``"SAME"`` pads ``(Ho - 1) * s + k - H`` in total with the smaller
 half first (asymmetric when odd), and explicit ``((lo, hi), (lo, hi))``
 pads as given.  Padding is filled with ``-inf``, so a padded cell never
 wins.  Runs ``max_pool2d`` on an NCHW view of the NHWC tensor (a
-channels-last view, no copy).  The taps backward comes with training.
+channels-last view, no copy).
+
+Backward: autograd's ``max_pool2d`` backward gives each window's whole
+gradient to the first maximum in window order (row-major over the window,
+as PyTorch's CPU and CUDA kernels keep a running max that only a strictly
+greater value replaces).  That is the JAX package's default, XLA's
+select-and-scatter; exact ties (ReLU zeros) are where the rule shows.  The
+JAX package's tie-splitting taps backward (``POOL_BWD_TAPS``, off by
+default there) is not ported.
 """
 from __future__ import annotations
 
