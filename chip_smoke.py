@@ -61,6 +61,40 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    (``torch.nn.grad.conv2d_weight`` / ``conv2d_input``, TF32 off; a
    yardstick the port never calls), each the median of 25 runs with L2
    flushed, beside the bound.
+11. ln_parity — ``layer_norm_fwd`` against ``layer_norm_plain`` at rows
+   8192 (as 64x128 and 4x2048), 37 and 1, F in {768, 1000, 64}, eps 1e-12
+   and 1e-5, f32 and bf16; y, mean and rstd each held to the tolerance
+   (mean and rstd are f32: 1e-4 * max|ref| in both dtypes); each call must
+   add one to the launch count.
+12. attn_parity — ``flash_attention`` (out, lse) against
+   ``flash_attention_plain`` at [64,12,128,64], [4,12,2048,64] and the
+   ragged [2,3,77,64] (S 77) and [1,2,37,64] (S 200), causal or not,
+   without a mask and with the last 28 positions dropped in half the
+   batch rows, f32 and bf16; lse is f32: 1e-4 * max|ref| in both dtypes.
+13. bert — the inference slice: full-width BERT-base (110,106,428
+   parameters from a ``torch.Generator`` seeded 0), batch 64, T = 128, ids
+   as bench.py makes them (``RandomState(0).randint(0, 30522)``), an
+   all-ones mask and a padded one.  The launch counts are set to 0 just
+   before ``output_hidden``, ``output_mlm`` and ``output_cls`` in ``auto``
+   mode and read just after each: exactly 12 flash-attention and 25
+   LayerNorm launches a forward, 26 for ``output_mlm``.  The MLM logits and
+   class probabilities agree with ``reference`` mode within 1e-4 *
+   max|ref| in f32 (TF32 off); in bf16 compute they are finite and agree
+   within ``BERT_BF16_RTOL`` * max|ref| (reference mode runs bf16 scores
+   and bf16 LayerNorm statistics, as the JAX package does off the TPU).
+   Forward ms (host clock with a synchronize, median of 5) and tokens/s in
+   each mode, and peak memory.
+14. bert_long — the same at bench.py's long-sequence shape: batch 4,
+   T = 2048, ``max_len`` 2048, f32 and bf16.
+15. bert_profile — one T = 128 bf16 ``output_mlm`` under
+   ``torch.profiler``: device busy time, idle share, the top kernels and
+   the two kernels' share of busy time.
+16. attn_times, ln_times — each kernel at the BERT shapes in f32 and bf16
+   (attention [64,12,128,64] and [4,12,2048,64] with the all-ones mask;
+   LayerNorm 8192 x 768): kernel ms, plain ms and one PyTorch call as a
+   yardstick the port never calls (``scaled_dot_product_attention`` with
+   the same mask, ``F.layer_norm``), each the median of 25 runs with L2
+   flushed, beside the bound.
 
 Then the kernels line, nvidia-smi's line, and the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -95,6 +129,21 @@ RAGGED_SHAPES = [(3, 13, 13, 24, 40), (5, 7, 7, 96, 80)]
 BODY_CONVS = 16
 ACTS = ("identity", "linear", "relu", "tanh", "sigmoid", "gelu")
 F32_RTOL = 1e-4
+LN_KERNEL = ("deeplearning4j_tpu/ops/norm_kernels.py:40",
+             "deeplearning4j_tpu_torch/ops/kernels/csrc/layer_norm_fwd.cu")
+ATTN_KERNEL = ("deeplearning4j_tpu/ops/attention_kernels.py:148",
+               "deeplearning4j_tpu_torch/ops/kernels/csrc/flash_attn_fwd.cu")
+BERT_BASE_PARAMS = 110_106_428
+#: attention at bench.py's two BERT shapes, (B, H, T, D), and the parity
+#: shapes: those two and two ragged ones, (B, H, T, S, D)
+BERT_ATTN_SHAPES = {"t128": (64, 12, 128, 64), "t2048": (4, 12, 2048, 64)}
+ATTN_PARITY_SHAPES = [(64, 12, 128, 128, 64), (4, 12, 2048, 2048, 64),
+                      (2, 3, 77, 77, 64), (1, 2, 37, 200, 64)]
+#: bound on bf16-compute BERT outputs against reference mode, relative to
+#: max|ref|: reference mode runs the scores, the softmax and the LayerNorm
+#: statistics in bf16 (as the JAX package does off the TPU) where the
+#: kernels keep them in f32, and 12 blocks carry the difference on
+BERT_BF16_RTOL = 5e-2
 #: bound on a training step's loss against reference mode once the loss
 #: rises above the first step's: ResNet-50 at Nesterovs(0.1, 0.9) with no
 #: warmup diverges at step 3 (7.5 -> 16.5) and amplifies a 1e-6 difference
@@ -269,41 +318,17 @@ def phase_profile(model, dev):
     device time (torch.profiler), and the device's idle share of the
     profiled window (host clock around the forward and a synchronize).
     Reports "not measured" if the profiler sees no device activity."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     x = torch.randn(16, 224, 224, 3, device=dev)
     model.output(x)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        model.output(x)
-        torch.cuda.synchronize()
-        window_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not kernels:
+    window_ms, busy_ms, by_name, n = _trace(lambda: model.output(x))
+    if busy_ms is None:
         emit("profile", bucket=16, window_ms=window_ms,
              device_busy_ms="not measured", idle_share="not measured")
         return
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy_us, end = 0.0, float("-inf")
-    for a, b in spans:                  # union of kernel intervals
-        if b > end:
-            busy_us += b - max(a, end)
-            end = b
-    by_name = {}
-    for e in kernels:
-        ms, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    emit("profile", bucket=16, window_ms=window_ms,
-         device_busy_ms=busy_us / 1e3,
-         idle_share=max(0.0, 1.0 - busy_us / 1e3 / window_ms),
-         kernels=len(kernels),
-         fused_dense_ms=sum(ms for name, (ms, _) in by_name.items()
-                            if "fused_dense_kernel" in name),
-         top=[{"name": name[:100], "count": n, "ms": ms}
-              for name, (ms, n) in top])
+    emit("profile", bucket=16, window_ms=window_ms, device_busy_ms=busy_ms,
+         idle_share=max(0.0, 1.0 - busy_ms / window_ms), kernels=n,
+         fused_dense_ms=_share(by_name, "fused_dense_kernel"),
+         top=_top(by_name, 12))
 
 
 def time_ms(fn, dev, n=25):
@@ -557,44 +582,22 @@ def phase_train_profile(net, x, y):
     """One f32 fit step under torch.profiler: device busy time (union of
     kernel intervals), idle share of the window, the top kernels, and the
     share of busy time in the two conv backward kernels."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+    def step():
         net.fit(x, y)
         net.score()
-        torch.cuda.synchronize()
-        window_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not kernels:
+
+    window_ms, busy_ms, by_name, n = _trace(step)
+    if busy_ms is None:
         emit("train_profile", window_ms=window_ms,
              device_busy_ms="not measured", idle_share="not measured")
         return
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy_us, end = 0.0, float("-inf")
-    for a, b in spans:
-        if b > end:
-            busy_us += b - max(a, end)
-            end = b
-    by_name = {}
-    for e in kernels:
-        ms, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
-
-    def share(tag):
-        return sum(ms for name, (ms, _) in by_name.items() if tag in name)
-    busy_ms = busy_us / 1e3
-    wgrad_ms = share("conv3x3_wgrad")
-    dgrad_ms = share("conv3x3_dgrad")
+    wgrad_ms = _share(by_name, "conv3x3_wgrad")
+    dgrad_ms = _share(by_name, "conv3x3_dgrad")
     emit("train_profile", window_ms=window_ms, device_busy_ms=busy_ms,
-         idle_share=max(0.0, 1.0 - busy_ms / window_ms), kernels=len(kernels),
+         idle_share=max(0.0, 1.0 - busy_ms / window_ms), kernels=n,
          conv3x3_wgrad_ms=wgrad_ms, conv3x3_dgrad_ms=dgrad_ms,
          conv3x3_share_of_busy=(wgrad_ms + dgrad_ms) / busy_ms,
-         top=[{"name": name[:100], "count": n, "ms": ms}
-              for name, (ms, n) in top])
+         top=_top(by_name, 15))
 
 
 def phase_conv_times(ck, dev):
@@ -622,16 +625,313 @@ def phase_conv_times(ck, dev):
     return rows
 
 
+def phase_ln_parity(nk, layer_norm, dev):
+    gen = torch.Generator(device=dev).manual_seed(2)
+    cases = 0
+    for lead in ((64, 128), (4, 2048), (37,), (1,)):
+        for F in (768, 1000, 64):
+            for dt in (torch.float32, torch.bfloat16):
+                x = (torch.randn(*lead, F, generator=gen, device=dev) * 2 + 0.5).to(dt)
+                g = torch.randn(F, generator=gen, device=dev).to(dt)
+                b = torch.randn(F, generator=gen, device=dev).to(dt)
+                errs = {}
+                for eps in (1e-12, 1e-5):
+                    before = layer_norm.LAUNCHES.value
+                    got = nk.layer_norm_fwd(x, g, b, eps)
+                    torch.cuda.synchronize()
+                    require(layer_norm.LAUNCHES.value == before + 1,
+                            "layer_norm_fwd did not launch its kernel")
+                    want = nk.layer_norm_plain(x, g, b, eps)
+                    require(got[0].dtype == dt and got[0].shape == x.shape,
+                            f"layer_norm_fwd output {got[0].dtype} {tuple(got[0].shape)}")
+                    errs[eps] = {}
+                    for name, a, r, d in zip(("y", "mean", "rstd"), got, want,
+                                             (dt, torch.float32, torch.float32)):
+                        err = (a.float() - r.float()).abs().max().item()
+                        rmax = r.float().abs().max().item()
+                        require(err <= tolerance(d, rmax),
+                                f"layer_norm_fwd {list(x.shape)} {dt} eps={eps} {name}: "
+                                f"max|diff| {err} > tol {tolerance(d, rmax)}")
+                        errs[eps][name] = err / max(rmax, 1e-30)
+                    cases += 1
+                emit("ln_parity", shape=list(x.shape), dtype=str(dt), rel_errors=errs)
+    emit("ln_parity_done", cases=cases, ok=True)
+
+
+def _keep_mask(B, S, dt, dev, drop=28):
+    """[B, S] keep-mask dropping the last `drop` positions of half the rows."""
+    m = torch.ones(B, S, dtype=dt, device=dev)
+    m[: (B + 1) // 2, S - drop:] = 0
+    return m
+
+
+def phase_attn_parity(ak, attention, dev):
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cases = 0
+    for B, H, T, S, D in ATTN_PARITY_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            q = torch.randn(B, H, T, D, generator=gen, device=dev).to(dt)
+            k = torch.randn(B, H, S, D, generator=gen, device=dev).to(dt)
+            v = torch.randn(B, H, S, D, generator=gen, device=dev).to(dt)
+            errs = {}
+            for causal in (False, True):
+                for mask in (None, _keep_mask(B, S, dt, dev)):
+                    before = attention.LAUNCHES.value
+                    out, lse = attention.flash_attention(q, k, v, mask, causal)
+                    torch.cuda.synchronize()
+                    require(attention.LAUNCHES.value == before + 1,
+                            "flash_attention did not launch its kernel")
+                    ro, rl = ak.flash_attention_plain(q, k, v, mask, causal)
+                    require(out.dtype == dt and out.shape == q.shape
+                            and lse.shape == (B * H, T) and torch.isfinite(out).all().item(),
+                            f"flash_attention output {out.dtype} {tuple(out.shape)}")
+                    case = f"causal={causal},mask={mask is not None}"
+                    errs[case] = {}
+                    for name, a, r, d in (("out", out, ro, dt), ("lse", lse, rl, torch.float32)):
+                        err = (a.float() - r.float()).abs().max().item()
+                        rmax = r.float().abs().max().item()
+                        require(err <= tolerance(d, rmax),
+                                f"flash_attention {[B, H, T, D]} S={S} {dt} {case} {name}: "
+                                f"max|diff| {err} > tol {tolerance(d, rmax)}")
+                        errs[case][name] = err / max(rmax, 1e-30)
+                    cases += 1
+            emit("attn_parity", shape=[B, H, T, D], S=S, dtype=str(dt), rel_errors=errs)
+    emit("attn_parity_done", cases=cases, ok=True)
+
+
+def _bert_inputs(batch, t, dev, padded):
+    """ids as bench.py makes them; an all-ones mask, or one where row b
+    keeps its first lengths[b] >= t/8 tokens."""
+    ids = np.random.RandomState(0).randint(0, 30522, (batch, t)).astype(np.int32)
+    mask = np.ones((batch, t), np.float32)
+    if padded:
+        lengths = np.random.RandomState(1).randint(t // 8, t + 1, batch)
+        mask[np.arange(t)[None, :] >= lengths[:, None]] = 0.0
+    return torch.as_tensor(ids, device=dev), torch.as_tensor(mask, device=dev)
+
+
+def _forward_ms(fn, n=5):
+    """Host clock around a forward ending in a synchronize; median of n
+    after one warmup."""
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts)
+
+
+def _bert_run(model, dispatch, attention, layer_norm, batch, t, dev, rtol, tag):
+    """The main path of the inference slice on one model: each head in
+    ``auto`` mode with the launch counts set to 0 just before and read
+    just after, the heads in ``reference`` mode, their agreement, forward
+    times in both modes and peak memory."""
+    L = model.config.n_layers
+    want = {"output_hidden": (L, 1 + 2 * L), "output_mlm": (L, 2 + 2 * L),
+            "output_cls": (L, 1 + 2 * L)}
+    res = {"launches": {}, "rel_diff_vs_reference": {}}
+    for padded in (False, True):
+        ids, mask = _bert_inputs(batch, t, dev, padded)
+        outs = {}
+        for head, counts in want.items():
+            attention.LAUNCHES.reset()
+            layer_norm.LAUNCHES.reset()
+            outs[head] = getattr(model, head)(ids, mask)
+            torch.cuda.synchronize()
+            got = (attention.LAUNCHES.value, layer_norm.LAUNCHES.value)
+            require(got == counts, f"{tag} {head}: (flash, layer_norm) launches {got} != {counts}")
+            require(torch.isfinite(outs[head]).all().item(), f"{tag} {head}: non-finite output")
+            res["launches"][head] = got
+        prev = dispatch.set_dispatch_mode("reference")
+        try:
+            refs = {h: getattr(model, h)(ids, mask) for h in ("output_mlm", "output_cls")}
+        finally:
+            dispatch.set_dispatch_mode(prev)
+        for head, r in refs.items():
+            key = head + ("_padded" if padded else "")
+            err = (outs[head] - r).abs().max().item()
+            rmax = r.abs().max().item()
+            res["rel_diff_vs_reference"][key] = err / rmax
+            require(err <= rtol * rmax, f"{tag} {key}: max|diff| {err} > {rtol} * {rmax}")
+        del outs, refs
+    ids, mask = _bert_inputs(batch, t, dev, False)
+    torch.cuda.reset_peak_memory_stats()
+    res["mlm_ms"] = _forward_ms(lambda: model.output_mlm(ids, mask))
+    res["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["hidden_ms"] = _forward_ms(lambda: model.output_hidden(ids, mask))
+    prev = dispatch.set_dispatch_mode("reference")
+    try:
+        res["reference_mlm_ms"] = _forward_ms(lambda: model.output_mlm(ids, mask))
+        res["reference_hidden_ms"] = _forward_ms(lambda: model.output_hidden(ids, mask))
+    finally:
+        dispatch.set_dispatch_mode(prev)
+    res["mlm_tokens_per_sec"] = batch * t * 1e3 / res["mlm_ms"]
+    res["reference_mlm_tokens_per_sec"] = batch * t * 1e3 / res["reference_mlm_ms"]
+    return res
+
+
+def phase_bert(BertModel, BertConfig, dispatch, attention, layer_norm, dev,
+               phase="bert", batch=64, t=128, max_len=512):
+    """f32 then bf16 compute; returns the f32 output_mlm launch counts and
+    the bf16 model."""
+    model = BertModel(BertConfig.base(max_len=max_len), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(0))
+    n_params = model.num_params()
+    if max_len == 512:
+        require(n_params == BERT_BASE_PARAMS,
+                f"BERT-base has {n_params} parameters, want {BERT_BASE_PARAMS}")
+    f32 = _bert_run(model, dispatch, attention, layer_norm, batch, t, dev,
+                    F32_RTOL, f"{phase} f32")
+    emit(phase, model="BERT-base", params=n_params, batch=batch, T=t,
+         compute_dtype="float32", **f32)
+    bf = BertModel(BertConfig.base(max_len=max_len, compute_dtype="bfloat16"), device=dev)
+    bf.load_state_dict(model.state_dict())
+    del model
+    bf16 = _bert_run(bf, dispatch, attention, layer_norm, batch, t, dev,
+                     BERT_BF16_RTOL, f"{phase} bf16")
+    emit(phase, model="BERT-base", params=n_params, batch=batch, T=t,
+         compute_dtype="bfloat16", bound_rel=BERT_BF16_RTOL, **bf16)
+    return f32["launches"]["output_mlm"], bf
+
+
+def _trace(fn):
+    """fn once under torch.profiler: (window ms on the host clock, device
+    busy ms as the union of kernel intervals or None if the profiler saw
+    no device activity, {kernel name: (ms, launches)}, kernel launches)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        return window_ms, None, {}, 0
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:                  # union of kernel intervals
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    by_name = {}
+    for e in kernels:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    return window_ms, busy_us / 1e3, by_name, len(kernels)
+
+
+def _top(by_name, n):
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:n]
+    return [{"name": name[:100], "count": c, "ms": ms} for name, (ms, c) in top]
+
+
+def _share(by_name, tag):
+    return sum(ms for name, (ms, _) in by_name.items() if tag in name)
+
+
+def phase_bert_profile(model, dev):
+    """One T = 128 bf16 output_mlm: device busy time, idle share, the top
+    kernels and the two kernels' share of busy time."""
+    ids, mask = _bert_inputs(64, 128, dev, False)
+    model.output_mlm(ids, mask)
+    window_ms, busy_ms, by_name, n = _trace(lambda: model.output_mlm(ids, mask))
+    if busy_ms is None:
+        emit("bert_profile", window_ms=window_ms, device_busy_ms="not measured",
+             idle_share="not measured")
+        return
+    flash_ms = _share(by_name, "flash_attn_fwd_kernel")
+    ln_ms = _share(by_name, "layer_norm_fwd_kernel")
+    emit("bert_profile", batch=64, T=128, compute_dtype="bfloat16", window_ms=window_ms,
+         device_busy_ms=busy_ms, idle_share=max(0.0, 1.0 - busy_ms / window_ms),
+         kernels=n, flash_attn_fwd_ms=flash_ms, layer_norm_fwd_ms=ln_ms,
+         flash_attn_fwd_share_of_busy=flash_ms / busy_ms,
+         layer_norm_fwd_share_of_busy=ln_ms / busy_ms, top=_top(by_name, 15))
+
+
+def attn_bound(B, H, T, S, D, dt):
+    """Least time for one call: 4*B*H*T*S*D operations over the type's
+    peak, or the bytes (q, k, v, the mask read once; out and lse written
+    once) over 3.35 TB/s, whichever is larger."""
+    es = torch.tensor([], dtype=dt).element_size()
+    nbytes = (2 * T + 2 * S) * B * H * D * es + B * H * T * 4 + B * S * es
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 4.0 * B * H * T * S * D / PEAK_OPS_PER_S[dt]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def ln_bound(rows, F, dt):
+    """Least time for one call: the bytes (x read and y written once, gain
+    and bias, mean and rstd) over 3.35 TB/s, or ~8 f32 operations an
+    element over the f32 rate, whichever is larger."""
+    es = torch.tensor([], dtype=dt).element_size()
+    t_bytes = (2 * rows * F * es + 2 * F * es + 2 * rows * 4) / HBM_BYTES_PER_S
+    t_ops = 8.0 * rows * F / PEAK_OPS_PER_S[torch.float32]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_attn_times(ak, attention, dev):
+    import torch.nn.functional as F
+
+    rows = {}
+    for name, (B, H, T, D) in BERT_ATTN_SHAPES.items():
+        for dt in (torch.float32, torch.bfloat16):
+            gen = torch.Generator(device=dev).manual_seed(4)
+            q, k, v = (torch.randn(B, H, T, D, generator=gen, device=dev).to(dt)
+                       for _ in range(3))
+            mask = torch.ones(B, T, dtype=dt, device=dev)
+            keep = mask[:, None, None, :] > 0
+            fn = lambda: attention.flash_attention(q, k, v, mask)  # noqa: E731
+            plain = lambda: ak.flash_attention_plain(q, k, v, mask)  # noqa: E731
+            err = (fn()[0].float() - plain()[0].float()).abs().max().item()
+            bound_ms, bound_by = attn_bound(B, H, T, T, D, dt)
+            rows[(name, dt)] = dict(
+                ms=time_ms(fn, dev), plain_ms=time_ms(plain, dev),
+                library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=keep), dev),
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+            emit("attn_times", shape=[B, H, T, D], dtype=str(dt), **rows[(name, dt)])
+    return rows
+
+
+def phase_ln_times(nk, dev, rows=8192, F=768):
+    import torch.nn.functional as Fn
+
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        gen = torch.Generator(device=dev).manual_seed(5)
+        x = torch.randn(rows, F, generator=gen, device=dev).to(dt)
+        g = torch.randn(F, generator=gen, device=dev).to(dt)
+        b = torch.randn(F, generator=gen, device=dev).to(dt)
+        fn = lambda: nk.layer_norm_fwd(x, g, b, 1e-12)  # noqa: E731
+        plain = lambda: nk.layer_norm_plain(x, g, b, 1e-12)  # noqa: E731
+        err = (fn()[0].float() - plain()[0].float()).abs().max().item()
+        bound_ms, bound_by = ln_bound(rows, F, dt)
+        out[dt] = dict(ms=time_ms(fn, dev), plain_ms=time_ms(plain, dev),
+                       library_ms=time_ms(lambda: Fn.layer_norm(x, (F,), g, b, 1e-12), dev),
+                       bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+        emit("ln_times", shape=[rows, F], dtype=str(dt), **out[dt])
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from deeplearning4j_tpu_torch.ops import attention_kernels as ak
     from deeplearning4j_tpu_torch.ops import conv_kernels as ck
-    from deeplearning4j_tpu_torch.ops.kernels import build, conv3x3, dispatch, matmul
+    from deeplearning4j_tpu_torch.ops import norm_kernels as nk
+    from deeplearning4j_tpu_torch.ops.kernels import (attention, build, conv3x3, dispatch,
+                                                      layer_norm, matmul)
     from deeplearning4j_tpu_torch.serving import ModelServer
     from deeplearning4j_tpu_torch.train import Nesterovs
-    from deeplearning4j_tpu_torch.zoo import ResNet50
+    from deeplearning4j_tpu_torch.zoo import BertConfig, BertModel, ResNet50
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -654,6 +954,16 @@ def main():
     phase_train_bf16(conv3x3, ResNet50, Nesterovs, dev, x, y)
     del x, y
     conv_rows = phase_conv_times(ck, dev)
+    phase_ln_parity(nk, layer_norm, dev)
+    phase_attn_parity(ak, attention, dev)
+    bert_launches, bert_bf16 = phase_bert(BertModel, BertConfig, dispatch,
+                                          attention, layer_norm, dev)
+    phase_bert_profile(bert_bf16, dev)
+    del bert_bf16
+    phase_bert(BertModel, BertConfig, dispatch, attention, layer_norm, dev,
+               phase="bert_long", batch=4, t=2048, max_len=2048)
+    attn_rows = phase_attn_times(ak, attention, dev)
+    ln_rows = phase_ln_times(nk, dev)
 
     emit("done", seconds=time.monotonic() - t_start)
     main_row = rows[("fc6", torch.float32)]
@@ -675,6 +985,17 @@ def main():
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": "ResNet-50 s0 B=64 56x56 Ci=Co=64 f32; launches over "
                      "3 fit steps"})
+    for name, (replaces, source), row, n_launched, shape in (
+            ("flash_attn_fwd", ATTN_KERNEL, attn_rows[("t128", torch.float32)],
+             bert_launches[0], "BERT-base q/k/v [64,12,128,64] f32"),
+            ("layer_norm_fwd", LN_KERNEL, ln_rows[torch.float32], bert_launches[1],
+             "BERT-base 8192 x 768 f32")):
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": n_launched, "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "shape": shape + "; launches in one f32 output_mlm at batch 64, T 128"})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,6 +11,9 @@ The layouts differ only where PyTorch's idiom does: a Dense ``W`` stays
 the JAX tree and OIHW in the port (``Layer.TORCH_LAYOUT``).  Arrays cross
 as numpy, so this module needs nothing of the JAX package: a caller turns a
 JAX tree into numpy first (``jax.tree_util.tree_map(np.asarray, params)``).
+A BertModel's tree (``bert_params_from_jax``/``bert_params_to_jax``) is
+the JAX package's ``params_`` as it is: named arrays plus the stacked
+``layers`` dict, every layout the same in both packages.
 """
 from __future__ import annotations
 
@@ -128,3 +131,30 @@ def state_from_jax(net, tree: Tree) -> None:
                 raise ValueError(f"{name}.{k}: shape {tuple(arr.shape)} != "
                                  f"{tuple(t.shape)}")
             t.copy_(torch.from_numpy(np.array(arr)))
+
+
+def bert_params_to_jax(model) -> Dict:
+    """A BertModel's parameters as the JAX package's tree of numpy arrays."""
+    def leaf(t):
+        return t.detach().float().cpu().numpy()
+    return {k: ({kk: leaf(vv) for kk, vv in v.items()} if isinstance(v, dict)
+                else leaf(v))
+            for k, v in model.params_.items()}
+
+
+@torch.no_grad()
+def bert_params_from_jax(model, tree: Dict) -> None:
+    """Load the JAX package's BERT tree of numpy arrays into a BertModel, in
+    place; names and shapes must match."""
+    def load(params, sub, where):
+        if set(sub) != set(params):
+            raise ValueError(f"{where}: keys differ: {sorted(sub)} vs {sorted(params)}")
+        for k, p in params.items():
+            if isinstance(p, dict):
+                load(p, sub[k], f"{where}{k}.")
+                continue
+            arr = np.asarray(sub[k])
+            if tuple(arr.shape) != tuple(p.shape):
+                raise ValueError(f"{where}{k}: shape {arr.shape} != {tuple(p.shape)}")
+            p.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
+    load(model.params_, tree, "")

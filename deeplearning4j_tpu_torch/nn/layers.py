@@ -1,8 +1,8 @@
 """Feed-forward and convolutional layers (the port of ``nn/layers.py``).
 
 Ported: Dense, Output, Loss, Activation, Dropout, Convolution,
-Subsampling, GlobalPooling and BatchNormalization, with the JAX package's
-config fields and semantics:
+Subsampling, GlobalPooling, BatchNormalization and LayerNormalization, with
+the JAX package's config fields and semantics:
 
 * activations are NHWC at every layer boundary.  Convolution and pooling
   run on an NCHW view of the NHWC tensor (``permute``; a channels-last
@@ -23,6 +23,9 @@ config fields and semantics:
   ``ops.conv_kernels.conv3x3_same``, whose backward is the hand-written
   wgrad/dgrad pair, and adds its bias afterwards, as ``layers.py:313-331``
   of the JAX package does; inference keeps the library conv with its bias;
+* LayerNormalization runs ``ops.norm_kernels.fused_layer_norm``: the
+  hand-written LayerNorm kernel on CUDA tensors, the plain composition on
+  CPU tensors;
 * ``train=True`` selects batch statistics in BatchNormalization and input
   dropout (drawn from the ``rng`` generator) in the layers that take it.
 """
@@ -41,6 +44,7 @@ from deeplearning4j_tpu_torch.ops.kernels.matmul import (EPILOGUE_ACTIVATIONS,
 from deeplearning4j_tpu_torch.ops.conv_kernels import (conv3x3_eligible,
                                                        conv3x3_same)
 from deeplearning4j_tpu_torch.ops.losses import apply_loss, get_loss
+from deeplearning4j_tpu_torch.ops.norm_kernels import fused_layer_norm
 from deeplearning4j_tpu_torch.ops.pool_kernels import (max_pool2d, pad_nchw,
                                                         resolve_pad)
 
@@ -396,3 +400,21 @@ class BatchNormalizationLayer(Layer):
         if not self.lock_gamma_beta:
             y = y * params["gamma"] + params["beta"]
         return self.act_fn()(y), new_state
+
+
+@dataclasses.dataclass(kw_only=True)
+class LayerNormalizationLayer(Layer):
+    """Layer norm over the feature (last) axis, params ``gamma`` and
+    ``beta``."""
+
+    eps: float = 1e-5
+    REGULARIZABLE = ()
+
+    def initialize(self, gen, input_type, dtype=torch.float32, device=None):
+        c = input_type.shape[-1]
+        dev = gen.device if device is None else device
+        return {"gamma": torch.ones((c,), dtype=dtype, device=dev),
+                "beta": torch.zeros((c,), dtype=dtype, device=dev)}, {}, input_type
+
+    def apply(self, params, state, x, *, train=False, rng=None):
+        return fused_layer_norm(x, params["gamma"], params["beta"], self.eps), state

@@ -133,6 +133,17 @@ def library() -> ctypes.CDLL:
             lib.dl4j_conv3x3_dgrad.argtypes = (
                 [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
             lib.dl4j_conv3x3_dgrad.restype = ctypes.c_int
+            lib.dl4j_layer_norm_fwd.argtypes = (
+                [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
+                + [ctypes.c_longlong, ctypes.c_float] + [ctypes.c_int] * 2
+                + [ctypes.c_void_p])
+            lib.dl4j_layer_norm_fwd.restype = ctypes.c_int
+            lib.dl4j_flash_attn_fwd.argtypes = (
+                [ctypes.c_void_p] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
+                + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+            lib.dl4j_flash_attn_fwd.restype = ctypes.c_int
+            lib.dl4j_flash_attn_tile.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+            lib.dl4j_flash_attn_tile.restype = None
             lib.dl4j_error_string.argtypes = [ctypes.c_int]
             lib.dl4j_error_string.restype = ctypes.c_char_p
             _lib = lib

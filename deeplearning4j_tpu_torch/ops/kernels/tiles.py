@@ -42,11 +42,13 @@ class TileConfig:
 
 
 #: Hopper tile per kernel: the tile each CUDA source is compiled for
-#: (``csrc/fused_dense.cu``: 64x64 output tile, K step 16).  The wrapper
-#: checks the built library against it once; a second compiled tile would
-#: bring back a run-time tile table.
+#: (``csrc/fused_dense.cu``: 64x64 output tile, K step 16;
+#: ``csrc/flash_attn_fwd.cu``: 64 query rows a block, 64-row K/V tiles).
+#: Each wrapper checks the built library against it once; a second compiled
+#: tile would bring back a run-time tile table.
 DEFAULT_TILES: Dict[str, TileConfig] = {
     "fused_dense": TileConfig(block_m=64, block_n=64, block_k=16),
+    "attention": TileConfig(block_q=64, block_kv=64),
 }
 
 

@@ -45,6 +45,8 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
         "import deeplearning4j_tpu_torch.ops.kernels\n"
         "import deeplearning4j_tpu_torch.ops.conv_kernels, deeplearning4j_tpu_torch.train\n"
         "import deeplearning4j_tpu_torch.nn.graph, deeplearning4j_tpu_torch.zoo.graphs\n"
+        "import deeplearning4j_tpu_torch.zoo.bert, deeplearning4j_tpu_torch.ops.norm_kernels\n"
+        "import deeplearning4j_tpu_torch.ops.attention_kernels\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'deeplearning4j_tpu')]\n"
         "assert not bad, bad\n"
@@ -61,7 +63,7 @@ def test_entry_points_refuse_to_run_without_cuda():
         pytest.skip("checks the behaviour on a machine without CUDA")
     from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
     from deeplearning4j_tpu_torch.serving import ModelRegistry, ModelServer
-    from deeplearning4j_tpu_torch.zoo import LeNet, ResNet50
+    from deeplearning4j_tpu_torch.zoo import BertConfig, BertModel, LeNet, ResNet50
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ModelServer()
@@ -73,6 +75,8 @@ def test_entry_points_refuse_to_run_without_cuda():
         ModelRegistry().register_zoo("lenet", "LeNet")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ResNet50().init_model()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        BertModel(BertConfig.tiny())
     # asking for the CPU works
     srv = ModelServer(device="cpu")
     srv.shutdown()
