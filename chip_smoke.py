@@ -68,7 +68,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    add one to the launch count.
 12. attn_parity — ``flash_attention`` (out, lse) against
    ``flash_attention_plain`` at [64,12,128,64], [4,12,2048,64] and the
-   ragged [2,3,77,64] (S 77) and [1,2,37,64] (S 200), causal or not,
+   ragged [2,3,77,64] (S 77), [1,2,37,64] (S 200) and [2,2,130,128] (S
+   100), causal or not,
    without a mask and with the last 28 positions dropped in half the
    batch rows, f32 and bf16; lse is f32: 1e-4 * max|ref| in both dtypes.
 13. bert — the inference slice: full-width BERT-base (110,106,428
@@ -95,6 +96,59 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    yardstick the port never calls (``scaled_dot_product_attention`` with
    the same mask, ``F.layer_norm``), each the median of 25 runs with L2
    flushed, beside the bound.
+17. ln_bwd_parity — the backward kernel (``layer_norm.launch_bwd``)
+   against ``layer_norm_bwd_plain`` at ln_parity's rows and F in {768,
+   1000, 64, 4096} (a warp a row up to 1024, the block above), x and gain
+   f32 or bf16 in each of the four pairs, with a bias and without, on the
+   forward kernel's mean and rstd (and one dy whose rows are further apart
+   than F); dx, dgain and dbias each held to the tolerance of its dtype;
+   each call must add one to the backward's launch count.
+18. attn_bwd_parity — the dQ and dK/dV kernels (``attention.launch_bwd``)
+   against ``flash_attention_bwd_plain`` at attn_parity's shapes, causal or
+   not, with no mask and with the padded one, f32 and bf16, on the forward
+   kernel's out and lse, plus one case with head-split (strided) q, k, v
+   and dO; dq, dk and dv each held to the tolerance; each call must add one
+   dQ and one dK/dV launch.
+19. bert_train — the training slice: full-width BERT-base (110,106,428
+   parameters from a ``torch.Generator`` seeded 0), Adam(1e-4), batch 64,
+   T = 128, inputs as bench.py makes them (``RandomState(0)`` ids, an
+   all-ones mask, ``rand < 0.15`` label mask, sparse labels = the ids).
+   f32, TF32 off: ``gradient_for`` on the initial parameters in ``auto``
+   and in ``reference`` mode agrees per tensor within 1e-4 * max|ref|
+   (``layers.bk``, whose gradient is zero in exact arithmetic, is held to
+   be noise in both: within 1e-4 of ``layers.bq``'s max); then 3
+   ``fit_batch`` steps in each mode from the same parameters, the launch
+   counts set to 0 just before each step and read just after: exactly 12
+   flash forward, 12 dQ, 12 dK/dV, 26 LayerNorm forward and 26 LayerNorm
+   backward launches per step in ``auto`` mode, none in ``reference``
+   mode.  Each loss agrees within 1e-4 relative; the first update within
+   1e-4 of its size in the L2 norm over all parameters (``UPDATE_L2_RTOL``
+   says why not element by element).  Step ms (host clock with a
+   synchronize, median of the steps after the first), tokens/s and peak
+   memory.  Then bf16 compute: ``gradient_for`` on the initial parameters
+   per tensor within ``BERT_BF16_GRAD_RTOL`` * max|ref| of reference
+   mode's; 3 steps in each mode, finite losses within
+   ``BERT_BF16_LOSS_RTOL`` of reference mode's; ``fit_steps`` over a stack
+   of 5 copies of the batch (as bench.py builds it) against 5 ``fit_batch``
+   calls from the same start, losses within 1e-6 relative and 5 x the
+   launch counts.
+20. bert_train_iter — one ``fit(BertIterator(...))`` epoch of 2 batches of
+   64 at T = 128 over a 30,522-word vocab the script makes (``[PAD]``,
+   ``[UNK]``, ``[CLS]``, ``[SEP]``, ``[MASK]``, then ``w5`` ... ``w30521``)
+   and sentences drawn with numpy from a seed: finite loss, iteration + 2.
+21. bert_train_long — bf16 at batch 4, T = 2048, ``max_len`` 2048: 2
+   ``fit_batch`` steps, finite losses, the same launch counts, step ms.
+22. bert_train_profile — one bf16 T = 128 step under ``torch.profiler``:
+   device busy time, idle share, the top kernels and each new kernel's
+   share of busy time.
+23. attn_bwd_times, ln_bwd_times — the backward kernels at the BERT shapes
+   in f32 and bf16 (attention [64,12,128,64] and [4,12,2048,64] with the
+   all-ones mask, dQ and dK/dV timed apart; LayerNorm 8192 x 768): kernel
+   ms, plain ms and one PyTorch call as a yardstick the port never calls
+   (``torch.autograd.grad`` through ``scaled_dot_product_attention`` with
+   the same mask, its forward outside the timed region; the backward of
+   ``F.layer_norm``), each the median of 25 runs with L2 flushed, beside
+   the bound.
 
 Then the kernels line, nvidia-smi's line, and the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -133,17 +187,56 @@ LN_KERNEL = ("deeplearning4j_tpu/ops/norm_kernels.py:40",
              "deeplearning4j_tpu_torch/ops/kernels/csrc/layer_norm_fwd.cu")
 ATTN_KERNEL = ("deeplearning4j_tpu/ops/attention_kernels.py:148",
                "deeplearning4j_tpu_torch/ops/kernels/csrc/flash_attn_fwd.cu")
+ATTN_BWD_KERNELS = {
+    "flash_attn_bwd_dq": ("deeplearning4j_tpu/ops/attention_kernels.py:271",
+                          "deeplearning4j_tpu_torch/ops/kernels/csrc/flash_attn_bwd.cu"),
+    "flash_attn_bwd_dkv": ("deeplearning4j_tpu/ops/attention_kernels.py:322",
+                           "deeplearning4j_tpu_torch/ops/kernels/csrc/flash_attn_bwd.cu"),
+}
+LN_BWD_KERNEL = ("deeplearning4j_tpu/ops/norm_kernels.py:55",
+                 "deeplearning4j_tpu_torch/ops/kernels/csrc/layer_norm_bwd.cu")
 BERT_BASE_PARAMS = 110_106_428
 #: attention at bench.py's two BERT shapes, (B, H, T, D), and the parity
 #: shapes: those two and two ragged ones, (B, H, T, S, D)
 BERT_ATTN_SHAPES = {"t128": (64, 12, 128, 64), "t2048": (4, 12, 2048, 64)}
 ATTN_PARITY_SHAPES = [(64, 12, 128, 128, 64), (4, 12, 2048, 2048, 64),
-                      (2, 3, 77, 77, 64), (1, 2, 37, 200, 64)]
+                      (2, 3, 77, 77, 64), (1, 2, 37, 200, 64), (2, 2, 130, 100, 128)]
+#: LayerNorm backward parity: (x dtype, gain dtype); the kernel takes each
+LN_BWD_DTYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+                 (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)]
 #: bound on bf16-compute BERT outputs against reference mode, relative to
 #: max|ref|: reference mode runs the scores, the softmax and the LayerNorm
 #: statistics in bf16 (as the JAX package does off the TPU) where the
 #: kernels keep them in f32, and 12 blocks carry the difference on
 BERT_BF16_RTOL = 5e-2
+#: bound on a bf16-compute training loss against reference mode, relative:
+#: the same reason as BERT_BF16_RTOL, but a loss is a mean over the ~1,200
+#: masked tokens of a batch, which averages the logits' differences.  On an
+#: H100 the three steps differed by 4.7e-5, 4.1e-5 and 2.6e-4; 1e-3 is
+#: about 4x the largest
+BERT_BF16_LOSS_RTOL = 1e-3
+#: bound on a bf16-compute gradient at the initial parameters against
+#: reference mode's, per tensor, relative to the tensor's max|ref| (and, for
+#: layers.bk, its noise beside layers.bq's max): the same reason as
+#: BERT_BF16_RTOL.  On an H100 the worst tensor (layers.Wk) differed by
+#: 4.0e-2 of its max and layers.bk's noise was 2.5e-2 of layers.bq's max;
+#: 0.12 is 3x the worst.  A backward kernel that drops or garbles its
+#: output moves some tensor by ~1 of its max
+BERT_BF16_GRAD_RTOL = 0.12
+#: bound on the first Adam update's difference from reference mode's,
+#: relative to the update's size in the L2 norm over all parameters; not
+#: element by element: at step 1 Adam moves each element by lr * g /
+#: (|g| + eps / sqrt(1 - beta2)), whose slope near g = 0 is lr / 3.2e-7, so
+#: an element whose gradient sums cancel to nearly zero turns their
+#: rounding (another summation order in the kernels) into a step of up to
+#: lr.  On the CPU, the JAX package and the port, whose losses agreed to
+#: 1e-7, differed by up to 2.9e-3 of the update in such elements (under
+#: 0.1% of them) and by 6e-6 in the L2 norm
+UPDATE_L2_RTOL = 1e-4
+#: per MLM step at BERT-base: flash forward, dQ, dK/dV, LayerNorm forward,
+#: LayerNorm backward launches (12 blocks; 1 + 2 * 12 + 1 LayerNorms)
+BERT_STEP_LAUNCHES = (12, 12, 12, 26, 26)
+BERT_TRAIN_VOCAB = 30522
 #: bound on a training step's loss against reference mode once the loss
 #: rises above the first step's: ResNet-50 at Nesterovs(0.1, 0.9) with no
 #: warmup diverges at step 3 (7.5 -> 16.5) and amplifies a 1e-6 difference
@@ -919,6 +1012,466 @@ def phase_ln_times(nk, dev, rows=8192, F=768):
     return out
 
 
+def phase_ln_bwd_parity(nk, layer_norm, dev):
+    gen = torch.Generator(device=dev).manual_seed(6)
+    cases = 0
+    for lead in ((64, 128), (4, 2048), (37,), (1,)):
+        for F in (768, 1000, 64, 4096):
+            for dt, gdt in LN_BWD_DTYPES:
+                x = (torch.randn(*lead, F, generator=gen, device=dev) * 2 + 0.5).to(dt)
+                g = torch.randn(F, generator=gen, device=dev).to(gdt)
+                _, mean, rstd = nk.layer_norm_fwd(x, g, None, 1e-12)
+                dys = [torch.randn(*lead, F, generator=gen, device=dev).to(dt)]
+                if lead == (37,):     # rows further apart than F
+                    dys.append(torch.randn(37, F + 8, generator=gen, device=dev).to(dt)[:, :F])
+                errs = {}
+                for j, dy in enumerate(dys):
+                    for bias_dtype in (gdt, None):
+                        before = layer_norm.BWD_LAUNCHES.value
+                        got = layer_norm.launch_bwd(x, g, mean, rstd, dy, bias_dtype)
+                        torch.cuda.synchronize()
+                        require(layer_norm.BWD_LAUNCHES.value == before + 1,
+                                "layer_norm_bwd did not launch its kernel")
+                        want = nk.layer_norm_bwd_plain(x, g, mean, rstd, dy, bias_dtype)
+                        case = f"dy{j},bias={bias_dtype is not None}"
+                        errs[case] = {}
+                        for name, a, r in zip(("dx", "dgain", "dbias"), got, want):
+                            if r is None:
+                                require(a is None, "layer_norm_bwd: a dbias without a bias")
+                                continue
+                            require(a.dtype == r.dtype and a.shape == r.shape,
+                                    f"layer_norm_bwd {name} {a.dtype} {tuple(a.shape)}")
+                            err = (a.float() - r.float()).abs().max().item()
+                            rmax = r.float().abs().max().item()
+                            tol = tolerance(r.dtype, rmax)
+                            require(err <= tol,
+                                    f"layer_norm_bwd {list(x.shape)} {dt} gain {gdt} {case} "
+                                    f"{name}: max|diff| {err} > tol {tol}")
+                            errs[case][name] = err / max(rmax, 1e-30)
+                        cases += 1
+                emit("ln_bwd_parity", shape=list(x.shape), dtype=str(dt), gain_dtype=str(gdt),
+                     rel_errors=errs)
+                del x, dys
+    emit("ln_bwd_parity_done", cases=cases, ok=True)
+
+
+def _attn_bwd_case(ak, attention, q, k, v, g, mask, causal, dt, tag):
+    """One backward call held to the plain version; {name: rel err}."""
+    out, lse = attention.flash_attention(q, k, v, mask, causal)
+    before = (attention.DQ_LAUNCHES.value, attention.DKV_LAUNCHES.value)
+    got = attention.launch_bwd(q, k, v, out, lse, g, mask, causal)
+    torch.cuda.synchronize()
+    require((attention.DQ_LAUNCHES.value, attention.DKV_LAUNCHES.value)
+            == (before[0] + 1, before[1] + 1),
+            "launch_bwd did not launch the dQ and dK/dV kernels once each")
+    want = ak.flash_attention_bwd_plain(q, k, v, out, lse, g, mask, causal)
+    errs = {}
+    for name, a, r, like in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
+        require(a.dtype == dt and a.shape == like.shape and torch.isfinite(a).all().item(),
+                f"flash_attn_bwd {name} {a.dtype} {tuple(a.shape)}")
+        err = (a.float() - r.float()).abs().max().item()
+        rmax = r.float().abs().max().item()
+        require(err <= tolerance(dt, rmax),
+                f"flash_attn_bwd {tag} {name}: max|diff| {err} > tol {tolerance(dt, rmax)}")
+        errs[name] = err / max(rmax, 1e-30)
+    return errs
+
+
+def phase_attn_bwd_parity(ak, attention, dev):
+    gen = torch.Generator(device=dev).manual_seed(7)
+    cases = 0
+    for B, H, T, S, D in ATTN_PARITY_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            q = torch.randn(B, H, T, D, generator=gen, device=dev).to(dt)
+            k = torch.randn(B, H, S, D, generator=gen, device=dev).to(dt)
+            v = torch.randn(B, H, S, D, generator=gen, device=dev).to(dt)
+            g = torch.randn(B, H, T, D, generator=gen, device=dev).to(dt)
+            errs = {}
+            for causal in (False, True):
+                for mask in (None, _keep_mask(B, S, dt, dev)):
+                    case = f"causal={causal},mask={mask is not None}"
+                    errs[case] = _attn_bwd_case(ak, attention, q, k, v, g, mask, causal, dt,
+                                                f"{[B, H, T, D]} S={S} {dt} {case}")
+                    cases += 1
+            emit("attn_bwd_parity", shape=[B, H, T, D], S=S, dtype=str(dt), rel_errors=errs)
+            del q, k, v, g
+    # BERT's layout: q, k, v split out of one [B, T, 3, H, D] tensor, dO a
+    # head-split view of [B, T, H, D]
+    B, T, H, D = 64, 128, 12, 64
+    for dt in (torch.float32, torch.bfloat16):
+        qkv = torch.randn(B, T, 3, H, D, generator=gen, device=dev).to(dt)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        g = torch.randn(B, T, H, D, generator=gen, device=dev).to(dt).transpose(1, 2)
+        errs = _attn_bwd_case(ak, attention, q, k, v, g, _keep_mask(B, T, dt, dev), False,
+                              dt, f"head-split {dt}")
+        cases += 1
+        emit("attn_bwd_parity", shape=[B, H, T, D], S=T, dtype=str(dt), layout="head-split",
+             rel_errors=errs)
+    emit("attn_bwd_parity_done", cases=cases, ok=True)
+
+
+def _bert_train_batch(MultiDataSet, dev, batch=64, t=128):
+    """bench.py's MLM batch: RandomState(0) ids, an all-ones mask, a
+    ``rand < 0.15`` label mask, sparse labels = the ids; on the device."""
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, BERT_TRAIN_VOCAB, (batch, t)).astype(np.int32)
+    mask = np.ones((batch, t), np.float32)
+    lmask = (rng.rand(batch, t) < 0.15).astype(np.float32)
+    ids, mask, lmask = (torch.as_tensor(a, device=dev) for a in (ids, mask, lmask))
+    return MultiDataSet(features=[ids, mask], labels=[ids], labels_masks=[lmask])
+
+
+def _train_counters(attention, layer_norm):
+    return (attention.LAUNCHES, attention.DQ_LAUNCHES, attention.DKV_LAUNCHES,
+            layer_norm.LAUNCHES, layer_norm.BWD_LAUNCHES)
+
+
+def _train_steps(model, step, counters, steps):
+    """`steps` calls of step(), each with the launch counts set to 0 just
+    before and read just after: (losses, host ms per step, counts per step)."""
+    losses, ms, counts = [], [], []
+    for _ in range(steps):
+        for c in counters:
+            c.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step()
+        losses.append(out.tolist() if out.ndim else float(out))   # synchronizes
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        counts.append(tuple(int(c.value) for c in counters))
+    return losses, ms, counts
+
+
+def _named_leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _named_leaves(tree[k], f"{path}.{k}" if path else k)
+    else:
+        yield path, tree
+
+
+def _bert_train_model(BertModel, BertConfig, Adam, dev, **cfg):
+    return BertModel(BertConfig.base(**cfg), updater=Adam(1e-4), device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(0))
+
+
+def _flat(model):
+    return torch.cat([p.detach().flatten() for p in model.parameters()])
+
+
+def _grad_diffs(model, ref, mds, dispatch):
+    """`gradient_for` of one batch in ``auto`` mode on `model` and in
+    ``reference`` mode on `ref` (the same parameters): (worst per-tensor
+    max|diff| / max|ref|, that per tensor, max|bk grad| / max|bq grad| in
+    each mode).  ``layers.bk``'s gradient is zero in exact arithmetic, so
+    it is held to be noise beside ``layers.bq``'s instead, and its
+    difference is over ``layers.bq``'s max."""
+    g_auto = dict(_named_leaves(model.gradient_for(mds)))
+    prev = dispatch.set_dispatch_mode("reference")
+    try:
+        g_ref = dict(_named_leaves(ref.gradient_for(mds)))
+    finally:
+        dispatch.set_dispatch_mode(prev)
+    bq_max = {mode: g["layers.bq"].abs().max().item()
+              for mode, g in (("auto", g_auto), ("reference", g_ref))}
+    bk_noise = {mode: g["layers.bk"].abs().max().item() / bq_max[mode]
+                for mode, g in (("auto", g_auto), ("reference", g_ref))}
+    rel = {}
+    for name, r in g_ref.items():
+        rmax = bq_max["reference"] if name == "layers.bk" else r.abs().max().item()
+        rel[name] = (g_auto[name] - r).abs().max().item() / max(rmax, 1e-30)
+    worst = max(v for name, v in rel.items() if name != "layers.bk")
+    return worst, rel, bk_noise
+
+
+def _require_grads(worst, rel, bk_noise, rtol, tag):
+    require(worst <= rtol, f"{tag} gradient_for against reference mode: "
+            f"{ {n: v for n, v in rel.items() if v > rtol} } > {rtol} of max|ref|")
+    require(max(bk_noise.values()) <= rtol,
+            f"{tag} layers.bk gradient is not noise beside layers.bq's: {bk_noise}")
+
+
+def phase_bert_train(BertModel, BertConfig, Adam, MultiDataSet, dispatch, attention,
+                     layer_norm, dev, steps=3, batch=64, t=128):
+    """The f32 then the bf16 training runs; returns the f32 step's launch
+    counts."""
+    counters = _train_counters(attention, layer_norm)
+    mds = _bert_train_batch(MultiDataSet, dev, batch, t)
+    tokens = batch * t
+    model = _bert_train_model(BertModel, BertConfig, Adam, dev)
+    ref = _bert_train_model(BertModel, BertConfig, Adam, dev)
+    ref.load_state_dict(model.state_dict())
+    n_params = model.num_params()
+    require(n_params == BERT_BASE_PARAMS,
+            f"BERT-base has {n_params} parameters, want {BERT_BASE_PARAMS}")
+
+    # the gradient at the initial parameters, kernels against plain
+    worst_grad, grad_rel, bk_noise = _grad_diffs(model, ref, mds, dispatch)
+    emit("bert_train_grad", compute_dtype="float32", bound_rel=F32_RTOL,
+         max_rel_grad_diff=worst_grad, bk_noise_rel_bq=bk_noise, rel_grad_diff=grad_rel)
+    _require_grads(worst_grad, grad_rel, bk_noise, F32_RTOL, "f32")
+
+    # the main path: fit_batch in auto mode, then in reference mode
+    theta0 = _flat(model)
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms, counts = _train_steps(model, lambda: model.fit_batch(mds), counters, 1)
+    theta1 = _flat(model)
+    more = _train_steps(model, lambda: model.fit_batch(mds), counters, steps - 1)
+    losses, ms, counts = losses + more[0], ms + more[1], counts + more[2]
+    peak = torch.cuda.max_memory_allocated()
+    prev = dispatch.set_dispatch_mode("reference")
+    try:
+        r_losses, r_ms, r_counts = _train_steps(ref, lambda: ref.fit_batch(mds), counters, 1)
+        r_theta1 = _flat(ref)
+        more = _train_steps(ref, lambda: ref.fit_batch(mds), counters, steps - 1)
+        r_losses, r_ms, r_counts = r_losses + more[0], r_ms + more[1], r_counts + more[2]
+    finally:
+        dispatch.set_dispatch_mode(prev)
+    upd = (r_theta1 - theta0).double()
+    diff = (theta1 - r_theta1).double()
+    update_l2 = (diff.norm() / upd.norm()).item()
+    update_max = (diff.abs().max() / upd.abs().max()).item()
+    del theta0, theta1, r_theta1, upd, diff, model, ref
+    rel = [abs(a - r) / abs(r) for a, r in zip(losses, r_losses)]
+    step_ms = statistics.median(ms[1:])
+    emit("bert_train", model="BERT-base", params=n_params, batch=batch, T=t,
+         compute_dtype="float32", updater="Adam(1e-4)", steps=steps, losses=losses,
+         reference_losses=r_losses, rel_loss_diff=rel,
+         step1_update_rel_diff_l2=update_l2, step1_update_rel_diff_max=update_max,
+         launches_per_step=counts, reference_launches_per_step=r_counts,
+         step_ms=step_ms, step_ms_all=ms, reference_step_ms=statistics.median(r_ms[1:]),
+         reference_step_ms_all=r_ms, tokens_per_sec=tokens * 1e3 / step_ms,
+         reference_tokens_per_sec=tokens * 1e3 / statistics.median(r_ms[1:]),
+         max_memory_allocated_gb=peak / 1e9)
+    require(all(c == BERT_STEP_LAUNCHES for c in counts),
+            f"launches per step {counts} != {BERT_STEP_LAUNCHES}")
+    require(all(c == (0,) * 5 for c in r_counts), f"reference mode launched {r_counts}")
+    require(all(math.isfinite(v) for v in losses + r_losses), "non-finite loss")
+    require(max(rel) <= F32_RTOL, f"f32 losses {losses} vs reference {r_losses}")
+    require(update_l2 <= UPDATE_L2_RTOL,
+            f"first update differs from reference mode's by {update_l2} of its L2 norm")
+
+    # bf16 compute: auto against reference mode, then fit_steps against
+    # fit_batch from the same start
+    bf = _bert_train_model(BertModel, BertConfig, Adam, dev, compute_dtype="bfloat16")
+    start = {k: v.clone() for k, v in bf.state_dict().items()}
+    b_worst, b_grad_rel, b_bk_noise = _grad_diffs(bf, bf, mds, dispatch)
+    emit("bert_train_grad", compute_dtype="bfloat16", bound_rel=BERT_BF16_GRAD_RTOL,
+         max_rel_grad_diff=b_worst, bk_noise_rel_bq=b_bk_noise, rel_grad_diff=b_grad_rel)
+    _require_grads(b_worst, b_grad_rel, b_bk_noise, BERT_BF16_GRAD_RTOL, "bf16")
+    torch.cuda.reset_peak_memory_stats()
+    b_losses, b_ms, b_counts = _train_steps(bf, lambda: bf.fit_batch(mds), counters, steps)
+    b_peak = torch.cuda.max_memory_allocated()
+    require(all(c == BERT_STEP_LAUNCHES for c in b_counts),
+            f"bf16 launches per step {b_counts} != {BERT_STEP_LAUNCHES}")
+    require(bf.layers.Wq.dtype == torch.float32, "bf16 compute must keep f32 master parameters")
+
+    def restart():
+        bf.load_state_dict(start)
+        bf.opt_state_, bf.iteration = bf.updater.init_state(bf.params_), 0
+
+    restart()
+    prev = dispatch.set_dispatch_mode("reference")
+    try:
+        rb_losses, rb_ms, _ = _train_steps(bf, lambda: bf.fit_batch(mds), counters, steps)
+    finally:
+        dispatch.set_dispatch_mode(prev)
+    b_rel = [abs(a - r) / abs(r) for a, r in zip(b_losses, rb_losses)]
+    require(all(math.isfinite(v) for v in b_losses + rb_losses), f"bf16 losses {b_losses}")
+    require(max(b_rel) <= BERT_BF16_LOSS_RTOL,
+            f"bf16 losses {b_losses} vs reference {rb_losses} (bound {BERT_BF16_LOSS_RTOL})")
+
+    k = 5
+    stacked = MultiDataSet(
+        features=[f.broadcast_to((k,) + tuple(f.shape)) for f in mds.features],
+        labels=[l.broadcast_to((k,) + tuple(l.shape)) for l in mds.labels],
+        labels_masks=[m.broadcast_to((k,) + tuple(m.shape)) for m in mds.labels_masks])
+    restart()
+    seq_losses, seq_ms, _ = _train_steps(bf, lambda: bf.fit_batch(mds), counters, k)
+    restart()
+    (fs_losses,), fs_ms, fs_counts = _train_steps(bf, lambda: bf.fit_steps(stacked), counters, 1)
+    fs_rel = max(abs(a - r) / abs(r) for a, r in zip(fs_losses, seq_losses))
+    require(fs_counts[0] == tuple(k * n for n in BERT_STEP_LAUNCHES),
+            f"fit_steps launches {fs_counts[0]} != {k} x {BERT_STEP_LAUNCHES}")
+    require(bf.iteration == k, f"fit_steps advanced iteration to {bf.iteration}")
+    require(fs_rel <= 1e-6, f"fit_steps losses {fs_losses} vs fit_batch {seq_losses}")
+    b_step_ms = statistics.median(b_ms[1:])
+    emit("bert_train", model="BERT-base", params=n_params, batch=batch, T=t,
+         compute_dtype="bfloat16", updater="Adam(1e-4)", steps=steps, losses=b_losses,
+         reference_losses=rb_losses, rel_loss_diff=b_rel, bound_rel=BERT_BF16_LOSS_RTOL,
+         launches_per_step=b_counts, step_ms=b_step_ms, step_ms_all=b_ms,
+         reference_step_ms=statistics.median(rb_ms[1:]), reference_step_ms_all=rb_ms,
+         tokens_per_sec=tokens * 1e3 / b_step_ms,
+         reference_tokens_per_sec=tokens * 1e3 / statistics.median(rb_ms[1:]),
+         max_memory_allocated_gb=b_peak / 1e9,
+         fit_steps_k=k, fit_steps_losses=fs_losses, fit_batch_losses=seq_losses,
+         fit_steps_max_rel_loss_diff=fs_rel, fit_steps_launches=fs_counts[0],
+         fit_steps_ms=fs_ms[0], fit_batch_ms_sum=sum(seq_ms),
+         fit_steps_tokens_per_sec=k * tokens * 1e3 / fs_ms[0])
+    return counts[0], bf, mds
+
+
+def phase_bert_train_iter(BertModel, BertConfig, Adam, BertIterator, BertWordPieceTokenizer,
+                          attention, layer_norm, dev, batch=64, t=128, n_batches=2):
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + [
+        f"w{i}" for i in range(5, BERT_TRAIN_VOCAB)]
+    rng = np.random.RandomState(8)
+    sentences = [" ".join(f"w{w}" for w in rng.randint(5, BERT_TRAIN_VOCAB, rng.randint(64, 200)))
+                 for _ in range(batch * n_batches)]
+    it = BertIterator(BertWordPieceTokenizer(vocab), sentences, batch_size=batch, max_length=t,
+                      seed=0, sparse_labels=True)
+    model = _bert_train_model(BertModel, BertConfig, Adam, dev)
+    counters = _train_counters(attention, layer_norm)
+    for c in counters:
+        c.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.fit(it)
+    loss = model.score()
+    seconds = time.perf_counter() - t0
+    counts = tuple(int(c.value) for c in counters)
+    require(math.isfinite(loss), f"fit(BertIterator) loss {loss}")
+    require((model.iteration, model.epoch) == (n_batches, 1),
+            f"fit(BertIterator) iteration {model.iteration}, epoch {model.epoch}")
+    require(counts == tuple(n_batches * n for n in BERT_STEP_LAUNCHES),
+            f"fit(BertIterator) launches {counts}")
+    emit("bert_train_iter", model="BERT-base", vocab=len(vocab), batch=batch, T=t,
+         batches=n_batches, loss=loss, iteration=model.iteration, launches=counts,
+         seconds=seconds)
+
+
+def phase_bert_train_long(BertModel, BertConfig, Adam, MultiDataSet, attention, layer_norm,
+                          dev, batch=4, t=2048, steps=2):
+    model = _bert_train_model(BertModel, BertConfig, Adam, dev, max_len=t,
+                              compute_dtype="bfloat16")
+    mds = _bert_train_batch(MultiDataSet, dev, batch, t)
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms, counts = _train_steps(model, lambda: model.fit_batch(mds),
+                                      _train_counters(attention, layer_norm), steps)
+    require(all(math.isfinite(v) for v in losses), f"long bf16 losses {losses}")
+    require(all(c == BERT_STEP_LAUNCHES for c in counts),
+            f"long launches per step {counts} != {BERT_STEP_LAUNCHES}")
+    emit("bert_train_long", model="BERT-base", batch=batch, T=t, compute_dtype="bfloat16",
+         losses=losses, launches_per_step=counts, step_ms=ms[-1], step_ms_all=ms,
+         tokens_per_sec=batch * t * 1e3 / ms[-1],
+         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def phase_bert_train_profile(model, mds):
+    """One bf16 T = 128 fit_batch under torch.profiler: device busy time,
+    idle share, the top kernels and each new kernel's share of busy time."""
+    def step():
+        model.fit_batch(mds)
+        model.score()
+
+    step()
+    window_ms, busy_ms, by_name, n = _trace(step)
+    if busy_ms is None:
+        emit("bert_train_profile", window_ms=window_ms, device_busy_ms="not measured",
+             idle_share="not measured")
+        return
+    shares = {name: _share(by_name, tag) for name, tag in (
+        ("flash_attn_fwd", "flash_attn_fwd_kernel"),
+        ("flash_attn_bwd_dq", "flash_attn_bwd_dq_kernel"),
+        ("flash_attn_bwd_dkv", "flash_attn_bwd_dkv_kernel"),
+        ("layer_norm_fwd", "layer_norm_fwd_kernel"),
+        ("layer_norm_bwd", "layer_norm_bwd_kernel"),
+        ("layer_norm_bwd_column_sum", "column_sum_kernel"))}
+    emit("bert_train_profile", batch=64, T=128, compute_dtype="bfloat16",
+         window_ms=window_ms, device_busy_ms=busy_ms,
+         idle_share=max(0.0, 1.0 - busy_ms / window_ms), kernels=n,
+         kernel_ms=shares, kernel_share_of_busy={k: v / busy_ms for k, v in shares.items()},
+         top=_top(by_name, 20))
+
+
+def attn_bwd_bound(B, H, T, S, D, dt, kernel):
+    """Least time for one kernel: 2*B*H*T*S*D operations per product (3 in
+    dQ, 4 in dK/dV) over the type's peak, or its bytes over 3.35 TB/s (dQ
+    reads q, k, v, out, dO, lse and writes dq and delta; dK/dV reads q, k,
+    v, dO, lse, delta, the mask and writes dk, dv), whichever is larger."""
+    es = torch.tensor([], dtype=dt).element_size()
+    qt, kv, stats = B * H * T * D * es, B * H * S * D * es, B * H * T * 4
+    if kernel == "flash_attn_bwd_dq":
+        products, nbytes = 3, 4 * qt + 2 * kv + 2 * stats + B * S * es
+    else:
+        products, nbytes = 4, 2 * qt + 4 * kv + 2 * stats + B * S * es
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = products * 2.0 * B * H * T * S * D / PEAK_OPS_PER_S[dt]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def ln_bwd_bound(rows, F, dt):
+    """Least time for one call: the bytes (x and dy read, dx written, mean
+    and rstd, gain read, dgain and dbias written) over 3.35 TB/s, or ~10
+    f32 operations an element over the f32 rate, whichever is larger."""
+    es = torch.tensor([], dtype=dt).element_size()
+    t_bytes = (3 * rows * F * es + 3 * F * es + 2 * rows * 4) / HBM_BYTES_PER_S
+    t_ops = 10.0 * rows * F / PEAK_OPS_PER_S[torch.float32]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_attn_bwd_times(ak, attention, dev):
+    import torch.nn.functional as F
+
+    rows = {}
+    for name, (B, H, T, D) in BERT_ATTN_SHAPES.items():
+        for dt in (torch.float32, torch.bfloat16):
+            gen = torch.Generator(device=dev).manual_seed(9)
+            q, k, v, g = (torch.randn(B, H, T, D, generator=gen, device=dev).to(dt)
+                          for _ in range(4))
+            mask = torch.ones(B, T, dtype=dt, device=dev)
+            keep = mask[:, None, None, :] > 0
+            out, lse = attention.flash_attention(q, k, v, mask)
+            args = attention._BwdArgs(q, k, v, out, lse, g, mask, False, None)
+            attention.launch_bwd_dq(args)
+            attention.launch_bwd_dkv(args)
+            want = ak.flash_attention_bwd_plain(q, k, v, out, lse, g, mask)
+            errs = [(a.float() - w.float()).abs().max().item()
+                    for a, w in zip((args.dq, args.dk, args.dv), want)]
+            del want
+            plain = time_ms(lambda: ak.flash_attention_bwd_plain(q, k, v, out, lse, g, mask), dev)
+            ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+            lo = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=keep)
+            lib = time_ms(lambda: torch.autograd.grad(lo, (ql, kl, vl), g, retain_graph=True),
+                          dev)
+            del lo
+            for kernel, fn, err in (
+                    ("flash_attn_bwd_dq", lambda: attention.launch_bwd_dq(args), errs[0]),
+                    ("flash_attn_bwd_dkv", lambda: attention.launch_bwd_dkv(args),
+                     max(errs[1:]))):
+                bound_ms, bound_by = attn_bwd_bound(B, H, T, T, D, dt, kernel)
+                rows[(kernel, name, dt)] = dict(
+                    ms=time_ms(fn, dev), plain_ms=plain, library_ms=lib, bound_ms=bound_ms,
+                    bound_by=bound_by, max_abs_err=err)
+                emit("attn_bwd_times", kernel=kernel, shape=[B, H, T, D], dtype=str(dt),
+                     **rows[(kernel, name, dt)])
+    return rows
+
+
+def phase_ln_bwd_times(nk, layer_norm, dev, rows=8192, F=768):
+    import torch.nn.functional as Fn
+
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        gen = torch.Generator(device=dev).manual_seed(10)
+        x, dy = (torch.randn(rows, F, generator=gen, device=dev).to(dt) for _ in range(2))
+        g, b = (torch.randn(F, generator=gen, device=dev).to(dt) for _ in range(2))
+        _, mean, rstd = nk.layer_norm_fwd(x, g, b, 1e-12)
+        fn = lambda: layer_norm.launch_bwd(x, g, mean, rstd, dy, dt)  # noqa: E731
+        plain = lambda: nk.layer_norm_bwd_plain(x, g, mean, rstd, dy, dt)  # noqa: E731
+        err = max((a.float() - w.float()).abs().max().item() for a, w in zip(fn(), plain()))
+        xl, gl, bl = (t.detach().requires_grad_() for t in (x, g, b))
+        y = Fn.layer_norm(xl, (F,), gl, bl, 1e-12)
+        bound_ms, bound_by = ln_bwd_bound(rows, F, dt)
+        out[dt] = dict(ms=time_ms(fn, dev), plain_ms=time_ms(plain, dev),
+                       library_ms=time_ms(lambda: torch.autograd.grad(
+                           y, (xl, gl, bl), dy, retain_graph=True), dev),
+                       bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+        emit("ln_bwd_times", shape=[rows, F], dtype=str(dt), **out[dt])
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -929,8 +1482,10 @@ def main():
     from deeplearning4j_tpu_torch.ops import norm_kernels as nk
     from deeplearning4j_tpu_torch.ops.kernels import (attention, build, conv3x3, dispatch,
                                                       layer_norm, matmul)
+    from deeplearning4j_tpu_torch.data import MultiDataSet
+    from deeplearning4j_tpu_torch.nlp import BertIterator, BertWordPieceTokenizer
     from deeplearning4j_tpu_torch.serving import ModelServer
-    from deeplearning4j_tpu_torch.train import Nesterovs
+    from deeplearning4j_tpu_torch.train import Adam, Nesterovs
     from deeplearning4j_tpu_torch.zoo import BertConfig, BertModel, ResNet50
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -964,6 +1519,17 @@ def main():
                phase="bert_long", batch=4, t=2048, max_len=2048)
     attn_rows = phase_attn_times(ak, attention, dev)
     ln_rows = phase_ln_times(nk, dev)
+    phase_ln_bwd_parity(nk, layer_norm, dev)
+    phase_attn_bwd_parity(ak, attention, dev)
+    train_launches, bert_bf16, mds = phase_bert_train(
+        BertModel, BertConfig, Adam, MultiDataSet, dispatch, attention, layer_norm, dev)
+    phase_bert_train_profile(bert_bf16, mds)
+    del bert_bf16, mds
+    phase_bert_train_iter(BertModel, BertConfig, Adam, BertIterator, BertWordPieceTokenizer,
+                          attention, layer_norm, dev)
+    phase_bert_train_long(BertModel, BertConfig, Adam, MultiDataSet, attention, layer_norm, dev)
+    attn_bwd_rows = phase_attn_bwd_times(ak, attention, dev)
+    ln_bwd_rows = phase_ln_bwd_times(nk, layer_norm, dev)
 
     emit("done", seconds=time.monotonic() - t_start)
     main_row = rows[("fc6", torch.float32)]
@@ -996,6 +1562,23 @@ def main():
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": shape + "; launches in one f32 output_mlm at batch 64, T 128"})
+    for name, (replaces, source), row, n_launched, shape in (
+            ("flash_attn_bwd_dq", ATTN_BWD_KERNELS["flash_attn_bwd_dq"],
+             attn_bwd_rows[("flash_attn_bwd_dq", "t128", torch.float32)], train_launches[1],
+             "BERT-base q/k/v/dO [64,12,128,64] f32"),
+            ("flash_attn_bwd_dkv", ATTN_BWD_KERNELS["flash_attn_bwd_dkv"],
+             attn_bwd_rows[("flash_attn_bwd_dkv", "t128", torch.float32)], train_launches[2],
+             "BERT-base q/k/v/dO [64,12,128,64] f32"),
+            ("layer_norm_bwd", LN_BWD_KERNEL, ln_bwd_rows[torch.float32], train_launches[4],
+             "BERT-base 8192 x 768 f32")):
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": n_launched, "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "shape": shape + "; launches in one f32 MLM fit_batch step at batch 64, T 128"
+                     + ("; plain and library compute dq, dk and dv together"
+                        if name.startswith("flash") else "")})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

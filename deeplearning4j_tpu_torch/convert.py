@@ -13,7 +13,9 @@ as numpy, so this module needs nothing of the JAX package: a caller turns a
 JAX tree into numpy first (``jax.tree_util.tree_map(np.asarray, params)``).
 A BertModel's tree (``bert_params_from_jax``/``bert_params_to_jax``) is
 the JAX package's ``params_`` as it is: named arrays plus the stacked
-``layers`` dict, every layout the same in both packages.
+``layers`` dict, every layout the same in both packages; its updater state
+(``bert_opt_state_from_jax``/``bert_opt_state_to_jax``, Adam's ``m`` and
+``v``) is a dict of such trees.
 """
 from __future__ import annotations
 
@@ -133,28 +135,46 @@ def state_from_jax(net, tree: Tree) -> None:
             t.copy_(torch.from_numpy(np.array(arr)))
 
 
-def bert_params_to_jax(model) -> Dict:
-    """A BertModel's parameters as the JAX package's tree of numpy arrays."""
-    def leaf(t):
-        return t.detach().float().cpu().numpy()
-    return {k: ({kk: leaf(vv) for kk, vv in v.items()} if isinstance(v, dict)
-                else leaf(v))
-            for k, v in model.params_.items()}
+def _numpy_tree(tree) -> Dict:
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    return tree.detach().float().cpu().numpy()
 
 
 @torch.no_grad()
+def _load_tree(dst, src, where: str) -> None:
+    """Copy a nested dict of numpy arrays into the tensors of `dst`, in
+    place; keys and shapes must match."""
+    if set(src) != set(dst):
+        raise ValueError(f"{where}: keys differ: {sorted(src)} vs {sorted(dst)}")
+    for k, t in dst.items():
+        if isinstance(t, dict):
+            _load_tree(t, src[k], f"{where}{k}.")
+            continue
+        arr = np.asarray(src[k])
+        if tuple(arr.shape) != tuple(t.shape):
+            raise ValueError(f"{where}{k}: shape {arr.shape} != {tuple(t.shape)}")
+        t.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
+
+
+def bert_params_to_jax(model) -> Dict:
+    """A BertModel's parameters as the JAX package's tree of numpy arrays."""
+    return _numpy_tree(model.params_)
+
+
 def bert_params_from_jax(model, tree: Dict) -> None:
     """Load the JAX package's BERT tree of numpy arrays into a BertModel, in
     place; names and shapes must match."""
-    def load(params, sub, where):
-        if set(sub) != set(params):
-            raise ValueError(f"{where}: keys differ: {sorted(sub)} vs {sorted(params)}")
-        for k, p in params.items():
-            if isinstance(p, dict):
-                load(p, sub[k], f"{where}{k}.")
-                continue
-            arr = np.asarray(sub[k])
-            if tuple(arr.shape) != tuple(p.shape):
-                raise ValueError(f"{where}{k}: shape {arr.shape} != {tuple(p.shape)}")
-            p.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
-    load(model.params_, tree, "")
+    _load_tree(model.params_, tree, "")
+
+
+def bert_opt_state_to_jax(model) -> Dict:
+    """A BertModel's updater state (Adam: ``{"m": tree, "v": tree}``) as the
+    JAX package's ``opt_state_`` of numpy arrays."""
+    return _numpy_tree(model.opt_state_)
+
+
+def bert_opt_state_from_jax(model, tree: Dict) -> None:
+    """Load the JAX package's BERT updater state (numpy arrays) into a
+    BertModel's ``opt_state_``, in place; keys and shapes must match."""
+    _load_tree(model.opt_state_, tree, "")

@@ -13,6 +13,12 @@
   ``lse = m + log(l)`` [B*H, T] f32.  Under ``causal`` the keys after a
   query add nothing (-inf), where the JAX package's dense reference gives
   them NEG_INF: the two agree wherever a row keeps one real score.
+* :func:`flash_attention_bwd_plain`: the plain version of the two
+  backward kernels, with ``_flash_bwd_dq_kernel``'s and
+  ``_flash_bwd_dkv_kernel``'s arithmetic: delta = rowsum(dO * out) in
+  f32, p rebuilt from the forward's lse under the forward's masking, ds =
+  p * (dP - delta), dq, dk and dv accumulated in f32 from ds, p and dO
+  rounded to the inputs' dtype, as the TPU kernels round them.
 * :func:`fused_attention`: the dispatcher BERT calls.  For CUDA tensors
   under ``auto`` it runs the kernel (``ops.kernels.attention``) at every
   shape: the JAX package's TPU threshold (``_FLASH_MIN_SEQ``) is not
@@ -128,6 +134,37 @@ def flash_attention_plain(q, k, v, mask=None, causal: bool = False,
         m = m_new
     out = (acc / l[..., None]).to(q.dtype)
     return out, (m + torch.log(l)).reshape(B * H, T)
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, g, mask=None,
+                              causal: bool = False, scale=None):
+    """The backward kernels' arithmetic in plain PyTorch -> (dq, dk, dv) in
+    q's, k's and v's dtypes (f64 inputs stay f64).  `out` and `lse` [B*H,
+    T] are the forward's, `g` is dO.  The scores are rebuilt with the
+    forward's masking (the keep-mask's NEG_INF bias, -inf for causal keys)
+    and p = exp(s - lse); no tiling enters the arithmetic, only the order
+    of the sums.  As in the TPU kernels, a row whose every key is masked
+    has lse = NEG_INF, and p there is exp(0) = 1, not the forward's 1/S."""
+    B, H, T, D = q.shape
+    S = k.shape[2]
+    scale = _scale(q, scale)
+    acc_t = torch.promote_types(q.dtype, torch.float32)
+    qf, kf, vf, gf = (t.to(acc_t) for t in (q, k, v, g))
+    delta = torch.sum(gf * out.to(acc_t), dim=-1, keepdim=True)
+    s = (qf @ kf.transpose(-1, -2)) * scale
+    if mask is not None:
+        s = s + torch.where(mask.reshape(B, S) > 0, 0.0, NEG_INF).to(acc_t)[:, None, None, :]
+    if causal:
+        cols = torch.arange(S, device=q.device)[None, :]
+        rows = torch.arange(T, device=q.device)[:, None]
+        s = s.masked_fill(cols > rows, float("-inf"))
+    p = torch.exp(s - lse.reshape(B, H, T, 1).to(acc_t))
+    dp = gf @ vf.transpose(-1, -2)
+    ds = p * (dp - delta)
+    dq = (ds.to(k.dtype).to(acc_t) @ kf) * scale
+    dk = (ds.to(q.dtype).to(acc_t).transpose(-1, -2) @ qf) * scale
+    dv = p.to(g.dtype).to(acc_t).transpose(-1, -2) @ gf
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def fused_attention(q, k, v, mask=None, causal: bool = False, scale=None):

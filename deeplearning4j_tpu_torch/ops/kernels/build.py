@@ -142,6 +142,18 @@ def library() -> ctypes.CDLL:
                 [ctypes.c_void_p] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
                 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
             lib.dl4j_flash_attn_fwd.restype = ctypes.c_int
+            for name in ("dl4j_flash_attn_bwd_dq", "dl4j_flash_attn_bwd_dkv"):
+                fn = getattr(lib, name)
+                fn.argtypes = (
+                    [ctypes.c_void_p] * 9 + [ctypes.POINTER(ctypes.c_longlong)]
+                    + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                fn.restype = ctypes.c_int
+            lib.dl4j_layer_norm_bwd.argtypes = (
+                [ctypes.c_void_p] * 9 + [ctypes.c_int] * 2 + [ctypes.c_longlong] * 2
+                + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+            lib.dl4j_layer_norm_bwd.restype = ctypes.c_int
+            lib.dl4j_layer_norm_bwd_blocks.argtypes = [ctypes.c_int] * 2
+            lib.dl4j_layer_norm_bwd_blocks.restype = ctypes.c_int
             lib.dl4j_flash_attn_tile.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
             lib.dl4j_flash_attn_tile.restype = None
             lib.dl4j_error_string.argtypes = [ctypes.c_int]

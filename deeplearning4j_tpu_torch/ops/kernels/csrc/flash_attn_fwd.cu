@@ -34,10 +34,12 @@
 // tiles wholly after the query tile's last row are not visited.
 //
 // Bound.  Operations 4*B*H*T*S*D (halved under causal) against bytes
-// (q, k, v and out once, lse).  BERT-base at [64, 12, 128, 64]: 1.6 GFLOP,
-// 50 MB in f32 -> bytes, 15 us; at [4, 12, 2048, 64]: 51.5 GFLOP -> 0.77 ms
-// at the 67 TFLOP/s f32 rate.  A SIMT kernel cannot use the tensor cores:
-// in bf16 the bound is 0.052 ms (989 TFLOP/s), far out of its reach.  Known
+// (q, k, v and out once, lse).  BERT-base at [64, 12, 128, 64]: 3.2 GFLOP,
+// 0.048 ms at the 67 TFLOP/s f32 rate, against about 101 MB of f32 bytes
+// (0.030 ms) -> operations; in bf16 50 MB -> bytes, 0.015 ms.  At [4, 12,
+// 2048, 64]: 51.5 GFLOP -> 0.77 ms at the f32 rate.  A SIMT kernel cannot
+// use the tensor cores: in bf16 the bound there is 0.052 ms (989 TFLOP/s),
+// far out of its reach.  Known
 // gap, left for a later change: wgmma for both products, TMA or cp.async
 // double buffering of the K/V tiles.
 #include <cuda_runtime.h>

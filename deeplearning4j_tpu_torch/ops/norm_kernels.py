@@ -13,15 +13,23 @@
   (``ops/kernels/layer_norm.py``, ``csrc/layer_norm_fwd.cu``) for CUDA
   tensors, :func:`layer_norm_plain` for CPU tensors or in ``reference``
   mode.
+* :func:`layer_norm_bwd_plain` is the plain version of the backward
+  kernel, with ``_ln_bwd_kernel``'s arithmetic: from the forward's mean
+  and rstd, dx per row in x's dtype, and dgain and dbias summed over the
+  rows in f32 and cast to gain's and bias's dtypes, as ``_fused_ln_bwd``
+  returns them.
 * :func:`fused_layer_norm` is the dispatcher the layers and BERT call.
-  Under ``auto`` on CUDA it runs the kernel for any rows and any 1 <= F <=
-  8192: none of the JAX package's TPU gates (rows % 256, F % 128, rows >=
-  1024) is copied.  For CPU tensors, or in ``reference`` mode, it runs
-  :func:`layer_norm_reference`, as the JAX package does off the TPU.
+  Under ``auto`` on CUDA it runs the kernels for any rows and any 1 <= F
+  <= 8192: none of the JAX package's TPU gates (rows % 256, F % 128, rows
+  >= 1024) is copied.  For CPU tensors, or in ``reference`` mode, it runs
+  :func:`layer_norm_reference` under autograd, as the JAX package does off
+  the TPU.
 
-The kernel's backward is the VJP of :func:`layer_norm_plain`
-(:class:`FusedLayerNorm`) until the backward kernel (the JAX package's
-``_ln_bwd_kernel``) is ported.
+:class:`FusedLayerNorm` is the autograd wrapper of the kernel path: its
+forward launches the forward kernel and keeps the mean and rstd it
+emits; its backward launches the backward kernel on them and recomputes
+nothing (``ops/kernels/layer_norm.py``'s ``launch_bwd``, on the card
+only).
 """
 from __future__ import annotations
 
@@ -68,27 +76,44 @@ def layer_norm_fwd(x: torch.Tensor, gain: torch.Tensor,
     return _kernel.launch(x, gain, bias, eps)
 
 
+def layer_norm_bwd_plain(x: torch.Tensor, gain: torch.Tensor,
+                         mean: torch.Tensor, rstd: torch.Tensor,
+                         dy: torch.Tensor, bias_dtype=None):
+    """The backward kernel's arithmetic in plain PyTorch: (dx in x's dtype,
+    dgain in gain's dtype, dbias in `bias_dtype`, or None when it is None).
+    mean and rstd are the forward's [rows]; f64 inputs stay f64."""
+    F = x.shape[-1]
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xf = x.reshape(-1, F).to(acc)
+    dyf = dy.reshape(-1, F).to(acc)
+    xhat = (xf - mean.to(acc)[:, None]) * rstd.to(acc)[:, None]
+    wdy = dyf * gain.to(acc)
+    c1 = torch.mean(wdy * xhat, dim=-1, keepdim=True)
+    c2 = torch.mean(wdy, dim=-1, keepdim=True)
+    dx = (wdy - xhat * c1 - c2) * rstd.to(acc)[:, None]
+    dgain = torch.sum(dyf * xhat, dim=0).to(gain.dtype)
+    dbias = None if bias_dtype is None else torch.sum(dyf, dim=0).to(bias_dtype)
+    return dx.to(x.dtype).reshape(x.shape), dgain, dbias
+
+
 class FusedLayerNorm(torch.autograd.Function):
-    """The kernel's forward; its backward recomputes :func:`layer_norm_plain`
-    and takes that VJP."""
+    """The forward kernel, keeping its mean and rstd; the backward kernel
+    on them.  Gradients come back in x's, gain's and bias's dtypes."""
 
     @staticmethod
     def forward(ctx, x, gain, bias, eps):
-        ctx.save_for_backward(x, gain, bias)
-        ctx.eps = eps
-        return _kernel.launch(x, gain, bias, eps)[0]
+        y, mean, rstd = _kernel.launch(x, gain, bias, eps)
+        ctx.save_for_backward(x, gain, mean, rstd)
+        ctx.bias_dtype = None if bias is None else bias.dtype
+        return y
 
     @staticmethod
     def backward(ctx, g):
-        x, gain, bias = ctx.saved_tensors
-        needs = ctx.needs_input_grad[:3]
-        with torch.enable_grad():
-            ins = [None if t is None else t.detach().requires_grad_(n)
-                   for t, n in zip((x, gain, bias), needs)]
-            y = layer_norm_plain(ins[0], ins[1], ins[2], ctx.eps)[0]
-            wanted = [t for t, n in zip(ins, needs) if n]
-            grads = iter(torch.autograd.grad(y, wanted, g) if wanted else ())
-        return (*(next(grads) if n else None for n in needs), None)
+        x, gain, mean, rstd = ctx.saved_tensors
+        dx, dgain, dbias = _kernel.launch_bwd(x, gain, mean, rstd, g, ctx.bias_dtype)
+        needs = ctx.needs_input_grad
+        return (dx if needs[0] else None, dgain if needs[1] else None,
+                dbias if needs[2] else None, None)
 
 
 def fused_layer_norm(x: torch.Tensor, gain: torch.Tensor,

@@ -1,1 +1,2 @@
-"""Host-side helpers: device resolution and hit/miss counters."""
+"""Host-side helpers: device resolution, hit/miss counters and the
+multi-step training helpers (``scan_fit``)."""

@@ -1,12 +1,14 @@
 """BERT encoder with masked-LM and classification heads (the port of
-``zoo/bert.py``), inference only in this slice.
+``zoo/bert.py``): inference and training.
 
 The parameter tree is the JAX package's, name for name and shape for
 shape: embeddings, the embedding LayerNorm, the transformer blocks' tensors
 STACKED ``[L, ...]`` under ``layers``, the pooler, the MLM head (tied to
 ``tok_emb``) and the classifier.  They are ``nn.Parameter``s of one
 ``nn.Module`` (``layers.Wq`` and so on), f32 master copies.  The encoder
-loops over the layer slices ``l`` where the JAX package runs ``lax.scan``.
+loops over the layer slices ``l`` (one ``unbind`` of each stacked tensor,
+so autograd stacks the layers' gradients in one pass) where the JAX
+package runs ``lax.scan``.
 
 Per block, as in the JAX package: the layer's parameters (LayerNorm gains
 included) are cast to ``compute_dtype``; the q/k/v/o and FFN products are
@@ -20,12 +22,26 @@ CUDA each ``output_hidden`` launches the flash-attention kernel once per
 block (12 at base) and the LayerNorm kernel 1 + 2 per block (25);
 ``output_mlm`` adds one LayerNorm.
 
+Training is the JAX package's step: the masked-LM loss (sparse [B, T] or
+one-hot [B, T, V] labels under a [B, T] label mask) when the batch has
+``labels_masks``, else the classification loss; autograd of the loss over
+the f32 master parameters, then ``updater.apply(opt_state, grads,
+iteration, epoch, params=...)``, whose update is subtracted from the
+parameters in place under ``torch.no_grad()``.  On CUDA an MLM step's
+backward launches the flash-attention dQ and dK/dV kernels once per block
+and the LayerNorm backward kernel once per LayerNorm (12, 12 and 26 at
+base), beside the forward's 12 and 26.  ``fit_batch`` returns the loss
+as a device tensor without synchronising; ``score()`` reads it.
+``fit_steps`` runs k steps of a stacked ``[k, batch, ...]`` block in a
+Python loop, the same math as k ``fit_batch`` calls.  ``fit`` takes the
+JAX package's ``fused_steps`` argument but steps batch by batch: with no
+compiled multi-step body, grouping batches into blocks would change
+nothing but add host copies.
+
 ``save``/``load`` write and read the JAX package's zip: ``config.json``,
 ``params.npz`` and ``opt.npz`` (the Adam state) with leaves in
 ``tree_flatten`` order (dict keys sorted), so a zip moves between the two
-packages either way.  ``fit``, ``fit_batch`` and ``fit_steps`` raise: BERT
-training, with the LayerNorm and flash-attention backward kernels, is the
-next slice of the port.
+packages either way, and training resumes from it.
 """
 from __future__ import annotations
 
@@ -40,15 +56,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from deeplearning4j_tpu_torch.data.dataset import MultiDataSet
 from deeplearning4j_tpu_torch.nn.multilayer import torch_dtype
 from deeplearning4j_tpu_torch.ops.attention_kernels import fused_attention
 from deeplearning4j_tpu_torch.ops.norm_kernels import fused_layer_norm
-from deeplearning4j_tpu_torch.train.updaters import Adam, IUpdater, tree_leaves
+from deeplearning4j_tpu_torch.train.updaters import Adam, IUpdater, tree_leaves, tree_map
 from deeplearning4j_tpu_torch.utils.devices import resolve_device
-
-_NOT_PORTED = ("BertModel training (fit, fit_batch, fit_steps, and the LayerNorm "
-               "and flash-attention backward kernels) is the next slice of the "
-               "port; this slice runs inference only")
+from deeplearning4j_tpu_torch.utils.scan_fit import check_steps_axes
 
 
 @dataclasses.dataclass
@@ -131,8 +145,9 @@ class BertModel(nn.Module):
             for k, (shape, kind) in (spec.items() if name == "layers"
                                      else [(name, spec)]):
                 holder.register_parameter(k, nn.Parameter(
-                    self._init_tensor(shape, kind, gen), requires_grad=False))
+                    self._init_tensor(shape, kind, gen)))
         self.opt_state_ = self.updater.init_state(self.params_)
+        self._score: Optional[torch.Tensor] = None
 
     def _init_tensor(self, shape, kind, gen):
         if kind == "n":
@@ -166,8 +181,9 @@ class BertModel(nn.Module):
         def split(y):
             return y.reshape(B, T, nh, dh).transpose(1, 2)
 
+        layers = {k: v.unbind(0) for k, v in p["layers"].items()}
         for l in range(c.n_layers):
-            lp = {k: v[l].to(dt) for k, v in p["layers"].items()}
+            lp = {k: v[l].to(dt) for k, v in layers.items()}
             q = split(_dense(x, lp["Wq"], lp["bq"]))
             k = split(_dense(x, lp["Wk"], lp["bk"]))
             v = split(_dense(x, lp["Wv"], lp["bv"]))
@@ -191,6 +207,63 @@ class BertModel(nn.Module):
         p = self.params_
         pooled = torch.tanh(hidden[:, 0] @ p["pool_W"] + p["pool_b"])
         return pooled @ p["cls_W"] + p["cls_b"]
+
+    # ---- losses ----
+    def _mlm_loss(self, ids, input_mask, labels, label_mask):
+        """Mean cross-entropy over the positions `label_mask` selects;
+        `labels` sparse [B, T] token ids or one-hot [B, T, V]."""
+        lp = torch.log_softmax(self._mlm_logits(self._encode(ids, input_mask)), dim=-1)
+        if labels.ndim == 2:
+            per_tok = -torch.gather(lp, -1, labels[..., None].long())[..., 0]
+        else:
+            per_tok = -torch.sum(labels * lp, dim=-1)
+        denom = torch.clamp(torch.sum(label_mask), min=1.0)
+        return torch.sum(per_tok * label_mask) / denom
+
+    def _cls_loss(self, ids, input_mask, labels):
+        """Mean cross-entropy of the classifier against one-hot `labels`."""
+        logits = self._cls_logits(self._encode(ids, input_mask))
+        return -torch.mean(torch.sum(labels * torch.log_softmax(logits, dim=-1), dim=-1))
+
+    def _batch(self, mds):
+        """(loss function, its tensors on the device) of one batch: masked LM
+        when the batch has label masks, else classification."""
+        def dev(a):
+            return torch.as_tensor(a, device=self.device)
+
+        ids, input_mask = (dev(f) for f in mds.features)
+        (labels,) = (dev(l) for l in mds.labels)
+        if mds.labels_masks is not None:
+            return self._mlm_loss, (ids.long(), input_mask, labels, dev(mds.labels_masks[0]))
+        return self._cls_loss, (ids.long(), input_mask, labels)
+
+    def _loss_and_grads(self, loss_fn, batch):
+        """The loss and d loss / d params as the JAX tree, zeros where a
+        parameter does not reach the loss (the other task's head), as
+        ``jax.grad`` gives."""
+        params = self.params_
+        leaves = list(tree_leaves(params))
+        loss = loss_fn(*batch)
+        got = torch.autograd.grad(loss, leaves, allow_unused=True)
+        by_leaf = {id(p): torch.zeros_like(p) if g is None else g
+                   for p, g in zip(leaves, got)}
+        return loss.detach(), tree_map(lambda p: by_leaf[id(p)], params)
+
+    def gradient_for(self, mds) -> Dict[str, Any]:
+        """d loss / d params of one batch at the current parameters, as the
+        JAX tree (no update)."""
+        return self._loss_and_grads(*self._batch(mds))[1]
+
+    def _step(self, loss_fn, batch) -> torch.Tensor:
+        loss, grads = self._loss_and_grads(loss_fn, batch)
+        params = self.params_
+        with torch.no_grad():
+            upd, self.opt_state_ = self.updater.apply(
+                self.opt_state_, grads, self.iteration, self.epoch, params=params)
+            tree_map(lambda p, u: p.sub_(u), params, upd)
+        self.iteration += 1
+        self._score = loss
+        return loss
 
     def _inputs(self, ids, input_mask, segment_ids=None):
         ids = torch.as_tensor(ids, device=self.device).long()
@@ -222,14 +295,42 @@ class BertModel(nn.Module):
     def num_params(self) -> int:
         return sum(t.numel() for t in tree_leaves(self.params_))
 
-    def fit(self, iterator, epochs: int = 1, fused_steps: int = 1):
-        raise NotImplementedError(_NOT_PORTED)
+    def fit(self, iterator, epochs: int = 1, fused_steps: int = 1) -> "BertModel":
+        """Train over `iterator`'s MultiDataSets for `epochs` epochs (the task
+        is picked per batch), one `fit_batch` per batch.  `fused_steps` is
+        accepted for the JAX package's signature and changes nothing: its
+        k-step blocks would run the same k steps."""
+        for _ in range(epochs):
+            if hasattr(iterator, "reset"):
+                iterator.reset()
+            for mds in iterator:
+                self.fit_batch(mds)
+            self.epoch += 1
+        return self
 
-    def fit_batch(self, mds):
-        raise NotImplementedError(_NOT_PORTED)
+    def fit_batch(self, mds) -> torch.Tensor:
+        """One training step on a MultiDataSet: features ``[ids, input_mask]``,
+        labels ``[labels]``, and ``labels_masks`` for masked LM.  Returns the
+        loss as a device tensor, without synchronising."""
+        return self._step(*self._batch(mds))
 
-    def fit_steps(self, mds):
-        raise NotImplementedError(_NOT_PORTED)
+    def fit_steps(self, mds) -> torch.Tensor:
+        """k training steps: every array in `mds` carries a leading
+        ``[k, batch]`` steps axis.  The same math as k sequential
+        `fit_batch` calls; returns the k losses as a device tensor."""
+        lm = None if mds.labels_masks is None else mds.labels_masks[0]
+        k = check_steps_axes([("ids", mds.features[0]), ("input_mask", mds.features[1]),
+                              ("labels", mds.labels[0]), ("labels_mask", lm)])
+        losses = []
+        for i in range(k):
+            losses.append(self.fit_batch(MultiDataSet(
+                features=[f[i] for f in mds.features], labels=[l[i] for l in mds.labels],
+                labels_masks=None if lm is None else [m[i] for m in mds.labels_masks])))
+        return torch.stack(losses)
+
+    def score(self) -> float:
+        """The last step's loss (synchronises); nan before the first step."""
+        return float(self._score) if self._score is not None else float("nan")
 
     # ---- persistence ----
     def save(self, path: str) -> None:

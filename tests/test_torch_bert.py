@@ -10,8 +10,9 @@ different points).  A zip the JAX package saved loads in the port with
 equal outputs, and a port zip loads in JAX.  Each forward calls the
 attention dispatcher once per block and the LayerNorm dispatcher 1 + 2 per
 block (plus one for the MLM head), the calls that launch the kernels on
-the card.  Training raises, and the model needs CUDA unless asked for the
-CPU.  BERT-base's parameter count is the JAX tree's.
+the card.  The model needs CUDA unless asked for the CPU.  BERT-base's
+parameter count is the JAX tree's.  Training is held to the JAX package's
+in `test_torch_bert_train.py`.
 """
 import math
 
@@ -143,13 +144,6 @@ def test_each_forward_calls_the_kernel_dispatchers(monkeypatch, head, attention,
     ids, mask, _ = _inputs("ones")
     getattr(tm, head)(ids, mask)
     assert calls == {"attention": attention, "layer_norm": layer_norm}
-
-
-def test_training_is_the_next_slice():
-    tm = BertModel(BertConfig.tiny(), device="cpu")
-    for call in (lambda: tm.fit([]), lambda: tm.fit_batch(None), lambda: tm.fit_steps(None)):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            call()
 
 
 def test_device_defaults_to_cuda_and_raises_without_it():

@@ -3,7 +3,8 @@
 An AST scan of every module of the port and of chip_smoke.py finds no
 import of either; a fresh interpreter that imports the whole port has
 neither in `sys.modules` (nor the kernel build module, loaded lazily); and
-the entry points refuse to run without CUDA unless asked for the CPU.
+the entry points refuse to run without CUDA unless asked for the CPU, and
+BERT training runs on the device the model was asked for.
 """
 import ast
 import pathlib
@@ -47,6 +48,8 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
         "import deeplearning4j_tpu_torch.nn.graph, deeplearning4j_tpu_torch.zoo.graphs\n"
         "import deeplearning4j_tpu_torch.zoo.bert, deeplearning4j_tpu_torch.ops.norm_kernels\n"
         "import deeplearning4j_tpu_torch.ops.attention_kernels\n"
+        "import deeplearning4j_tpu_torch.data, deeplearning4j_tpu_torch.nlp\n"
+        "import deeplearning4j_tpu_torch.utils.scan_fit\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'deeplearning4j_tpu')]\n"
         "assert not bad, bad\n"
@@ -83,3 +86,21 @@ def test_entry_points_refuse_to_run_without_cuda():
     assert LeNet().init_model(device="cpu").device.type == "cpu"
     assert ModelRegistry().register_zoo("lenet", "LeNet",
                                         device="cpu").model.device.type == "cpu"
+
+
+def test_bert_training_defaults_to_cuda_and_runs_where_asked(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a machine without CUDA")
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.data import MultiDataSet
+    from deeplearning4j_tpu_torch.zoo import BertConfig, BertModel
+
+    model = BertModel(BertConfig.tiny(), device="cpu")
+    model.save(str(tmp_path / "bert.zip"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        BertModel.load(str(tmp_path / "bert.zip"))
+    ids = np.random.RandomState(0).randint(0, 100, (2, 8)).astype(np.int32)
+    loss = model.fit_batch(MultiDataSet([ids, np.ones((2, 8), np.float32)], [ids],
+                                        labels_masks=[np.ones((2, 8), np.float32)]))
+    assert loss.device.type == "cpu" and model.iteration == 1
