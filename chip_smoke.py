@@ -149,6 +149,55 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    the same mask, its forward outside the timed region; the backward of
    ``F.layer_norm``), each the median of 25 runs with L2 flushed, beside
    the bound.
+24. qmm_parity — ``q_matmul`` and ``int8_matmul`` against their plain
+   versions at M in {1, 4, 16, 37} and (K, N) in {(25088, 4096), (4096,
+   4096), (4096, 1000), (800, 500)}: q_matmul in f32 (TF32 off, 1e-4 *
+   max|ref|) and bf16 (``Q_BF16_ULPS`` ulps of max|ref|), with and without a
+   bias; int8_matmul with and without a bias and an x_scale, bitwise; each
+   call adds one launch.  ``quantize_tensor``, ``quantize_activation`` and
+   the KV cache's ``quantize_rows`` on the card equal the CPU's bit for bit
+   (the CPU's equal the JAX package's numpy, ``tests/test_torch_quant.py``).
+25. quant_slice — the int8 serving path: ``ModelServer(max_batch=16)``
+   deploys full-width VGG16 (f32, version 1), ``quant.calibrate`` runs over
+   2 batches of 8 (numpy seed 0), and ``registry.register_quantized`` rolls
+   it to version 2 (weight-only) and version 3 (static int8 activations),
+   each warmed and serving 12 requests of 1-8 rows from 8 threads, the
+   launch counts set to 0 just before each roll: exactly 3 ``q_matmul``
+   (version 2) or 3 ``int8_matmul`` (version 3) launches per warmup run
+   and per dispatch and none of ``fused_dense``.  Every bucket run is
+   recorded and run again on the same padded batch in ``reference`` mode
+   (within 1e-4 * max|ref|; a served batch's rows can depend on the batch
+   cuDNN sees, and an int8 activation's rounding with them).  Also
+   ``parity_check`` against f32, bucket-16 forward ms of each version and
+   in reference mode, resident bytes.  quant_profile — one static-int8
+   bucket-16 forward under ``torch.profiler``.
+26. qmm_times — both kernels at VGG16's fc6, fc7 and output shapes, M = 16
+   (q_matmul in f32 and bf16): kernel, plain, ``torch.addmm`` on the weight
+   dequantized outside the timed region (``torch._int_mm`` takes no M =
+   16), bound (bytes over 3.35 TB/s, or operations over the f32, bf16 or
+   int8 peak).
+27. paged_parity — ``paged_attention`` against its plain version at
+   [8,4,16], [16,12,64] and [3,2,128], page 16, lengths from 1 to 2,048
+   with partial last pages, f32, bf16 and int8 pages; each call adds one
+   launch.
+28. decode — ``DecodeEngine`` at bench.py's decode configuration (vocab
+   96, d_model 64, 4 heads, 192 pages, max_seq_len 256, max batch 8, 48
+   prompts of the bench's skewed lengths, seed 0), int8 KV then f32 KV, in
+   ``auto`` and in ``reference`` mode: tokens equal (a flip prints its step
+   and the top-2 gap, and fails), ``paged_attention`` launches (set to 0
+   just before the submits) equal to the decode steps, none in reference
+   mode, no new shape after ``warmup()``; one step's logits from one pool
+   and one set of block tables within 1e-4 * max|ref|; tokens/s,
+   inter-token p50/p99, the pages' high water and bytes per page.
+29. decode_wide — the same at head_dim 64 (vocab 30522, d_model 768, 12
+   heads, max_seq_len 2048, max batch 16, 2,048 pages; 16 prompts of 1,024
+   to 1,900 tokens, 16 to 32 new tokens each).  decode_profile — the int8
+   flood of phase 28 under ``torch.profiler``.
+30. paged_times — ``paged_attention`` at [16,12,64] over 2,048-token
+   histories, f32 and int8 pages: kernel, plain, and
+   ``scaled_dot_product_attention`` over K/V already gathered to [B, H, L,
+   D] with the length mask (the gather outside the timed region), beside
+   the bound.
 
 Then the kernels line, nvidia-smi's line, and the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -1472,6 +1521,545 @@ def phase_ln_bwd_times(nk, layer_norm, dev, rows=8192, F=768):
     return out
 
 
+QMM_KERNELS = {
+    "q_matmul": ("deeplearning4j_tpu/ops/pallas/matmul.py:232",
+                 "deeplearning4j_tpu_torch/ops/kernels/csrc/q_matmul.cu"),
+    "int8_matmul": ("deeplearning4j_tpu/ops/pallas/matmul.py:185",
+                    "deeplearning4j_tpu_torch/ops/kernels/csrc/int8_matmul.cu"),
+}
+PAGED_KERNEL = ("deeplearning4j_tpu/ops/pallas/paged_attention.py:117",
+                "deeplearning4j_tpu_torch/ops/kernels/csrc/paged_attention.cu")
+INT8_PEAK_OPS_PER_S = 1979e12
+#: VGG16's three Dense layers, (K, N): fc6, fc7 and the softmax head
+VGG_DENSE = {"fc6": (25088, 4096), "fc7": (4096, 4096), "output": (4096, 1000)}
+#: bound on q_matmul against its plain version in bf16, in bf16 ulps of
+#: max|ref|: the kernel rounds once, from f32 (as the TPU kernel does), the
+#: plain version three times (the product, the scaled product and the bias
+#: sum, as ``q_matmul_reference`` does), each within half an ulp of its
+#: value; this phase read 1 ulp at worst on an H100 80GB HBM3 at 700 W
+Q_BF16_ULPS = 3
+#: paged-attention parity: [B, H, D] and the history lengths (page 16):
+#: lengths 1, partial last pages, full pages and 2,048
+PAGED_SHAPES = [(8, 4, 16, [1, 16, 17, 200, 31, 64, 129, 255]),
+                (16, 12, 64, [2048, 1, 1031, 2047, 16, 700, 1900, 33,
+                              2048, 5, 1024, 1025, 15, 640, 1999, 100]),
+                (3, 2, 128, [37, 1, 2048])]
+PAGE = 16
+#: the decode configurations: bench.py:2807-2836's, and a head_dim-64 one
+DECODE_SMALL = dict(vocab=96, d_model=64, n_heads=4, num_blocks=192,
+                    max_seq_len=256, max_decode_batch=8)
+DECODE_WIDE = dict(vocab=30522, d_model=768, n_heads=12, num_blocks=16 * 2048 // PAGE,
+                   max_seq_len=2048, max_decode_batch=16)
+
+
+def q_bound(M, K, N, dt):
+    """Least time for one q_matmul: x, the int8 W, the scales and the bias
+    read once, y written once, over 3.35 TB/s; or 2*M*N*K operations over
+    the compute dtype's peak; whichever is larger."""
+    es = torch.tensor([], dtype=dt).element_size()
+    nbytes = M * K * es + K * N + 2 * N * 4 + M * N * es
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2.0 * M * N * K / PEAK_OPS_PER_S[dt]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def int8_bound(M, K, N, out_dt):
+    """Least time for one int8_matmul: int8 x and W, the scales and the bias
+    read once, y written once, over 3.35 TB/s; or 2*M*N*K int8 operations
+    over 1,979 TOP/s; whichever is larger."""
+    es = torch.tensor([], dtype=out_dt).element_size()
+    nbytes = M * K + K * N + 2 * N * 4 + M * N * es
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2.0 * M * N * K / INT8_PEAK_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def paged_bound(B, H, D, seq_lens, q_dt, kv_int8):
+    """Least time for one paged_attention: q, the K and V rows of the
+    tokens each sequence holds (and their scales), the block tables, the
+    lengths read once, out written once, over 3.35 TB/s; or 4*H*D
+    operations per held token over the f32 rate; whichever is larger."""
+    es = torch.tensor([], dtype=q_dt).element_size()
+    tokens = int(sum(seq_lens))
+    kv = 2 * tokens * H * D * (1 if kv_int8 else es) + (2 * tokens * H * 4 if kv_int8 else 0)
+    pages = sum(-(-int(n) // PAGE) for n in seq_lens)
+    nbytes = 2 * B * H * D * es + kv + 4 * (pages + B)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 4.0 * tokens * H * D / PEAK_OPS_PER_S[torch.float32]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_qmm_parity(matmul, qk, dev):
+    """q_matmul (f32 with TF32 off, bf16; with and without a bias) and
+    int8_matmul (with and without a bias and an x_scale, held bitwise)
+    against their plain versions; each call adds one launch.  The int8
+    operands quantized on the card equal those quantized on the CPU, to the
+    bit."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cases = 0
+    for K, N in [(25088, 4096), (4096, 4096), (4096, 1000), (800, 500)]:
+        w = torch.randn(K, N, generator=gen, device=dev) / math.sqrt(K)
+        qt = qk.quantize_tensor(w)
+        host = qk.quantize_tensor(w.cpu())
+        require(torch.equal(qt.q.cpu(), host.q) and torch.equal(qt.scale.cpu(), host.scale),
+                f"quantize_tensor [{K},{N}] on the card differs from the CPU's")
+        b = torch.randn(N, generator=gen, device=dev)
+        for M in (1, 4, 16, 37):
+            x32 = torch.randn(M, K, generator=gen, device=dev)
+            errs = {}
+            for dt in (torch.float32, torch.bfloat16):
+                x = x32.to(dt)
+                for bias in (None, b):
+                    before = matmul.Q_LAUNCHES.value
+                    y = matmul.q_matmul(x, qt.q, qt.scale, bias=bias)
+                    torch.cuda.synchronize()
+                    require(matmul.Q_LAUNCHES.value == before + 1,
+                            "q_matmul did not launch its kernel")
+                    r = matmul.q_matmul_plain(x, qt.q, qt.scale, bias=bias)
+                    require(y.dtype == dt and y.shape == (M, N),
+                            f"q_matmul output {y.dtype} {tuple(y.shape)}")
+                    err = (y.float() - r.float()).abs().max().item()
+                    ref = r.float().abs().max().item()
+                    tol = (F32_RTOL * ref if dt == torch.float32
+                           else Q_BF16_ULPS * bf16_ulp(ref))
+                    require(err <= tol, f"q_matmul M={M} K={K} N={N} {dt} bias="
+                            f"{bias is not None}: max|diff| {err} > tol {tol}")
+                    errs[f"q_matmul {str(dt)[6:]} bias={bias is not None}"] = {
+                        "abs": err, "rel": err / max(ref, 1e-30)}
+                    cases += 1
+            xq = qk.quantize_activation(x32, 0.05)
+            require(torch.equal(xq.cpu(), qk.quantize_activation(x32.cpu(), 0.05)),
+                    "quantize_activation on the card differs from the CPU's")
+            for xs in (None, 0.05):
+                for bias in (None, b):
+                    before = matmul.INT8_LAUNCHES.value
+                    y = matmul.int8_matmul(xq, qt.q, qt.scale, x_scale=xs, bias=bias)
+                    torch.cuda.synchronize()
+                    require(matmul.INT8_LAUNCHES.value == before + 1,
+                            "int8_matmul did not launch its kernel")
+                    r = matmul.int8_matmul_plain(xq, qt.q, qt.scale, x_scale=xs, bias=bias)
+                    require(y.dtype == torch.float32 and torch.equal(y, r),
+                            f"int8_matmul M={M} K={K} N={N} x_scale={xs} bias="
+                            f"{bias is not None} is not bitwise equal to its plain "
+                            f"version (max|diff| {(y - r).abs().max().item()})")
+                    cases += 1
+            errs["int8_matmul"] = "bitwise, 4 cases"
+            emit("qmm_parity", M=M, K=K, N=N, errors=errs)
+    emit("qmm_parity_done", cases=cases, ok=True)
+
+
+def _counts(matmul):
+    return {"q_matmul": matmul.Q_LAUNCHES.value, "int8_matmul": matmul.INT8_LAUNCHES.value,
+            "fused_dense": matmul.LAUNCHES.value}
+
+
+def phase_quant_slice(matmul, dispatch, ModelServer, quant, dev, image=224, classes=1000):
+    """The quantized serving path: VGG16 f32 deployed, calibrated, rolled to
+    int8 twice (weight-only, then static activations), each version warmed
+    and serving 12 requests from 8 threads; launch counts per version,
+    every dispatch against reference mode on the same padded batch."""
+    sizes = [1, 8, 3, 5, 2, 7, 4, 6, 1, 8, 2, 5]
+    rng = np.random.default_rng(0)
+    cal = [rng.standard_normal((8, image, image, 3), dtype=np.float32) for _ in range(2)]
+    x16 = torch.as_tensor(rng.standard_normal((16, image, image, 3), dtype=np.float32),
+                          device=dev)
+    srv = ModelServer(max_batch=16, device=dev)
+    runs = []
+    plain_run = srv.cache.run
+
+    def recording_run(key, model, x):
+        out = plain_run(key, model, x)
+        runs.append((key, model, np.array(x), out))
+        return out
+
+    srv.cache.run = recording_run
+    res = {"versions": {}}
+    try:
+        t0 = time.monotonic()
+        base = srv.deploy("vgg16", zoo="VGG16").model
+        res["deploy_s"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        stats = quant.calibrate(base, cal)
+        res["calibrate_s"] = time.monotonic() - t0
+        res["calibration"] = {"observer": stats.observer, "batches": stats.batches,
+                              "activations": len(stats.ranges), "crc32": stats.crc32()}
+        res["f32_bytes"] = sum(p.numel() * p.element_size() for p in base.parameters())
+        res["forward_ms_bucket16_f32"] = time_ms(lambda: base.output(x16), dev, n=5)
+        for tag, cfg, kernel in (
+                ("weight_only", quant.QuantConfig(), "q_matmul"),
+                ("static", quant.QuantConfig(quantize_activations=True), "int8_matmul")):
+            reqs = [rng.standard_normal((n, image, image, 3), dtype=np.float32)
+                    for n in sizes]
+            for c in (matmul.Q_LAUNCHES, matmul.INT8_LAUNCHES, matmul.LAUNCHES):
+                c.reset()
+            runs.clear()
+            d0 = srv.stats()["dispatches"]
+            t0 = time.monotonic()
+            entry = srv.registry.register_quantized("vgg16", calibration=stats, config=cfg,
+                                                    base_version=1)
+            roll_s = time.monotonic() - t0
+            warmed = srv.registry.warmup("vgg16", srv.cache, version=entry.version)
+            with ThreadPoolExecutor(max_workers=8) as ex:
+                futs = [ex.submit(srv.output, "vgg16", r, timeout=600) for r in reqs]
+                outs = [f.result() for f in futs]
+            counts = _counts(matmul)
+            dispatches = srv.stats()["dispatches"] - d0
+            qm = entry.model
+            require(counts[kernel] == 3 * (len(warmed) + dispatches) and counts["fused_dense"] == 0
+                    and sum(counts.values()) == counts[kernel],
+                    f"{tag}: launches {counts}, want {kernel} = 3 x ({len(warmed)} warmup runs + "
+                    f"{dispatches} dispatches) and no other")
+            require(len(runs) == len(warmed) + dispatches,
+                    f"{tag}: {len(runs)} bucket runs recorded")
+            for n, o in zip(sizes, outs):
+                require(o.shape == (n, classes) and np.isfinite(o).all()
+                        and np.allclose(o.sum(axis=1), 1.0, atol=1e-4),
+                        f"{tag}: answer shape {o.shape}, non-finite or not a softmax")
+            prev = dispatch.set_dispatch_mode("reference")
+            try:
+                worst, bitwise = 0.0, True
+                for key, model, x, out in runs:
+                    ref = plain_run(key, model, x)
+                    err = float(np.abs(out - ref).max())
+                    top = float(np.abs(ref).max())
+                    require(err <= F32_RTOL * top,
+                            f"{tag}: a dispatch of {x.shape[0]} rows differs from reference "
+                            f"mode by {err} > {F32_RTOL * top}")
+                    worst = max(worst, err / top)
+                    bitwise = bitwise and err == 0.0
+                ref_ms = time_ms(lambda: qm.output(x16), dev, n=5)
+            finally:
+                dispatch.set_dispatch_mode(prev)
+            par = quant.parity_check(base, qm, x16)
+            res["versions"][tag] = {
+                "version": entry.version, "kernel": kernel, "roll_s": roll_s,
+                "warmup_runs": len(warmed), "dispatches": dispatches, "launches": counts,
+                "max_rel_err_vs_reference": worst, "bitwise_vs_reference": bitwise,
+                "parity_check_vs_f32": par, "bytes_resident": qm.bytes_resident(),
+                "dtypes": qm.describe()["dtypes"],
+                "forward_ms_bucket16": time_ms(lambda: qm.output(x16), dev, n=5),
+                "forward_reference_ms_bucket16": ref_ms}
+        stats_all = srv.stats()
+        res["latency_ms"] = stats_all["latency_ms"]
+        res["failed"] = stats_all["failed"]
+        require(stats_all["failed"] == 0 and srv.metrics.dispatch_retries.value == 0,
+                f"failures {stats_all['failed']}")
+    finally:
+        srv.shutdown()
+    emit("quant_slice", model="VGG16", input=f"{image}x{image}x3 f32", classes=classes,
+         requests=len(sizes),
+         rows=sum(sizes), **res)
+    return res, qm, x16
+
+
+def phase_quant_profile(qm, x16):
+    """One bucket-16 forward of the static int8 version under torch.profiler:
+    busy time, idle share, the top kernels and int8_matmul's share."""
+    qm.output(x16)
+    window_ms, busy_ms, by_name, n = _trace(lambda: qm.output(x16))
+    if busy_ms is None:
+        emit("quant_profile", window_ms=window_ms, device_busy_ms="not measured",
+             idle_share="not measured")
+        return
+    emit("quant_profile", bucket=16, version="static int8", window_ms=window_ms,
+         device_busy_ms=busy_ms, idle_share=max(0.0, 1.0 - busy_ms / window_ms), kernels=n,
+         int8_matmul_ms=_share(by_name, "int8_matmul_kernel"), top=_top(by_name, 12))
+
+
+def phase_qmm_times(matmul, qk, dev, M=16):
+    """Each quantized kernel at VGG16's Dense shapes, M = 16: kernel, plain,
+    one PyTorch call as a yardstick (``torch.addmm`` on the weight
+    dequantized outside the timed region; ``torch._int_mm`` where its shape
+    rules allow), bound."""
+    rows = {}
+    for layer, (K, N) in VGG_DENSE.items():
+        gen = torch.Generator(device=dev).manual_seed(4)
+        qt = qk.quantize_tensor(torch.randn(K, N, generator=gen, device=dev) / math.sqrt(K))
+        b = torch.randn(N, generator=gen, device=dev)
+        x32 = torch.randn(M, K, generator=gen, device=dev)
+        for dt in (torch.float32, torch.bfloat16):
+            x, wd, bl = x32.to(dt), qk.dequantize(qt, dt), b.to(dt)
+            fn = lambda: matmul.q_matmul(x, qt.q, qt.scale, bias=b)  # noqa: E731
+            plain = lambda: matmul.q_matmul_plain(x, qt.q, qt.scale, bias=b)  # noqa: E731
+            err = (fn().float() - plain().float()).abs().max().item()
+            bound_ms, bound_by = q_bound(M, K, N, dt)
+            rows[("q_matmul", layer, dt)] = dict(
+                ms=time_ms(fn, dev), plain_ms=time_ms(plain, dev),
+                library_ms=time_ms(lambda: torch.addmm(bl, x, wd), dev),
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+            emit("qmm_times", kernel="q_matmul", layer=layer, M=M, K=K, N=N, dtype=str(dt),
+                 **rows[("q_matmul", layer, dt)])
+        xq = qk.quantize_activation(x32, 0.05)
+        fn = lambda: matmul.int8_matmul(xq, qt.q, qt.scale, x_scale=0.05, bias=b)  # noqa: E731
+        plain = lambda: matmul.int8_matmul_plain(xq, qt.q, qt.scale, x_scale=0.05, bias=b)  # noqa: E731
+        err = (fn() - plain()).abs().max().item()
+        # torch._int_mm wants M > 16 and K, N multiples of 8: no yardstick at M = 16
+        lib = (time_ms(lambda: torch._int_mm(xq, qt.q), dev)
+               if M > 16 and K % 8 == 0 and N % 8 == 0 else None)
+        bound_ms, bound_by = int8_bound(M, K, N, torch.float32)
+        rows[("int8_matmul", layer)] = dict(
+            ms=time_ms(fn, dev), plain_ms=time_ms(plain, dev), library_ms=lib,
+            bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+        emit("qmm_times", kernel="int8_matmul", layer=layer, M=M, K=K, N=N,
+             dtype="int8 -> torch.float32", **rows[("int8_matmul", layer)])
+    return rows
+
+
+def _paged_inputs(B, H, D, lens, dt, kv_int8, dev, seed):
+    """q, pages, scales, block tables, lengths: each sequence's pages are
+    distinct, in a shuffled order, with 3 pages nobody owns."""
+    from deeplearning4j_tpu_torch.serving.decode import quantize_rows
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    max_pages = -(-max(lens) // PAGE)
+    n_pages = [-(-n // PAGE) for n in lens]
+    P = sum(n_pages) + 3
+    q = torch.randn(B, H, D, generator=gen, device=dev).to(dt)
+    k = torch.randn(P, PAGE, H, D, generator=gen, device=dev)
+    v = torch.randn(P, PAGE, H, D, generator=gen, device=dev)
+    perm = torch.randperm(P, generator=torch.Generator().manual_seed(seed)).tolist()
+    bt = torch.zeros(B, max_pages, dtype=torch.int32)
+    off = 0
+    for i, n in enumerate(n_pages):
+        bt[i, :n] = torch.tensor(perm[off:off + n])
+        off += n
+    sl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    if kv_int8:
+        (k8, ks), (v8, vs) = quantize_rows(k), quantize_rows(v)
+        host = quantize_rows(k.cpu())
+        require(torch.equal(k8.cpu(), host[0]) and torch.equal(ks.cpu(), host[1]),
+                "quantize_rows on the card differs from the CPU's")
+        k, v = k8, v8
+    else:
+        k, v, ks, vs = k.to(dt), v.to(dt), None, None
+    return (q, k, v, bt.to(dev), sl), dict(k_scales=ks, v_scales=vs)
+
+
+def phase_paged_parity(pa, dev):
+    """paged_attention against its plain version: f32, bf16 and int8
+    pages, ragged lengths; each call adds one launch."""
+    cases = 0
+    for i, (B, H, D, lens) in enumerate(PAGED_SHAPES):
+        errs = {}
+        for mode, dt, kv_int8 in (("f32", torch.float32, False),
+                                  ("bf16", torch.bfloat16, False),
+                                  ("int8", torch.float32, True)):
+            args, kw = _paged_inputs(B, H, D, lens, dt, kv_int8, dev, seed=20 + i)
+            before = pa.LAUNCHES.value
+            y = pa.paged_attention(*args, **kw)
+            torch.cuda.synchronize()
+            require(pa.LAUNCHES.value == before + 1, "paged_attention did not launch its kernel")
+            r = pa.paged_attention_plain(*args, **kw)
+            require(y.dtype == dt and y.shape == (B, H, D),
+                    f"paged_attention output {y.dtype} {tuple(y.shape)}")
+            err = (y.float() - r.float()).abs().max().item()
+            ref = r.float().abs().max().item()
+            tol = tolerance(dt, ref)
+            require(err <= tol, f"paged_attention [{B},{H},{D}] {mode}: max|diff| {err} > "
+                    f"tol {tol}")
+            errs[mode] = {"abs": err, "rel": err / max(ref, 1e-30)}
+            cases += 1
+        emit("paged_parity", shape=[B, H, D], page=PAGE, seq_lens=lens, errors=errs)
+    emit("paged_parity_done", cases=cases, ok=True)
+
+
+def _decode_flood(cfg):
+    """The prompts and new-token counts: bench.py's skewed lengths for the
+    small configuration, 1,024 to 1,900-token prompts with 16 to 32 new
+    tokens for the wide one; numpy seed 0."""
+    rng = np.random.default_rng(0)
+    if cfg is DECODE_SMALL:
+        max_prompt = cfg["max_seq_len"] - 24
+        pool = [p for p in [3, 5, 7, 9, 14, 20, 33, 60] if p < max_prompt] + [max_prompt]
+        weights = np.array([4.0] * (len(pool) - 1) + [1.0])
+        lens = rng.choice(pool, size=48, p=weights / weights.sum())
+        return [(rng.integers(1, cfg["vocab"], size=int(n)), int(rng.integers(4, 20)))
+                for n in lens]
+    return [(rng.integers(1, cfg["vocab"], size=int(rng.integers(1024, 1901))),
+             int(rng.integers(16, 33))) for _ in range(16)]
+
+
+def _decode_run(dec, pa, dispatch, model, cfg, kv, mode, label):
+    """One engine over the flood in a dispatch mode: warmup, launch count
+    set to 0 just before the submits and read after the last token."""
+    eng = dec.DecodeEngine(model, num_blocks=cfg["num_blocks"],
+                           max_seq_len=cfg["max_seq_len"],
+                           max_decode_batch=cfg["max_decode_batch"], kv_dtype=kv,
+                           model_label=label)
+    prev = dispatch.set_dispatch_mode(mode)
+    try:
+        warm = eng.warmup()
+        pa.LAUNCHES.reset()
+        t0 = time.monotonic()
+        futs = [eng.submit(p, max_new_tokens=n) for p, n in _decode_flood(cfg)]
+        peak_active = 0
+        while not all(f.done() for f in futs):
+            peak_active = max(peak_active, eng.cache.active_sequences)
+            time.sleep(0.002)
+        outs = [f.result(timeout=600) for f in futs]
+        wall = time.monotonic() - t0
+        launches = pa.LAUNCHES.value
+        st = eng.stats()
+    finally:
+        dispatch.set_dispatch_mode(prev)
+        eng.shutdown()
+    tokens = sum(len(o) for o in outs)
+    lat = eng.instruments.inter_token(label).percentiles((50, 99))
+    return {"outs": outs, "warm_shapes": warm, "fresh_after": st["compile"]["fresh"],
+            "launches": launches, "decode_steps": st["decode_steps"], "tokens": tokens,
+            "wall_s": wall, "tokens_per_s": tokens / wall,
+            "inter_token_p50_ms": lat["p50"], "inter_token_p99_ms": lat["p99"],
+            "kv_high_water_pages": st["kv"]["high_water"],
+            "bytes_per_block": st["kv"]["bytes_per_block"], "peak_active": peak_active}
+
+
+def _first_flip(model, flood, got, want, dev):
+    """The first token where two runs differ, and the reference-side top-2
+    gap there (the prompt and the common prefix through the model's
+    prefill)."""
+    for s, (g, w) in enumerate(zip(got, want)):
+        if list(g) != list(w):
+            t = next(i for i in range(min(len(g), len(w))) if g[i] != w[i])
+            seq = np.concatenate([flood[s][0], np.asarray(w[:t])]).astype(np.int64)
+            with torch.inference_mode():
+                last, _, _ = model.prefill(torch.as_tensor(seq[None], device=dev),
+                                           torch.tensor([seq.size], device=dev))
+            top2 = torch.topk(last[0].float(), 2).values.tolist()
+            return {"sequence": s, "step": t, "auto": int(g[t]), "reference": int(w[t]),
+                    "top2_gap": top2[0] - top2[1]}
+    return None
+
+
+def _decode_step_logits(dec, pa, dispatch, model, cfg, kv, dev, n_seqs=8):
+    """One decode step's logits, kernel against plain version, from one
+    pool and one set of block tables filled by the model's prefill."""
+    flood = _decode_flood(cfg)[:n_seqs]
+    cache = dec.PagedKVCache(cfg["num_blocks"], PAGE, model.n_heads, model.head_dim,
+                             dtype=kv, device=dev)
+    with torch.inference_mode():
+        last_tok = []
+        for i, (p, _) in enumerate(flood):
+            _, k, v = model.prefill(torch.as_tensor(p[None].astype(np.int64), device=dev),
+                                    torch.tensor([p.size], device=dev))
+            cache.allocate(i)
+            cache.write(i, k[0], v[0])
+            last_tok.append(int(p[-1]))
+        q, k, v = model.decode_qkv(torch.tensor(last_tok, device=dev))
+        for i in range(n_seqs):
+            cache.write(i, k[i:i + 1], v[i:i + 1])
+        max_pages = -(-cfg["max_seq_len"] // PAGE)
+        bt, sl = (torch.as_tensor(a, device=dev)
+                  for a in cache.block_tables(list(range(n_seqs)), n_seqs, max_pages))
+        pages = cache.pages()
+        ks, vs = (pages[2], pages[3]) if kv == "int8" else (None, None)
+        out = {}
+        for mode in ("auto", "reference"):
+            prev = dispatch.set_dispatch_mode(mode)
+            try:
+                out[mode] = model.decode_out(dec.paged_attn(q, pages[0], pages[1], bt, sl,
+                                                            k_scales=ks, v_scales=vs))
+            finally:
+                dispatch.set_dispatch_mode(prev)
+    err = (out["auto"] - out["reference"]).abs().max().item()
+    top = out["reference"].abs().max().item()
+    require(err <= F32_RTOL * top, f"decode step logits ({kv} KV): max|diff| {err} > "
+            f"{F32_RTOL * top}")
+    return err / top
+
+
+def phase_decode(dec, pa, dispatch, dev, cfg, phase):
+    """The decode path at one configuration, int8 KV then f32 KV: tokens in
+    auto mode equal reference mode's, one paged_attention launch per decode
+    step, no new shape after warmup; one step's logits against reference
+    mode."""
+    model = dec.TinyDecodeModel(vocab=cfg["vocab"], d_model=cfg["d_model"],
+                                n_heads=cfg["n_heads"], seed=0, device=dev)
+    flood = _decode_flood(cfg)
+    res = {}
+    for kv in ("int8", "f32"):
+        auto = _decode_run(dec, pa, dispatch, model, cfg, kv, "auto", f"{phase}-{kv}-auto")
+        ref = _decode_run(dec, pa, dispatch, model, cfg, kv, "reference", f"{phase}-{kv}-ref")
+        flip = _first_flip(model, flood, auto["outs"], ref["outs"], dev)
+        if flip is not None:
+            emit(phase + "_token_flip", kv_dtype=kv, **flip)
+        require(flip is None, f"{phase} {kv} KV: tokens differ from reference mode: {flip}")
+        for r, tag in ((auto, "auto"), (ref, "reference")):
+            require(r["fresh_after"] == r["warm_shapes"],
+                    f"{phase} {kv} {tag}: {r['fresh_after'] - r['warm_shapes']} new shapes "
+                    "after warmup")
+        require(auto["launches"] == auto["decode_steps"] > 0 and ref["launches"] == 0,
+                f"{phase} {kv}: paged_attention launches {auto['launches']} over "
+                f"{auto['decode_steps']} decode steps (reference mode: {ref['launches']})")
+        step_rel = _decode_step_logits(dec, pa, dispatch, model, cfg, kv, dev)
+        res[kv] = {k: v for k, v in auto.items() if k != "outs"}
+        res[kv]["reference"] = {k: ref[k] for k in ("tokens_per_s", "inter_token_p50_ms",
+                                                    "inter_token_p99_ms", "decode_steps")}
+        res[kv]["step_logits_rel_err_vs_reference"] = step_rel
+        emit(phase, vocab=cfg["vocab"], d_model=cfg["d_model"], n_heads=cfg["n_heads"],
+             head_dim=model.head_dim, page=PAGE, num_blocks=cfg["num_blocks"],
+             max_seq_len=cfg["max_seq_len"], max_decode_batch=cfg["max_decode_batch"],
+             prompts=len(flood), kv_dtype=kv, **res[kv])
+    return res
+
+
+def phase_decode_profile(dec, dev):
+    """The small configuration's int8 flood under torch.profiler, in auto
+    mode: busy time, idle share, the top kernels and paged_attention's
+    share."""
+    cfg = DECODE_SMALL
+    model = dec.TinyDecodeModel(vocab=cfg["vocab"], d_model=cfg["d_model"],
+                                n_heads=cfg["n_heads"], seed=0, device=dev)
+    eng = dec.DecodeEngine(model, num_blocks=cfg["num_blocks"], max_seq_len=cfg["max_seq_len"],
+                           max_decode_batch=cfg["max_decode_batch"], kv_dtype="int8",
+                           model_label="decode-profile")
+    try:
+        eng.warmup()
+
+        def flood():
+            futs = [eng.submit(p, max_new_tokens=n) for p, n in _decode_flood(cfg)]
+            for f in futs:
+                f.result(timeout=600)
+
+        window_ms, busy_ms, by_name, n = _trace(flood)
+    finally:
+        eng.shutdown()
+    if busy_ms is None:
+        emit("decode_profile", window_ms=window_ms, device_busy_ms="not measured",
+             idle_share="not measured")
+        return
+    emit("decode_profile", kv_dtype="int8", window_ms=window_ms, device_busy_ms=busy_ms,
+         idle_share=max(0.0, 1.0 - busy_ms / window_ms), kernels=n,
+         paged_attention_ms=_share(by_name, "paged_attention_kernel"), top=_top(by_name, 12))
+
+
+def phase_paged_times(pa, dev, B=16, H=12, D=64, L=2048):
+    """paged_attention at [16, 12, 64] with 2,048-token histories, f32 and
+    int8 pages: kernel, plain and ``scaled_dot_product_attention`` over K/V
+    already gathered to [B, H, L, D] with the length mask (the gather
+    outside the timed region), beside the bound."""
+    import torch.nn.functional as F
+
+    rows = {}
+    lens = [L] * B
+    for mode, kv_int8 in (("f32", False), ("int8", True)):
+        args, kw = _paged_inputs(B, H, D, lens, torch.float32, kv_int8, dev, seed=30)
+        q, k, v, bt, sl = args
+        fn = lambda: pa.paged_attention(*args, **kw)  # noqa: E731
+        plain = lambda: pa.paged_attention_plain(*args, **kw)  # noqa: E731
+        err = (fn() - plain()).abs().max().item()
+        kd = pa.dequant_rows(k, kw["k_scales"])[bt.long()].reshape(B, -1, H, D).transpose(1, 2)
+        vd = pa.dequant_rows(v, kw["v_scales"])[bt.long()].reshape(B, -1, H, D).transpose(1, 2)
+        kd, vd = kd.contiguous(), vd.contiguous()
+        keep = (torch.arange(kd.shape[2], device=dev)[None, :] < sl[:, None])[:, None, None, :]
+        q4 = q[:, :, None, :]
+        lib = time_ms(lambda: F.scaled_dot_product_attention(q4, kd, vd, attn_mask=keep), dev)
+        bound_ms, bound_by = paged_bound(B, H, D, lens, torch.float32, kv_int8)
+        rows[mode] = dict(ms=time_ms(fn, dev), plain_ms=time_ms(plain, dev), library_ms=lib,
+                          bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+        emit("paged_times", shape=[B, H, D], history=L, page=PAGE, kv=mode, **rows[mode])
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1480,8 +2068,12 @@ def main():
     from deeplearning4j_tpu_torch.ops import attention_kernels as ak
     from deeplearning4j_tpu_torch.ops import conv_kernels as ck
     from deeplearning4j_tpu_torch.ops import norm_kernels as nk
+    from deeplearning4j_tpu_torch import quant
+    from deeplearning4j_tpu_torch.ops import quant_kernels as qk
     from deeplearning4j_tpu_torch.ops.kernels import (attention, build, conv3x3, dispatch,
                                                       layer_norm, matmul)
+    from deeplearning4j_tpu_torch.ops.kernels import paged_attention as pa
+    from deeplearning4j_tpu_torch.serving import decode as dec
     from deeplearning4j_tpu_torch.data import MultiDataSet
     from deeplearning4j_tpu_torch.nlp import BertIterator, BertWordPieceTokenizer
     from deeplearning4j_tpu_torch.serving import ModelServer
@@ -1530,6 +2122,16 @@ def main():
     phase_bert_train_long(BertModel, BertConfig, Adam, MultiDataSet, attention, layer_norm, dev)
     attn_bwd_rows = phase_attn_bwd_times(ak, attention, dev)
     ln_bwd_rows = phase_ln_bwd_times(nk, layer_norm, dev)
+    phase_qmm_parity(matmul, qk, dev)
+    quant_res, qm, x16 = phase_quant_slice(matmul, dispatch, ModelServer, quant, dev)
+    phase_quant_profile(qm, x16)
+    del qm, x16
+    qmm_rows = phase_qmm_times(matmul, qk, dev)
+    phase_paged_parity(pa, dev)
+    decode_res = phase_decode(dec, pa, dispatch, dev, DECODE_SMALL, "decode")
+    phase_decode(dec, pa, dispatch, dev, DECODE_WIDE, "decode_wide")
+    phase_decode_profile(dec, dev)
+    paged_rows = phase_paged_times(pa, dev)
 
     emit("done", seconds=time.monotonic() - t_start)
     main_row = rows[("fc6", torch.float32)]
@@ -1579,6 +2181,32 @@ def main():
             "shape": shape + "; launches in one f32 MLM fit_batch step at batch 64, T 128"
                      + ("; plain and library compute dq, dk and dv together"
                         if name.startswith("flash") else "")})
+    versions = quant_res["versions"]
+    for name, row, n_launched, shape in (
+            ("q_matmul", qmm_rows[("q_matmul", "fc6", torch.float32)],
+             versions["weight_only"]["launches"]["q_matmul"],
+             "fc6 M=16 K=25088 N=4096 f32 with bias; launches over the weight-only int8 "
+             "VGG16 version's warmup and 12 requests"),
+            ("int8_matmul", qmm_rows[("int8_matmul", "fc6")],
+             versions["static"]["launches"]["int8_matmul"],
+             "fc6 M=16 K=25088 N=4096 int8 -> f32 with x_scale and bias; launches over the "
+             "static-activation VGG16 version's warmup and 12 requests; torch._int_mm takes "
+             "no M = 16")):
+        replaces, source = QMM_KERNELS[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": n_launched, "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"], "shape": shape})
+    row = paged_rows["int8"]
+    kernels.append({
+        "name": "paged_attention", "route": "cuda", "source": PAGED_KERNEL[1],
+        "replaces": PAGED_KERNEL[0], "launches": decode_res["int8"]["launches"],
+        "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"],
+        "shape": "[16,12,64] over 2,048-token histories, int8 pages; launches over the "
+                 "decode phase's int8-KV flood (48 prompts, bench.py's configuration)"})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

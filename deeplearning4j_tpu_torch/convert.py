@@ -16,6 +16,15 @@ the JAX package's ``params_`` as it is: named arrays plus the stacked
 ``layers`` dict, every layout the same in both packages; its updater state
 (``bert_opt_state_from_jax``/``bert_opt_state_to_jax``, Adam's ``m`` and
 ``v``) is a dict of such trees.
+
+A quantized model's tree (``quant_params_from_jax``/``quant_params_to_jax``)
+is the same ``{layer_name: {param_key: leaf}}`` tree in which a quantized
+leaf crosses as ``{"q": int8 array, "scale": f32 array, "axis": int}``
+(the JAX package's ``QTensor`` fields), in the JAX layout: the conv layout
+permutation applies to ``q`` and ``scale`` alike and moves ``axis`` with
+them.  A ``TinyDecodeModel``'s tree (``decode_params_from_jax``/
+``decode_params_to_jax``) is its flat dict of named arrays, every layout
+the same in both packages.
 """
 from __future__ import annotations
 
@@ -31,13 +40,16 @@ def _inverse(perm):
     return tuple(int(i) for i in np.argsort(perm))
 
 
+def jax_view(layer, key: str, t: torch.Tensor) -> torch.Tensor:
+    """One port parameter viewed in the JAX package's layout (no copy)."""
+    perm = layer.TORCH_LAYOUT.get(key)
+    return t.permute(*_inverse(perm)) if perm is not None else t
+
+
 def to_jax_layout(layer, key: str, t: torch.Tensor) -> np.ndarray:
     """One port parameter as a numpy array in the JAX package's layout
     (bf16 widens to f32: numpy has no bf16)."""
-    perm = layer.TORCH_LAYOUT.get(key)
-    t = t.detach()
-    if perm is not None:
-        t = t.permute(*_inverse(perm))
+    t = jax_view(layer, key, t.detach())
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.cpu().contiguous().numpy()
@@ -178,3 +190,72 @@ def bert_opt_state_from_jax(model, tree: Dict) -> None:
     """Load the JAX package's BERT updater state (numpy arrays) into a
     BertModel's ``opt_state_``, in place; keys and shapes must match."""
     _load_tree(model.opt_state_, tree, "")
+
+
+def _qtensor_to_jax(layer, key: str, qt) -> Dict[str, object]:
+    perm = layer.TORCH_LAYOUT.get(key)
+    return {"q": jax_view(layer, key, qt.q.detach()).cpu().contiguous().numpy(),
+            "scale": jax_view(layer, key, qt.scale.detach()).cpu().contiguous().numpy(),
+            "axis": int(perm[qt.axis] if perm is not None else qt.axis)}
+
+
+def quant_params_to_jax(qm) -> Dict:
+    """A QuantizedModel's parameters as a JAX-layout tree of numpy arrays;
+    quantized leaves as ``{"q", "scale", "axis"}``, bf16 leaves widened to
+    f32."""
+    from deeplearning4j_tpu_torch.ops.quant_kernels import QTensor
+
+    out: Dict = {}
+    for name, sub in qm.params_.items():
+        out[name] = {}
+        for k, v in sub.items():
+            layer = qm.base.layer_by_name(name)
+            out[name][k] = (_qtensor_to_jax(layer, k, v) if isinstance(v, QTensor)
+                            else to_jax_layout(layer, k, v))
+    return out
+
+
+@torch.no_grad()
+def quant_params_from_jax(qm, tree: Dict) -> None:
+    """Load a JAX-layout quantized tree (quantized leaves as ``{"q",
+    "scale", "axis"}`` of numpy arrays, other leaves arrays) into a
+    QuantizedModel's ``params_``, on its device; names must match and a
+    plain leaf keeps the dtype the port's leaf has."""
+    from deeplearning4j_tpu_torch.ops.quant_kernels import QTensor
+
+    params = qm.params_
+    if set(tree) != set(params):
+        raise ValueError(f"layer names differ: {sorted(tree)} vs {sorted(params)}")
+    for name, sub in params.items():
+        if set(tree[name]) != set(sub):
+            raise ValueError(f"{name}: param keys differ: "
+                             f"{sorted(tree[name])} vs {sorted(sub)}")
+        for k in list(sub):
+            layer = qm.base.layer_by_name(name)
+            leaf = tree[name][k]
+            if isinstance(leaf, dict):
+                perm = layer.TORCH_LAYOUT.get(k)
+                q = torch.tensor(np.asarray(leaf["q"]))
+                scale = torch.tensor(np.asarray(leaf["scale"], np.float32))
+                axis = int(leaf["axis"]) % q.ndim
+                if perm is not None:
+                    q, scale, axis = q.permute(*perm), scale.permute(*perm), perm.index(axis)
+                sub[k] = QTensor(q.contiguous().to(qm.device),
+                                 scale.contiguous().to(qm.device), axis=axis)
+            else:
+                dtype = sub[k].dtype if isinstance(sub[k], torch.Tensor) else None
+                sub[k] = from_jax_layout(layer, k, leaf).contiguous().to(
+                    device=qm.device, dtype=dtype)
+
+
+def decode_params_to_jax(model) -> Dict[str, np.ndarray]:
+    """A TinyDecodeModel's parameters as the JAX package's dict of numpy
+    arrays."""
+    return {k: v.detach().float().cpu().numpy() for k, v in model.params_.items()}
+
+
+@torch.no_grad()
+def decode_params_from_jax(model, tree: Dict) -> None:
+    """Load the JAX package's TinyDecodeModel parameters (numpy arrays)
+    into the port's model, in place; names and shapes must match."""
+    _load_tree(model.params_, tree, "")

@@ -64,6 +64,10 @@ class Gauge:
         with self._lock:
             self._value = float(v)
 
+    def inc(self, n: float = 1.0) -> None:
+        with self._lock:
+            self._value += float(n)
+
     def set_max(self, v: float) -> None:
         """Ratchet: keep the running peak (queue-depth high-water marks)."""
         with self._lock:

@@ -6,7 +6,7 @@ selected by ``dispatch``.  Importing this package registers the kernel set
 (and builds nothing: a kernel's library is built at its first launch).
 """
 from deeplearning4j_tpu_torch.ops.kernels import (  # noqa: F401
-    attention, conv3x3, dispatch, layer_norm, matmul, tiles)
+    attention, conv3x3, dispatch, layer_norm, matmul, paged_attention, tiles)
 from deeplearning4j_tpu_torch.ops.kernels.tiles import (  # noqa: F401
     DEFAULT_TILES,
     TileConfig,
@@ -14,6 +14,9 @@ from deeplearning4j_tpu_torch.ops.kernels.tiles import (  # noqa: F401
 )
 
 dispatch.register("fused_dense", supports=matmul.dense_supports)
+dispatch.register("q_matmul", supports=matmul.q_supports)
+dispatch.register("int8_matmul", supports=matmul.int8_supports)
+dispatch.register("paged_attention", supports=paged_attention.paged_supports)
 dispatch.register("conv3x3_wgrad", supports=conv3x3.wgrad_supports)
 dispatch.register("conv3x3_dgrad", supports=conv3x3.dgrad_supports)
 dispatch.register("layer_norm", supports=layer_norm.supports)

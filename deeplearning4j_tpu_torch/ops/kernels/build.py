@@ -124,9 +124,23 @@ def library() -> ctypes.CDLL:
                 ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
             lib.dl4j_fused_dense.restype = ctypes.c_int
-            lib.dl4j_fused_dense_tile.argtypes = [
-                ctypes.POINTER(ctypes.c_int)] * 3
-            lib.dl4j_fused_dense_tile.restype = None
+            for name in ("dl4j_q_matmul", "dl4j_int8_matmul"):
+                fn = getattr(lib, name)
+                fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                               + [ctypes.c_void_p])
+                fn.restype = ctypes.c_int
+            for name in ("dl4j_fused_dense_tile", "dl4j_q_matmul_tile",
+                         "dl4j_int8_matmul_tile"):
+                fn = getattr(lib, name)
+                fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
+                fn.restype = None
+            lib.dl4j_paged_attention.argtypes = (
+                [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float]
+                + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+            lib.dl4j_paged_attention.restype = ctypes.c_int
+            lib.dl4j_paged_attention_limits.argtypes = [
+                ctypes.POINTER(ctypes.c_int)] * 2
+            lib.dl4j_paged_attention_limits.restype = None
             lib.dl4j_conv3x3_wgrad.argtypes = (
                 [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
             lib.dl4j_conv3x3_wgrad.restype = ctypes.c_int

@@ -14,8 +14,22 @@ x's dtype:
 take the plain version, CUDA tensors the kernel, and ``reference`` mode the
 plain version anywhere.  The kernel's backward is the plain version's VJP
 (:class:`FusedDense`).  ``LAUNCHES`` counts kernel launches, and only
-those.  The weight-only and int8 products of the JAX module
-(``q_matmul``, ``int8_matmul``) are not ported yet.
+those.
+
+The same module holds the two quantized products of the JAX module, each a
+kernel of its own with its plain version beside it:
+
+* :func:`q_matmul` (``csrc/q_matmul.cu``): weight-only int8, ``x @ f(Wq)``
+  accumulated in f32, then ``* scale + bias`` in f32 and one cast, as the
+  TPU kernel does; :func:`q_matmul_plain` follows
+  ``q_matmul_reference`` instead, which rounds the product, the scaled
+  product and the bias sum to the accumulating dtype (the same in f32,
+  a few ulps apart in bf16);
+* :func:`int8_matmul` (``csrc/int8_matmul.cu``): int8 x int8 with an int32
+  accumulator and the ``dequant_epilogue`` order, bitwise equal to
+  :func:`int8_matmul_plain`.
+
+``Q_LAUNCHES`` and ``INT8_LAUNCHES`` count their launches.
 """
 from __future__ import annotations
 
@@ -52,7 +66,18 @@ LAUNCHES = registry().counter(
     "ops_kernel_launches_total", help="hand-written kernel launches",
     labels={"kernel": "fused_dense"})
 
-_tile_checked = False
+Q_LAUNCHES = registry().counter(
+    "ops_kernel_launches_total", help="hand-written kernel launches",
+    labels={"kernel": "q_matmul"})
+INT8_LAUNCHES = registry().counter(
+    "ops_kernel_launches_total", help="hand-written kernel launches",
+    labels={"kernel": "int8_matmul"})
+#: largest K whose int32 sum of int8 products cannot overflow
+#: (K * 127 * 127 <= 2**31 - 1); the plain version's f64 product is exact
+#: up to there too
+INT8_MAX_K = (2 ** 31 - 1) // (127 * 127)
+
+_tiles_checked: set = set()
 
 
 def fused_dense_reference(x: torch.Tensor, w: torch.Tensor,
@@ -116,24 +141,23 @@ class FusedDense(torch.autograd.Function):
         return (*(next(grads) if n else None for n in needs), None)
 
 
-def _check_tile(lib) -> None:
-    """Once per process: the library's compiled tile is the one
+def _check_tile(lib, name: str = "fused_dense") -> None:
+    """Once per process and kernel: the library's compiled tile is the one
     ``DEFAULT_TILES`` records for it."""
-    global _tile_checked
-    if _tile_checked:
+    if name in _tiles_checked:
         return
     import ctypes
     bm, bn, bk = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    lib.dl4j_fused_dense_tile(ctypes.byref(bm), ctypes.byref(bn),
-                              ctypes.byref(bk))
-    want = DEFAULT_TILES["fused_dense"]
+    getattr(lib, f"dl4j_{name}_tile")(ctypes.byref(bm), ctypes.byref(bn),
+                                      ctypes.byref(bk))
+    want = DEFAULT_TILES[name]
     if (bm.value, bn.value, bk.value) != (want.block_m, want.block_n,
                                           want.block_k):
         raise RuntimeError(
-            f"fused_dense: the library is compiled for tile m,n,k="
+            f"{name}: the library is compiled for tile m,n,k="
             f"{(bm.value, bn.value, bk.value)}, DEFAULT_TILES says "
             f"{want.config_key()}")
-    _tile_checked = True
+    _tiles_checked.add(name)
 
 
 def _launch(x, w, bias, activation) -> torch.Tensor:
@@ -170,4 +194,169 @@ def _launch(x, w, bias, activation) -> torch.Tensor:
         raise RuntimeError(
             f"fused_dense launch failed: {build.error_string(rc)} (code {rc})")
     LAUNCHES.inc()
+    return y.reshape(lead + (N,))
+
+
+# ---------------------------------------------------------------------------
+# quantized products: weight-only int8 (q_matmul), int8 x int8 (int8_matmul)
+# ---------------------------------------------------------------------------
+
+def _combined_scale(w_scale, x_scale, N: int) -> torch.Tensor:
+    """Per-channel weight scales (and an optional scalar activation scale)
+    as the one [N] f32 row the epilogue multiplies by: ``f32(x_scale) *
+    f32(w_scale)``, rounded once, as the JAX package's ``_combined_scale``.
+    Shared by the kernels' launchers and the plain versions."""
+    scale = w_scale.to(torch.float32).reshape(N)
+    if x_scale is not None:
+        xs = torch.as_tensor(x_scale, dtype=torch.float32, device=scale.device)
+        scale = xs * scale
+    return scale
+
+
+def dequant_epilogue(y, scale, bias=None, out_dtype=None) -> torch.Tensor:
+    """Shared int8 -> float epilogue: widen the int32 accumulator to f32,
+    multiply by the (already combined) per-channel scale row, add the
+    optional bias, all in f32, then cast.  ``csrc/int8_matmul.cu`` applies
+    the same two roundings in the same order."""
+    y = y.to(torch.float32) * scale.to(torch.float32)
+    if bias is not None:
+        y = y + bias.to(torch.float32)
+    if out_dtype is not None:
+        y = y.to(out_dtype)
+    return y
+
+
+def _is_scalar(v) -> bool:
+    if isinstance(v, torch.Tensor):
+        return v.ndim == 0
+    return isinstance(v, (int, float))
+
+
+def q_matmul_plain(x, wq, w_scale, bias=None, acc_dtype=None) -> torch.Tensor:
+    """The plain version (``q_matmul_reference``): the product in the
+    accumulating dtype (default x's), times the scale, plus the bias, each
+    step rounded to that dtype."""
+    acc = x.dtype if acc_dtype is None else acc_dtype
+    y = torch.matmul(x.to(acc), wq.to(acc))
+    y = y * w_scale.to(acc).reshape((1,) * (y.ndim - 1) + (-1,))
+    if bias is not None:
+        y = y + bias.to(y.dtype)
+    return y
+
+
+def q_supports(x, wq, w_scale, bias=None, acc_dtype=None, **kw) -> bool:
+    """x [.., K] f32 or bf16, int8 W [K, N], N scales, a float bias [N] or
+    none; the accumulating dtype f32 or bf16."""
+    if not (isinstance(x, torch.Tensor) and isinstance(wq, torch.Tensor)
+            and isinstance(w_scale, torch.Tensor)):
+        return False
+    acc = x.dtype if acc_dtype is None else acc_dtype
+    return (x.ndim >= 2 and wq.ndim == 2 and x.dtype in _FLOAT_DTYPES
+            and wq.dtype == torch.int8 and acc in _FLOAT_DTYPES
+            and x.shape[-1] == wq.shape[0]
+            and w_scale.is_floating_point() and w_scale.numel() == wq.shape[1]
+            and (bias is None or (bias.dtype in _FLOAT_DTYPES
+                                  and tuple(bias.shape) == (wq.shape[1],))))
+
+
+def q_matmul(x, wq, w_scale, bias=None, acc_dtype=None) -> torch.Tensor:
+    """Launch the weight-only kernel (``csrc/q_matmul.cu``) on CUDA
+    tensors: x is cast to the accumulating dtype (the TPU kernel's compute
+    dtype), W widens in shared memory, the product accumulates in f32, and
+    ``* scale + bias`` run in f32 before one cast to the accumulating
+    dtype."""
+    from deeplearning4j_tpu_torch.ops.kernels import build
+
+    if not q_supports(x, wq, w_scale, bias, acc_dtype):
+        raise ValueError("q_matmul: the kernel does not take these inputs")
+    acc = x.dtype if acc_dtype is None else acc_dtype
+    K, N = wq.shape
+    lead = tuple(x.shape[:-1])
+    x2 = x.to(acc).reshape(-1, K).contiguous()
+    M = x2.shape[0]
+    if max(M, N, K) > _INT_MAX:
+        raise ValueError(f"q_matmul: M={M} N={N} K={K} exceed 32 bits")
+    scale = _combined_scale(w_scale, None, N).contiguous()
+    bias = None if bias is None else bias.to(torch.float32).contiguous()
+    wq = wq.contiguous()
+    y = torch.empty((M, N), dtype=acc, device=x.device)
+    if M == 0 or N == 0:
+        return y.reshape(lead + (N,))
+    lib = build.library()
+    _check_tile(lib, "q_matmul")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.dl4j_q_matmul(
+            x2.data_ptr(), wq.data_ptr(), scale.data_ptr(),
+            None if bias is None else bias.data_ptr(), y.data_ptr(),
+            M, N, K, _DTYPE_CODES[acc], stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"q_matmul launch failed: {build.error_string(rc)} (code {rc})")
+    Q_LAUNCHES.inc()
+    return y.reshape(lead + (N,))
+
+
+def int8_matmul_plain(xq, wq, w_scale, x_scale=None, bias=None,
+                      out_dtype=torch.float32) -> torch.Tensor:
+    """The plain version (``int8_matmul_reference``): the int32 product,
+    then ``dequant_epilogue``.  The product is taken in float64, which is
+    exact here (every partial sum is an integer below 2**53, K <=
+    ``INT8_MAX_K``), because CUDA has no int32 matmul in PyTorch."""
+    y = torch.matmul(xq.to(torch.float64), wq.to(torch.float64)).to(torch.int32)
+    return dequant_epilogue(y, _combined_scale(w_scale, x_scale, wq.shape[1]),
+                            bias=bias, out_dtype=out_dtype)
+
+
+def int8_supports(xq, wq, w_scale, x_scale=None, bias=None,
+                  out_dtype=torch.float32, **kw) -> bool:
+    """int8 x [.., K] and W [K, N] with K <= ``INT8_MAX_K``, N scales, a
+    scalar x_scale or none, a float bias [N] or none, f32 or bf16 out."""
+    if not (isinstance(xq, torch.Tensor) and isinstance(wq, torch.Tensor)
+            and isinstance(w_scale, torch.Tensor)):
+        return False
+    return (xq.ndim >= 2 and wq.ndim == 2 and xq.dtype == torch.int8
+            and wq.dtype == torch.int8 and xq.shape[-1] == wq.shape[0]
+            and wq.shape[0] <= INT8_MAX_K
+            and w_scale.is_floating_point() and w_scale.numel() == wq.shape[1]
+            and (x_scale is None or _is_scalar(x_scale))
+            and out_dtype in _FLOAT_DTYPES
+            and (bias is None or (bias.dtype in _FLOAT_DTYPES
+                                  and tuple(bias.shape) == (wq.shape[1],))))
+
+
+def int8_matmul(xq, wq, w_scale, x_scale=None, bias=None,
+                out_dtype=torch.float32) -> torch.Tensor:
+    """Launch the int8 kernel (``csrc/int8_matmul.cu``) on CUDA tensors:
+    int32 accumulation, then ``f32(acc) * (x_scale * w_scale) + bias`` in
+    f32 with no fused multiply-add, then one cast; bitwise equal to
+    :func:`int8_matmul_plain`."""
+    from deeplearning4j_tpu_torch.ops.kernels import build
+
+    if not int8_supports(xq, wq, w_scale, x_scale, bias, out_dtype):
+        raise ValueError("int8_matmul: the kernel does not take these inputs")
+    K, N = wq.shape
+    lead = tuple(xq.shape[:-1])
+    x2 = xq.reshape(-1, K).contiguous()
+    M = x2.shape[0]
+    if M > _INT_MAX or N > _INT_MAX:
+        raise ValueError(f"int8_matmul: M={M} N={N} exceed 32 bits")
+    scale = _combined_scale(w_scale, x_scale, N).contiguous()
+    bias = None if bias is None else bias.to(torch.float32).contiguous()
+    wq = wq.contiguous()
+    y = torch.empty((M, N), dtype=out_dtype, device=xq.device)
+    if M == 0 or N == 0:
+        return y.reshape(lead + (N,))
+    lib = build.library()
+    _check_tile(lib, "int8_matmul")
+    with torch.cuda.device(xq.device):
+        stream = torch.cuda.current_stream(xq.device).cuda_stream
+        rc = lib.dl4j_int8_matmul(
+            x2.data_ptr(), wq.data_ptr(), scale.data_ptr(),
+            None if bias is None else bias.data_ptr(), y.data_ptr(),
+            M, N, K, _DTYPE_CODES[out_dtype], stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"int8_matmul launch failed: {build.error_string(rc)} (code {rc})")
+    INT8_LAUNCHES.inc()
     return y.reshape(lead + (N,))

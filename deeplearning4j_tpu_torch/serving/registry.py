@@ -7,10 +7,15 @@ The single place a `ModelServer` resolves (name, version) → model:
                                   anything with `params_`/`state_`/
                                   `_forward` and a `device`)
 * `register_zoo(name, "VGG16")` — build from the zoo catalog on `device`
+* `register_quantized(name, calibration=, config=)` — quantize a registered
+                                  version (`quant.quantize_model`) and
+                                  register the int8 model as the next one
 
 Versions are integers; `get(name)` returns the highest version, so a
-re-registration under the same name is a zero-downtime model roll.
-Keras, ONNX and quantized registration are not ported yet.
+re-registration under the same name is a zero-downtime model roll.  Each
+name has a re-entrant version lock (`name_lock`), held by every
+registration of that name.  Keras and ONNX registration are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -27,7 +32,7 @@ class ModelEntry:
     name: str
     version: int
     model: Any
-    source: str = "direct"              # direct | zoo
+    source: str = "direct"              # direct | zoo | quant
     input_shape: Optional[Tuple[int, ...]] = None   # trailing dims (no batch)
     input_dtype: str = "float32"
     registered_at: float = 0.0
@@ -49,20 +54,30 @@ def infer_input_shape(model) -> Optional[Tuple[int, ...]]:
 
 
 class ModelRegistry:
-    """Thread-safe name → {version → ModelEntry} catalog.  (The JAX
-    package's per-name version lock serializes rolls against fleet
-    evictions; it comes with the fleet.)"""
+    """Thread-safe name → {version → ModelEntry} catalog with a per-name
+    version lock, so two rolls of one name serialize."""
 
     def __init__(self):
         self._models: Dict[str, Dict[int, ModelEntry]] = {}
         self._lock = threading.Lock()
+        self._name_locks: Dict[str, threading.RLock] = {}
+
+    def name_lock(self, name: str) -> threading.RLock:
+        """The per-name version lock.  `register()` takes it internally;
+        hold it yourself around a sequence of steps on `name` that must not
+        interleave with a roll."""
+        with self._lock:
+            lock = self._name_locks.get(name)
+            if lock is None:
+                lock = self._name_locks[name] = threading.RLock()
+            return lock
 
     # ---- registration ----
     def register(self, name: str, model, version: Optional[int] = None,
                  source: str = "direct",
                  input_shape: Optional[Tuple[int, ...]] = None,
                  input_dtype: str = "float32") -> ModelEntry:
-        with self._lock:
+        with self.name_lock(name), self._lock:
             versions = self._models.setdefault(name, {})
             if version is None:
                 version = max(versions) + 1 if versions else 1
@@ -92,6 +107,25 @@ class ModelRegistry:
         z = ZOO_REGISTRY[zn](**zoo_kwargs)
         return self.register(name, z.init_model(device=device), version=version,
                              source="zoo")
+
+    def register_quantized(self, name: str, calibration=None, config=None,
+                           base_version: Optional[int] = None,
+                           version: Optional[int] = None) -> ModelEntry:
+        """Quantized-version roll: quantize a registered version (the
+        newest, unless `base_version` is given) with `quant.quantize_model`
+        and register the `QuantizedModel` as the next version of the same
+        name.  New submits then serve int8 while in-flight requests finish
+        on the entry they resolved: the zero-downtime roll, with a dtype
+        change instead of a weight change.  Runs under the name's version
+        lock."""
+        from deeplearning4j_tpu_torch.quant import quantize_model
+        with self.name_lock(name):
+            base = self.get(name, base_version)
+            qm = quantize_model(base.model, calibration=calibration,
+                                config=config)
+            return self.register(
+                name, qm, version=version, source="quant",
+                input_shape=base.input_shape, input_dtype=base.input_dtype)
 
     # ---- resolution ----
     def get(self, name: str, version: Optional[int] = None) -> ModelEntry:

@@ -3,8 +3,9 @@
 An AST scan of every module of the port and of chip_smoke.py finds no
 import of either; a fresh interpreter that imports the whole port has
 neither in `sys.modules` (nor the kernel build module, loaded lazily); and
-the entry points refuse to run without CUDA unless asked for the CPU, and
-BERT training runs on the device the model was asked for.
+the entry points refuse to run without CUDA unless asked for the CPU (the
+decode engine's model and KV cache too), and BERT training runs on the
+device the model was asked for.
 """
 import ast
 import pathlib
@@ -50,6 +51,10 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
         "import deeplearning4j_tpu_torch.ops.attention_kernels\n"
         "import deeplearning4j_tpu_torch.data, deeplearning4j_tpu_torch.nlp\n"
         "import deeplearning4j_tpu_torch.utils.scan_fit\n"
+        "import deeplearning4j_tpu_torch.quant, deeplearning4j_tpu_torch.ops.quant_kernels\n"
+        "import deeplearning4j_tpu_torch.serving.decode, deeplearning4j_tpu_torch.serving.resilience\n"
+        "import deeplearning4j_tpu_torch.data.analysis, deeplearning4j_tpu_torch.monitor.instrument\n"
+        "import deeplearning4j_tpu_torch.ops.kernels.paged_attention\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'deeplearning4j_tpu')]\n"
         "assert not bad, bad\n"
@@ -104,3 +109,22 @@ def test_bert_training_defaults_to_cuda_and_runs_where_asked(tmp_path):
     loss = model.fit_batch(MultiDataSet([ids, np.ones((2, 8), np.float32)], [ids],
                                         labels_masks=[np.ones((2, 8), np.float32)]))
     assert loss.device.type == "cpu" and model.iteration == 1
+
+
+def test_decode_entry_points_refuse_to_run_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a machine without CUDA")
+    from deeplearning4j_tpu_torch.serving import (DecodeEngine, PagedKVCache,
+                                                  TinyDecodeModel)
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TinyDecodeModel(vocab=8, d_model=8, n_heads=2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PagedKVCache(4, page_size=4, n_heads=2, head_dim=4)
+    model = TinyDecodeModel(vocab=8, d_model=8, n_heads=2, device="cpu")
+    eng = DecodeEngine(model, num_blocks=4, max_seq_len=16)
+    try:
+        assert eng.cache.k_pages.device.type == "cpu"
+        assert len(eng.generate([1, 2], max_new_tokens=2, timeout=30)) == 2
+    finally:
+        eng.shutdown()
