@@ -9,13 +9,17 @@ Run from the root of a checkout, on a machine with one H100:
 Phases, one JSON line each; any failure raises and exits non-zero:
 
 1. device  — nvidia-smi's name and power limit; compute capability (9, 0).
-2. build   — compile the CUDA kernels from ``csrc/`` (``nvcc``, sm_90a).
+2. build   — compile the CUDA kernels from ``csrc/`` (``nvcc``, sm_90a);
+   the registers and spills of ``fused_dense`` and ``q_matmul`` by name
+   (neither may spill).
 3. parity  — ``fused_dense`` against ``fused_dense_reference`` on the card
    at M in {1, 2, 4, 8, 16} (every bucket the slice serves) and {37, 128}
    (ragged and multi-tile), and (K, N) in {(25088, 4096), (4096, 4096),
    (4096, 1000), (800, 500)}, every epilogue activation, f32 and bf16.
    f32 (TF32 off): max|diff| <= 1e-4 * max|ref| (summation order differs
-   at K = 25088).  bf16: max|diff| <= 2 bf16 ulps of max|ref|.
+   at K = 25088).  bf16: max|diff| <= 2 bf16 ulps of max|ref|.  At fc6
+   (K = 25088) the same call twice gives the same bits in both dtypes (the
+   split-K partials are summed in a fixed order).
 4. slice   — the main path: ``ModelServer(max_batch=16, device="cuda")``
    deploys full-width VGG16 (224x224x3, 1000 classes, f32, random weights
    from the zoo seed) with warmup; 8 client threads send 12 requests of
@@ -23,16 +27,18 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    ``reference`` dispatch mode within the f32 tolerance, and the kernel's
    launch count must be 2 per warmup run and per dispatch (fc6 and fc7;
    the softmax head is plain).  Also times the whole forward at the top
-   bucket (16 rows) with the kernel and in ``reference`` mode.
+   bucket (16 rows) with the kernel and in ``reference`` mode (median of
+   ``FORWARD_REPS``).
    profile — one bucket-16 forward under ``torch.profiler``: kernels by
    device time and the device's idle share of the window.
    The parity phase also takes one backward through the kernel
    (``FusedDense``) and holds its gradients to the plain version's.
-5. times   — fc6 and fc7 at M = 16 in f32 and bf16: the kernel, its plain
-   version and ``torch.addmm`` + relu (a yardstick the port never calls),
-   each the median of 25 launches timed with CUDA events, L2 flushed
-   before each; beside the bound (bytes over 3.35 TB/s or operations over
-   the type's peak, whichever is larger).
+5. times   — fc6, fc7 and the output layer at M = 16 in f32 and bf16: the
+   kernel, its plain version and ``torch.addmm`` + relu (a yardstick the
+   port never calls), each the median of 25 launches timed with CUDA
+   events, L2 flushed before each; beside the bound (bytes over 3.35 TB/s
+   or operations over the type's peak, whichever is larger) and the share
+   of it reached (``share_of_bound`` = bound_ms / ms).
 6. conv_parity — ``conv3x3_wgrad`` and ``conv3x3_dgrad`` against their
    plain versions at ResNet-50's four body shapes at batch 64 (56x56x64,
    28x28x128, 14x14x256, 7x7x512) and at ragged shapes (3x13x13, Ci 24,
@@ -154,7 +160,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    4096), (4096, 1000), (800, 500)}: q_matmul in f32 (TF32 off, 1e-4 *
    max|ref|) and bf16 (``Q_BF16_ULPS`` ulps of max|ref|), with and without a
    bias; int8_matmul with and without a bias and an x_scale, bitwise; each
-   call adds one launch.  ``quantize_tensor``, ``quantize_activation`` and
+   call adds one launch; q_matmul at fc6 gives the same bits twice in
+   both dtypes.  ``quantize_tensor``, ``quantize_activation`` and
    the KV cache's ``quantize_rows`` on the card equal the CPU's bit for bit
    (the CPU's equal the JAX package's numpy, ``tests/test_torch_quant.py``).
 25. quant_slice — the int8 serving path: ``ModelServer(max_batch=16)``
@@ -169,13 +176,14 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    (within 1e-4 * max|ref|; a served batch's rows can depend on the batch
    cuDNN sees, and an int8 activation's rounding with them).  Also
    ``parity_check`` against f32, bucket-16 forward ms of each version and
-   in reference mode, resident bytes.  quant_profile — one static-int8
-   bucket-16 forward under ``torch.profiler``.
+   in reference mode, resident bytes.  quant_profile — one bucket-16
+   forward of each int8 version under ``torch.profiler``: ``q_matmul``'s
+   and ``int8_matmul``'s device time.
 26. qmm_times — both kernels at VGG16's fc6, fc7 and output shapes, M = 16
    (q_matmul in f32 and bf16): kernel, plain, ``torch.addmm`` on the weight
    dequantized outside the timed region (``torch._int_mm`` takes no M =
    16), bound (bytes over 3.35 TB/s, or operations over the f32, bf16 or
-   int8 peak).
+   int8 peak) and ``share_of_bound``.
 27. paged_parity — ``paged_attention`` against its plain version at
    [8,4,16], [16,12,64] and [3,2,128], page 16, lengths from 1 to 2,048
    with partial last pages, f32, bf16 and int8 pages; each call adds one
@@ -231,6 +239,11 @@ BODY_SHAPES = {"s0": (64, 56, 56, 64, 64), "s1": (64, 28, 28, 128, 128),
 RAGGED_SHAPES = [(3, 13, 13, 24, 40), (5, 7, 7, 96, 80)]
 BODY_CONVS = 16
 ACTS = ("identity", "linear", "relu", "tanh", "sigmoid", "gelu")
+#: runs in the median of a bucket-16 VGG16 forward: the kernels move it by
+#: a few tenths of a ms out of ~18 ms, about the spread of 5 runs
+FORWARD_REPS = 11
+#: VGG16's three Dense layers, (K, N): fc6, fc7 and the softmax head
+VGG_DENSE = {"fc6": (25088, 4096), "fc7": (4096, 4096), "output": (4096, 1000)}
 F32_RTOL = 1e-4
 LN_KERNEL = ("deeplearning4j_tpu/ops/norm_kernels.py:40",
              "deeplearning4j_tpu_torch/ops/kernels/csrc/layer_norm_fwd.cu")
@@ -329,14 +342,43 @@ def phase_device():
     return smi
 
 
+#: kernels whose registers and spills the build phase reports by name
+GEMM_KERNELS = ("fused_dense_kernel", "q_matmul_kernel")
+
+
+def _ptxas_by_kernel(log, names):
+    """{name: {"registers": [min, max], "spill_bytes": total}} over every
+    instantiation whose mangled name holds `name`, from ``-Xptxas -v``."""
+    out, current = {}, None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            fn = line.split()[-1]
+            current = next((n for n in names if n in fn), None)
+        elif current and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            out.setdefault(current, {"registers": [], "spill_bytes": 0})
+            out[current]["spill_bytes"] += nums[1] + nums[2]
+        elif current and "Used" in line and "registers" in line:
+            regs = int(line.split("Used")[1].split()[0])
+            out[current]["registers"].append(regs)
+            current = None
+    return {n: {"registers": [min(v["registers"]), max(v["registers"])],
+                "spill_bytes": v["spill_bytes"]} for n, v in out.items()}
+
+
 def phase_build(build):
     t0 = time.monotonic()
     build.library()
     info = build.last_build
     ptxas = [l.strip() for l in info.get("ptxas", "").splitlines()
              if "registers" in l or "spill" in l]
+    gemm = _ptxas_by_kernel(info.get("ptxas", ""), GEMM_KERNELS)
     emit("build", seconds=time.monotonic() - t0, cached=info["cached"],
-         library=os.path.relpath(info["path"]), ptxas=sorted(set(ptxas)))
+         library=os.path.relpath(info["path"]), ptxas=sorted(set(ptxas)),
+         gemm_ptxas=gemm)
+    for name in GEMM_KERNELS:
+        require(info["cached"] or (name in gemm and gemm[name]["spill_bytes"] == 0),
+                f"{name}: ptxas reports {gemm.get(name)} (no report, or spills)")
 
 
 def phase_parity(matmul, dev):
@@ -366,7 +408,13 @@ def phase_parity(matmul, dev):
                             f"fused_dense M={M} K={K} N={N} {dt} {act}: "
                             f"max|diff| {err} > tol {tolerance(dt, ref)}")
                     worst[(M, K, N, str(dt), act)] = err
-                emit("parity", M=M, K=K, N=N, dtype=str(dt), errors=errs)
+                repeat = None
+                if K == VGG_DENSE["fc6"][0]:
+                    y = matmul.fused_dense(x, w, b, "relu")
+                    repeat = torch.equal(y, matmul.fused_dense(x, w, b, "relu"))
+                    require(repeat, f"fused_dense fc6 M={M} {dt}: two calls differ")
+                emit("parity", M=M, K=K, N=N, dtype=str(dt), errors=errs,
+                     bitwise_repeat=repeat)
     # one backward through the kernel (FusedDense): the plain VJP
     for act in ("relu", "gelu"):
         x = torch.randn(16, 4096, generator=gen, device=dev, requires_grad=True)
@@ -424,11 +472,11 @@ def phase_slice(matmul, dispatch, ModelServer, dev):
     # plain version: the kernel's share of a dispatch, end to end
     x16 = torch.as_tensor(rng.standard_normal((16, 224, 224, 3),
                                               dtype=np.float32), device=dev)
-    forward_ms = time_ms(lambda: entry.model.output(x16), dev, n=5)
+    forward_ms = time_ms(lambda: entry.model.output(x16), dev, n=FORWARD_REPS)
     prev = dispatch.set_dispatch_mode("reference")
     try:
         refs = [entry.model.output(r).float().cpu().numpy() for r in reqs]
-        forward_ref_ms = time_ms(lambda: entry.model.output(x16), dev, n=5)
+        forward_ref_ms = time_ms(lambda: entry.model.output(x16), dev, n=FORWARD_REPS)
     finally:
         dispatch.set_dispatch_mode(prev)
     worst_rel = 0.0
@@ -501,7 +549,7 @@ def bound(M, K, N, dt):
 def phase_times(matmul, dev):
     rows = {}
     M = 16
-    for layer, (K, N) in (("fc6", (25088, 4096)), ("fc7", (4096, 4096))):
+    for layer, (K, N) in VGG_DENSE.items():
         for dt in (torch.float32, torch.bfloat16):
             gen = torch.Generator(device=dev).manual_seed(1)
             x = torch.randn(M, K, generator=gen, device=dev).to(dt)
@@ -517,7 +565,7 @@ def phase_times(matmul, dev):
             bound_ms, bound_by = bound(M, K, N, dt)
             rows[(layer, dt)] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                                      bound_ms=bound_ms, bound_by=bound_by,
-                                     max_abs_err=err)
+                                     share_of_bound=bound_ms / ms, max_abs_err=err)
             emit("times", layer=layer, M=M, K=K, N=N, dtype=str(dt),
                  activation="relu", **rows[(layer, dt)])
     return rows
@@ -1530,8 +1578,6 @@ QMM_KERNELS = {
 PAGED_KERNEL = ("deeplearning4j_tpu/ops/pallas/paged_attention.py:117",
                 "deeplearning4j_tpu_torch/ops/kernels/csrc/paged_attention.cu")
 INT8_PEAK_OPS_PER_S = 1979e12
-#: VGG16's three Dense layers, (K, N): fc6, fc7 and the softmax head
-VGG_DENSE = {"fc6": (25088, 4096), "fc7": (4096, 4096), "output": (4096, 1000)}
 #: bound on q_matmul against its plain version in bf16, in bf16 ulps of
 #: max|ref|: the kernel rounds once, from f32 (as the TPU kernel does), the
 #: plain version three times (the product, the scaled product and the bias
@@ -1627,6 +1673,11 @@ def phase_qmm_parity(matmul, qk, dev):
                     errs[f"q_matmul {str(dt)[6:]} bias={bias is not None}"] = {
                         "abs": err, "rel": err / max(ref, 1e-30)}
                     cases += 1
+                if K == VGG_DENSE["fc6"][0]:
+                    y = matmul.q_matmul(x, qt.q, qt.scale, bias=b)
+                    require(torch.equal(y, matmul.q_matmul(x, qt.q, qt.scale, bias=b)),
+                            f"q_matmul fc6 M={M} {dt}: two calls differ")
+                    errs[f"q_matmul {str(dt)[6:]} bitwise_repeat"] = True
             xq = qk.quantize_activation(x32, 0.05)
             require(torch.equal(xq.cpu(), qk.quantize_activation(x32.cpu(), 0.05)),
                     "quantize_activation on the card differs from the CPU's")
@@ -1674,6 +1725,7 @@ def phase_quant_slice(matmul, dispatch, ModelServer, quant, dev, image=224, clas
 
     srv.cache.run = recording_run
     res = {"versions": {}}
+    models = {}
     try:
         t0 = time.monotonic()
         base = srv.deploy("vgg16", zoo="VGG16").model
@@ -1684,7 +1736,7 @@ def phase_quant_slice(matmul, dispatch, ModelServer, quant, dev, image=224, clas
         res["calibration"] = {"observer": stats.observer, "batches": stats.batches,
                               "activations": len(stats.ranges), "crc32": stats.crc32()}
         res["f32_bytes"] = sum(p.numel() * p.element_size() for p in base.parameters())
-        res["forward_ms_bucket16_f32"] = time_ms(lambda: base.output(x16), dev, n=5)
+        res["forward_ms_bucket16_f32"] = time_ms(lambda: base.output(x16), dev, n=FORWARD_REPS)
         for tag, cfg, kernel in (
                 ("weight_only", quant.QuantConfig(), "q_matmul"),
                 ("static", quant.QuantConfig(quantize_activations=True), "int8_matmul")):
@@ -1727,17 +1779,18 @@ def phase_quant_slice(matmul, dispatch, ModelServer, quant, dev, image=224, clas
                             f"mode by {err} > {F32_RTOL * top}")
                     worst = max(worst, err / top)
                     bitwise = bitwise and err == 0.0
-                ref_ms = time_ms(lambda: qm.output(x16), dev, n=5)
+                ref_ms = time_ms(lambda: qm.output(x16), dev, n=FORWARD_REPS)
             finally:
                 dispatch.set_dispatch_mode(prev)
             par = quant.parity_check(base, qm, x16)
+            models[tag] = qm
             res["versions"][tag] = {
                 "version": entry.version, "kernel": kernel, "roll_s": roll_s,
                 "warmup_runs": len(warmed), "dispatches": dispatches, "launches": counts,
                 "max_rel_err_vs_reference": worst, "bitwise_vs_reference": bitwise,
                 "parity_check_vs_f32": par, "bytes_resident": qm.bytes_resident(),
                 "dtypes": qm.describe()["dtypes"],
-                "forward_ms_bucket16": time_ms(lambda: qm.output(x16), dev, n=5),
+                "forward_ms_bucket16": time_ms(lambda: qm.output(x16), dev, n=FORWARD_REPS),
                 "forward_reference_ms_bucket16": ref_ms}
         stats_all = srv.stats()
         res["latency_ms"] = stats_all["latency_ms"]
@@ -1749,21 +1802,25 @@ def phase_quant_slice(matmul, dispatch, ModelServer, quant, dev, image=224, clas
     emit("quant_slice", model="VGG16", input=f"{image}x{image}x3 f32", classes=classes,
          requests=len(sizes),
          rows=sum(sizes), **res)
-    return res, qm, x16
+    return res, models, x16
 
 
-def phase_quant_profile(qm, x16):
-    """One bucket-16 forward of the static int8 version under torch.profiler:
-    busy time, idle share, the top kernels and int8_matmul's share."""
-    qm.output(x16)
-    window_ms, busy_ms, by_name, n = _trace(lambda: qm.output(x16))
-    if busy_ms is None:
-        emit("quant_profile", window_ms=window_ms, device_busy_ms="not measured",
-             idle_share="not measured")
-        return
-    emit("quant_profile", bucket=16, version="static int8", window_ms=window_ms,
-         device_busy_ms=busy_ms, idle_share=max(0.0, 1.0 - busy_ms / window_ms), kernels=n,
-         int8_matmul_ms=_share(by_name, "int8_matmul_kernel"), top=_top(by_name, 12))
+def phase_quant_profile(models, x16):
+    """One bucket-16 forward of each int8 version under torch.profiler:
+    busy time, idle share, the top kernels and the quantized product's
+    share (q_matmul weight-only, int8_matmul static)."""
+    for tag, kernel in (("weight_only", "q_matmul"), ("static", "int8_matmul")):
+        qm = models[tag]
+        qm.output(x16)
+        window_ms, busy_ms, by_name, n = _trace(lambda: qm.output(x16))
+        if busy_ms is None:
+            emit("quant_profile", version=tag, window_ms=window_ms,
+                 device_busy_ms="not measured", idle_share="not measured")
+            continue
+        emit("quant_profile", bucket=16, version=tag, window_ms=window_ms,
+             device_busy_ms=busy_ms, idle_share=max(0.0, 1.0 - busy_ms / window_ms),
+             kernels=n, **{f"{kernel}_ms": _share(by_name, f"{kernel}_kernel")},
+             top=_top(by_name, 12))
 
 
 def phase_qmm_times(matmul, qk, dev, M=16):
@@ -1783,10 +1840,12 @@ def phase_qmm_times(matmul, qk, dev, M=16):
             plain = lambda: matmul.q_matmul_plain(x, qt.q, qt.scale, bias=b)  # noqa: E731
             err = (fn().float() - plain().float()).abs().max().item()
             bound_ms, bound_by = q_bound(M, K, N, dt)
+            ms = time_ms(fn, dev)
             rows[("q_matmul", layer, dt)] = dict(
-                ms=time_ms(fn, dev), plain_ms=time_ms(plain, dev),
+                ms=ms, plain_ms=time_ms(plain, dev),
                 library_ms=time_ms(lambda: torch.addmm(bl, x, wd), dev),
-                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+                bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms,
+                max_abs_err=err)
             emit("qmm_times", kernel="q_matmul", layer=layer, M=M, K=K, N=N, dtype=str(dt),
                  **rows[("q_matmul", layer, dt)])
         xq = qk.quantize_activation(x32, 0.05)
@@ -1797,9 +1856,11 @@ def phase_qmm_times(matmul, qk, dev, M=16):
         lib = (time_ms(lambda: torch._int_mm(xq, qt.q), dev)
                if M > 16 and K % 8 == 0 and N % 8 == 0 else None)
         bound_ms, bound_by = int8_bound(M, K, N, torch.float32)
+        ms = time_ms(fn, dev)
         rows[("int8_matmul", layer)] = dict(
-            ms=time_ms(fn, dev), plain_ms=time_ms(plain, dev), library_ms=lib,
-            bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+            ms=ms, plain_ms=time_ms(plain, dev), library_ms=lib,
+            bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms,
+            max_abs_err=err)
         emit("qmm_times", kernel="int8_matmul", layer=layer, M=M, K=K, N=N,
              dtype="int8 -> torch.float32", **rows[("int8_matmul", layer)])
     return rows
@@ -2123,9 +2184,9 @@ def main():
     attn_bwd_rows = phase_attn_bwd_times(ak, attention, dev)
     ln_bwd_rows = phase_ln_bwd_times(nk, layer_norm, dev)
     phase_qmm_parity(matmul, qk, dev)
-    quant_res, qm, x16 = phase_quant_slice(matmul, dispatch, ModelServer, quant, dev)
-    phase_quant_profile(qm, x16)
-    del qm, x16
+    quant_res, qmodels, x16 = phase_quant_slice(matmul, dispatch, ModelServer, quant, dev)
+    phase_quant_profile(qmodels, x16)
+    del qmodels, x16
     qmm_rows = phase_qmm_times(matmul, qk, dev)
     phase_paged_parity(pa, dev)
     decode_res = phase_decode(dec, pa, dispatch, dev, DECODE_SMALL, "decode")

@@ -119,16 +119,15 @@ def library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            lib.dl4j_fused_dense.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            lib.dl4j_fused_dense.argtypes = (
+                [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
             lib.dl4j_fused_dense.restype = ctypes.c_int
-            for name in ("dl4j_q_matmul", "dl4j_int8_matmul"):
-                fn = getattr(lib, name)
-                fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                               + [ctypes.c_void_p])
-                fn.restype = ctypes.c_int
+            lib.dl4j_q_matmul.argtypes = (
+                [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+            lib.dl4j_q_matmul.restype = ctypes.c_int
+            lib.dl4j_int8_matmul.argtypes = (
+                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+            lib.dl4j_int8_matmul.restype = ctypes.c_int
             for name in ("dl4j_fused_dense_tile", "dl4j_q_matmul_tile",
                          "dl4j_int8_matmul_tile"):
                 fn = getattr(lib, name)

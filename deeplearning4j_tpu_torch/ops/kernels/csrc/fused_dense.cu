@@ -1,56 +1,47 @@
 // fused_dense: y = act(x @ W + b) for NVIDIA Hopper (sm_90a).
 //
-// Replaces the TPU kernel deeplearning4j_tpu/ops/pallas/matmul.py
-// `_matmul_kernel` as reached through `_tiled_matmul` / `fused_dense`:
-// a float product accumulated in f32, with the bias add and the activation
-// applied in f32 in the epilogue, stored in x's dtype.
+// Replaces the TPU kernel deeplearning4j_tpu/ops/pallas/matmul.py:79
+// `_matmul_kernel` as reached through `_tiled_matmul` / `fused_dense`
+// (:320): a float product accumulated in f32, with the bias add and the
+// activation applied in f32 in the epilogue, stored in x's dtype.
 //
 //   x [M, K] row-major, f32 or bf16
 //   W [K, N] row-major, same dtype as x
 //   b [N] f32, or null
 //   y [M, N] row-major, x's dtype
+//   ws [S, M, N] f32 workspace, counters [ceil(N/128) * ceil(M/16)] int32
+//   (zero before the first launch; every launch leaves them zero)
 //
-// Design.  A shared-memory tiled SIMT GEMM: each block owns a 64x64 tile of
-// y, 256 threads each hold a 4x4 micro-tile of accumulators in registers,
-// and the block walks K in steps of 16 inside its own loop.  That loop takes
-// the place of the TPU's sequential K grid axis and its VMEM accumulator
-// scratch: blocks run in parallel in no order on the card, so nothing may
-// carry from one block to the next.  Ragged M, K and N are masked inside the
-// kernel (out-of-range loads read 0, out-of-range stores are skipped); the
-// TPU's zero padding to (8, 128) multiples has no counterpart here.
+// Design: the skinny-M, split-K GEMM of skinny_gemm.cuh (a 16 x 128 tile,
+// BK = 32 K rows a stage, a 3-stage ring fed by TMA where W is 16-byte
+// aligned and by cp.async elsewhere, SIMT FMA in f32 and mma.sync bf16
+// tensor cores in bf16, the split-K partials summed in a fixed order by the
+// last block of each tile).  3 stages of 32 rows were chosen by timing fc6
+// on an H100 against 2 to 6 stages, BK = 16 and 64, and 256-column tiles.
+// This file adds the epilogue, which runs once on the full f32 sum: +
+// bias, then the activation, then one cast.
 //
-// Bound at the VGG16 serving shapes (M = bucket <= 16).  The product is
-// bytes-bound there: fc6 (K = 25088, N = 4096) must read W once,
-// 25088 * 4096 * 4 B = 411 MB in f32, which at 3.35 TB/s is about 123 us;
-// fc7 (K = 4096, N = 4096) reads 67 MB, about 20 us.  In bf16 both halve.
-// Known gap, left for a later change: with a 64x64 tile a 4096-wide output
-// at M <= 16 gives only 64 blocks for 132 SMs, each block's loads are not
-// overlapped with its arithmetic, and 3/4 of each A tile is masked rows.
-// wgmma, TMA, split-K and a skinny-M tile are the ways out.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+// Bound at VGG16's serving shapes, M = 16, 3.35 TB/s: bytes.  fc6 (K =
+// 25088, N = 4096) reads W once, 411 MB in f32, 0.123 ms; 0.061 ms in bf16.
+// fc7 (4096 x 4096) 0.020 / 0.010 ms; the output layer (4096 x 1000)
+// 0.0049 / 0.0025 ms.  The first design (a 64x64 SIMT tile at K step 16)
+// took 2.0 ms at fc6 in f32 and 2.4 ms in bf16: 64 blocks for 132 SMs,
+// three quarters of each A tile masked rows, scalar W loads and no load in
+// flight during the arithmetic.  The header says what this one does about
+// each.
+#include "skinny_gemm.cuh"
 
 namespace {
 
-constexpr int BM = 64;
-constexpr int BN = 64;
-constexpr int BK = 16;
-constexpr int TM = 4;
-constexpr int TN = 4;
-constexpr int THREADS = (BM / TM) * (BN / TN);  // 256
+using skinny::BM;
+using skinny::BN;
+constexpr int BK = 32;
+constexpr int STAGES = 3;
+template <typename T, bool TMA>
+using Tile = skinny::Cfg<T, T, BK, STAGES, TMA>;
 
 // Activation codes; the Python wrapper holds the same table.
 enum Act { ACT_NONE = 0, ACT_RELU = 1, ACT_TANH = 2, ACT_SIGMOID = 3, ACT_GELU = 4 };
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 template <int ACT>
 __device__ __forceinline__ float activate(float y) {
@@ -61,103 +52,75 @@ __device__ __forceinline__ float activate(float y) {
   return y;
 }
 
-template <typename T, int ACT>
-__global__ void __launch_bounds__(THREADS)
+template <int ACT>
+struct DenseEpilogue {
+  const float* bias;
+  __device__ __forceinline__ float operator()(float acc, int n) const {
+    float v = acc;
+    if (bias != nullptr) v += bias[n];
+    return activate<ACT>(v);
+  }
+};
+
+template <typename T, int ACT, bool TMA>
+__global__ void __launch_bounds__(skinny::THREADS)
 fused_dense_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                   const float* __restrict__ bias, T* __restrict__ y,
-                   int M, int N, int K) {
-  // A is kept transposed so the inner loop reads a column of it; the +1
-  // pad spreads the transposing stores over the 32 banks.
-  __shared__ float As[BK][BM + 1];
-  __shared__ float Bs[BK][BN];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN);
-  const int ty = tid / (BN / TN);
-  const int row0 = blockIdx.y * BM;
-  const int col0 = blockIdx.x * BN;
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    // Neighbouring threads load neighbouring addresses of x and of W.
-#pragma unroll
-    for (int i = 0; i < (BM * BK) / THREADS; ++i) {
-      const int idx = tid + i * THREADS;
-      const int r = idx / BK, c = idx % BK;
-      const int gr = row0 + r, gc = k0 + c;
-      As[c][r] = (gr < M && gc < K) ? to_f32(x[(int64_t)gr * K + gc]) : 0.0f;
-    }
-#pragma unroll
-    for (int i = 0; i < (BK * BN) / THREADS; ++i) {
-      const int idx = tid + i * THREADS;
-      const int r = idx / BN, c = idx % BN;
-      const int gr = k0 + r, gc = col0 + c;
-      Bs[r][c] = (gr < K && gc < N) ? to_f32(w[(int64_t)gr * N + gc]) : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[kk][ty + i * (BM / TM)];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = Bs[kk][tx + j * (BN / TN)];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = row0 + ty + i * (BM / TM);
-    if (r >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = col0 + tx + j * (BN / TN);
-      if (c >= N) continue;
-      float v = acc[i][j];
-      if (bias != nullptr) v += bias[c];
-      y[(int64_t)r * N + c] = from_f32<T>(activate<ACT>(v));
-    }
-  }
+                   const __grid_constant__ CUtensorMap wmap, const float* __restrict__ bias,
+                   T* __restrict__ y, float* ws, int* counters, int M, int N, int K, int S) {
+  skinny::gemm_body<Tile<T, TMA>>(x, w, &wmap, y, ws, counters, M, N, K, S,
+                                  DenseEpilogue<ACT>{bias});
 }
 
+template <typename T, int ACT, bool TMA>
+cudaError_t launch_act(const void* x, const void* w, const CUtensorMap& wmap, const float* bias,
+                       void* y, float* ws, int* counters, int M, int N, int K, int S,
+                       cudaStream_t stream) {
+  using C = Tile<T, TMA>;
+  static bool raised[skinny::MAX_DEVICES];
+  cudaError_t e = skinny::allow_smem(
+      reinterpret_cast<const void*>(&fused_dense_kernel<T, ACT, TMA>), C::SMEM_BYTES, raised);
+  if (e != cudaSuccess) return e;
+  fused_dense_kernel<T, ACT, TMA><<<skinny::grid(M, N, S), skinny::THREADS, C::SMEM_BYTES,
+                                   stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), wmap, bias, static_cast<T*>(y), ws,
+      counters, M, N, K, S);
+  return cudaGetLastError();
+}
+
+template <typename T, int ACT>
+cudaError_t launch_any(bool tma, const void* x, const void* w, const CUtensorMap& wmap,
+                       const float* bias, void* y, float* ws, int* counters, int M, int N,
+                       int K, int S, cudaStream_t stream) {
+  return tma ? launch_act<T, ACT, true>(x, w, wmap, bias, y, ws, counters, M, N, K, S, stream)
+             : launch_act<T, ACT, false>(x, w, wmap, bias, y, ws, counters, M, N, K, S, stream);
+}
+
+// W goes through TMA where its base and row stride allow (16 bytes), else
+// through 16-byte cp.async.
 template <typename T>
-cudaError_t launch(const void* x, const void* w, const float* bias, void* y,
-                   int M, int N, int K, int act, cudaStream_t stream) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  const dim3 block(THREADS);
-  const T* xt = static_cast<const T*>(x);
-  const T* wt = static_cast<const T*>(w);
-  T* yt = static_cast<T*>(y);
+cudaError_t launch(const void* x, const void* w, const float* bias, void* y, float* ws,
+                   int* counters, int M, int N, int K, int S, int act, cudaStream_t stream) {
+  CUtensorMap wmap = {};
+  const bool tma = skinny::encode_w_map(
+      &wmap, w,
+      sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      (int)sizeof(T), N, K, Tile<T, true>::SWZ ? Tile<T, true>::SWZ_COLS : BN, BK,
+      Tile<T, true>::SWZ);
   switch (act) {
     case ACT_NONE:
-      fused_dense_kernel<T, ACT_NONE><<<grid, block, 0, stream>>>(xt, wt, bias, yt, M, N, K);
-      break;
+      return launch_any<T, ACT_NONE>(tma, x, w, wmap, bias, y, ws, counters, M, N, K, S, stream);
     case ACT_RELU:
-      fused_dense_kernel<T, ACT_RELU><<<grid, block, 0, stream>>>(xt, wt, bias, yt, M, N, K);
-      break;
+      return launch_any<T, ACT_RELU>(tma, x, w, wmap, bias, y, ws, counters, M, N, K, S, stream);
     case ACT_TANH:
-      fused_dense_kernel<T, ACT_TANH><<<grid, block, 0, stream>>>(xt, wt, bias, yt, M, N, K);
-      break;
+      return launch_any<T, ACT_TANH>(tma, x, w, wmap, bias, y, ws, counters, M, N, K, S, stream);
     case ACT_SIGMOID:
-      fused_dense_kernel<T, ACT_SIGMOID><<<grid, block, 0, stream>>>(xt, wt, bias, yt, M, N, K);
-      break;
+      return launch_any<T, ACT_SIGMOID>(tma, x, w, wmap, bias, y, ws, counters, M, N, K, S,
+                                        stream);
     case ACT_GELU:
-      fused_dense_kernel<T, ACT_GELU><<<grid, block, 0, stream>>>(xt, wt, bias, yt, M, N, K);
-      break;
+      return launch_any<T, ACT_GELU>(tma, x, w, wmap, bias, y, ws, counters, M, N, K, S, stream);
     default:
       return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -171,15 +134,18 @@ void dl4j_fused_dense_tile(int* bm, int* bn, int* bk) {
   *bk = BK;
 }
 
-// dtype: 0 = f32, 1 = bf16.  Returns the launch's cudaError_t (0 = success).
-int dl4j_fused_dense(const void* x, const void* w, const void* bias, void* y,
-                     int M, int N, int K, int dtype, int act, void* stream) {
-  if (M <= 0 || N <= 0 || K < 0 || (M + BM - 1) / BM > 65535)
-    return (int)cudaErrorInvalidValue;
+// dtype: 0 = f32, 1 = bf16.  S: K slices (the wrapper's gemm_plan).
+// Returns the launch's cudaError_t (0 = success).
+int dl4j_fused_dense(const void* x, const void* w, const void* bias, void* y, void* ws,
+                     void* counters, int M, int N, int K, int S, int dtype, int act,
+                     void* stream) {
+  if (!skinny::shape_ok(M, N, K, S, ws, counters)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* b = static_cast<const float*>(bias);
-  if (dtype == 0) return (int)launch<float>(x, w, b, y, M, N, K, act, s);
-  if (dtype == 1) return (int)launch<__nv_bfloat16>(x, w, b, y, M, N, K, act, s);
+  float* wsf = static_cast<float*>(ws);
+  int* ctr = static_cast<int*>(counters);
+  if (dtype == 0) return (int)launch<float>(x, w, b, y, wsf, ctr, M, N, K, S, act, s);
+  if (dtype == 1) return (int)launch<__nv_bfloat16>(x, w, b, y, wsf, ctr, M, N, K, S, act, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -54,6 +54,8 @@ def set_dispatch_mode(mode: str) -> str:
 
 #: kernel name -> its hard constraints; a CUDA call that fails them raises
 _supports: Dict[str, Callable[..., bool]] = {}
+#: CUDA device -> compute capability, read once per device
+_capabilities: Dict[torch.device, tuple] = {}
 
 
 def register(name: str, supports: Callable[..., bool]) -> None:
@@ -85,8 +87,10 @@ def resolve(name: str, *args: Any, **kwargs: Any) -> str:
             f"{sorted(str(d) for d in devices)}")
     if not supports(*args, **kwargs):
         raise ValueError(f"{name}: the kernel does not take these inputs")
-    cap = torch.cuda.get_device_capability(cuda[0])
-    if tuple(cap) != KERNEL_CAPABILITY:
+    cap = _capabilities.get(cuda[0])
+    if cap is None:
+        cap = _capabilities[cuda[0]] = tuple(torch.cuda.get_device_capability(cuda[0]))
+    if cap != KERNEL_CAPABILITY:
         raise RuntimeError(
             f"{name}: the kernel is built for sm_90a (capability "
             f"{KERNEL_CAPABILITY}); {cuda[0]} has capability {tuple(cap)}")

@@ -7,8 +7,8 @@ x's dtype:
 
 * :func:`fused_dense_reference`, the plain PyTorch version and the spec;
 * the CUDA kernel in ``csrc/fused_dense.cu``, launched by
-  :func:`fused_dense` on CUDA tensors (see that file for its design and
-  bound).
+  :func:`fused_dense` on CUDA tensors (see that file and
+  ``csrc/skinny_gemm.cuh`` for its design and bound).
 
 :func:`fused_dense` asks ``dispatch.resolve`` which one runs: CPU tensors
 take the plain version, CUDA tensors the kernel, and ``reference`` mode the
@@ -30,10 +30,20 @@ kernel of its own with its plain version beside it:
   :func:`int8_matmul_plain`.
 
 ``Q_LAUNCHES`` and ``INT8_LAUNCHES`` count their launches.
+
+``fused_dense`` and ``q_matmul`` share one skinny-M, split-K GEMM
+(``csrc/skinny_gemm.cuh``): :func:`gemm_plan` picks its K split, and the
+wrappers hand it an f32 workspace for the partial sums and an int32
+counter buffer, both kept per device and stream (launches on one stream
+run in order, so they never share them at once; the kernel leaves the
+counters zero).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import contextlib
+import functools
+import threading
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -78,6 +88,97 @@ INT8_LAUNCHES = registry().counter(
 INT8_MAX_K = (2 ** 31 - 1) // (127 * 127)
 
 _tiles_checked: set = set()
+#: blocks the split-K grid aims at, per SM
+BLOCKS_PER_SM = 2
+#: largest workspace kept between launches; a larger one is allocated per call
+MAX_CACHED_WORKSPACE = 32 << 20
+_buffers_lock = threading.Lock()
+#: (device index, stream) -> (f32 workspace, int32 arrival counters)
+_buffers: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+_sm_counts: Dict[int, int] = {}
+
+
+class GemmPlan(NamedTuple):
+    """A launch of the split-K GEMM: ``grid`` is (column tiles, ``splits``,
+    row tiles); slice s sums K rows ``slices[s]``; ``workspace_bytes`` is
+    the f32 partials [splits, M, N]."""
+    block_m: int
+    block_n: int
+    block_k: int
+    splits: int
+    slices: Tuple[Tuple[int, int], ...]
+    grid: Tuple[int, int, int]
+    workspace_bytes: int
+
+
+@functools.lru_cache(maxsize=1024)
+def gemm_plan(M: int, N: int, K: int, sm_count: int,
+              kernel: str = "fused_dense") -> GemmPlan:
+    """The K split of ``kernel``'s launch (``fused_dense`` or ``q_matmul``):
+    enough slices S that the grid has ``BLOCKS_PER_SM`` blocks per SM, at
+    most one per K step of ``block_k`` rows.  Slice s covers the K steps
+    ``[s*ksteps//S, (s+1)*ksteps//S)``, the last clipped at K;
+    ``slice_bounds`` in ``csrc/skinny_gemm.cuh`` is the same formula."""
+    t = DEFAULT_TILES[kernel]
+    bm, bn, bk = t.block_m, t.block_n, t.block_k
+    n_tiles, m_tiles = -(-N // bn), -(-M // bm)
+    ksteps = max(1, -(-K // bk))
+    want = -(-BLOCKS_PER_SM * sm_count // (n_tiles * m_tiles))
+    S = max(1, min(ksteps, want))
+    slices = tuple(((s * ksteps // S) * bk, min(K, ((s + 1) * ksteps // S) * bk))
+                   for s in range(S))
+    return GemmPlan(bm, bn, bk, S, slices, (n_tiles, S, m_tiles), S * M * N * 4)
+
+
+def _sm_count(idx: int) -> int:
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sm_counts[idx]
+
+
+def _current_stream(idx: int) -> int:
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    return raw(idx) if raw is not None else torch.cuda.current_stream(idx).cuda_stream
+
+
+def _on_device(device: torch.device):
+    """The device's context for a launch through ctypes (which launches on
+    the current device); nothing to do when it is current already."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def _f32_row(t: torch.Tensor, N: int) -> torch.Tensor:
+    """t as a contiguous f32 [N] row; t itself (no call on the launch path)
+    when it is one already."""
+    if t.dtype == torch.float32 and t.dim() == 1 and t.is_contiguous():
+        return t
+    return t.to(torch.float32).reshape(N).contiguous()
+
+
+def _gemm_args(device: torch.device, M: int, N: int, K: int, kernel: str):
+    """(stream, S, workspace pointer, counters pointer) for one launch of
+    ``kernel`` on the device's current stream.  The workspace and counters
+    are the stream's; a zeroed counter buffer (and a workspace) replaces
+    one that is too small.  Call under :func:`_on_device`."""
+    idx = device.index
+    stream = _current_stream(idx)
+    plan = gemm_plan(M, N, K, _sm_count(idx), kernel)
+    n_ws = plan.workspace_bytes // 4
+    tiles = plan.grid[0] * plan.grid[2]
+    with _buffers_lock:
+        ws, ctr = _buffers.get((idx, stream), (None, None))
+        if ctr is None or ctr.numel() < tiles:
+            ctr = torch.zeros(tiles, dtype=torch.int32, device=device)
+        if plan.workspace_bytes > MAX_CACHED_WORKSPACE:
+            ws_now = torch.empty(n_ws, dtype=torch.float32, device=device)
+        else:
+            if ws is None or ws.numel() < n_ws:
+                ws = torch.empty(n_ws, dtype=torch.float32, device=device)
+            ws_now = ws
+        _buffers[(idx, stream)] = (ws, ctr)
+        return stream, plan.splits, ws_now.data_ptr(), ctr.data_ptr()
 
 
 def fused_dense_reference(x: torch.Tensor, w: torch.Tensor,
@@ -114,7 +215,10 @@ def fused_dense(x: torch.Tensor, w: torch.Tensor,
     if dispatch.resolve("fused_dense", x, w, bias=bias,
                         activation=activation) == "reference":
         return fused_dense_reference(x, w, bias, activation)
-    return FusedDense.apply(x, w, bias, activation)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, w, bias)):
+        return FusedDense.apply(x, w, bias, activation)
+    return _launch(x, w, bias, activation)
 
 
 class FusedDense(torch.autograd.Function):
@@ -166,7 +270,7 @@ def _launch(x, w, bias, activation) -> torch.Tensor:
     K = x.shape[-1]
     N = w.shape[1]
     lead = tuple(x.shape[:-1])
-    x2 = x.reshape(-1, K)
+    x2 = x if x.dim() == 2 else x.reshape(-1, K)
     M = x2.shape[0]
     if w.shape[0] != K:
         raise ValueError(f"fused_dense: x is [.., {K}] but W is {tuple(w.shape)}")
@@ -178,23 +282,23 @@ def _launch(x, w, bias, activation) -> torch.Tensor:
         if tuple(bias.shape) != (N,):
             raise ValueError(
                 f"fused_dense: bias is {tuple(bias.shape)}, want ({N},)")
-        bias = bias.to(torch.float32).contiguous()
+        bias = _f32_row(bias, N)
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0 or N == 0:
         return y.reshape(lead + (N,))
     lib = build.library()
     _check_tile(lib)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    with _on_device(x.device):
+        stream, S, ws, ctr = _gemm_args(x.device, M, N, K, "fused_dense")
         rc = lib.dl4j_fused_dense(
             x2.data_ptr(), w.data_ptr(),
-            None if bias is None else bias.data_ptr(), y.data_ptr(),
-            M, N, K, _DTYPE_CODES[x.dtype], _ACT_CODES[activation], stream)
+            None if bias is None else bias.data_ptr(), y.data_ptr(), ws, ctr,
+            M, N, K, S, _DTYPE_CODES[x.dtype], _ACT_CODES[activation], stream)
     if rc != 0:
         raise RuntimeError(
             f"fused_dense launch failed: {build.error_string(rc)} (code {rc})")
     LAUNCHES.inc()
-    return y.reshape(lead + (N,))
+    return y if x.dim() == 2 else y.reshape(lead + (N,))
 
 
 # ---------------------------------------------------------------------------
@@ -262,7 +366,7 @@ def q_supports(x, wq, w_scale, bias=None, acc_dtype=None, **kw) -> bool:
 def q_matmul(x, wq, w_scale, bias=None, acc_dtype=None) -> torch.Tensor:
     """Launch the weight-only kernel (``csrc/q_matmul.cu``) on CUDA
     tensors: x is cast to the accumulating dtype (the TPU kernel's compute
-    dtype), W widens in shared memory, the product accumulates in f32, and
+    dtype), W widens on chip, the product accumulates in f32, and
     ``* scale + bias`` run in f32 before one cast to the accumulating
     dtype."""
     from deeplearning4j_tpu_torch.ops.kernels import build
@@ -272,29 +376,31 @@ def q_matmul(x, wq, w_scale, bias=None, acc_dtype=None) -> torch.Tensor:
     acc = x.dtype if acc_dtype is None else acc_dtype
     K, N = wq.shape
     lead = tuple(x.shape[:-1])
-    x2 = x.to(acc).reshape(-1, K).contiguous()
+    x2 = (x if x.dtype == acc and x.dim() == 2 and x.is_contiguous()
+          else x.to(acc).reshape(-1, K).contiguous())
     M = x2.shape[0]
     if max(M, N, K) > _INT_MAX:
         raise ValueError(f"q_matmul: M={M} N={N} K={K} exceed 32 bits")
-    scale = _combined_scale(w_scale, None, N).contiguous()
-    bias = None if bias is None else bias.to(torch.float32).contiguous()
-    wq = wq.contiguous()
+    scale = _f32_row(w_scale, N)
+    bias = None if bias is None else _f32_row(bias, N)
+    if not wq.is_contiguous():
+        wq = wq.contiguous()
     y = torch.empty((M, N), dtype=acc, device=x.device)
     if M == 0 or N == 0:
         return y.reshape(lead + (N,))
     lib = build.library()
     _check_tile(lib, "q_matmul")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    with _on_device(x.device):
+        stream, S, ws, ctr = _gemm_args(x.device, M, N, K, "q_matmul")
         rc = lib.dl4j_q_matmul(
             x2.data_ptr(), wq.data_ptr(), scale.data_ptr(),
-            None if bias is None else bias.data_ptr(), y.data_ptr(),
-            M, N, K, _DTYPE_CODES[acc], stream)
+            None if bias is None else bias.data_ptr(), y.data_ptr(), ws, ctr,
+            M, N, K, S, _DTYPE_CODES[acc], stream)
     if rc != 0:
         raise RuntimeError(
             f"q_matmul launch failed: {build.error_string(rc)} (code {rc})")
     Q_LAUNCHES.inc()
-    return y.reshape(lead + (N,))
+    return y if x.dim() == 2 else y.reshape(lead + (N,))
 
 
 def int8_matmul_plain(xq, wq, w_scale, x_scale=None, bias=None,

@@ -42,16 +42,17 @@ class TileConfig:
 
 
 #: Hopper tile per kernel: the tile each CUDA source is compiled for
-#: (``csrc/fused_dense.cu`` and ``csrc/q_matmul.cu``: 64x64 output tile, K
-#: step 16; ``csrc/int8_matmul.cu``: 64x64, K step 32;
+#: (``csrc/fused_dense.cu`` and ``csrc/q_matmul.cu``: the skinny-M split-K
+#: GEMM of ``csrc/skinny_gemm.cuh``, 16 rows x 128 columns a block, K stages
+#: of 32 and 64 rows; ``csrc/int8_matmul.cu``: 64x64, K step 32;
 #: ``csrc/flash_attn_fwd.cu``: 64 query rows a block, 64-row K/V tiles).
 #: Each wrapper checks the built library against it once; a second compiled
 #: tile would bring back a run-time tile table.  ``paged_attention``'s
 #: ``block_kv`` is the KV page size the decode engine allocates, as in the
 #: JAX package: the kernel walks one page at a time, whatever its size.
 DEFAULT_TILES: Dict[str, TileConfig] = {
-    "fused_dense": TileConfig(block_m=64, block_n=64, block_k=16),
-    "q_matmul": TileConfig(block_m=64, block_n=64, block_k=16),
+    "fused_dense": TileConfig(block_m=16, block_n=128, block_k=32),
+    "q_matmul": TileConfig(block_m=16, block_n=128, block_k=64),
     "int8_matmul": TileConfig(block_m=64, block_n=64, block_k=32),
     "attention": TileConfig(block_q=64, block_kv=64),
     "paged_attention": TileConfig(block_q=1, block_kv=16),

@@ -5,10 +5,13 @@ is held against the JAX Pallas kernel run in interpret mode and against
 the JAX reference, on the same numpy inputs made from a seed.  f32 at
 rtol/atol 1e-5; bf16 at 2 bf16 ulps of max|ref| (the two frameworks round
 the f32 result to bf16 once each, after sums taken in another order).
-The dispatch rules are checked on CPU tensors; the CUDA kernel itself is
-checked by the `cuda`-marked test, which skips without a card.
+The dispatch rules and the split-K planner (`gemm_plan`) are checked on
+the CPU; the CUDA kernel itself is checked by the `cuda`-marked test, which
+skips without a card.
 """
 import math
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -133,19 +136,74 @@ def test_dense_layer_routes_epilogue_activations_through_fused_dense(monkeypatch
     assert calls == ["relu"]            # the softmax head stays plain
 
 
+def _compiled_tile(name):
+    """(BM, BN, BK) as the CUDA sources declare them: BM in the shared
+    header, BN and BK in the kernel's own file."""
+    csrc = Path(matmul.__file__).resolve().parent / "csrc"
+    consts = {}
+    for f in ("skinny_gemm.cuh", f"{name}.cu"):
+        for k, v in re.findall(r"constexpr int (BM|BN|BK) = (\d+);",
+                               (csrc / f).read_text()):
+            consts[k] = int(v)
+    return consts["BM"], consts["BN"], consts["BK"]
+
+
 def test_tiles_match_jax_record_and_table():
     from deeplearning4j_tpu.ops.pallas.tiles import shape_class as jax_shape_class
-    cfg = tiles.DEFAULT_TILES["fused_dense"]
-    assert (cfg.block_m, cfg.block_n, cfg.block_k) == (64, 64, 16)
-    assert cfg.to_json() == JaxTileConfig(block_m=64, block_n=64,
-                                          block_k=16).to_json()
-    assert tiles.TileConfig.from_json(cfg.to_json()) == cfg
-    assert cfg.config_key() == JaxTileConfig(block_m=64, block_n=64,
-                                             block_k=16).config_key()
+    for name in ("fused_dense", "q_matmul"):
+        cfg = tiles.DEFAULT_TILES[name]
+        bm, bn, bk = _compiled_tile(name)
+        assert (cfg.block_m, cfg.block_n, cfg.block_k) == (bm, bn, bk)
+        assert bm == 16                  # every serving bucket, mma's M
+        jax_cfg = JaxTileConfig(block_m=bm, block_n=bn, block_k=bk)
+        assert cfg.to_json() == jax_cfg.to_json()
+        assert tiles.TileConfig.from_json(cfg.to_json()) == cfg
+        assert cfg.config_key() == jax_cfg.config_key()
     for dims in (dict(m=16, k=25088, n=4096), dict(m=37, k=70, n=45),
                  dict(n=1, m=1, k=1)):
         assert tiles.shape_class(**dims) == jax_shape_class(**dims)
     assert tiles.shape_class(m=16, k=25088, n=4096) == "k32768-m16-n4096"
+
+
+#: VGG16's Dense layers (K, N) and a ragged shape
+PLAN_SHAPES = {"fc6": (25088, 4096), "fc7": (4096, 4096),
+               "output": (4096, 1000), "ragged": (800, 500)}
+
+
+@pytest.mark.parametrize("kernel", ["fused_dense", "q_matmul"])
+@pytest.mark.parametrize("layer", list(PLAN_SHAPES))
+@pytest.mark.parametrize("M", [1, 2, 4, 8, 16, 37, 128])
+def test_gemm_plan_covers_k_once_and_fills_the_card(kernel, layer, M):
+    K, N = PLAN_SHAPES[layer]
+    plan = matmul.gemm_plan(M, N, K, 132, kernel)
+    t = tiles.DEFAULT_TILES[kernel]
+    bk = plan.block_k
+    assert (plan.block_m, plan.block_n, bk) == (t.block_m, t.block_n, t.block_k)
+    S = plan.splits
+    assert plan.grid == (-(-N // plan.block_n), S, -(-M // plan.block_m))
+    assert len(plan.slices) == S >= 1
+    # the slices cover [0, K) exactly once, in order, in whole K steps but
+    # the last
+    assert plan.slices[0][0] == 0 and plan.slices[-1][1] == K
+    for (_, end), (start, _) in zip(plan.slices, plan.slices[1:]):
+        assert end == start
+    for start, end in plan.slices:
+        assert end > start and start % bk == 0
+    for start, end in plan.slices[:-1]:
+        assert (end - start) % bk == 0
+    if M <= 16 and layer != "ragged":
+        assert plan.grid[0] * plan.grid[1] * plan.grid[2] >= 2 * 132
+    assert plan.workspace_bytes == S * M * N * 4
+
+
+@pytest.mark.parametrize("K, slices", [(0, ((0, 0),)), (5, ((0, 5),)), (32, ((0, 32),)),
+                                       (33, ((0, 32), (32, 33)))])
+def test_gemm_plan_small_k(K, slices):
+    # one SM, one tile: at most BLOCKS_PER_SM = 2 slices, never an empty one
+    assert matmul.gemm_plan(3, 45, K, 1, "fused_dense").slices == slices
+    # many SMs: one K step (64 rows) a slice
+    plan = matmul.gemm_plan(3, 45, K, 132, "q_matmul")
+    assert plan.splits == max(1, -(-K // 64)) and plan.slices[-1][1] == K
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
@@ -186,7 +244,8 @@ def test_kernel_matches_reference_on_card():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for M, K, N in [(1, 4096, 4096), (37, 70, 45), (16, 800, 500)]:
+    shapes = [(M, 4096, 4096) for M in (1, 2, 4, 8, 16)] + [(37, 70, 45), (16, 800, 500)]
+    for M, K, N in shapes:
         w = torch.randn(K, N, generator=gen, device="cuda") / math.sqrt(K)
         x = torch.randn(M, K, generator=gen, device="cuda")
         b = torch.randn(N, generator=gen, device="cuda")
@@ -197,3 +256,10 @@ def test_kernel_matches_reference_on_card():
             assert matmul.LAUNCHES.value == before + 1
             r = matmul.fused_dense_reference(x, w, b, act)
             assert (y - r).abs().max().item() <= 1e-4 * r.abs().max().item()
+            # split-K sums in a fixed order: the same call gives the same bits
+            assert torch.equal(matmul.fused_dense(x, w, b, act), y)
+        xb, wb = x.bfloat16(), w.bfloat16()
+        y = matmul.fused_dense(xb, wb, b, "relu")
+        r = matmul.fused_dense_reference(xb, wb, b, "relu").float()
+        assert (y.float() - r).abs().max().item() <= 2 * _bf16_ulp(r.abs().max().item())
+        assert torch.equal(matmul.fused_dense(xb, wb, b, "relu"), y)

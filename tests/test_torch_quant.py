@@ -438,7 +438,8 @@ def test_quantized_kernels_match_plain_on_card():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for M, K, N in [(1, 4096, 4096), (37, 70, 45), (16, 800, 500)]:
+    shapes = [(M, 4096, 4096) for M in (1, 2, 4, 8, 16)] + [(37, 70, 45), (16, 800, 500)]
+    for M, K, N in shapes:
         w = torch.randn(K, N, generator=gen, device="cuda")
         qt = tqk.quantize_tensor(w)
         x = torch.randn(M, K, generator=gen, device="cuda")
@@ -449,6 +450,14 @@ def test_quantized_kernels_match_plain_on_card():
         assert matmul.Q_LAUNCHES.value == before + 1
         r = matmul.q_matmul_plain(x, qt.q, qt.scale, bias=b)
         assert (y - r).abs().max().item() <= 1e-4 * r.abs().max().item()
+        # split-K sums in a fixed order: the same call gives the same bits
+        assert torch.equal(matmul.q_matmul(x, qt.q, qt.scale, bias=b), y)
+        xb = x.bfloat16()
+        y = matmul.q_matmul(xb, qt.q, qt.scale, bias=b)
+        r = matmul.q_matmul_plain(xb, qt.q, qt.scale, bias=b).float()
+        ref = r.abs().max().item()
+        assert (y.float() - r).abs().max().item() <= 3 * 2.0 ** (math.floor(math.log2(ref)) - 7)
+        assert torch.equal(matmul.q_matmul(xb, qt.q, qt.scale, bias=b), y)
         xq = tqk.quantize_activation(x, 0.02)
         before = matmul.INT8_LAUNCHES.value
         y = matmul.int8_matmul(xq, qt.q, qt.scale, x_scale=0.02, bias=b)
