@@ -10,8 +10,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 
 1. device  — nvidia-smi's name and power limit; compute capability (9, 0).
 2. build   — compile the CUDA kernels from ``csrc/`` (``nvcc``, sm_90a);
-   the registers and spills of ``fused_dense`` and ``q_matmul`` by name
-   (neither may spill).
+   the registers and spills of ``fused_dense``, ``q_matmul`` and the two
+   conv kernels by name (none may spill).
 3. parity  — ``fused_dense`` against ``fused_dense_reference`` on the card
    at M in {1, 2, 4, 8, 16} (every bucket the slice serves) and {37, 128}
    (ragged and multi-tile), and (K, N) in {(25088, 4096), (4096, 4096),
@@ -36,15 +36,21 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 5. times   — fc6, fc7 and the output layer at M = 16 in f32 and bf16: the
    kernel, its plain version and ``torch.addmm`` + relu (a yardstick the
    port never calls), each the median of 25 launches timed with CUDA
-   events, L2 flushed before each; beside the bound (bytes over 3.35 TB/s
-   or operations over the type's peak, whichever is larger) and the share
-   of it reached (``share_of_bound`` = bound_ms / ms).
+   events, L2 flushed before each and a device-side spin
+   (``SPIN_CYCLES``) queued between the flush and the start event, so the
+   timed call is queued before its window opens and the wrapper's host
+   time stays out of it (every ``time_ms`` reading); beside the bound
+   (bytes over 3.35 TB/s or operations over the type's peak, whichever is
+   larger) and the share of it reached (``share_of_bound`` = bound_ms /
+   ms).
 6. conv_parity — ``conv3x3_wgrad`` and ``conv3x3_dgrad`` against their
    plain versions at ResNet-50's four body shapes at batch 64 (56x56x64,
    28x28x128, 14x14x256, 7x7x512) and at ragged shapes (3x13x13, Ci 24,
-   Co 40; 5x7x7, Ci 96, Co 80), f32 and bf16; each call must add one to
-   its launch count.  f32: max|diff| <= 1e-4 * max|ref| (K reaches 200k
-   terms summed in another order); bf16 inputs: 2 bf16 ulps of max|ref|.
+   Co 40; 5x7x7, Ci 96, Co 80; 2x9x11, Ci 3, Co 5; 2x16x16, Ci 3, Co 64:
+   VGG16's first conv has Ci = 3), f32 (3xTF32 products) and bf16; each
+   call must add one to its launch count, and a second call must give the
+   same bits.  f32: max|diff| <= 1e-4 * max|ref| (K reaches 200k terms
+   summed in another order); bf16 inputs: 2 bf16 ulps of max|ref|.
 7. train — the training slice: full-width ResNet-50 (224x224x3, 1000
    classes, seed 123, Nesterovs(0.1, 0.9), f32, batch 64, inputs from
    numpy seed 0 as bench.py makes them).  ``gradient_for`` on the initial
@@ -60,13 +66,18 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    steps after the first) and peak memory.
 8. train_bf16 — 2 steps with ``compute_dtype="bfloat16"``: finite losses,
    16 + 16 launches per step.
-9. train_profile — one f32 step under ``torch.profiler``: device busy
-   time, idle share, the top kernels and the conv kernels' share.
+9. train_profile, train_bf16_profile — one f32 step, then one step of the
+   bf16-compute net, under ``torch.profiler``: device busy time, idle
+   share, the top kernels, each conv kernel's device ms (dgrad's filter
+   pack included) and their share of busy time.
 10. conv_times — each conv kernel at the four body shapes in f32 and
    bf16: kernel ms, plain ms and cuDNN's backward
    (``torch.nn.grad.conv2d_weight`` / ``conv2d_input``, TF32 off; a
    yardstick the port never calls), each the median of 25 runs with L2
-   flushed, beside the bound.
+   flushed, beside the bound of the kernel's route (``route``: ``3xtf32``
+   in f32, three TF32 products at 495 TFLOP/s; ``mma_bf16`` in bf16; the
+   kernels line calls it ``product``, its ``route`` being ``cuda``) and
+   the f32 SIMT bound (67 TFLOP/s) of the first design.
 11. ln_parity — ``layer_norm_fwd`` against ``layer_norm_plain`` at rows
    8192 (as 64x128 and 4x2048), 37 and 1, F in {768, 1000, 64}, eps 1e-12
    and 1e-5, f32 and bf16; y, mean and rstd each held to the tolerance
@@ -225,6 +236,15 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
+#: the conv kernels' products by route: f32 SIMT FMA (the first design's
+#: route, kept as a yardstick), bf16 tensor cores, and 3xTF32, three TF32
+#: tensor-core products per f32 product at the dense TF32 peak
+CONV_ROUTE_RATES = {"simt": (1, 67e12), "mma_bf16": (1, 989e12), "3xtf32": (3, 495e12)}
+#: cycles of the device-side spin queued before each timed run's start
+#: event (about 0.5 ms at 1.98 GHz): it outlasts a wrapper's host time
+#: (Python, ctypes, the launch), so the timed launch is queued before the
+#: start event fires and no host time falls inside the window
+SPIN_CYCLES = 1_000_000
 REPLACES = "deeplearning4j_tpu/ops/pallas/matmul.py:79"
 SOURCE = "deeplearning4j_tpu_torch/ops/kernels/csrc/fused_dense.cu"
 CONV_KERNELS = {
@@ -236,7 +256,8 @@ CONV_KERNELS = {
 #: ResNet-50's 3x3 stride-1 body convs at batch 64: (B, H, W, Ci, Co)
 BODY_SHAPES = {"s0": (64, 56, 56, 64, 64), "s1": (64, 28, 28, 128, 128),
                "s2": (64, 14, 14, 256, 256), "s3": (64, 7, 7, 512, 512)}
-RAGGED_SHAPES = [(3, 13, 13, 24, 40), (5, 7, 7, 96, 80)]
+RAGGED_SHAPES = [(3, 13, 13, 24, 40), (5, 7, 7, 96, 80), (2, 9, 11, 3, 5),
+                 (2, 16, 16, 3, 64)]
 BODY_CONVS = 16
 ACTS = ("identity", "linear", "relu", "tanh", "sigmoid", "gelu")
 #: runs in the median of a bucket-16 VGG16 forward: the kernels move it by
@@ -343,7 +364,8 @@ def phase_device():
 
 
 #: kernels whose registers and spills the build phase reports by name
-GEMM_KERNELS = ("fused_dense_kernel", "q_matmul_kernel")
+GEMM_KERNELS = ("fused_dense_kernel", "q_matmul_kernel", "conv3x3_wgrad_kernel",
+                "conv3x3_dgrad_kernel")
 
 
 def _ptxas_by_kernel(log, names):
@@ -528,6 +550,7 @@ def time_ms(fn, dev, n=25):
     ts = []
     for _ in range(n):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -571,10 +594,11 @@ def phase_times(matmul, dev):
     return rows
 
 
-def conv_bound(kernel, B, H, W, Ci, Co, dt):
-    """Least time for one call: the operations 2*9*Ci*Co*B*H*W over the
-    type's peak, or the bytes (each input read once, the f32 output
-    written once) over 3.35 TB/s, whichever is larger."""
+def conv_bound(kernel, B, H, W, Ci, Co, dt, route):
+    """Least time for one call on `route` (``CONV_ROUTE_RATES``): the
+    operations 2*9*Ci*Co*B*H*W (times 3 for 3xTF32) over the route's peak,
+    or the bytes (each input read once, the f32 output written once) over
+    3.35 TB/s, whichever is larger."""
     es = torch.tensor([], dtype=dt).element_size()
     K = B * H * W
     if kernel == "conv3x3_wgrad":
@@ -582,7 +606,8 @@ def conv_bound(kernel, B, H, W, Ci, Co, dt):
     else:
         nbytes = K * Co * es + 9 * Ci * Co * es + K * Ci * 4
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = 2.0 * 9 * Ci * Co * K / PEAK_OPS_PER_S[dt]
+    mult, rate = CONV_ROUTE_RATES[route]
+    t_ops = mult * 2.0 * 9 * Ci * Co * K / rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -602,7 +627,7 @@ def phase_conv_parity(ck, conv3x3, dev):
     for i, shape in enumerate(shapes):
         for dt in (torch.float32, torch.bfloat16):
             x, dy, w = _conv_inputs(shape, dt, dev, seed=10 + i)
-            errs = {}
+            errs, repeat = {}, {}
             for name, counter, fn, ref_fn, args in (
                     ("conv3x3_wgrad", conv3x3.WGRAD_LAUNCHES, ck.conv3x3_wgrad,
                      ck.conv3x3_wgrad_reference, (x, dy)),
@@ -620,8 +645,11 @@ def phase_conv_parity(ck, conv3x3, dev):
                 require(err <= tolerance(dt, rmax),
                         f"{name} {shape} {dt}: max|diff| {err} > tol {tolerance(dt, rmax)}")
                 errs[name] = {"abs": err, "rel": err / max(rmax, 1e-30)}
+                repeat[name] = torch.equal(got, fn(*args))
+                require(repeat[name], f"{name} {shape} {dt}: two calls differ")
                 cases += 1
-            emit("conv_parity", shape=list(shape), dtype=str(dt), errors=errs)
+            emit("conv_parity", shape=list(shape), dtype=str(dt),
+                 route=conv3x3.ROUTES[dt], errors=errs, bitwise_repeat=repeat)
     emit("conv_parity_done", cases=cases, ok=True)
 
 
@@ -752,6 +780,7 @@ def phase_train(conv3x3, dispatch, ResNet50, Nesterovs, dev, steps=3,
 
 
 def phase_train_bf16(conv3x3, ResNet50, Nesterovs, dev, x, y, steps=2):
+    """2 bf16-compute steps; returns the net for train_bf16_profile."""
     net = _resnet50(ResNet50, Nesterovs, dev, compute_dtype="bfloat16",
                     image=x.shape[1], classes=y.shape[1])
     conv3x3.WGRAD_LAUNCHES.reset()
@@ -766,31 +795,33 @@ def phase_train_bf16(conv3x3, ResNet50, Nesterovs, dev, x, y, steps=2):
     emit("train_bf16", model="ResNet50", batch=x.shape[0], steps=steps, losses=losses,
          wgrad_launches=launches[0], dgrad_launches=launches[1],
          step_ms_all=ms, step_ms=ms[-1])
+    return net
 
 
-def phase_train_profile(net, x, y):
-    """One f32 fit step under torch.profiler: device busy time (union of
-    kernel intervals), idle share of the window, the top kernels, and the
-    share of busy time in the two conv backward kernels."""
+def phase_train_profile(net, x, y, phase="train_profile", compute_dtype="float32"):
+    """One fit step (f32, or the bf16-compute net for train_bf16_profile)
+    under torch.profiler: device busy time (union of kernel intervals),
+    idle share of the window, the top kernels, and the share of busy time
+    in the two conv backward kernels (dgrad's filter pack included)."""
     def step():
         net.fit(x, y)
         net.score()
 
     window_ms, busy_ms, by_name, n = _trace(step)
     if busy_ms is None:
-        emit("train_profile", window_ms=window_ms,
+        emit(phase, window_ms=window_ms,
              device_busy_ms="not measured", idle_share="not measured")
         return
     wgrad_ms = _share(by_name, "conv3x3_wgrad")
     dgrad_ms = _share(by_name, "conv3x3_dgrad")
-    emit("train_profile", window_ms=window_ms, device_busy_ms=busy_ms,
+    emit(phase, compute_dtype=compute_dtype, window_ms=window_ms, device_busy_ms=busy_ms,
          idle_share=max(0.0, 1.0 - busy_ms / window_ms), kernels=n,
          conv3x3_wgrad_ms=wgrad_ms, conv3x3_dgrad_ms=dgrad_ms,
          conv3x3_share_of_busy=(wgrad_ms + dgrad_ms) / busy_ms,
          top=_top(by_name, 15))
 
 
-def phase_conv_times(ck, dev):
+def phase_conv_times(ck, conv3x3, dev):
     rows = {}
     for stage, shape in BODY_SHAPES.items():
         B, H, W, Ci, Co = shape
@@ -805,11 +836,15 @@ def phase_conv_times(ck, dev):
                      lambda: ck.conv3x3_dgrad_reference(dy, w),
                      lambda: torch.nn.grad.conv2d_input(xc.shape, w, dyc, padding=1))):
                 err = (fn() - plain()).abs().max().item()
-                bound_ms, bound_by = conv_bound(name, B, H, W, Ci, Co, dt)
+                route = conv3x3.ROUTES[dt]
+                bound_ms, bound_by = conv_bound(name, B, H, W, Ci, Co, dt, route)
+                ms = time_ms(fn, dev)
                 rows[(name, stage, dt)] = dict(
-                    ms=time_ms(fn, dev), plain_ms=time_ms(plain, dev),
-                    library_ms=time_ms(lib, dev), bound_ms=bound_ms,
-                    bound_by=bound_by, max_abs_err=err)
+                    ms=ms, plain_ms=time_ms(plain, dev),
+                    library_ms=time_ms(lib, dev), route=route, bound_ms=bound_ms,
+                    bound_by=bound_by, share_of_bound=bound_ms / ms,
+                    simt_bound_ms=conv_bound(name, B, H, W, Ci, Co, dt, "simt")[0],
+                    max_abs_err=err)
                 emit("conv_times", kernel=name, stage=stage, shape=list(shape),
                      dtype=str(dt), **rows[(name, stage, dt)])
     return rows
@@ -2159,9 +2194,10 @@ def main():
                                            Nesterovs, dev)
     phase_train_profile(net, x, y)
     del net
-    phase_train_bf16(conv3x3, ResNet50, Nesterovs, dev, x, y)
-    del x, y
-    conv_rows = phase_conv_times(ck, dev)
+    net = phase_train_bf16(conv3x3, ResNet50, Nesterovs, dev, x, y)
+    phase_train_profile(net, x, y, phase="train_bf16_profile", compute_dtype="bfloat16")
+    del net, x, y
+    conv_rows = phase_conv_times(ck, conv3x3, dev)
     phase_ln_parity(nk, layer_norm, dev)
     phase_attn_parity(ak, attention, dev)
     bert_launches, bert_bf16 = phase_bert(BertModel, BertConfig, dispatch,
@@ -2212,6 +2248,7 @@ def main():
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "product": row["route"], "simt_bound_ms": row["simt_bound_ms"],
             "shape": "ResNet-50 s0 B=64 56x56 Ci=Co=64 f32; launches over "
                      "3 fit steps"})
     for name, (replaces, source), row, n_launched, shape in (

@@ -141,11 +141,13 @@ def library() -> ctypes.CDLL:
                 ctypes.POINTER(ctypes.c_int)] * 2
             lib.dl4j_paged_attention_limits.restype = None
             lib.dl4j_conv3x3_wgrad.argtypes = (
-                [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
             lib.dl4j_conv3x3_wgrad.restype = ctypes.c_int
             lib.dl4j_conv3x3_dgrad.argtypes = (
-                [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+                [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
             lib.dl4j_conv3x3_dgrad.restype = ctypes.c_int
+            lib.dl4j_conv3x3_tile.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
+            lib.dl4j_conv3x3_tile.restype = None
             lib.dl4j_layer_norm_fwd.argtypes = (
                 [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
                 + [ctypes.c_longlong, ctypes.c_float] + [ctypes.c_int] * 2

@@ -7,215 +7,161 @@
 //   dW[co, ci, i, j] = sum over b, h, w of
 //                      x[b, h + i - 1, w + j - 1, ci] * dy[b, h, w, co]
 //
-// with x read as zero outside the image, i.e. nine [Ci, K] x [K, Co]
-// products over the same K = B*H*W positions, one per tap (i, j).
+// with x read as zero outside the image.
 //
 //   x  [B, H, W, Ci] NHWC-contiguous, f32 or bf16
 //   dy [B, H, W, Co] NHWC-contiguous, same dtype as x
-//   dw [Co, Ci, 3, 3] f32 (the port's OIHW layout), written by pass 2
-//   partial [splits, 9, Ci, Co] f32 scratch, from the wrapper's torch.empty
+//   dw [Co, Ci, 3, 3] f32 (the port's OIHW layout)
 //
-// Design.  Blocks run in no order on the card, so the TPU's sum over a
-// sequential grid into one resident output block does not carry over.
-// Pass 1 tiles (tap, Ci, Co) into 64x64 output tiles and splits K across
-// blocks: block z = tap * splits + split sums positions
-// [split * chunk, (split + 1) * chunk) into registers (256 threads, a 4x4
-// micro-tile each, K steps of 16 through shared memory) and stores its
-// partial tile.  Pass 2 sums the `splits` partials of each element in a
-// fixed order and writes dW in OIHW order.  No atomics: two runs give the
-// same bits.  The wrapper picks `splits` so that pass 1 has at least about
-// four blocks per SM (at ResNet-50's 56x56x64 stage the (tap, Ci, Co) tiles
-// alone are 9 blocks for 132 SMs).
+// Design: nine implicit GEMMs (conv3x3_igemm.cuh), one per tap (i, j) in
+// gridDim.z, each with M = Ci, N = Co and the reduction over the B*H*W
+// positions in steps of 32.  A is x's rows at the positions shifted by the
+// tap, B is dy's rows (16-byte copies of channels, x zero-filled outside
+// the image); both arrive position-major, so A goes through
+// ldmatrix.trans too.  The output tiles alone are few (9 at 56x56x64, 36 at
+// 28x28x128), so the plan splits the positions into S slices until the
+// grid has at least 2 blocks per SM; the last block of each tile sums the
+// S partials in slice order (no float atomics, the same bits every call)
+// and writes dW in OIHW order.  The thread tracks its copy row's image row
+// and column from one step to the next (one division a step, none per
+// chunk).
 //
-// No padded or shifted copies: the TPU kernel pads x and cuts three
-// row-shifted views before its launch (a BlockSpec artefact).  Here a
-// position's tap-shifted source is the NHWC offset of the position plus
-// (i - 1) * W + (j - 1), read only when the shifted row and column lie in
-// the image; everything outside reads 0.  Each thread tracks its load
-// rows' image row and column incrementally.  Ragged Ci, Co and K are
-// masked.
-//
-// Bound.  Operations bound it in f32: 2 * 9 * Ci * Co * B*H*W = 14.8 GFLOP
-// at every ResNet-50 body shape at batch 64, 0.22 ms at 67 TFLOP/s, while
-// reading x and dy once is 103 MB at 56x56x64 (31 us).  In bf16 the bytes
-// (51 MB, 15 us) and the tensor-core rate (15 us) meet.  This first kernel
-// is SIMT f32 arithmetic with bf16 converted on load; tensor cores (wgmma),
-// TMA and a tap loop inside the block that reuses each dy tile nine times
-// are later work.  Pass 2 reads the partials with a stride (its threads
-// walk dW in OIHW order); it moves 9 * Ci * Co * splits floats, small
-// beside pass 1.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+// Bound: 2 * 9 * Ci * Co * B*H*W = 14.8 GFLOP at every ResNet-50 body shape
+// at batch 64; bf16 0.015 ms at 989 TFLOP/s, against reading x and dy once
+// (51 MB at 56x56x64, 0.015 ms); f32 through 3xTF32 0.090 ms at 495 TFLOP/s
+// (0.221 at the 67 TFLOP/s SIMT rate), against 103 MB (0.031 ms).
+#include "conv3x3_igemm.cuh"
 
 namespace {
 
-constexpr int BM = 64;   // ci per tile
-constexpr int BN = 64;   // co per tile
-constexpr int BK = 16;   // positions per step
-constexpr int TM = 4;
-constexpr int TN = 4;
-constexpr int THREADS = (BM / TM) * (BN / TN);  // 256
-constexpr int REDUCE_THREADS = 256;
+using namespace conv_igemm;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
+template <typename T, bool VEC>
 __global__ void __launch_bounds__(THREADS)
-conv3x3_wgrad_partial(const T* __restrict__ x, const T* __restrict__ dy,
-                      float* __restrict__ partial, int B, int H, int W,
-                      int Ci, int Co, int splits, int chunk) {
-  __shared__ float Xs[BK][BM];
-  __shared__ float Ds[BK][BN];
+conv3x3_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ dy, float* __restrict__ dw,
+                     float* ws, int* counters, int H, int W, int P, int Ci, int Co, int S) {
+  using C = Cfg<T, false>;
+  static_assert(BM == BN, "A and B copy rows coincide");
+  extern __shared__ __align__(16) char smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int tap = blockIdx.z / S, s = blockIdx.z % S;
+  const int di = tap / 3 - 1, dj = tap % 3 - 1;
+  const int wm0 = (warp % WARPS_M) * WM, wn0 = (warp / WARPS_M) * WN;
+  int k_begin, k_end;
+  slice_bounds((P + BK - 1) / BK, S, s, &k_begin, &k_end);
+  const int p_end = min(P, k_end * BK);
 
-  const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN);
-  const int ty = tid / (BN / TN);
-  const int co0 = blockIdx.x * BN;
-  const int ci0 = blockIdx.y * BM;
-  const int tap = blockIdx.z / splits;
-  const int split = blockIdx.z % splits;
-  const int di = tap / 3 - 1;
-  const int dj = tap % 3 - 1;
-  const int K = B * H * W;
-  const int k_begin = split * chunk;
-  const int k_end = min(K, k_begin + chunk);
-
-  // Loads: thread t fills column t % 64 of rows t / 64 + 4 * e; neighbouring
-  // threads read neighbouring channels of one position.  Each of a
-  // thread's rows keeps its position's image row and column in registers,
-  // advanced by BK positions per step (no division in the loop).
-  constexpr int ROWS = BK / (THREADS / BM);
-  const int lc = tid % BM;
-  const int lr = tid / BM;
-  const int ci = ci0 + lc;
-  const int co = co0 + lc;
-  int row[ROWS], col[ROWS];
-#pragma unroll
-  for (int e = 0; e < ROWS; ++e) {
-    const int k = k_begin + lr + e * (THREADS / BM);
-    const int q = k / W;
-    row[e] = q % H;
-    col[e] = k - q * W;
+  // A [BK positions][BM input channels] and B [BK positions][BN output
+  // channels]: the thread copies chunks (tid % TPR) + TPR * j of row
+  // r = tid / TPR of both, and tracks that row's image row and column
+  constexpr int TPR = THREADS / BK;
+  constexpr int CPT = BM / C::VE / TPR;
+  static_assert(THREADS % BK == 0 && CPT >= 1, "copy rows");
+  const int r = tid / TPR;
+  int pw, ph;
+  {
+    const int p = k_begin * BK + r;
+    const int q = p / W;
+    pw = p - q * W;
+    ph = q % H;
   }
 
-  float acc[TM][TN];
+  auto load = [&](char* stage, int step) {
+    const int p = (k_begin + step) * BK + r;
+    T* As = reinterpret_cast<T*>(stage);
+    T* Bs = As + C::A_ELEMS;
+    const int hs = ph + di, wsh = pw + dj;
+    const bool live = p < p_end;
+    const bool in = live && hs >= 0 && hs < H && wsh >= 0 && wsh < W;
+    const T* xrow = x + (int64_t)(p + di * W + dj) * Ci;
+    const T* dyrow = dy + (int64_t)p * Co;
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+    for (int j = 0; j < CPT; ++j) {
+      const int c = (tid % TPR + TPR * j) * C::VE, ci = m0 + c, co = n0 + c;
+      copy_chunk<VEC>(As + r * C::LDA + c, xrow + ci, x, in && ci < Ci, Ci - ci);
+      copy_chunk<VEC>(Bs + r * C::LDB + c, dyrow + co, dy, live && co < Co, Co - co);
+    }
+    // the row's position BK steps on
+    pw += BK;
+    const int q = pw / W;
+    pw -= q * W;
+    ph = (ph + q) % H;
+  };
 
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
+  float acc[MT][NT][4];
 #pragma unroll
-    for (int e = 0; e < ROWS; ++e) {
-      const int kk = lr + e * (THREADS / BM);
-      const int k = k0 + kk;
-      float xv = 0.0f, dv = 0.0f;
-      if (k < k_end) {
-        const int hs = row[e] + di;
-        const int ws = col[e] + dj;
-        if (ci < Ci && hs >= 0 && hs < H && ws >= 0 && ws < W)
-          xv = to_f32(x[((int64_t)k + di * W + dj) * Ci + ci]);
-        if (co < Co) dv = to_f32(dy[(int64_t)k * Co + co]);
-      }
-      Xs[kk][lc] = xv;
-      Ds[kk][lc] = dv;
-    }
-    __syncthreads();
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], b[TN];
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = Xs[kk][ty + i * (BM / TM)];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = Ds[kk][tx + j * (BN / TN)];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int e = 0; e < ROWS; ++e) {
-      col[e] += BK;
-      while (col[e] >= W) {
-        col[e] -= W;
-        if (++row[e] == H) row[e] = 0;
-      }
-    }
-  }
+      for (int c = 0; c < 4; ++c) acc[mt][nt][c] = 0.0f;
+  pipeline<C>(smem, k_end - k_begin, load,
+              [&](const char* stage) { mma_stage<C>(stage, acc, wm0, wn0, lane); });
 
-  float* out = partial + ((int64_t)split * 9 + tap) * Ci * Co;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = ci0 + ty + i * (BM / TM);
-    if (r >= Ci) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = co0 + tx + j * (BN / TN);
-      if (c < Co) out[(int64_t)r * Co + c] = acc[i][j];
-    }
-  }
+  const int tile = (tap * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+  finish(acc, ws, counters, tile, 9 * gridDim.x * gridDim.y, S, s, Ci, Co, m0, n0, wm0, wn0,
+         [&](int m, int n, float v) { dw[((int64_t)n * Ci + m) * 9 + tap] = v; });
 }
 
-// One thread per dW element, in OIHW order: sums its `splits` partials in
-// split order (deterministic).
-__global__ void __launch_bounds__(REDUCE_THREADS)
-conv3x3_wgrad_reduce(const float* __restrict__ partial, float* __restrict__ dw,
-                     int Ci, int Co, int splits) {
-  const int64_t total = (int64_t)9 * Ci * Co;
-  const int64_t idx = (int64_t)blockIdx.x * REDUCE_THREADS + threadIdx.x;
-  if (idx >= total) return;
-  const int tap = (int)(idx % 9);
-  const int64_t t = idx / 9;
-  const int ci = (int)(t % Ci);
-  const int co = (int)(t / Ci);
-  const int64_t stride = (int64_t)9 * Ci * Co;
-  const float* p = partial + ((int64_t)tap * Ci + ci) * Co + co;
-  float s = 0.0f;
-  for (int sp = 0; sp < splits; ++sp) s += p[sp * stride];
-  dw[idx] = s;
+bool smem_raised[4][MAX_DEVICES];
+
+template <typename T, bool VEC>
+cudaError_t launch_kernel(int slot, const T* x, const T* dy, float* dw, float* ws, int* counters,
+                       int H, int W, int P, int Ci, int Co, int S, cudaStream_t stream) {
+  using C = Cfg<T, false>;
+  auto* kernel = conv3x3_wgrad_kernel<T, VEC>;
+  cudaError_t err = allow_smem((const void*)kernel, C::SMEM_BYTES, smem_raised[slot]);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Ci + BM - 1) / BM, (Co + BN - 1) / BN, 9 * S);
+  kernel<<<grid, THREADS, C::SMEM_BYTES, stream>>>(x, dy, dw, ws, counters, H, W, P, Ci, Co, S);
+  return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch(const void* x, const void* dy, float* partial, float* dw,
-                   int B, int H, int W, int Ci, int Co, int splits, int chunk,
-                   cudaStream_t stream) {
-  const dim3 grid((Co + BN - 1) / BN, (Ci + BM - 1) / BM, 9 * splits);
-  conv3x3_wgrad_partial<T><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dy), partial, B, H, W,
-      Ci, Co, splits, chunk);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int64_t total = (int64_t)9 * Ci * Co;
-  const unsigned blocks = (unsigned)((total + REDUCE_THREADS - 1) / REDUCE_THREADS);
-  conv3x3_wgrad_reduce<<<blocks, REDUCE_THREADS, 0, stream>>>(partial, dw, Ci, Co,
-                                                              splits);
-  return cudaGetLastError();
+cudaError_t launch(const void* x, const void* dy, float* dw, float* ws, int* counters, int H,
+                   int W, int P, int Ci, int Co, int S, cudaStream_t stream) {
+  const bool vec = ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(dy)) & 15) == 0 &&
+                   ((int64_t)Ci * (int64_t)sizeof(T)) % 16 == 0 &&
+                   ((int64_t)Co * (int64_t)sizeof(T)) % 16 == 0;
+  const int slot = 2 * (int)std::is_same<T, __nv_bfloat16>::value + (int)vec;
+  const T* xt = static_cast<const T*>(x);
+  const T* dt = static_cast<const T*>(dy);
+  if (vec) return launch_kernel<T, true>(slot, xt, dt, dw, ws, counters, H, W, P, Ci, Co, S, stream);
+  return launch_kernel<T, false>(slot, xt, dt, dw, ws, counters, H, W, P, Ci, Co, S, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = f32, 1 = bf16.  B*H*W must fit in an int (the wrapper checks);
-// splits * chunk must cover B*H*W.  Returns the first launch's
+// The shared tile of both conv kernels (conv3x3_igemm.cuh), for the
+// wrapper's plan to check against.
+void dl4j_conv3x3_tile(int* bm, int* bn, int* bk) {
+  *bm = BM;
+  *bn = BN;
+  *bk = BK;
+}
+
+// dtype: 0 = f32, 1 = bf16.  With S > 1, ws holds S * tiles * 64 * 64
+// floats and counters `tiles` zeroed ints (tiles = 9 * ceil(Ci / 64) *
+// ceil(Co / 64)), left zero again.  S must lie in [1, ceil(B*H*W / 32)].
+// B*H*W must fit in an int (the wrapper checks).  Returns the launch's
 // cudaError_t (0 = success).
-int dl4j_conv3x3_wgrad(const void* x, const void* dy, void* partial, void* dw,
-                       int B, int H, int W, int Ci, int Co, int splits,
-                       int chunk, int dtype, void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || Ci <= 0 || Co <= 0 || splits <= 0 ||
-      chunk <= 0 || 9 * splits > 65535 || (Ci + BM - 1) / BM > 65535 ||
-      (int64_t)splits * chunk < (int64_t)B * H * W)
+int dl4j_conv3x3_wgrad(const void* x, const void* dy, void* dw, void* ws, void* counters, int B,
+                       int H, int W, int Ci, int Co, int S, int dtype, void* stream) {
+  const int64_t P = (int64_t)B * H * W;
+  if (B <= 0 || H <= 0 || W <= 0 || Ci <= 0 || Co <= 0 || P > INT32_MAX || S < 1 ||
+      9 * (int64_t)S > 65535 || S > (P + BK - 1) / BK || (Co + BN - 1) / BN > 65535 ||
+      (S > 1 && (ws == nullptr || counters == nullptr)))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* p = static_cast<float*>(partial);
-  float* d = static_cast<float*>(dw);
-  if (dtype == 0)
-    return (int)launch<float>(x, dy, p, d, B, H, W, Ci, Co, splits, chunk, s);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* out = static_cast<float*>(dw);
+  float* wsf = static_cast<float*>(ws);
+  int* ctr = static_cast<int*>(counters);
+  if (dtype == 0) return (int)launch<float>(x, dy, out, wsf, ctr, H, W, (int)P, Ci, Co, S, st);
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(x, dy, p, d, B, H, W, Ci, Co, splits, chunk, s);
+    return (int)launch<__nv_bfloat16>(x, dy, out, wsf, ctr, H, W, (int)P, Ci, Co, S, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -153,16 +153,161 @@ def test_cuda_inputs_the_kernels_refuse_raise(monkeypatch, dtype):
         ck.conv3x3_wgrad(torch.from_numpy(x), torch.from_numpy(dy).bfloat16())
 
 
+#: an H100 SXM's SMs, for the plans below
+SM_COUNT = 132
+BODY = {"s0": (64, 56, 56, 64), "s1": (64, 28, 28, 128),
+        "s2": (64, 14, 14, 256), "s3": (64, 7, 7, 512)}
+
+
+def _check_slices(plan, steps):
+    """The slices tile the reduction steps in order, each non-empty."""
+    assert plan.steps == steps and len(plan.slices) == plan.splits
+    assert plan.slices[0][0] == 0 and plan.slices[-1][1] == steps
+    assert all(a < b for a, b in plan.slices)
+    assert all(p[1] == q[0] for p, q in zip(plan.slices, plan.slices[1:]))
+
+
 @pytest.mark.parametrize("B,H,W,C", [(64, 56, 56, 64), (64, 28, 28, 128),
                                      (64, 14, 14, 256), (64, 7, 7, 512),
                                      (3, 13, 13, 24), (1, 1, 1, 1)])
 def test_wgrad_split_covers_k_in_whole_steps(B, H, W, C):
     K = B * H * W
-    splits, chunk = conv3x3.wgrad_split(K, C, C)
-    assert chunk % 16 == 0 and splits * chunk >= K > (splits - 1) * chunk
-    tiles = math.ceil(C / 64) ** 2 * 9
-    assert 1 <= splits <= 65535 // 9
-    assert tiles * splits >= min(528, tiles * math.ceil(K / 16))
+    plan = conv3x3.conv_plan("conv3x3_wgrad", B, H, W, C, C, SM_COUNT)
+    bk = conv3x3.BLOCK_K
+    _check_slices(plan, math.ceil(K / bk))
+    # slice s covers positions [bk * begin, min(K, bk * end)): every one once
+    assert sum(min(K, bk * b) - bk * a for a, b in plan.slices) == K
+    n = math.ceil(C / 64)
+    tiles = n * n * 9
+    assert plan.tiles == tiles and plan.grid == (n, n, 9 * plan.splits)
+    assert 1 <= plan.splits <= 65535 // 9
+    assert tiles * plan.splits >= min(2 * SM_COUNT, tiles * plan.steps)
+    assert plan.workspace_bytes == (plan.splits * tiles * 64 * 64 * 4
+                                    if plan.splits > 1 else 0)
+    assert plan.packed_w_bytes == 0
+
+
+@pytest.mark.parametrize("B,H,W,Ci,Co", [(64, 56, 56, 64, 64), (64, 7, 7, 512, 512),
+                                         (3, 13, 13, 24, 40), (2, 9, 11, 3, 5),
+                                         (2, 16, 16, 3, 64), (1, 1, 1, 1, 1)])
+@pytest.mark.parametrize("itemsize", [4, 2])
+def test_dgrad_plan_covers_taps_and_channels(B, H, W, Ci, Co, itemsize):
+    plan = conv3x3.conv_plan("conv3x3_dgrad", B, H, W, Ci, Co, SM_COUNT, itemsize)
+    _check_slices(plan, 9 * math.ceil(Co / conv3x3.BLOCK_K))
+    grid = (math.ceil(B * H * W / 64), math.ceil(Ci / 64), plan.splits)
+    tiles = grid[0] * grid[1]
+    assert plan.tiles == tiles and plan.grid == grid
+    assert tiles * plan.splits >= min(2 * SM_COUNT, tiles * plan.steps)
+    assert plan.workspace_bytes == (plan.splits * tiles * 64 * 64 * 4
+                                    if plan.splits > 1 else 0)
+    # the packed filter [9, Co, ci_ld] with rows padded to 16 bytes of bf16
+    ci_ld = math.ceil(Ci / 8) * 8
+    assert plan.packed_w_bytes == 9 * Co * ci_ld * itemsize
+    assert (ci_ld * 2) % 16 == 0
+
+
+@pytest.mark.parametrize("stage", sorted(BODY))
+@pytest.mark.parametrize("kernel", ["conv3x3_wgrad", "conv3x3_dgrad"])
+def test_conv_plan_fills_the_card_at_body_shapes(kernel, stage):
+    """At least 2 blocks per SM at every ResNet-50 body shape, and the
+    busiest SM's work (blocks on it times steps a block) within 6% of the
+    even share (the plan's 5% slack over its best whole-block split, which
+    is within 1% of the even share here): dgrad gets there without splitting; wgrad splits the
+    positions (9 tiles at s0) into slices whose blocks spread evenly over
+    the SMs (378 blocks at s0, not 270), with at most 20 MB of workspace."""
+    B, H, W, C = BODY[stage]
+    plan = conv3x3.conv_plan(kernel, B, H, W, C, C, SM_COUNT)
+    blocks = plan.grid[0] * plan.grid[1] * plan.grid[2]
+    assert blocks >= 2 * SM_COUNT
+    busiest = math.ceil(blocks / SM_COUNT) * math.ceil(plan.steps / plan.splits)
+    assert busiest <= 1.06 * plan.tiles * plan.steps / SM_COUNT
+    if kernel == "conv3x3_dgrad":
+        assert plan.splits == 1 and plan.workspace_bytes == 0
+    else:
+        assert plan.splits == {"s0": 42, "s1": 11, "s2": 7, "s3": 2}[stage]
+        assert plan.workspace_bytes <= 20 << 20
+
+
+def _tf32_rna(t):
+    """Round f32 to TF32 (10 mantissa bits), to nearest with ties away from
+    zero, as ``cvt.rna.tf32.f32``: add half a unit of the 13 dropped bits
+    to the magnitude, then clear them."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split(t):
+    big = _tf32_rna(t)
+    return big, _tf32_rna(t - big)
+
+
+def _product_3xtf32(a, b):
+    """a @ b as the f32 kernel forms it: small*big + big*small + big*big,
+    each on TF32 operands, summed in f32."""
+    (ab, as_), (bb, bs) = _split(a), _split(b)
+    return as_ @ bb + ab @ bs + ab @ bb
+
+
+def _dgrad_emulated(dy, w, product):
+    B, H, W, Co = dy.shape
+    dyp = torch.nn.functional.pad(dy, (0, 0, 1, 1, 1, 1))
+    dx = torch.zeros((B * H * W, w.shape[1]), dtype=torch.float32)
+    for i in range(3):
+        for j in range(3):
+            dx = dx + product(dyp[:, i:i + H, j:j + W, :].reshape(-1, Co),
+                              w[:, :, 2 - i, 2 - j].contiguous())
+    return dx.reshape(B, H, W, -1)
+
+
+def _wgrad_emulated(x, dy, product):
+    B, H, W, Ci = x.shape
+    xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+    d = dy.reshape(-1, dy.shape[-1]).t().contiguous()
+    taps = [product(d, xp[:, i:i + H, j:j + W, :].reshape(-1, Ci))
+            for i in range(3) for j in range(3)]
+    return torch.stack(taps, dim=-1).reshape(dy.shape[-1], Ci, 3, 3)
+
+
+def test_tf32_rounding_is_to_nearest_ties_away():
+    one = 1.0
+    v = torch.tensor([one, one + 2 ** -11, -(one + 2 ** -11), one + 2 ** -12,
+                      one + 3 * 2 ** -11, 3.0e-3], dtype=torch.float32)
+    got = _tf32_rna(v)
+    want = torch.tensor([one, one + 2 ** -10, -(one + 2 ** -10), one,
+                         one + 2 ** -9, float(np.float32(3.0e-3))], dtype=torch.float32)
+    torch.testing.assert_close(got[:5], want[:5], rtol=0, atol=0)
+    assert abs(got[5].item() - 3.0e-3) <= 3.0e-3 * 2 ** -11
+    assert (got.view(torch.int32) & 0x1FFF == 0).all()
+
+
+@pytest.mark.parametrize("kernel,shape", [
+    ("conv3x3_dgrad", (1, 6, 6, 16, 512)),     # 9 * 512 = 4,608 terms a sum
+    ("conv3x3_dgrad", (2, 5, 7, 8, 640)),      # 5,760
+    ("conv3x3_wgrad", (2, 48, 48, 8, 8)),      # 4,608 positions
+    ("conv3x3_wgrad", (4, 40, 40, 4, 16)),     # 6,400
+])
+def test_3xtf32_split_keeps_f32_accuracy(kernel, shape):
+    """The f32 kernels' 3xTF32 product, emulated on the CPU, stays within
+    the card checks' 1e-4 * max|ref| of the f64 reference at reductions of
+    4,608 terms and more, and well inside one TF32 product's error."""
+    B, H, W, Ci, Co = shape
+    rs = np.random.RandomState(7)
+    x = torch.from_numpy(rs.randn(B, H, W, Ci).astype(np.float32))
+    dy = torch.from_numpy(rs.randn(B, H, W, Co).astype(np.float32))
+    w = torch.from_numpy(rs.randn(Co, Ci, 3, 3).astype(np.float32))
+    if kernel == "conv3x3_dgrad":
+        ref = ck.conv3x3_dgrad_reference(dy.double(), w.double())
+        got = _dgrad_emulated(dy, w, _product_3xtf32)
+        one = _dgrad_emulated(dy, w, lambda a, b: _tf32_rna(a) @ _tf32_rna(b))
+    else:
+        ref = ck.conv3x3_wgrad_reference(x.double(), dy.double())
+        got = _wgrad_emulated(x, dy, _product_3xtf32)
+        one = _wgrad_emulated(x, dy, lambda a, b: _tf32_rna(a) @ _tf32_rna(b))
+    rmax = ref.abs().max().item()
+    err = (got.double() - ref).abs().max().item()
+    err_one = (one.double() - ref).abs().max().item()
+    assert err <= 1e-4 * rmax
+    assert err * 10 < err_one
 
 
 @pytest.mark.parametrize("record", [True, False])
@@ -219,7 +364,8 @@ def test_kernels_match_plain_versions_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for B, H, W, Ci, Co in [(3, 13, 13, 24, 40), (2, 7, 7, 96, 80)]:
+    for B, H, W, Ci, Co in [(3, 13, 13, 24, 40), (2, 7, 7, 96, 80), (2, 9, 11, 3, 5),
+                            (2, 16, 16, 3, 64)]:
         for dt in (torch.float32, torch.bfloat16):
             x = torch.randn(B, H, W, Ci, generator=gen, device="cuda").to(dt)
             dy = torch.randn(B, H, W, Co, generator=gen, device="cuda").to(dt)
@@ -230,6 +376,8 @@ def test_kernels_match_plain_versions_on_card():
             assert conv3x3.WGRAD_LAUNCHES.value == before + 1
             ref = ck.conv3x3_wgrad_reference(x, dy)
             assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+            assert torch.equal(got, ck.conv3x3_wgrad(x, dy))
             got = ck.conv3x3_dgrad(dy, w)
             ref = ck.conv3x3_dgrad_reference(dy, w)
             assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+            assert torch.equal(got, ck.conv3x3_dgrad(dy, w))
