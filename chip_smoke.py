@@ -11,7 +11,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 1. device  — nvidia-smi's name and power limit; compute capability (9, 0).
 2. build   — compile the CUDA kernels from ``csrc/`` (``nvcc``, sm_90a);
    the registers and spills of ``fused_dense``, ``q_matmul`` and the two
-   conv kernels by name (none may spill).
+   conv kernels by name (none may spill), and of each instance of the
+   attention backward kernels (dtype x largest head dimension).
 3. parity  — ``fused_dense`` against ``fused_dense_reference`` on the card
    at M in {1, 2, 4, 8, 16} (every bucket the slice serves) and {37, 128}
    (ragged and multi-tile), and (K, N) in {(25088, 4096), (4096, 4096),
@@ -125,7 +126,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    not, with no mask and with the padded one, f32 and bf16, on the forward
    kernel's out and lse, plus one case with head-split (strided) q, k, v
    and dO; dq, dk and dv each held to the tolerance; each call must add one
-   dQ and one dK/dV launch.
+   dQ and one dK/dV launch, and a second call must give the same bits.
 19. bert_train — the training slice: full-width BERT-base (110,106,428
    parameters from a ``torch.Generator`` seeded 0), Adam(1e-4), batch 64,
    T = 128, inputs as bench.py makes them (``RandomState(0)`` ids, an
@@ -165,7 +166,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    (``torch.autograd.grad`` through ``scaled_dot_product_attention`` with
    the same mask, its forward outside the timed region; the backward of
    ``F.layer_norm``), each the median of 25 runs with L2 flushed, beside
-   the bound.
+   the bound; the attention kernels' bound on their product route
+   (``ROUTE_RATES``: bf16 tensor cores, or 3xTF32 for f32) beside the f32
+   SIMT bound of the first design.
 24. qmm_parity — ``q_matmul`` and ``int8_matmul`` against their plain
    versions at M in {1, 4, 16, 37} and (K, N) in {(25088, 4096), (4096,
    4096), (4096, 1000), (800, 500)}: q_matmul in f32 (TF32 off, 1e-4 *
@@ -236,10 +239,11 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
-#: the conv kernels' products by route: f32 SIMT FMA (the first design's
+#: the conv and attention-backward kernels' products by route, (tensor-core
+#: or FMA products per product, peak rate): f32 SIMT FMA (the first designs'
 #: route, kept as a yardstick), bf16 tensor cores, and 3xTF32, three TF32
 #: tensor-core products per f32 product at the dense TF32 peak
-CONV_ROUTE_RATES = {"simt": (1, 67e12), "mma_bf16": (1, 989e12), "3xtf32": (3, 495e12)}
+ROUTE_RATES = {"simt": (1, 67e12), "mma_bf16": (1, 989e12), "3xtf32": (3, 495e12)}
 #: cycles of the device-side spin queued before each timed run's start
 #: event (about 0.5 ms at 1.98 GHz): it outlasts a wrapper's host time
 #: (Python, ctypes, the launch), so the timed launch is queued before the
@@ -388,6 +392,13 @@ def _ptxas_by_kernel(log, names):
                 "spill_bytes": v["spill_bytes"]} for n, v in out.items()}
 
 
+#: the attention backward kernels' instances (f32 or bf16, largest head
+#: dimension 64 or 128) as their mangled names spell them; the build phase
+#: reports each
+ATTN_BWD_INSTANCES = tuple(f"flash_attn_bwd_{k}_kernelI{t}Li{d}E" for k in ("dq", "dkv")
+                           for t in ("f", "13__nv_bfloat16") for d in (64, 128))
+
+
 def phase_build(build):
     t0 = time.monotonic()
     build.library()
@@ -395,9 +406,12 @@ def phase_build(build):
     ptxas = [l.strip() for l in info.get("ptxas", "").splitlines()
              if "registers" in l or "spill" in l]
     gemm = _ptxas_by_kernel(info.get("ptxas", ""), GEMM_KERNELS)
+    attn_bwd = _ptxas_by_kernel(info.get("ptxas", ""), ATTN_BWD_INSTANCES)
     emit("build", seconds=time.monotonic() - t0, cached=info["cached"],
          library=os.path.relpath(info["path"]), ptxas=sorted(set(ptxas)),
-         gemm_ptxas=gemm)
+         gemm_ptxas=gemm, attn_bwd_ptxas=attn_bwd)
+    require(info["cached"] or len(attn_bwd) == len(ATTN_BWD_INSTANCES),
+            f"attention backward: ptxas reports {sorted(attn_bwd)}")
     for name in GEMM_KERNELS:
         require(info["cached"] or (name in gemm and gemm[name]["spill_bytes"] == 0),
                 f"{name}: ptxas reports {gemm.get(name)} (no report, or spills)")
@@ -595,7 +609,7 @@ def phase_times(matmul, dev):
 
 
 def conv_bound(kernel, B, H, W, Ci, Co, dt, route):
-    """Least time for one call on `route` (``CONV_ROUTE_RATES``): the
+    """Least time for one call on `route` (``ROUTE_RATES``): the
     operations 2*9*Ci*Co*B*H*W (times 3 for 3xTF32) over the route's peak,
     or the bytes (each input read once, the f32 output written once) over
     3.35 TB/s, whichever is larger."""
@@ -606,7 +620,7 @@ def conv_bound(kernel, B, H, W, Ci, Co, dt, route):
     else:
         nbytes = K * Co * es + 9 * Ci * Co * es + K * Ci * 4
     t_bytes = nbytes / HBM_BYTES_PER_S
-    mult, rate = CONV_ROUTE_RATES[route]
+    mult, rate = ROUTE_RATES[route]
     t_ops = mult * 2.0 * 9 * Ci * Co * K / rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -1188,7 +1202,9 @@ def phase_ln_bwd_parity(nk, layer_norm, dev):
 
 
 def _attn_bwd_case(ak, attention, q, k, v, g, mask, causal, dt, tag):
-    """One backward call held to the plain version; {name: rel err}."""
+    """One backward call held to the plain version, and a second call to
+    the first bit for bit (the dQ kernel's dq and the dK/dV kernel's dk,
+    dv); {name: rel err}."""
     out, lse = attention.flash_attention(q, k, v, mask, causal)
     before = (attention.DQ_LAUNCHES.value, attention.DKV_LAUNCHES.value)
     got = attention.launch_bwd(q, k, v, out, lse, g, mask, causal)
@@ -1197,14 +1213,16 @@ def _attn_bwd_case(ak, attention, q, k, v, g, mask, causal, dt, tag):
             == (before[0] + 1, before[1] + 1),
             "launch_bwd did not launch the dQ and dK/dV kernels once each")
     want = ak.flash_attention_bwd_plain(q, k, v, out, lse, g, mask, causal)
+    again = attention.launch_bwd(q, k, v, out, lse, g, mask, causal)
     errs = {}
-    for name, a, r, like in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
+    for name, a, r, b, like in zip(("dq", "dk", "dv"), got, want, again, (q, k, v)):
         require(a.dtype == dt and a.shape == like.shape and torch.isfinite(a).all().item(),
                 f"flash_attn_bwd {name} {a.dtype} {tuple(a.shape)}")
         err = (a.float() - r.float()).abs().max().item()
         rmax = r.float().abs().max().item()
         require(err <= tolerance(dt, rmax),
                 f"flash_attn_bwd {tag} {name}: max|diff| {err} > tol {tolerance(dt, rmax)}")
+        require(torch.equal(a, b), f"flash_attn_bwd {tag} {name}: two calls differ")
         errs[name] = err / max(rmax, 1e-30)
     return errs
 
@@ -1225,7 +1243,8 @@ def phase_attn_bwd_parity(ak, attention, dev):
                     errs[case] = _attn_bwd_case(ak, attention, q, k, v, g, mask, causal, dt,
                                                 f"{[B, H, T, D]} S={S} {dt} {case}")
                     cases += 1
-            emit("attn_bwd_parity", shape=[B, H, T, D], S=S, dtype=str(dt), rel_errors=errs)
+            emit("attn_bwd_parity", shape=[B, H, T, D], S=S, dtype=str(dt), rel_errors=errs,
+                 bitwise_repeat=True)
             del q, k, v, g
     # BERT's layout: q, k, v split out of one [B, T, 3, H, D] tensor, dO a
     # head-split view of [B, T, H, D]
@@ -1238,7 +1257,7 @@ def phase_attn_bwd_parity(ak, attention, dev):
                               dt, f"head-split {dt}")
         cases += 1
         emit("attn_bwd_parity", shape=[B, H, T, D], S=T, dtype=str(dt), layout="head-split",
-             rel_errors=errs)
+             rel_errors=errs, bitwise_repeat=True)
     emit("attn_bwd_parity_done", cases=cases, ok=True)
 
 
@@ -1517,11 +1536,12 @@ def phase_bert_train_profile(model, mds):
          top=_top(by_name, 20))
 
 
-def attn_bwd_bound(B, H, T, S, D, dt, kernel):
-    """Least time for one kernel: 2*B*H*T*S*D operations per product (3 in
-    dQ, 4 in dK/dV) over the type's peak, or its bytes over 3.35 TB/s (dQ
-    reads q, k, v, out, dO, lse and writes dq and delta; dK/dV reads q, k,
-    v, dO, lse, delta, the mask and writes dk, dv), whichever is larger."""
+def attn_bwd_bound(B, H, T, S, D, dt, kernel, route):
+    """Least time for one kernel on `route` (``ROUTE_RATES``): 2*B*H*T*S*D
+    operations per product (3 in dQ, 4 in dK/dV; times 3 for 3xTF32) over
+    the route's peak, or its bytes over 3.35 TB/s (dQ reads q, k, v, out,
+    dO, lse and writes dq and delta; dK/dV reads q, k, v, dO, lse, delta,
+    the mask and writes dk, dv), whichever is larger."""
     es = torch.tensor([], dtype=dt).element_size()
     qt, kv, stats = B * H * T * D * es, B * H * S * D * es, B * H * T * 4
     if kernel == "flash_attn_bwd_dq":
@@ -1529,7 +1549,8 @@ def attn_bwd_bound(B, H, T, S, D, dt, kernel):
     else:
         products, nbytes = 4, 2 * qt + 4 * kv + 2 * stats + B * S * es
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = products * 2.0 * B * H * T * S * D / PEAK_OPS_PER_S[dt]
+    mult, rate = ROUTE_RATES[route]
+    t_ops = mult * products * 2.0 * B * H * T * S * D / rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -1568,14 +1589,18 @@ def phase_attn_bwd_times(ak, attention, dev):
             lib = time_ms(lambda: torch.autograd.grad(lo, (ql, kl, vl), g, retain_graph=True),
                           dev)
             del lo
+            route = attention.BWD_ROUTES[dt]
             for kernel, fn, err in (
                     ("flash_attn_bwd_dq", lambda: attention.launch_bwd_dq(args), errs[0]),
                     ("flash_attn_bwd_dkv", lambda: attention.launch_bwd_dkv(args),
                      max(errs[1:]))):
-                bound_ms, bound_by = attn_bwd_bound(B, H, T, T, D, dt, kernel)
+                bound_ms, bound_by = attn_bwd_bound(B, H, T, T, D, dt, kernel, route)
+                ms = time_ms(fn, dev)
                 rows[(kernel, name, dt)] = dict(
-                    ms=time_ms(fn, dev), plain_ms=plain, library_ms=lib, bound_ms=bound_ms,
-                    bound_by=bound_by, max_abs_err=err)
+                    ms=ms, plain_ms=plain, library_ms=lib, route=route, bound_ms=bound_ms,
+                    bound_by=bound_by, share_of_bound=bound_ms / ms,
+                    simt_bound_ms=attn_bwd_bound(B, H, T, T, D, dt, kernel, "simt")[0],
+                    max_abs_err=err)
                 emit("attn_bwd_times", kernel=kernel, shape=[B, H, T, D], dtype=str(dt),
                      **rows[(kernel, name, dt)])
     return rows
@@ -2276,6 +2301,8 @@ def main():
             "launches": n_launched, "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            **({"product": row["route"], "simt_bound_ms": row["simt_bound_ms"]}
+               if "route" in row else {}),
             "shape": shape + "; launches in one f32 MLM fit_batch step at batch 64, T 128"
                      + ("; plain and library compute dq, dk and dv together"
                         if name.startswith("flash") else "")})

@@ -39,6 +39,8 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MASK_CODES = {None: 0, torch.float32: 1, torch.bfloat16: 2, torch.float16: 3,
                torch.float64: 4}
 MAX_D = 128
+#: how the backward kernels form their products, by dtype (``csrc/flash_attn_bwd.cu``)
+BWD_ROUTES = {torch.float32: "3xtf32", torch.bfloat16: "mma_bf16"}
 _MAX_Q_TILES = 65535
 
 LAUNCHES = registry().counter(
@@ -51,7 +53,7 @@ DKV_LAUNCHES = registry().counter(
     "ops_kernel_launches_total", help="hand-written kernel launches",
     labels={"kernel": "flash_attn_bwd_dkv"})
 
-_tile_checked = False
+_tiles_checked: set = set()
 
 
 def _unit_last(t) -> bool:
@@ -132,20 +134,21 @@ class FlashAttention(torch.autograd.Function):
                 None, None, None)
 
 
-def _check_tile(lib) -> None:
-    """Once per process: the library's compiled tiles are the ones
-    ``DEFAULT_TILES`` records for it."""
-    global _tile_checked
-    if _tile_checked:
+def _check_tile(lib, kernel: str = "attention") -> None:
+    """Once per process and kernel: the library's compiled tiles are the
+    ones ``DEFAULT_TILES`` records for it (``attention``: the forward,
+    ``attention_bwd``: the dQ and dK/dV kernels)."""
+    if kernel in _tiles_checked:
         return
     bq, bk = ctypes.c_int(), ctypes.c_int()
-    lib.dl4j_flash_attn_tile(ctypes.byref(bq), ctypes.byref(bk))
-    want = DEFAULT_TILES["attention"]
+    fn = lib.dl4j_flash_attn_tile if kernel == "attention" else lib.dl4j_flash_attn_bwd_tile
+    fn(ctypes.byref(bq), ctypes.byref(bk))
+    want = DEFAULT_TILES[kernel]
     if (bq.value, bk.value) != (want.block_q, want.block_kv):
         raise RuntimeError(
-            f"flash_attn_fwd: the library is compiled for block_q, block_kv="
+            f"{kernel}: the library is compiled for block_q, block_kv="
             f"{(bq.value, bk.value)}, DEFAULT_TILES says {want.config_key()}")
-    _tile_checked = True
+    _tiles_checked.add(kernel)
 
 
 def _mask_args(mask):
@@ -219,6 +222,7 @@ def _ptr(t):
 def _run(a: _BwdArgs, name: str, fn, counter, *ptrs) -> None:
     from deeplearning4j_tpu_torch.ops.kernels import build
 
+    _check_tile(build.library(), "attention_bwd")
     with torch.cuda.device(a.q.device):
         stream = torch.cuda.current_stream(a.q.device).cuda_stream
         rc = fn(*ptrs, a.strides, *a.shape, stream)

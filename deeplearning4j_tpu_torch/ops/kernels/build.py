@@ -169,8 +169,10 @@ def library() -> ctypes.CDLL:
             lib.dl4j_layer_norm_bwd.restype = ctypes.c_int
             lib.dl4j_layer_norm_bwd_blocks.argtypes = [ctypes.c_int] * 2
             lib.dl4j_layer_norm_bwd_blocks.restype = ctypes.c_int
-            lib.dl4j_flash_attn_tile.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
-            lib.dl4j_flash_attn_tile.restype = None
+            for name in ("dl4j_flash_attn_tile", "dl4j_flash_attn_bwd_tile"):
+                fn = getattr(lib, name)
+                fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+                fn.restype = None
             lib.dl4j_error_string.argtypes = [ctypes.c_int]
             lib.dl4j_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -1,11 +1,11 @@
-// flash_attn_bwd: flash-attention backward for NVIDIA Hopper (sm_90a), two
-// kernels: dQ, then dK/dV.
+// flash_attn_bwd: flash-attention backward for NVIDIA Hopper (sm_90a) on the
+// tensor cores, two kernels: dQ, then dK/dV.
 //
-// Replaces the TPU kernels deeplearning4j_tpu/ops/attention_kernels.py
-// `_flash_bwd_dq_kernel` and `_flash_bwd_dkv_kernel` (reached through
+// Replaces the TPU kernels deeplearning4j_tpu/ops/attention_kernels.py:271
+// `_flash_bwd_dq_kernel` and :322 `_flash_bwd_dkv_kernel` (reached through
 // `flash_attention_bwd_tpu`), with their semantics (FlashAttention-2's
 // backward): delta = rowsum(dO * out) in f32; the scores s = q.k * scale in
-// f32 plus the keep-mask bias are rebuilt exactly as the forward kernel
+// f32 plus the keep-mask bias are rebuilt as the forward kernel
 // (csrc/flash_attn_fwd.cu) made them, and p = exp(s - lse) from the
 // forward's lse, so no [T, S] matrix is stored; dP = dO.v in f32; dS =
 // p * (dP - delta);
@@ -24,58 +24,124 @@
 //     and read by the dK/dV kernel)
 //   mask [B, S] keep-mask (f32, bf16, f16 or f64), rows mask_b apart, or null
 //
-// Design.  The forward's block and thread layout: 256 threads as a 16 x 16
-// grid, each owning a 4 x 4 patch of a 64 x 64 score tile (rows ty + 16i,
-// columns tx + 16j) and 4 x D/16 f32 accumulators in registers; tiles
-// staged in shared memory as f32 (bf16 widened on load), rows padded to
-// D + 1 for conflict-free column reads; nothing crosses blocks and there
-// are no atomics, so the result repeats bit for bit.
-// - dQ: one block per (b*h, 64 query rows).  The TPU kernel's sequential
-//   kv grid axis and its VMEM dq scratch become a loop over 64-row K/V
-//   tiles with dq in registers.  The block first computes delta for its
-//   rows from dO (staged) and out (read once), keeps delta and lse in
-//   registers and writes delta for the dK/dV kernel: the JAX wrapper's
-//   separate XLA reduction is folded in.  Per KV tile it forms s and dP
-//   (two products over D), p and dS, rounds dS to k's dtype into shared
-//   memory and adds dS.K.  Under `causal` KV tiles wholly after the query
-//   tile are not visited.
-// - dK/dV: one block per (b*h, 64 key rows), with K and V staged once and
-//   a loop over 64-row Q/dO tiles; p and dS are formed key-major, rounded
-//   to dO's and q's dtypes into shared memory, and P^T.dO and dS^T.Q
-//   accumulate in registers.  Under `causal` query tiles wholly before the
-//   key tile are not visited.
+// Bound on an H100 SXM (989 TFLOP/s bf16 and 495 TF32 dense on the tensor
+// cores, 67 f32 SIMT, 3.35 TB/s).  2*B*H*T*S*D operations a product, 3
+// products in dQ (s, dP, dS.K) and 4 in dK/dV (s, dP, P^T.dO, dS^T.Q),
+// halved under causal.  Bytes: dQ reads q, k, v, out, dO, lse and writes dq
+// and delta; dK/dV reads q, k, v, dO, lse, delta and writes dk, dv.
+// BERT-base at [64, 12, 128, 64]: bytes bound both kernels, 0.023 ms each in
+// bf16 (76 MB) and 0.046 ms in f32 (152 MB).  At [4, 12, 2048, 64]
+// operations bound them: dQ 0.078 ms in bf16 and, on the 3xTF32 route (three
+// TF32 products per f32 product), 0.469 ms in f32; dK/dV 0.104 and 0.625 ms.
+//
+// What the first design (SIMT f32 FMA on a 4 x 4 micro-tile, tiles staged as
+// f32 by synchronous scalar loads) lost: the tensor cores sat idle, so bf16
+// ran at the f32 FMA rate (0.380 + 0.320 ms at T = 128, 4.258 + 4.140 at
+// T = 2048: 55x and 40x the bf16 bounds, 6.7x and 16.9x SDPA's whole
+// backward); the micro-tile read 16 shared-memory floats per 32 FMAs; no
+// copy was in flight while a block computed; bf16 tiles took f32's bytes.
+//
+// What this design does about it:
+//
+// * Warps own rows.  dQ: one block per (b*h, 128 query rows; 64 in f32 at
+//   D > 64), a warp per 16 of them, looping over 64-row K/V tiles; each
+//   warp owns its rows of s, dP, dS and dq, so nothing is reduced across
+//   warps.  dK/dV: one block per (b*h, 64 key rows), a warp per 16 keys,
+//   looping over 64-row Q/dO tiles, with the scores formed key-major (S^T = K.Q^T) so that P^T
+//   and dS^T come out with the keys as rows, the A operand of P^T.dO and
+//   dS^T.Q.  dq, dk and dv accumulate in registers.  A tile is consumed in
+//   chunks of CHUNK keys (dQ) or queries (dK/dV): the two score products
+//   for the chunk, the elementwise step, then the chunk's share of the
+//   output products; a warp skips chunks that its rows cannot see (causal,
+//   or past T or S).  The grid is one dimension with the tiles of a head
+//   side by side, so they read the head's K and V (dQ) or Q and dO (dK/dV)
+//   from L2 at about the same time.
+// * Operands stay in their own dtype in shared memory (bf16 halves the old
+//   bytes) and arrive by 16-byte cp.async copies, zero-filled (src-size)
+//   past T or S and past D, into a ring of STAGES = 2 tiles: the next K/V
+//   tile (dQ) or Q/dO/lse/delta tile (dK/dV) is in flight while the block
+//   computes on the current one.  Where a row or base pointer of q, k, v or
+//   dO is not 16-byte aligned the same loops copy element by element
+//   (Params::vec = 0): slower, never the plain version.
+// * bf16: mma.sync.m16n8k16 bf16 with f32 accumulators; bf16 x bf16
+//   products are exact in f32, so only the order of the sums changes.  The
+//   score products take A (16 rows x D) and B (D x CHUNK, rows of the other
+//   tile) by ldmatrix; dS (dQ) and P^T, dS^T (dK/dV) go from the score
+//   accumulators straight into A fragments, rounded to bf16 in registers (the
+//   m16n8 accumulator layout is the m16n8k16 A layout), and the second
+//   operand of the output products (K, dO, Q: CHUNK rows x D) comes by
+//   ldmatrix.trans.
+// * f32: 3xTF32 on mma.sync.m16n8k8 (conv3x3_igemm.cuh's mma_tf32): big =
+//   v rounded to TF32, small = v - big, and small*big + big*small +
+//   big*big, which keeps f32 accuracy (split_3xtf32 below says how it
+//   differs from conv3x3_igemm.cuh's split_tf32, and why).  Fragments are
+//   read with 4-byte loads; a row pitch of D + 4 words puts the lanes of a
+//   (row g, column t) load in 32 banks.  dS and P^T go through the warp's
+//   own shared-memory buffer into the A layout (the m16n8k8 tf32 A layout
+//   is not the accumulator layout).  Each chunk's output products sum in a
+//   fresh accumulator that is then added to the running sum in f32: the
+//   tensor cores' accumulation drops low bits, and dk, dv sum over every
+//   query (2,048 at T = 2048).
+// * Deterministic: no atomics; each output element belongs to one warp of
+//   one block and is summed in a fixed order, so two calls give the same
+//   bits.  delta is computed by the dQ block for its rows first (the JAX
+//   wrapper's separate reduction is folded in) and written for dK/dV.
+// * exp is exp2f((s - lse) * log2(e)): the hardware's exp2, in f32.
+//
+// What the card showed against other choices (attn_bwd_variants.py, which
+// times copies of this file with a few lines changed, on an H100 at the two
+// BERT-base shapes; the ratios are time over this file's time):
+// - 64-row dQ blocks: dQ bf16 1.03x (T = 128) and 1.08x (T = 2048), f32
+//   0.99x and 1.07x (the K/V tiles are read by half as many blocks);
+// - 128-row dK/dV Q/dO tiles: dK/dV bf16 1.13x to 1.29x, f32 1.43x to
+//   1.51x; 128-row dK/dV blocks and dQ K/V tiles: bf16 1.06x to 1.23x,
+//   f32 dK/dV 1.25x to 1.32x (fewer blocks an SM);
+// - a third ring stage: bf16 0.98x to 1.06x, f32 dK/dV 1.37x to 1.42x
+//   (shared memory for one block an SM fewer);
+// - the heads side by side in the grid instead of a head's tiles: 0.99x to
+//   1.04x;
+// - conv3x3_igemm.cuh's split_tf32: f32 1.22x to 1.37x (split_3xtf32);
+// - no minimum of 16 dQ warps an SM in bf16 (DQ_MIN_BLOCKS): 1.26x (T =
+//   128) and 1.43x (T = 2048);
+// - f32 chunk loops unrolled: 1.01x to 1.04x.
+// With the products taken out the kernels still take 0.29x to 0.81x of
+// their time in bf16: their loads and stores are that floor.  Not tried:
+// wgmma and TMA (64-row warpgroup tiles), and warps of 32 rows, which
+// would halve the shared-memory reads of the other tile's fragments.
+//
 // The JAX wrapper's padding of T and S and its materialized [B, 1, S] bias
 // have no counterpart: tails are masked here and the mask is read in place,
 // batch row b = (b*h) / H.
-//
-// Bound.  Operations: 2*B*H*T*S*D per product, 3 products in dQ (s, dP,
-// dS.K) and 4 in dK/dV (s, dP, P^T.dO, dS^T.Q), halved under causal.
-// Bytes: dQ reads q, k, v, out, dO, lse and writes dq and delta; dK/dV reads
-// q, k, v, dO, lse, delta and writes dk, dv.  BERT-base at [64, 12, 128, 64]:
-// dQ 4.8 GFLOP, 0.072 ms at the 67 TFLOP/s f32 rate (its 152 MB of f32
-// bytes take 0.045 ms) -> operations; in bf16 76 MB -> bytes, 0.023 ms.  dK/dV
-// 6.4 GFLOP, 0.096 ms in f32 (operations); 76 MB, 0.023 ms in bf16 (bytes).
-// At [4, 12, 2048, 64] operations bound both: dQ 1.15 ms f32 and 0.078 ms
-// bf16, dK/dV 1.54 and 0.104 ms.  A SIMT kernel cannot use the tensor
-// cores, so the bf16 bounds are far out of its reach.  Known gap, left for
-// a later change: wgmma for the products, TMA or cp.async double buffering
-// of the tiles.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+#include "conv3x3_igemm.cuh"  // mma_tf32, zero; it includes skinny_gemm.cuh
+
 #include <cuda_fp16.h>
 #include <math.h>
-#include <stdint.h>
 
 namespace {
 
-constexpr int BQ = 64;        // query rows per tile
-constexpr int BK = 64;        // key/value rows per tile
-constexpr int THREADS = 256;  // 16 x 16
-constexpr int TR = 4;         // tile rows per thread, 16 apart
-constexpr int TC = 4;         // tile columns per thread, 16 apart
-constexpr int LDP = 65;       // padded row of the p and dS tiles
+using conv_igemm::mma_tf32;
+using conv_igemm::zero;
+using skinny::allow_smem;
+using skinny::cp_async16;
+using skinny::cp_async_commit;
+using skinny::cp_async_wait;
+using skinny::ldmatrix_x4;
+using skinny::ldmatrix_x4_trans;
+using skinny::MAX_DEVICES;
+using skinny::mma_bf16;
+using skinny::smem_addr;
+
+constexpr int DQ_BLOCK_ROWS = 128;  // query rows a dQ block (Cfg::DQ_ROWS)
+constexpr int BQ = 64;      // query rows a dK/dV tile
+constexpr int BK = 64;      // key rows: a dK/dV block, a dQ tile
+constexpr int STAGES = 2;   // tiles in the cp.async ring
+constexpr int DKV_THREADS = 32 * (BK / 16);  // a warp per 16 key rows
 constexpr int MAX_D = 128;
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+
+static_assert(DQ_BLOCK_ROWS % 16 == 0 && BQ % 16 == 0 && BK % 16 == 0 && STAGES >= 2, "tiles");
+static_assert(BQ <= DKV_THREADS, "one stat value a thread");
 
 enum MaskDtype { MASK_NONE = 0, MASK_F32 = 1, MASK_BF16 = 2, MASK_F16 = 3, MASK_F64 = 4 };
 
@@ -89,7 +155,49 @@ struct Params {
   int H, T, S, D;
   int mask_dtype;
   int causal;
+  int vec;  // q, k, v and dO rows and bases 16-byte aligned: cp.async copies
   float scale;
+};
+
+// One instantiation: element type T and the largest head dimension DMAX.
+template <typename T, int DMAX>
+struct Cfg {
+  static constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
+  static constexpr int VE = 16 / (int)sizeof(T);   // elements a 16-byte chunk
+  static constexpr int ROW_CHUNKS = DMAX / VE;
+  // row pitch in elements: bf16 (ldmatrix) an odd number of 16-byte units,
+  // so the 8 rows of an 8x8 matrix fall in 8 bank groups; f32 (4-byte
+  // fragment loads of rows g, columns t) 4 mod 32 words
+  static constexpr int LD = DMAX + (BF16 ? 8 : 4);
+  // keys (dQ) or queries (dK/dV) a pass; f32 keeps it to 16 so the warps'
+  // buffers leave room for two blocks an SM at D = 64
+  static constexpr int CHUNK = BF16 ? 32 : 16;
+  static constexpr int CT = CHUNK / 8;   // n8 tiles of a chunk
+  static constexpr int NT = DMAX / 8;    // n8 tiles of the head dimension
+  // f32: the warp's [16][LDC] buffer; 20 words a row puts a (g, t) load in
+  // 32 banks
+  static constexpr int LDC = CHUNK + 4;
+  static constexpr int BUF_FLOATS = BF16 ? 0 : 16 * LDC;
+  // query rows a dQ block: 64 for f32 at D <= 128, where 128 rows of Q and
+  // dO beside the K/V ring would outgrow shared memory
+  static constexpr int DQ_ROWS = !BF16 && DMAX == 128 ? 64 : DQ_BLOCK_ROWS;
+  static constexpr int DQ_THREADS = 32 * (DQ_ROWS / 16);  // a warp per 16 query rows
+  static constexpr int TILE_Q = BQ * LD;   // elements of a BQ-row tile
+  static constexpr int TILE_K = BK * LD;
+  // dQ: Q, dO; STAGES x (K, V); STAGES x key bias [BK]; the warps' buffers
+  static constexpr int DQ_SMEM = (2 * DQ_ROWS * LD + STAGES * 2 * TILE_K) * (int)sizeof(T) +
+                                 (STAGES * BK + (DQ_ROWS / 16) * BUF_FLOATS) * 4;
+  // dK/dV: K, V; STAGES x (Q, dO); STAGES x (lse, delta) [BQ]; key bias
+  // [BK]; the warps' buffers
+  static constexpr int DKV_SMEM = (2 * TILE_K + STAGES * 2 * TILE_Q) * (int)sizeof(T) +
+                                  (STAGES * 2 * BQ + BK + (BK / 16) * BUF_FLOATS) * 4;
+  // bf16 at D <= 64: 16 dQ warps an SM (at most 128 registers a thread;
+  // ptxas spills 20 bytes); ptxas's own choice of registers, and fewer
+  // warps, was 1.26x to 1.43x slower on an H100 (attn_bwd_variants.py)
+  static constexpr int DQ_MIN_BLOCKS = BF16 && DMAX == 64 ? 16 * 32 / DQ_THREADS : 1;
+  static_assert(DMAX % 16 == 0 && (LD * (int)sizeof(T)) % 16 == 0, "16-byte rows");
+  static_assert(DQ_SMEM <= 232448 && DKV_SMEM <= 232448, "shared memory");
+  static_assert(BK <= DQ_THREADS, "one bias value a thread");
 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -101,9 +209,48 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16_rn(v);
 }
 
-// v rounded to T, as the TPU kernels' .astype(dtype) before a product
-template <typename T> __device__ __forceinline__ float round_to(float v) {
-  return to_f32(from_f32<T>(v));
+// two values rounded to bf16 in one register, `lo` in the low half (the
+// lower column of an mma fragment)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The 3xTF32 split of v: big = v rounded to TF32 (10 mantissa bits) to
+// nearest, ties away from zero, as cvt.rna.tf32.f32 rounds it
+// (conv3x3_igemm.cuh's split_tf32), here by an integer add and mask; small
+// = v - big, exact in f32, whose low 13 bits the tensor core drops.  Two
+// conversions a value fewer than split_tf32, which made the f32 kernels
+// 1.22x to 1.37x slower on an H100 (attn_bwd_variants.py).
+__device__ __forceinline__ void split_3xtf32(float v, uint32_t& big, uint32_t& small) {
+  big = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(v - __uint_as_float(big));
+}
+
+// out[0] = a and, where `two`, out[1] = b: one 2-element store where out is
+// aligned for it
+template <typename T>
+__device__ __forceinline__ void store2(T* out, float a, float b, bool two) {
+  if (two && (reinterpret_cast<uintptr_t>(out) & (2 * sizeof(T) - 1)) == 0) {
+    if constexpr (std::is_same<T, float>::value)
+      *reinterpret_cast<float2*>(out) = make_float2(a, b);
+    else
+      *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(a, b);
+  } else {
+    out[0] = from_f32<T>(a);
+    if (two) out[1] = from_f32<T>(b);
+  }
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
 }
 
 __device__ __forceinline__ float mask_value(const void* mask, int dtype, long long i) {
@@ -123,318 +270,449 @@ __device__ __forceinline__ float key_bias_of(const Params& p, const void* mask, 
   return mask_value(mask, p.mask_dtype, (long long)b * p.mask_b + col) > 0.0f ? 0.0f : NEG_INF;
 }
 
-// rows [t0, t0 + 64) of a [*, D] slice into a [64][LD] f32 tile, zeros
-// beyond `n` rows and D columns
-template <typename T, int DMAX>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, long long row_stride, int t0,
-                                          int n, int D) {
-  constexpr int LD = DMAX + 1;
-  for (int idx = threadIdx.x; idx < 64 * DMAX; idx += THREADS) {
-    const int r = idx / DMAX, c = idx % DMAX;
-    const int t = t0 + r;
-    dst[r * LD + c] = (t < n && c < D) ? to_f32(src[(int64_t)t * row_stride + c]) : 0.0f;
+// Rows [t0, t0 + ROWS) of a [n, D] slice (rows `rs` elements apart) into
+// dst [ROWS][LD], zero beyond n rows and D columns: 16-byte cp.async
+// copies, or element copies where `vec` is false.
+template <typename T, int DMAX, int ROWS, int THREADS>
+__device__ __forceinline__ void load_rows(T* dst, const T* src, long long rs, int t0, int n,
+                                          int D, bool vec, int tid) {
+  using C = Cfg<T, DMAX>;
+  static_assert((ROWS * C::ROW_CHUNKS) % THREADS == 0, "chunks a thread");
+#pragma unroll
+  for (int i = 0; i < ROWS * C::ROW_CHUNKS / THREADS; ++i) {
+    const int c = tid + i * THREADS;
+    const int r = c / C::ROW_CHUNKS, col = (c % C::ROW_CHUNKS) * C::VE;
+    const int left = D - col;
+    const int valid = t0 + r < n ? (left < C::VE ? (left > 0 ? left : 0) : C::VE) : 0;
+    T* d = dst + r * C::LD + col;
+    const T* s = src + (int64_t)(t0 + r) * rs + col;
+    if (vec) {
+      cp_async16(d, valid > 0 ? s : src, valid * (int)sizeof(T));
+    } else {
+#pragma unroll
+      for (int e = 0; e < C::VE; ++e) d[e] = e < valid ? s[e] : zero<T>();
+    }
   }
 }
 
-template <int DMAX>
-constexpr size_t dq_smem_floats() {
-  // Q, dO, K, V padded to DMAX + 1; dS; the key bias
-  return 4 * (size_t)64 * (DMAX + 1) + (size_t)BQ * LDP + BK;
+// s[16 x CHUNK] += A[a0 .. a0 + 16) . B[b0 .. b0 + CHUNK)^T and
+// t[16 x CHUNK] += A2[a0 ..) . B2[b0 ..)^T, over DMAX columns of [*][LD]
+// tiles (zero past D), in the m16n8 accumulator layout.  bf16: A by
+// ldmatrix, B (its rows are the product's columns) by ldmatrix.  f32: 3xTF32.
+template <typename T, int DMAX>
+__device__ __forceinline__ void score_products(float (&s)[Cfg<T, DMAX>::CT][4],
+                                               float (&t)[Cfg<T, DMAX>::CT][4], const T* A,
+                                               const T* B, const T* A2, const T* B2, int a0,
+                                               int b0, int lane) {
+  using C = Cfg<T, DMAX>;
+  if constexpr (C::BF16) {
+    // lane l addresses row l % 8 of 8x8 matrix l / 8
+    const int j = lane >> 3, r = lane & 7;
+#pragma unroll
+    for (int k16 = 0; k16 < DMAX; k16 += 16) {
+      uint32_t a[4], a2[4];
+      const int aoff = (a0 + (j & 1) * 8 + r) * C::LD + k16 + (j >> 1) * 8;
+      ldmatrix_x4(a, A + aoff);
+      ldmatrix_x4(a2, A2 + aoff);
+#pragma unroll
+      for (int np = 0; np < C::CT / 2; ++np) {
+        uint32_t b[4], b2[4];
+        const int boff = (b0 + np * 16 + (j >> 1) * 8 + r) * C::LD + k16 + (j & 1) * 8;
+        ldmatrix_x4(b, B + boff);
+        ldmatrix_x4(b2, B2 + boff);
+        mma_bf16(s[2 * np], a, b[0], b[1]);
+        mma_bf16(s[2 * np + 1], a, b[2], b[3]);
+        mma_bf16(t[2 * np], a2, b2[0], b2[1]);
+        mma_bf16(t[2 * np + 1], a2, b2[2], b2[3]);
+      }
+    }
+  } else {
+    const int g = lane >> 2, tq = lane & 3;
+#pragma unroll 2
+    for (int k8 = 0; k8 < DMAX; k8 += 8) {
+      uint32_t ab[4], as[4], a2b[4], a2s[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int off = (a0 + g + (e & 1) * 8) * C::LD + k8 + tq + (e >> 1) * 4;
+        split_3xtf32(A[off], ab[e], as[e]);
+        split_3xtf32(A2[off], a2b[e], a2s[e]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < C::CT; ++nt) {
+        uint32_t bb[2], bs[2], b2b[2], b2s[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int off = (b0 + nt * 8 + g) * C::LD + k8 + tq + e * 4;
+          split_3xtf32(B[off], bb[e], bs[e]);
+          split_3xtf32(B2[off], b2b[e], b2s[e]);
+        }
+        // small*big, big*small, big*big
+        mma_tf32(s[nt], as, bb);
+        mma_tf32(t[nt], a2s, b2b);
+        mma_tf32(s[nt], ab, bs);
+        mma_tf32(t[nt], a2b, b2s);
+        mma_tf32(s[nt], ab, bb);
+        mma_tf32(t[nt], a2b, b2b);
+      }
+    }
+  }
 }
 
-template <int DMAX>
-constexpr size_t dkv_smem_floats() {
-  // K, V, Q, dO padded to DMAX + 1; p and dS (key-major); lse, delta, key bias
-  return 4 * (size_t)64 * (DMAX + 1) + 2 * (size_t)BK * LDP + BQ + BQ + BK;
+// acc[16 x DMAX] += a[16 x CHUNK] . X[x0 .. x0 + CHUNK)[0 .. DMAX), with a
+// in the m16n8 accumulator layout and X a [*][LD] tile.  bf16: a rounded to
+// bf16 straight into A fragments, X by ldmatrix.trans.  f32: a through the
+// warp's buffer into the A layout, 3xTF32, the chunk's products in a fresh
+// accumulator added to acc in f32.
+template <typename T, int DMAX>
+__device__ __forceinline__ void output_product(float (&acc)[Cfg<T, DMAX>::NT][4],
+                                               const float (&a)[Cfg<T, DMAX>::CT][4],
+                                               const T* X, int x0, float* buf, int lane) {
+  using C = Cfg<T, DMAX>;
+  if constexpr (C::BF16) {
+    const int j = lane >> 3, r = lane & 7;
+#pragma unroll
+    for (int kk = 0; kk < C::CT / 2; ++kk) {
+      const uint32_t af[4] = {pack_bf16(a[2 * kk][0], a[2 * kk][1]),
+                              pack_bf16(a[2 * kk][2], a[2 * kk][3]),
+                              pack_bf16(a[2 * kk + 1][0], a[2 * kk + 1][1]),
+                              pack_bf16(a[2 * kk + 1][2], a[2 * kk + 1][3])};
+#pragma unroll
+      for (int np = 0; np < DMAX / 16; ++np) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, X + (x0 + kk * 16 + (j & 1) * 8 + r) * C::LD + np * 16 + (j >> 1) * 8);
+        mma_bf16(acc[2 * np], af, b[0], b[1]);
+        mma_bf16(acc[2 * np + 1], af, b[2], b[3]);
+      }
+    }
+  } else {
+    const int g = lane >> 2, tq = lane & 3;
+#pragma unroll
+    for (int nt = 0; nt < C::CT; ++nt) {
+      *reinterpret_cast<float2*>(buf + g * C::LDC + nt * 8 + 2 * tq) =
+          make_float2(a[nt][0], a[nt][1]);
+      *reinterpret_cast<float2*>(buf + (g + 8) * C::LDC + nt * 8 + 2 * tq) =
+          make_float2(a[nt][2], a[nt][3]);
+    }
+    __syncwarp();
+    uint32_t ab[C::CT][4], as[C::CT][4];
+#pragma unroll
+    for (int kk = 0; kk < C::CT; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        split_3xtf32(buf[(g + (e & 1) * 8) * C::LDC + kk * 8 + tq + (e >> 1) * 4], ab[kk][e],
+                   as[kk][e]);
+    __syncwarp();  // the buffer is free for the next chunk
+#pragma unroll
+    for (int nt = 0; nt < C::NT; ++nt) {
+      float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int kk = 0; kk < C::CT; ++kk) {
+        uint32_t bb[2], bs[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          split_3xtf32(X[(x0 + kk * 8 + tq + e * 4) * C::LD + nt * 8 + g], bb[e], bs[e]);
+        mma_tf32(part, as[kk], bb);
+        mma_tf32(part, ab[kk], bs);
+        mma_tf32(part, ab[kk], bb);
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[nt][c] += part[c];
+    }
+  }
 }
 
 template <typename T, int DMAX>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(Cfg<T, DMAX>::DQ_THREADS, Cfg<T, DMAX>::DQ_MIN_BLOCKS)
 flash_attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ o,
                          const T* __restrict__ g, const float* __restrict__ lse,
                          const void* __restrict__ mask, T* __restrict__ dq,
                          float* __restrict__ delta, const Params p) {
-  constexpr int LD = DMAX + 1;
-  constexpr int DC = DMAX / 16;  // output columns per thread, 16 apart
-  extern __shared__ float smem[];
-  float* Qs = smem;                 // [BQ][LD]
-  float* Gs = Qs + BQ * LD;         // [BQ][LD] dO
-  float* Ks = Gs + BQ * LD;         // [BK][LD]
-  float* Vs = Ks + BK * LD;         // [BK][LD]
-  float* Ds = Vs + BK * LD;         // [BQ][LDP] dS in k's dtype
-  float* key_bias = Ds + BQ * LDP;  // [BK]
+  using C = Cfg<T, DMAX>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* Qs = reinterpret_cast<T*>(smem);     // [DQ_ROWS][LD]
+  T* Gs = Qs + C::DQ_ROWS * C::LD;        // [DQ_ROWS][LD] dO
+  T* ring = Gs + C::DQ_ROWS * C::LD;      // STAGES x (K, V) [BK][LD]
+  float* bias_s = reinterpret_cast<float*>(ring + STAGES * 2 * C::TILE_K);  // STAGES x [BK]
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int bh = blockIdx.x;
-  const int b = bh / p.H;
-  const int h = bh % p.H;
-  const int q0 = blockIdx.y * BQ;
-  const int D = p.D;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gr = lane >> 2, tq = lane & 3;  // fragment row and column group
+  float* buf = bias_s + STAGES * BK + warp * C::BUF_FLOATS;
+  // the query tiles of one head are neighbours in the grid: they run side
+  // by side and read the head's K and V from L2 once
+  const int nqt = (p.T + C::DQ_ROWS - 1) / C::DQ_ROWS;
+  const int bh = blockIdx.x / nqt;
+  const int b = bh / p.H, h = bh % p.H;
+  const int q0 = (blockIdx.x % nqt) * C::DQ_ROWS;
+  const int m0 = warp * 16;               // the warp's rows in the tile
+  const int row0 = q0 + m0;
+  const bool vec = p.vec != 0;
   const T* kb = k + b * p.k.b + h * p.k.h;
   const T* vb = v + b * p.v.b + h * p.v.h;
+  const T* gb = g + b * p.g.b + h * p.g.h;
   const T* ob = o + b * p.o.b + h * p.o.h;
 
-  load_tile<T, DMAX>(Qs, q + b * p.q.b + h * p.q.h, p.q.t, q0, p.T, D);
-  load_tile<T, DMAX>(Gs, g + b * p.g.b + h * p.g.h, p.g.t, q0, p.T, D);
-  __syncthreads();
-
-  // delta = rowsum(dO * out) for this thread's rows, reduced over the 16
-  // threads of a row; lse beside it.  Rows beyond T take p = 0 below.
-  float lse_r[TR], delta_r[TR];
-#pragma unroll
-  for (int i = 0; i < TR; ++i) {
-    const int row = q0 + ty + 16 * i;
-    float d = 0.0f;
-    if (row < p.T) {
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const int col = tx + 16 * c;
-        if (col < D) d = fmaf(Gs[(ty + 16 * i) * LD + col], to_f32(ob[(int64_t)row * p.o.t + col]), d);
-      }
-    }
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
-    delta_r[i] = d;
-    lse_r[i] = row < p.T ? lse[(int64_t)bh * p.T + row] : 0.0f;
-    if (tx == 0 && row < p.T) delta[(int64_t)bh * p.T + row] = d;
-  }
-
-  float acc[TR][DC];
-#pragma unroll
-  for (int i = 0; i < TR; ++i)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.0f;
-
   int nkv = (p.S + BK - 1) / BK;
-  if (p.causal) {
-    const int q_last = min(q0 + BQ, p.T) - 1;
-    nkv = min(nkv, q_last / BK + 1);
+  if (p.causal) nkv = min(nkv, (min(q0 + C::DQ_ROWS, p.T) - 1) / BK + 1);
+
+  load_rows<T, DMAX, C::DQ_ROWS, C::DQ_THREADS>(Qs, q + b * p.q.b + h * p.q.h, p.q.t, q0, p.T,
+                                               p.D, vec, tid);
+  load_rows<T, DMAX, C::DQ_ROWS, C::DQ_THREADS>(Gs, gb, p.g.t, q0, p.T, p.D, vec, tid);
+  cp_async_commit();
+  auto issue = [&](int j) {
+    T* st = ring + (j % STAGES) * 2 * C::TILE_K;
+    load_rows<T, DMAX, BK, C::DQ_THREADS>(st, kb, p.k.t, j * BK, p.S, p.D, vec, tid);
+    load_rows<T, DMAX, BK, C::DQ_THREADS>(st + C::TILE_K, vb, p.v.t, j * BK, p.S, p.D, vec,
+                                          tid);
+  };
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < nkv) {
+      issue(st);
+      if (tid < BK) bias_s[st * BK + tid] = key_bias_of(p, mask, b, st * BK + tid);
+    }
+    cp_async_commit();
   }
+
+  // delta = rowsum(dO * out) in f32 for the warp's rows, while the copies
+  // are in flight; lse beside it.  Rows past T and columns past D read an
+  // element inside the slice and weigh it 0, so there is no branch and every
+  // load is issued before the first product.  Rows past T take p = 0 below.
+  float prod[16][DMAX / 32];
+#pragma unroll
+  for (int r = 0; r < 16; ++r) {
+    const int64_t row = min(row0 + r, p.T - 1);
+#pragma unroll
+    for (int c0 = 0; c0 < DMAX; c0 += 32) {
+      const int c = min(c0 + lane, p.D - 1);
+      prod[r][c0 / 32] = to_f32(gb[row * p.g.t + c]) * to_f32(ob[row * p.o.t + c]);
+    }
+  }
+  float lse_r[2], delta_r[2];
+  bool row_ok[2];
+#pragma unroll
+  for (int r = 0; r < 16; ++r) {
+    float d = 0.0f;
+#pragma unroll
+    for (int c0 = 0; c0 < DMAX; c0 += 32) d += c0 + lane < p.D ? prod[r][c0 / 32] : 0.0f;
+    d = warp_sum(d);
+    if (r == gr) delta_r[0] = d;
+    if (r == gr + 8) delta_r[1] = d;
+    if (lane == 0 && row0 + r < p.T) delta[(int64_t)bh * p.T + row0 + r] = d;
+  }
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = row0 + gr + 8 * hr;
+    row_ok[hr] = row < p.T;
+    const float l = lse[(int64_t)bh * p.T + min(row, p.T - 1)];
+    lse_r[hr] = row_ok[hr] ? l : 0.0f;
+  }
+
+  float acc[C::NT][4];
+#pragma unroll
+  for (int nt = 0; nt < C::NT; ++nt)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[nt][c] = 0.0f;
 
   for (int j = 0; j < nkv; ++j) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // tile j (and Q, dO) landed; every thread left tile j - 1
+    const int nx = j + STAGES - 1;
+    float next_bias = 0.0f;
+    if (nx < nkv) {
+      issue(nx);
+      if (tid < BK) next_bias = key_bias_of(p, mask, b, nx * BK + tid);
+    }
+    cp_async_commit();
+
     const int k0 = j * BK;
-    __syncthreads();  // the last tile's K and dS are read
-    load_tile<T, DMAX>(Ks, kb, p.k.t, k0, p.S, D);
-    load_tile<T, DMAX>(Vs, vb, p.v.t, k0, p.S, D);
-    if (tid < BK) key_bias[tid] = key_bias_of(p, mask, b, k0 + tid);
-    __syncthreads();
-
-    float s[TR][TC], dp[TR][TC];
+    const T* Ks = ring + (j % STAGES) * 2 * C::TILE_K;
+    const T* Vs = Ks + C::TILE_K;
+    const float* bias = bias_s + (j % STAGES) * BK;
+    // f32: a chunk at a time (fewer live registers; unrolled was 1.01x to
+    // 1.04x slower on an H100)
+#pragma unroll(C::BF16 ? 2 : 1)
+    for (int kc = 0; kc < BK; kc += C::CHUNK) {
+      // chunks wholly past S, rows wholly past T, or (causal) keys wholly
+      // after the warp's rows add nothing
+      if (k0 + kc >= p.S || row0 >= p.T || (p.causal && k0 + kc > row0 + 15)) break;
+      float s[C::CT][4], dp[C::CT][4];
 #pragma unroll
-    for (int i = 0; i < TR; ++i)
+      for (int nt = 0; nt < C::CT; ++nt)
 #pragma unroll
-      for (int c = 0; c < TC; ++c) {
-        s[i][c] = 0.0f;
-        dp[i][c] = 0.0f;
-      }
-    // the tiles are zero beyond D, so the fixed trip count adds only zeros
-#pragma unroll 4
-    for (int d = 0; d < DMAX; ++d) {
-      float a[TR], gg[TR], kk[TC], vv[TC];
-#pragma unroll
-      for (int i = 0; i < TR; ++i) {
-        a[i] = Qs[(ty + 16 * i) * LD + d];
-        gg[i] = Gs[(ty + 16 * i) * LD + d];
-      }
-#pragma unroll
-      for (int c = 0; c < TC; ++c) {
-        kk[c] = Ks[(tx + 16 * c) * LD + d];
-        vv[c] = Vs[(tx + 16 * c) * LD + d];
-      }
-#pragma unroll
-      for (int i = 0; i < TR; ++i)
-#pragma unroll
-        for (int c = 0; c < TC; ++c) {
-          s[i][c] = fmaf(a[i], kk[c], s[i][c]);
-          dp[i][c] = fmaf(gg[i], vv[c], dp[i][c]);
+        for (int c = 0; c < 4; ++c) {
+          s[nt][c] = 0.0f;
+          dp[nt][c] = 0.0f;
         }
-    }
-
+      score_products<T, DMAX>(s, dp, Qs, Ks, Gs, Vs, m0, kc, lane);
+      // p and dS for (row gr + 8 * (e >> 1), key 2 * tq + (e & 1)) of each
+      // n8 tile; s takes dS
 #pragma unroll
-    for (int i = 0; i < TR; ++i) {
-      const int row = q0 + ty + 16 * i;
+      for (int nt = 0; nt < C::CT; ++nt) {
+        const int kl = kc + nt * 8 + 2 * tq;
+        const float2 kbias = *reinterpret_cast<const float2*>(bias + kl);
 #pragma unroll
-      for (int c = 0; c < TC; ++c) {
-        const int col = k0 + tx + 16 * c;
-        float sv = s[i][c] * p.scale + key_bias[tx + 16 * c];
-        if (p.causal && col > row) sv = -INFINITY;
-        const float pv = row < p.T ? expf(sv - lse_r[i]) : 0.0f;
-        Ds[(ty + 16 * i) * LDP + tx + 16 * c] = round_to<T>(pv * (dp[i][c] - delta_r[i]));
+        for (int e = 0; e < 4; ++e) {
+          const int hr = e >> 1;
+          float sv = s[nt][e] * p.scale + ((e & 1) ? kbias.y : kbias.x);
+          if (p.causal && k0 + kl + (e & 1) > row0 + gr + 8 * hr) sv = -INFINITY;
+          const float pv = row_ok[hr] ? exp2f((sv - lse_r[hr]) * LOG2E) : 0.0f;
+          s[nt][e] = pv * (dp[nt][e] - delta_r[hr]);
+        }
       }
+      output_product<T, DMAX>(acc, s, Ks, kc, buf, lane);
     }
-    __syncthreads();
-
-#pragma unroll 8
-    for (int kk = 0; kk < BK; ++kk) {
-      float dsr[TR], kc[DC];
-#pragma unroll
-      for (int i = 0; i < TR; ++i) dsr[i] = Ds[(ty + 16 * i) * LDP + kk];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) kc[c] = Ks[kk * LD + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < TR; ++i)
-#pragma unroll
-        for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(dsr[i], kc[c], acc[i][c]);
-    }
+    if (nx < nkv && tid < BK) bias_s[(nx % STAGES) * BK + tid] = next_bias;
   }
+  cp_async_wait<0>();
 
   T* dqb = dq + b * p.dq.b + h * p.dq.h;
 #pragma unroll
-  for (int i = 0; i < TR; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= p.T) continue;
+  for (int nt = 0; nt < C::NT; ++nt) {
+    const int col = nt * 8 + 2 * tq;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const int col = tx + 16 * c;
-      if (col < D) dqb[(int64_t)row * p.dq.t + col] = from_f32<T>(acc[i][c] * p.scale);
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = row0 + gr + 8 * hr;
+      if (row >= p.T) continue;
+      if (col < p.D)
+        store2(dqb + (int64_t)row * p.dq.t + col, acc[nt][2 * hr] * p.scale,
+               acc[nt][2 * hr + 1] * p.scale, col + 1 < p.D);
     }
   }
 }
 
 template <typename T, int DMAX>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(DKV_THREADS)
 flash_attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, const T* __restrict__ g,
                           const float* __restrict__ lse, const float* __restrict__ delta,
                           const void* __restrict__ mask, T* __restrict__ dk,
                           T* __restrict__ dv, const Params p) {
-  constexpr int LD = DMAX + 1;
-  constexpr int DC = DMAX / 16;
-  extern __shared__ float smem[];
-  float* Ks = smem;                 // [BK][LD]
-  float* Vs = Ks + BK * LD;         // [BK][LD]
-  float* Qs = Vs + BK * LD;         // [BQ][LD]
-  float* Gs = Qs + BQ * LD;         // [BQ][LD] dO
-  float* Ps = Gs + BQ * LD;         // [BK][LDP] p in dO's dtype, key-major
-  float* Ds = Ps + BK * LDP;        // [BK][LDP] dS in q's dtype, key-major
-  float* lse_s = Ds + BK * LDP;     // [BQ]
-  float* delta_s = lse_s + BQ;      // [BQ]
-  float* key_bias = delta_s + BQ;   // [BK]
+  using C = Cfg<T, DMAX>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* Ks = reinterpret_cast<T*>(smem);     // [BK][LD]
+  T* Vs = Ks + C::TILE_K;                 // [BK][LD]
+  T* ring = Vs + C::TILE_K;               // STAGES x (Q, dO) [BQ][LD]
+  float* stats = reinterpret_cast<float*>(ring + STAGES * 2 * C::TILE_Q);  // STAGES x (lse, delta) [BQ]
+  float* bias_s = stats + STAGES * 2 * BQ;  // [BK]
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // query columns of the score tile, output columns
-  const int ty = tid / 16;  // key rows
-  const int bh = blockIdx.x;
-  const int b = bh / p.H;
-  const int h = bh % p.H;
-  const int k0 = blockIdx.y * BK;
-  const int D = p.D;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gr = lane >> 2, tq = lane & 3;
+  float* buf = bias_s + BK + warp * C::BUF_FLOATS;
+  const int nkt = (p.S + BK - 1) / BK;   // the key tiles of a head side by side
+  const int bh = blockIdx.x / nkt;
+  const int b = bh / p.H, h = bh % p.H;
+  const int k0 = (blockIdx.x % nkt) * BK;
+  const int m0 = warp * 16;               // the warp's keys in the block's
+  const int key0 = k0 + m0;
+  const bool vec = p.vec != 0;
   const T* qb = q + b * p.q.b + h * p.q.h;
   const T* gb = g + b * p.g.b + h * p.g.h;
+  const float* lse_b = lse + (int64_t)bh * p.T;
+  const float* delta_b = delta + (int64_t)bh * p.T;
 
-  load_tile<T, DMAX>(Ks, k + b * p.k.b + h * p.k.h, p.k.t, k0, p.S, D);
-  load_tile<T, DMAX>(Vs, v + b * p.v.b + h * p.v.h, p.v.t, k0, p.S, D);
-  if (tid < BK) key_bias[tid] = key_bias_of(p, mask, b, k0 + tid);
-
-  float dk_acc[TR][DC], dv_acc[TR][DC];
-#pragma unroll
-  for (int i = 0; i < TR; ++i)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      dk_acc[i][c] = 0.0f;
-      dv_acc[i][c] = 0.0f;
-    }
+  load_rows<T, DMAX, BK, DKV_THREADS>(Ks, k + b * p.k.b + h * p.k.h, p.k.t, k0, p.S, p.D, vec,
+                                      tid);
+  load_rows<T, DMAX, BK, DKV_THREADS>(Vs, v + b * p.v.b + h * p.v.h, p.v.t, k0, p.S, p.D, vec,
+                                      tid);
+  cp_async_commit();
+  if (tid < BK) bias_s[tid] = key_bias_of(p, mask, b, k0 + tid);
 
   const int nq = (p.T + BQ - 1) / BQ;
-  const int first = p.causal ? k0 / BQ : 0;
-  for (int qi = first; qi < nq; ++qi) {
-    const int q0 = qi * BQ;
-    __syncthreads();  // K, V and the bias are in; the last tile's Q, dO, p, dS are read
-    load_tile<T, DMAX>(Qs, qb, p.q.t, q0, p.T, D);
-    load_tile<T, DMAX>(Gs, gb, p.g.t, q0, p.T, D);
+  // causal: query tiles wholly before the key tile see none of its keys
+  const int first = p.causal ? min(k0 / BQ, nq) : 0;
+  auto issue = [&](int i) {
+    T* st = ring + (i % STAGES) * 2 * C::TILE_Q;
+    load_rows<T, DMAX, BQ, DKV_THREADS>(st, qb, p.q.t, i * BQ, p.T, p.D, vec, tid);
+    load_rows<T, DMAX, BQ, DKV_THREADS>(st + C::TILE_Q, gb, p.g.t, i * BQ, p.T, p.D, vec, tid);
     if (tid < BQ) {
-      const int row = q0 + tid;
-      lse_s[tid] = row < p.T ? lse[(int64_t)bh * p.T + row] : 0.0f;
-      delta_s[tid] = row < p.T ? delta[(int64_t)bh * p.T + row] : 0.0f;
+      const int row = i * BQ + tid;
+      const bool ok = row < p.T;
+      float* sl = stats + (i % STAGES) * 2 * BQ;
+      cp_async4(sl + tid, ok ? lse_b + row : lse_b, ok ? 4 : 0);
+      cp_async4(sl + BQ + tid, ok ? delta_b + row : delta_b, ok ? 4 : 0);
     }
-    __syncthreads();
+  };
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (first + st < nq) issue(first + st);
+    cp_async_commit();
+  }
 
-    float s[TR][TC], dp[TR][TC];
+  float dk_acc[C::NT][4], dv_acc[C::NT][4];
 #pragma unroll
-    for (int i = 0; i < TR; ++i)
+  for (int nt = 0; nt < C::NT; ++nt)
 #pragma unroll
-      for (int c = 0; c < TC; ++c) {
-        s[i][c] = 0.0f;
-        dp[i][c] = 0.0f;
-      }
-#pragma unroll 4
-    for (int d = 0; d < DMAX; ++d) {
-      float kk[TR], vv[TR], qq[TC], gg[TC];
+    for (int c = 0; c < 4; ++c) {
+      dk_acc[nt][c] = 0.0f;
+      dv_acc[nt][c] = 0.0f;
+    }
+  for (int i = first; i < nq; ++i) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // tile i (and K, V, the bias) landed; every thread left tile i - 1
+    const int nx = i + STAGES - 1;
+    if (nx < nq) issue(nx);
+    cp_async_commit();
+
+    const int q0 = i * BQ;
+    const T* Qt = ring + (i % STAGES) * 2 * C::TILE_Q;
+    const T* Gt = Qt + C::TILE_Q;
+    const float* lse_t = stats + (i % STAGES) * 2 * BQ;
+    const float* delta_t = lse_t + BQ;
+#pragma unroll(C::BF16 ? 2 : 1)  // as in the dQ kernel
+    for (int qc = 0; qc < BQ; qc += C::CHUNK) {
+      // queries wholly past T, keys wholly past S, or (causal) queries
+      // wholly before the warp's keys add nothing
+      if (q0 + qc >= p.T || key0 >= p.S) break;
+      if (p.causal && q0 + qc + C::CHUNK - 1 < key0) continue;
+      float s[C::CT][4], dp[C::CT][4];
 #pragma unroll
-      for (int i = 0; i < TR; ++i) {
-        kk[i] = Ks[(ty + 16 * i) * LD + d];
-        vv[i] = Vs[(ty + 16 * i) * LD + d];
-      }
+      for (int nt = 0; nt < C::CT; ++nt)
 #pragma unroll
-      for (int c = 0; c < TC; ++c) {
-        qq[c] = Qs[(tx + 16 * c) * LD + d];
-        gg[c] = Gs[(tx + 16 * c) * LD + d];
-      }
-#pragma unroll
-      for (int i = 0; i < TR; ++i)
-#pragma unroll
-        for (int c = 0; c < TC; ++c) {
-          s[i][c] = fmaf(kk[i], qq[c], s[i][c]);
-          dp[i][c] = fmaf(vv[i], gg[c], dp[i][c]);
+        for (int c = 0; c < 4; ++c) {
+          s[nt][c] = 0.0f;
+          dp[nt][c] = 0.0f;
         }
-    }
-
+      score_products<T, DMAX>(s, dp, Ks, Qt, Vs, Gt, m0, qc, lane);
+      // P^T and dS^T for (key gr + 8 * (e >> 1), query 2 * tq + (e & 1)) of
+      // each n8 tile; s takes p, dp takes dS
 #pragma unroll
-    for (int i = 0; i < TR; ++i) {
-      const int key = k0 + ty + 16 * i;
-      const float bias = key_bias[ty + 16 * i];
+      for (int nt = 0; nt < C::CT; ++nt) {
+        const int ql = qc + nt * 8 + 2 * tq;
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_t + ql);
+        const float2 d2 = *reinterpret_cast<const float2*>(delta_t + ql);
 #pragma unroll
-      for (int c = 0; c < TC; ++c) {
-        const int r = tx + 16 * c;
-        const int row = q0 + r;
-        float sv = s[i][c] * p.scale + bias;
-        if (p.causal && key > row) sv = -INFINITY;
-        const float pv = row < p.T ? expf(sv - lse_s[r]) : 0.0f;
-        Ps[(ty + 16 * i) * LDP + r] = round_to<T>(pv);
-        Ds[(ty + 16 * i) * LDP + r] = round_to<T>(pv * (dp[i][c] - delta_s[r]));
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int r = 0; r < BQ; ++r) {
-      float pr[TR], dr[TR], gc[DC], qc[DC];
-#pragma unroll
-      for (int i = 0; i < TR; ++i) {
-        pr[i] = Ps[(ty + 16 * i) * LDP + r];
-        dr[i] = Ds[(ty + 16 * i) * LDP + r];
-      }
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        gc[c] = Gs[r * LD + tx + 16 * c];
-        qc[c] = Qs[r * LD + tx + 16 * c];
-      }
-#pragma unroll
-      for (int i = 0; i < TR; ++i)
-#pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          dv_acc[i][c] = fmaf(pr[i], gc[c], dv_acc[i][c]);
-          dk_acc[i][c] = fmaf(dr[i], qc[c], dk_acc[i][c]);
+        for (int e = 0; e < 4; ++e) {
+          const int hr = e >> 1;
+          const int row = q0 + ql + (e & 1);
+          float sv = s[nt][e] * p.scale + bias_s[m0 + gr + 8 * hr];
+          if (p.causal && key0 + gr + 8 * hr > row) sv = -INFINITY;
+          const float pv =
+              row < p.T ? exp2f((sv - ((e & 1) ? l2.y : l2.x)) * LOG2E) : 0.0f;
+          s[nt][e] = pv;
+          dp[nt][e] = pv * (dp[nt][e] - ((e & 1) ? d2.y : d2.x));
         }
+      }
+      output_product<T, DMAX>(dv_acc, s, Gt, qc, buf, lane);
+      output_product<T, DMAX>(dk_acc, dp, Qt, qc, buf, lane);
     }
   }
+  cp_async_wait<0>();
 
   T* dkb = dk + b * p.dk.b + h * p.dk.h;
   T* dvb = dv + b * p.dv.b + h * p.dv.h;
 #pragma unroll
-  for (int i = 0; i < TR; ++i) {
-    const int key = k0 + ty + 16 * i;
-    if (key >= p.S) continue;
+  for (int nt = 0; nt < C::NT; ++nt) {
+    const int col = nt * 8 + 2 * tq;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const int col = tx + 16 * c;
-      if (col < D) {
-        dkb[(int64_t)key * p.dk.t + col] = from_f32<T>(dk_acc[i][c] * p.scale);
-        dvb[(int64_t)key * p.dv.t + col] = from_f32<T>(dv_acc[i][c]);
-      }
+    for (int hr = 0; hr < 2; ++hr) {
+      const int key = key0 + gr + 8 * hr;
+      if (key >= p.S) continue;
+      if (col >= p.D) continue;
+      store2(dkb + (int64_t)key * p.dk.t + col, dk_acc[nt][2 * hr] * p.scale,
+             dk_acc[nt][2 * hr + 1] * p.scale, col + 1 < p.D);
+      store2(dvb + (int64_t)key * p.dv.t + col, dv_acc[nt][2 * hr], dv_acc[nt][2 * hr + 1],
+             col + 1 < p.D);
     }
   }
 }
@@ -443,12 +721,13 @@ template <typename T, int DMAX>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o, const void* g,
                       const float* lse, const void* mask, void* dq, float* delta,
                       const Params& p, int B, cudaStream_t stream) {
-  const size_t smem = dq_smem_floats<DMAX>() * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(flash_attn_bwd_dq_kernel<T, DMAX>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  using C = Cfg<T, DMAX>;
+  static bool raised[MAX_DEVICES];
+  auto* kernel = flash_attn_bwd_dq_kernel<T, DMAX>;
+  cudaError_t e = allow_smem((const void*)kernel, C::DQ_SMEM, raised);
   if (e != cudaSuccess) return e;
-  const dim3 grid((unsigned)(B * p.H), (unsigned)((p.T + BQ - 1) / BQ));
-  flash_attn_bwd_dq_kernel<T, DMAX><<<grid, THREADS, smem, stream>>>(
+  const dim3 grid((unsigned)((long long)B * p.H * ((p.T + C::DQ_ROWS - 1) / C::DQ_ROWS)));
+  kernel<<<grid, C::DQ_THREADS, C::DQ_SMEM, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(o), static_cast<const T*>(g), lse, mask, static_cast<T*>(dq), delta,
       p);
@@ -459,24 +738,34 @@ template <typename T, int DMAX>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* g,
                        const float* lse, const float* delta, const void* mask, void* dk,
                        void* dv, const Params& p, int B, cudaStream_t stream) {
-  const size_t smem = dkv_smem_floats<DMAX>() * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(flash_attn_bwd_dkv_kernel<T, DMAX>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static bool raised[MAX_DEVICES];
+  auto* kernel = flash_attn_bwd_dkv_kernel<T, DMAX>;
+  cudaError_t e = allow_smem((const void*)kernel, Cfg<T, DMAX>::DKV_SMEM, raised);
   if (e != cudaSuccess) return e;
-  const dim3 grid((unsigned)(B * p.H), (unsigned)((p.S + BK - 1) / BK));
-  flash_attn_bwd_dkv_kernel<T, DMAX><<<grid, THREADS, smem, stream>>>(
+  const dim3 grid((unsigned)((long long)B * p.H * ((p.S + BK - 1) / BK)));
+  kernel<<<grid, DKV_THREADS, Cfg<T, DMAX>::DKV_SMEM, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(g), lse, delta, mask, static_cast<T*>(dk), static_cast<T*>(dv), p);
   return cudaGetLastError();
 }
 
+// A 16-byte aligned base, and (b, h, t) strides of 16 bytes where the
+// dimension has more than one index.
+bool aligned16(const void* base, const Strides& s, int nb, int nh, int nt, int es) {
+  auto ok = [es](long long stride, int n) { return n <= 1 || (stride * es) % 16 == 0; };
+  return (reinterpret_cast<uintptr_t>(base) & 15) == 0 && ok(s.b, nb) && ok(s.h, nh) &&
+         ok(s.t, nt);
+}
+
 // Fills Params from the wrapper's 25 strides, or returns false on a shape
 // the kernels do not take.
-bool make_params(Params* p, const long long* strides, int B, int H, int T, int S, int D,
-                 int mask_dtype, const void* mask, int causal, float scale) {
-  if (B <= 0 || H <= 0 || T <= 0 || S <= 0 || D <= 0 || D > MAX_D ||
-      (long long)B * H > 0x7fffffffLL || (T + BQ - 1) / BQ > 65535 ||
-      (S + BK - 1) / BK > 65535 || mask_dtype < MASK_NONE || mask_dtype > MASK_F64 ||
+bool make_params(Params* p, const long long* strides, const void* q, const void* k,
+                 const void* v, const void* g, int B, int H, int T, int S, int D,
+                 int mask_dtype, const void* mask, int causal, float scale, int dtype) {
+  if (B <= 0 || H <= 0 || T <= 0 || S <= 0 || D <= 0 || D > MAX_D || dtype < 0 || dtype > 1 ||
+      (long long)B * H * ((T + BQ - 1) / BQ) > 0x7fffffffLL ||  // BQ <= every DQ_ROWS
+      (long long)B * H * ((S + BK - 1) / BK) > 0x7fffffffLL || mask_dtype < MASK_NONE ||
+      mask_dtype > MASK_F64 ||
       (mask_dtype != MASK_NONE && mask == nullptr))
     return false;
   Strides* s[8] = {&p->q, &p->k, &p->v, &p->o, &p->g, &p->dq, &p->dk, &p->dv};
@@ -489,12 +778,23 @@ bool make_params(Params* p, const long long* strides, int B, int H, int T, int S
   p->mask_dtype = mask_dtype;
   p->causal = causal != 0;
   p->scale = scale;
+  const int es = dtype == 0 ? 4 : 2;
+  p->vec = aligned16(q, p->q, B, H, T, es) && aligned16(k, p->k, B, H, S, es) &&
+           aligned16(v, p->v, B, H, S, es) && aligned16(g, p->g, B, H, T, es);
   return true;
 }
 
 }  // namespace
 
 extern "C" {
+
+// The tiles of the D <= 64 instances, for the wrapper to check against
+// ``DEFAULT_TILES["attention_bwd"]``: query rows a dQ block, key rows a
+// dK/dV block (and a dQ tile).
+void dl4j_flash_attn_bwd_tile(int* bq, int* bk) {
+  *bq = Cfg<__nv_bfloat16, 64>::DQ_ROWS;
+  *bk = BK;
+}
 
 // strides: 25 element strides, (b, h, t) of q, k, v, out, dO, dq, dk and
 // dv, then the mask's row stride.  dtype: 0 = f32, 1 = bf16; mask_dtype:
@@ -508,7 +808,8 @@ int dl4j_flash_attn_bwd_dq(const void* q, const void* k, const void* v, const vo
                            int D, int mask_dtype, int causal, float scale, int dtype,
                            void* stream) {
   Params p;
-  if (!make_params(&p, strides, B, H, T, S, D, mask_dtype, mask, causal, scale))
+  if (!make_params(&p, strides, q, k, v, dout, B, H, T, S, D, mask_dtype, mask, causal, scale,
+                   dtype))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
@@ -516,11 +817,9 @@ int dl4j_flash_attn_bwd_dq(const void* q, const void* k, const void* v, const vo
   if (dtype == 0)
     return (int)(D <= 64 ? launch_dq<float, 64>(q, k, v, out, dout, l, mask, dq, dl, p, B, s)
                          : launch_dq<float, 128>(q, k, v, out, dout, l, mask, dq, dl, p, B, s));
-  if (dtype == 1)
-    return (int)(D <= 64
-                     ? launch_dq<__nv_bfloat16, 64>(q, k, v, out, dout, l, mask, dq, dl, p, B, s)
-                     : launch_dq<__nv_bfloat16, 128>(q, k, v, out, dout, l, mask, dq, dl, p, B, s));
-  return (int)cudaErrorInvalidValue;
+  return (int)(D <= 64
+                   ? launch_dq<__nv_bfloat16, 64>(q, k, v, out, dout, l, mask, dq, dl, p, B, s)
+                   : launch_dq<__nv_bfloat16, 128>(q, k, v, out, dout, l, mask, dq, dl, p, B, s));
 }
 
 // dk and dv from q, k, v, dO, the forward's lse and the dQ kernel's delta.
@@ -530,7 +829,8 @@ int dl4j_flash_attn_bwd_dkv(const void* q, const void* k, const void* v, const v
                             int D, int mask_dtype, int causal, float scale, int dtype,
                             void* stream) {
   Params p;
-  if (!make_params(&p, strides, B, H, T, S, D, mask_dtype, mask, causal, scale))
+  if (!make_params(&p, strides, q, k, v, dout, B, H, T, S, D, mask_dtype, mask, causal, scale,
+                   dtype))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
@@ -538,12 +838,10 @@ int dl4j_flash_attn_bwd_dkv(const void* q, const void* k, const void* v, const v
   if (dtype == 0)
     return (int)(D <= 64 ? launch_dkv<float, 64>(q, k, v, dout, l, dl, mask, dk, dv, p, B, s)
                          : launch_dkv<float, 128>(q, k, v, dout, l, dl, mask, dk, dv, p, B, s));
-  if (dtype == 1)
-    return (int)(D <= 64
-                     ? launch_dkv<__nv_bfloat16, 64>(q, k, v, dout, l, dl, mask, dk, dv, p, B, s)
-                     : launch_dkv<__nv_bfloat16, 128>(q, k, v, dout, l, dl, mask, dk, dv, p, B,
-                                                      s));
-  return (int)cudaErrorInvalidValue;
+  return (int)(D <= 64
+                   ? launch_dkv<__nv_bfloat16, 64>(q, k, v, dout, l, dl, mask, dk, dv, p, B, s)
+                   : launch_dkv<__nv_bfloat16, 128>(q, k, v, dout, l, dl, mask, dk, dv, p, B,
+                                                    s));
 }
 
 }  // extern "C"
