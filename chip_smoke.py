@@ -12,7 +12,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 2. build   — compile the CUDA kernels from ``csrc/`` (``nvcc``, sm_90a);
    the registers and spills of ``fused_dense``, ``q_matmul`` and the two
    conv kernels by name (none may spill), and of each instance of the
-   attention backward kernels (dtype x largest head dimension).
+   attention forward and backward kernels (dtype x largest head
+   dimension; each must be reported).
 3. parity  — ``fused_dense`` against ``fused_dense_reference`` on the card
    at M in {1, 2, 4, 8, 16} (every bucket the slice serves) and {37, 128}
    (ragged and multi-tile), and (K, N) in {(25088, 4096), (4096, 4096),
@@ -90,6 +91,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    100), causal or not,
    without a mask and with the last 28 positions dropped in half the
    batch rows, f32 and bf16; lse is f32: 1e-4 * max|ref| in both dtypes.
+   Also BERT's head-split (strided) q, k, v at [64,12,128,64], and q
+   whose base is 2 bytes off 16 and whose rows are no multiple of 16
+   bytes apart (D 33, 64 and 100 at [2,3,70,D], S 90; the kernel's
+   element copies).  Each call adds one launch, and a second call gives
+   the same bits.
 13. bert — the inference slice: full-width BERT-base (110,106,428
    parameters from a ``torch.Generator`` seeded 0), batch 64, T = 128, ids
    as bench.py makes them (``RandomState(0).randint(0, 30522)``), an
@@ -113,7 +119,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    LayerNorm 8192 x 768): kernel ms, plain ms and one PyTorch call as a
    yardstick the port never calls (``scaled_dot_product_attention`` with
    the same mask, ``F.layer_norm``), each the median of 25 runs with L2
-   flushed, beside the bound.
+   flushed, beside the bound; the attention forward's bound on its product
+   route (``route``: ``mma_bf16`` in bf16, ``3xtf32`` in f32; the kernels
+   line calls it ``product``) with ``share_of_bound`` and the f32 SIMT
+   bound of the first design (``simt_bound_ms``).
 17. ln_bwd_parity — the backward kernel (``layer_norm.launch_bwd``)
    against ``layer_norm_bwd_plain`` at ln_parity's rows and F in {768,
    1000, 64, 4096} (a warp a row up to 1024, the block above), x and gain
@@ -155,7 +164,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    ``[UNK]``, ``[CLS]``, ``[SEP]``, ``[MASK]``, then ``w5`` ... ``w30521``)
    and sentences drawn with numpy from a seed: finite loss, iteration + 2.
 21. bert_train_long — bf16 at batch 4, T = 2048, ``max_len`` 2048: 2
-   ``fit_batch`` steps, finite losses, the same launch counts, step ms.
+   ``fit_batch`` steps, finite losses, the same launch counts, step ms;
+   bert_train_long_profile — a third step under ``torch.profiler``, as in
+   phase 22.
 22. bert_train_profile — one bf16 T = 128 step under ``torch.profiler``:
    device busy time, idle share, the top kernels and each new kernel's
    share of busy time.
@@ -392,9 +403,11 @@ def _ptxas_by_kernel(log, names):
                 "spill_bytes": v["spill_bytes"]} for n, v in out.items()}
 
 
-#: the attention backward kernels' instances (f32 or bf16, largest head
-#: dimension 64 or 128) as their mangled names spell them; the build phase
-#: reports each
+#: the attention kernels' instances (f32 or bf16, largest head dimension
+#: 64 or 128) as their mangled names spell them; the build phase reports
+#: each
+ATTN_FWD_INSTANCES = tuple(f"flash_attn_fwd_kernelI{t}Li{d}E"
+                           for t in ("f", "13__nv_bfloat16") for d in (64, 128))
 ATTN_BWD_INSTANCES = tuple(f"flash_attn_bwd_{k}_kernelI{t}Li{d}E" for k in ("dq", "dkv")
                            for t in ("f", "13__nv_bfloat16") for d in (64, 128))
 
@@ -406,10 +419,13 @@ def phase_build(build):
     ptxas = [l.strip() for l in info.get("ptxas", "").splitlines()
              if "registers" in l or "spill" in l]
     gemm = _ptxas_by_kernel(info.get("ptxas", ""), GEMM_KERNELS)
+    attn_fwd = _ptxas_by_kernel(info.get("ptxas", ""), ATTN_FWD_INSTANCES)
     attn_bwd = _ptxas_by_kernel(info.get("ptxas", ""), ATTN_BWD_INSTANCES)
     emit("build", seconds=time.monotonic() - t0, cached=info["cached"],
          library=os.path.relpath(info["path"]), ptxas=sorted(set(ptxas)),
-         gemm_ptxas=gemm, attn_bwd_ptxas=attn_bwd)
+         gemm_ptxas=gemm, attn_fwd_ptxas=attn_fwd, attn_bwd_ptxas=attn_bwd)
+    require(info["cached"] or len(attn_fwd) == len(ATTN_FWD_INSTANCES),
+            f"attention forward: ptxas reports {sorted(attn_fwd)}")
     require(info["cached"] or len(attn_bwd) == len(ATTN_BWD_INSTANCES),
             f"attention backward: ptxas reports {sorted(attn_bwd)}")
     for name in GEMM_KERNELS:
@@ -904,6 +920,32 @@ def _keep_mask(B, S, dt, dev, drop=28):
     return m
 
 
+def _attn_case(ak, attention, q, k, v, mask, causal, tag):
+    """One forward call held to the plain version, and a second call to the
+    first bit for bit; {name: rel err}."""
+    dt = q.dtype
+    B, H, T, _ = q.shape
+    before = attention.LAUNCHES.value
+    out, lse = attention.flash_attention(q, k, v, mask, causal)
+    torch.cuda.synchronize()
+    require(attention.LAUNCHES.value == before + 1, "flash_attention did not launch its kernel")
+    ro, rl = ak.flash_attention_plain(q, k, v, mask, causal)
+    require(out.dtype == dt and out.shape == q.shape
+            and lse.shape == (B * H, T) and torch.isfinite(out).all().item(),
+            f"flash_attention output {out.dtype} {tuple(out.shape)}")
+    again = attention.flash_attention(q, k, v, mask, causal)
+    errs = {}
+    for name, a, r, d, b in (("out", out, ro, dt, again[0]),
+                             ("lse", lse, rl, torch.float32, again[1])):
+        err = (a.float() - r.float()).abs().max().item()
+        rmax = r.float().abs().max().item()
+        require(err <= tolerance(d, rmax),
+                f"flash_attention {tag} {name}: max|diff| {err} > tol {tolerance(d, rmax)}")
+        require(torch.equal(a, b), f"flash_attention {tag} {name}: two calls differ")
+        errs[name] = err / max(rmax, 1e-30)
+    return errs
+
+
 def phase_attn_parity(ak, attention, dev):
     gen = torch.Generator(device=dev).manual_seed(3)
     cases = 0
@@ -915,26 +957,37 @@ def phase_attn_parity(ak, attention, dev):
             errs = {}
             for causal in (False, True):
                 for mask in (None, _keep_mask(B, S, dt, dev)):
-                    before = attention.LAUNCHES.value
-                    out, lse = attention.flash_attention(q, k, v, mask, causal)
-                    torch.cuda.synchronize()
-                    require(attention.LAUNCHES.value == before + 1,
-                            "flash_attention did not launch its kernel")
-                    ro, rl = ak.flash_attention_plain(q, k, v, mask, causal)
-                    require(out.dtype == dt and out.shape == q.shape
-                            and lse.shape == (B * H, T) and torch.isfinite(out).all().item(),
-                            f"flash_attention output {out.dtype} {tuple(out.shape)}")
                     case = f"causal={causal},mask={mask is not None}"
-                    errs[case] = {}
-                    for name, a, r, d in (("out", out, ro, dt), ("lse", lse, rl, torch.float32)):
-                        err = (a.float() - r.float()).abs().max().item()
-                        rmax = r.float().abs().max().item()
-                        require(err <= tolerance(d, rmax),
-                                f"flash_attention {[B, H, T, D]} S={S} {dt} {case} {name}: "
-                                f"max|diff| {err} > tol {tolerance(d, rmax)}")
-                        errs[case][name] = err / max(rmax, 1e-30)
+                    errs[case] = _attn_case(ak, attention, q, k, v, mask, causal,
+                                            f"{[B, H, T, D]} S={S} {dt} {case}")
                     cases += 1
-            emit("attn_parity", shape=[B, H, T, D], S=S, dtype=str(dt), rel_errors=errs)
+            emit("attn_parity", shape=[B, H, T, D], S=S, dtype=str(dt), rel_errors=errs,
+                 bitwise_repeat=True)
+            del q, k, v
+    for dt in (torch.float32, torch.bfloat16):
+        # BERT's layout: q, k, v split out of one [B, T, 3, H, D] tensor
+        B, T, H, D = 64, 128, 12, 64
+        qkv = torch.randn(B, T, 3, H, D, generator=gen, device=dev).to(dt)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        errs = _attn_case(ak, attention, q, k, v, _keep_mask(B, T, dt, dev), False,
+                          f"head-split {dt}")
+        cases += 1
+        emit("attn_parity", shape=[B, H, T, D], S=T, dtype=str(dt), layout="head-split",
+             rel_errors=errs, bitwise_repeat=True)
+        # q's base 2 bytes off 16 and rows D elements apart: element copies
+        B, H, T, S = 2, 3, 70, 90
+        for D in (33, 64, 100):
+            flat = torch.randn(B * H * T * D + 1, generator=gen, device=dev).to(dt)
+            q = flat[1:].view(B, H, T, D)
+            k, v = (torch.randn(B, H, S, D, generator=gen, device=dev).to(dt) for _ in range(2))
+            errs = {}
+            for causal in (False, True):
+                errs[f"causal={causal}"] = _attn_case(
+                    ak, attention, q, k, v, _keep_mask(B, S, dt, dev), causal,
+                    f"unaligned D={D} {dt} causal={causal}")
+                cases += 1
+            emit("attn_parity", shape=[B, H, T, D], S=S, dtype=str(dt), layout="unaligned",
+                 rel_errors=errs, bitwise_repeat=True)
     emit("attn_parity_done", cases=cases, ok=True)
 
 
@@ -1093,14 +1146,16 @@ def phase_bert_profile(model, dev):
          layer_norm_fwd_share_of_busy=ln_ms / busy_ms, top=_top(by_name, 15))
 
 
-def attn_bound(B, H, T, S, D, dt):
-    """Least time for one call: 4*B*H*T*S*D operations over the type's
-    peak, or the bytes (q, k, v, the mask read once; out and lse written
-    once) over 3.35 TB/s, whichever is larger."""
+def attn_bound(B, H, T, S, D, dt, route):
+    """Least time for one forward call on `route` (``ROUTE_RATES``): two
+    products of 2*B*H*T*S*D operations (times 3 for 3xTF32) over the
+    route's peak, or the bytes (q, k, v, the mask read once; out and lse
+    written once) over 3.35 TB/s, whichever is larger."""
     es = torch.tensor([], dtype=dt).element_size()
     nbytes = (2 * T + 2 * S) * B * H * D * es + B * H * T * 4 + B * S * es
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = 4.0 * B * H * T * S * D / PEAK_OPS_PER_S[dt]
+    mult, rate = ROUTE_RATES[route]
+    t_ops = mult * 4.0 * B * H * T * S * D / rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -1128,12 +1183,16 @@ def phase_attn_times(ak, attention, dev):
             fn = lambda: attention.flash_attention(q, k, v, mask)  # noqa: E731
             plain = lambda: ak.flash_attention_plain(q, k, v, mask)  # noqa: E731
             err = (fn()[0].float() - plain()[0].float()).abs().max().item()
-            bound_ms, bound_by = attn_bound(B, H, T, T, D, dt)
+            route = attention.ROUTES[dt]
+            bound_ms, bound_by = attn_bound(B, H, T, T, D, dt, route)
+            ms = time_ms(fn, dev)
             rows[(name, dt)] = dict(
-                ms=time_ms(fn, dev), plain_ms=time_ms(plain, dev),
+                ms=ms, plain_ms=time_ms(plain, dev),
                 library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                     q, k, v, attn_mask=keep), dev),
-                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+                route=route, bound_ms=bound_ms, bound_by=bound_by,
+                share_of_bound=bound_ms / ms,
+                simt_bound_ms=attn_bound(B, H, T, T, D, dt, "simt")[0], max_abs_err=err)
             emit("attn_times", shape=[B, H, T, D], dtype=str(dt), **rows[(name, dt)])
     return rows
 
@@ -1507,11 +1566,13 @@ def phase_bert_train_long(BertModel, BertConfig, Adam, MultiDataSet, attention, 
          losses=losses, launches_per_step=counts, step_ms=ms[-1], step_ms_all=ms,
          tokens_per_sec=batch * t * 1e3 / ms[-1],
          max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return model, mds
 
 
-def phase_bert_train_profile(model, mds):
-    """One bf16 T = 128 fit_batch under torch.profiler: device busy time,
-    idle share, the top kernels and each new kernel's share of busy time."""
+def phase_bert_train_profile(model, mds, phase="bert_train_profile", batch=64, t=128):
+    """One bf16 fit_batch (T = 128; T = 2048 for bert_train_long_profile)
+    under torch.profiler: device busy time, idle share, the top kernels and
+    each new kernel's share of busy time."""
     def step():
         model.fit_batch(mds)
         model.score()
@@ -1519,7 +1580,7 @@ def phase_bert_train_profile(model, mds):
     step()
     window_ms, busy_ms, by_name, n = _trace(step)
     if busy_ms is None:
-        emit("bert_train_profile", window_ms=window_ms, device_busy_ms="not measured",
+        emit(phase, window_ms=window_ms, device_busy_ms="not measured",
              idle_share="not measured")
         return
     shares = {name: _share(by_name, tag) for name, tag in (
@@ -1529,7 +1590,7 @@ def phase_bert_train_profile(model, mds):
         ("layer_norm_fwd", "layer_norm_fwd_kernel"),
         ("layer_norm_bwd", "layer_norm_bwd_kernel"),
         ("layer_norm_bwd_column_sum", "column_sum_kernel"))}
-    emit("bert_train_profile", batch=64, T=128, compute_dtype="bfloat16",
+    emit(phase, batch=batch, T=t, compute_dtype="bfloat16",
          window_ms=window_ms, device_busy_ms=busy_ms,
          idle_share=max(0.0, 1.0 - busy_ms / window_ms), kernels=n,
          kernel_ms=shares, kernel_share_of_busy={k: v / busy_ms for k, v in shares.items()},
@@ -1589,7 +1650,7 @@ def phase_attn_bwd_times(ak, attention, dev):
             lib = time_ms(lambda: torch.autograd.grad(lo, (ql, kl, vl), g, retain_graph=True),
                           dev)
             del lo
-            route = attention.BWD_ROUTES[dt]
+            route = attention.ROUTES[dt]
             for kernel, fn, err in (
                     ("flash_attn_bwd_dq", lambda: attention.launch_bwd_dq(args), errs[0]),
                     ("flash_attn_bwd_dkv", lambda: attention.launch_bwd_dkv(args),
@@ -2241,7 +2302,10 @@ def main():
     del bert_bf16, mds
     phase_bert_train_iter(BertModel, BertConfig, Adam, BertIterator, BertWordPieceTokenizer,
                           attention, layer_norm, dev)
-    phase_bert_train_long(BertModel, BertConfig, Adam, MultiDataSet, attention, layer_norm, dev)
+    long_model, long_mds = phase_bert_train_long(BertModel, BertConfig, Adam, MultiDataSet,
+                                                 attention, layer_norm, dev)
+    phase_bert_train_profile(long_model, long_mds, "bert_train_long_profile", batch=4, t=2048)
+    del long_model, long_mds
     attn_bwd_rows = phase_attn_bwd_times(ak, attention, dev)
     ln_bwd_rows = phase_ln_bwd_times(nk, layer_norm, dev)
     phase_qmm_parity(matmul, qk, dev)
@@ -2286,6 +2350,8 @@ def main():
             "launches": n_launched, "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            **({"product": row["route"], "share_of_bound": row["share_of_bound"],
+                "simt_bound_ms": row["simt_bound_ms"]} if "route" in row else {}),
             "shape": shape + "; launches in one f32 output_mlm at batch 64, T 128"})
     for name, (replaces, source), row, n_launched, shape in (
             ("flash_attn_bwd_dq", ATTN_BWD_KERNELS["flash_attn_bwd_dq"],

@@ -35,12 +35,13 @@ from deeplearning4j_tpu_torch.ops.kernels import dispatch
 from deeplearning4j_tpu_torch.ops.kernels.tiles import DEFAULT_TILES
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: the kernel's mask codes (``enum MaskDtype`` in ``csrc/flash_attn_fwd.cu``)
+#: the kernels' mask codes (``enum MaskDtype`` in ``csrc/flash_attn_common.cuh``)
 _MASK_CODES = {None: 0, torch.float32: 1, torch.bfloat16: 2, torch.float16: 3,
                torch.float64: 4}
 MAX_D = 128
-#: how the backward kernels form their products, by dtype (``csrc/flash_attn_bwd.cu``)
-BWD_ROUTES = {torch.float32: "3xtf32", torch.bfloat16: "mma_bf16"}
+#: how the forward and backward kernels form their products, by dtype:
+#: 3xTF32 or bf16 ``mma.sync`` on the tensor cores (``csrc/flash_attn_common.cuh``)
+ROUTES = {torch.float32: "3xtf32", torch.bfloat16: "mma_bf16"}
 _MAX_Q_TILES = 65535
 
 LAUNCHES = registry().counter(

@@ -73,8 +73,9 @@
 //   ldmatrix.trans.
 // * f32: 3xTF32 on mma.sync.m16n8k8 (conv3x3_igemm.cuh's mma_tf32): big =
 //   v rounded to TF32, small = v - big, and small*big + big*small +
-//   big*big, which keeps f32 accuracy (split_3xtf32 below says how it
-//   differs from conv3x3_igemm.cuh's split_tf32, and why).  Fragments are
+//   big*big, which keeps f32 accuracy (flash_attn_common.cuh's
+//   split_3xtf32 says how it differs from conv3x3_igemm.cuh's split_tf32,
+//   and why).  Fragments are
 //   read with 4-byte loads; a row pitch of D + 4 words puts the lanes of a
 //   (row g, column t) load in 32 banks.  dS and P^T go through the warp's
 //   own shared-memory buffer into the A layout (the m16n8k8 tf32 A layout
@@ -88,7 +89,7 @@
 //   wrapper's separate reduction is folded in) and written for dK/dV.
 // * exp is exp2f((s - lse) * log2(e)): the hardware's exp2, in f32.
 //
-// What the card showed against other choices (attn_bwd_variants.py, which
+// What the card showed against other choices (attn_variants.py, which
 // times copies of this file with a few lines changed, on an H100 at the two
 // BERT-base shapes; the ratios are time over this file's time):
 // - 64-row dQ blocks: dQ bf16 1.03x (T = 128) and 1.08x (T = 2048), f32
@@ -111,43 +112,22 @@
 //
 // The JAX wrapper's padding of T and S and its materialized [B, 1, S] bias
 // have no counterpart: tails are masked here and the mask is read in place,
-// batch row b = (b*h) / H.
-#include "conv3x3_igemm.cuh"  // mma_tf32, zero; it includes skinny_gemm.cuh
-
-#include <cuda_fp16.h>
-#include <math.h>
+// batch row b = (b*h) / H.  The helpers the forward kernel shares (masking,
+// pitches, row loads, the warp products) are in flash_attn_common.cuh.
+#include "flash_attn_common.cuh"
 
 namespace {
 
-using conv_igemm::mma_tf32;
-using conv_igemm::zero;
-using skinny::allow_smem;
-using skinny::cp_async16;
-using skinny::cp_async_commit;
-using skinny::cp_async_wait;
-using skinny::ldmatrix_x4;
-using skinny::ldmatrix_x4_trans;
-using skinny::MAX_DEVICES;
-using skinny::mma_bf16;
-using skinny::smem_addr;
+using namespace flash_attn;
 
 constexpr int DQ_BLOCK_ROWS = 128;  // query rows a dQ block (Cfg::DQ_ROWS)
 constexpr int BQ = 64;      // query rows a dK/dV tile
 constexpr int BK = 64;      // key rows: a dK/dV block, a dQ tile
 constexpr int STAGES = 2;   // tiles in the cp.async ring
 constexpr int DKV_THREADS = 32 * (BK / 16);  // a warp per 16 key rows
-constexpr int MAX_D = 128;
-constexpr float NEG_INF = -1e30f;
-constexpr float LOG2E = 1.4426950408889634f;
 
 static_assert(DQ_BLOCK_ROWS % 16 == 0 && BQ % 16 == 0 && BK % 16 == 0 && STAGES >= 2, "tiles");
 static_assert(BQ <= DKV_THREADS, "one stat value a thread");
-
-enum MaskDtype { MASK_NONE = 0, MASK_F32 = 1, MASK_BF16 = 2, MASK_F16 = 3, MASK_F64 = 4 };
-
-struct Strides {
-  long long b, h, t;
-};
 
 struct Params {
   Strides q, k, v, o, g, dq, dk, dv;
@@ -159,33 +139,27 @@ struct Params {
   float scale;
 };
 
-// One instantiation: element type T and the largest head dimension DMAX.
+// One instantiation: element type T and the largest head dimension DMAX
+// (row pitches: flash_attn_common.cuh's Pitch).
 template <typename T, int DMAX>
-struct Cfg {
-  static constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
-  static constexpr int VE = 16 / (int)sizeof(T);   // elements a 16-byte chunk
-  static constexpr int ROW_CHUNKS = DMAX / VE;
-  // row pitch in elements: bf16 (ldmatrix) an odd number of 16-byte units,
-  // so the 8 rows of an 8x8 matrix fall in 8 bank groups; f32 (4-byte
-  // fragment loads of rows g, columns t) 4 mod 32 words
-  static constexpr int LD = DMAX + (BF16 ? 8 : 4);
+struct Cfg : Pitch<T, DMAX> {
+  using P = Pitch<T, DMAX>;
   // keys (dQ) or queries (dK/dV) a pass; f32 keeps it to 16 so the warps'
   // buffers leave room for two blocks an SM at D = 64
-  static constexpr int CHUNK = BF16 ? 32 : 16;
+  static constexpr int CHUNK = P::BF16 ? 32 : 16;
   static constexpr int CT = CHUNK / 8;   // n8 tiles of a chunk
-  static constexpr int NT = DMAX / 8;    // n8 tiles of the head dimension
   // f32: the warp's [16][LDC] buffer; 20 words a row puts a (g, t) load in
   // 32 banks
   static constexpr int LDC = CHUNK + 4;
-  static constexpr int BUF_FLOATS = BF16 ? 0 : 16 * LDC;
+  static constexpr int BUF_FLOATS = P::BF16 ? 0 : 16 * LDC;
   // query rows a dQ block: 64 for f32 at D <= 128, where 128 rows of Q and
   // dO beside the K/V ring would outgrow shared memory
-  static constexpr int DQ_ROWS = !BF16 && DMAX == 128 ? 64 : DQ_BLOCK_ROWS;
+  static constexpr int DQ_ROWS = !P::BF16 && DMAX == 128 ? 64 : DQ_BLOCK_ROWS;
   static constexpr int DQ_THREADS = 32 * (DQ_ROWS / 16);  // a warp per 16 query rows
-  static constexpr int TILE_Q = BQ * LD;   // elements of a BQ-row tile
-  static constexpr int TILE_K = BK * LD;
+  static constexpr int TILE_Q = BQ * P::LD;   // elements of a BQ-row tile
+  static constexpr int TILE_K = BK * P::LD;
   // dQ: Q, dO; STAGES x (K, V); STAGES x key bias [BK]; the warps' buffers
-  static constexpr int DQ_SMEM = (2 * DQ_ROWS * LD + STAGES * 2 * TILE_K) * (int)sizeof(T) +
+  static constexpr int DQ_SMEM = (2 * DQ_ROWS * P::LD + STAGES * 2 * TILE_K) * (int)sizeof(T) +
                                  (STAGES * BK + (DQ_ROWS / 16) * BUF_FLOATS) * 4;
   // dK/dV: K, V; STAGES x (Q, dO); STAGES x (lse, delta) [BQ]; key bias
   // [BK]; the warps' buffers
@@ -193,54 +167,11 @@ struct Cfg {
                                   (STAGES * 2 * BQ + BK + (BK / 16) * BUF_FLOATS) * 4;
   // bf16 at D <= 64: 16 dQ warps an SM (at most 128 registers a thread;
   // ptxas spills 20 bytes); ptxas's own choice of registers, and fewer
-  // warps, was 1.26x to 1.43x slower on an H100 (attn_bwd_variants.py)
-  static constexpr int DQ_MIN_BLOCKS = BF16 && DMAX == 64 ? 16 * 32 / DQ_THREADS : 1;
-  static_assert(DMAX % 16 == 0 && (LD * (int)sizeof(T)) % 16 == 0, "16-byte rows");
+  // warps, was 1.26x to 1.43x slower on an H100 (attn_variants.py)
+  static constexpr int DQ_MIN_BLOCKS = P::BF16 && DMAX == 64 ? 16 * 32 / DQ_THREADS : 1;
   static_assert(DQ_SMEM <= 232448 && DKV_SMEM <= 232448, "shared memory");
   static_assert(BK <= DQ_THREADS, "one bias value a thread");
 };
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// two values rounded to bf16 in one register, `lo` in the low half (the
-// lower column of an mma fragment)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// The 3xTF32 split of v: big = v rounded to TF32 (10 mantissa bits) to
-// nearest, ties away from zero, as cvt.rna.tf32.f32 rounds it
-// (conv3x3_igemm.cuh's split_tf32), here by an integer add and mask; small
-// = v - big, exact in f32, whose low 13 bits the tensor core drops.  Two
-// conversions a value fewer than split_tf32, which made the f32 kernels
-// 1.22x to 1.37x slower on an H100 (attn_bwd_variants.py).
-__device__ __forceinline__ void split_3xtf32(float v, uint32_t& big, uint32_t& small) {
-  big = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
-  small = __float_as_uint(v - __uint_as_float(big));
-}
-
-// out[0] = a and, where `two`, out[1] = b: one 2-element store where out is
-// aligned for it
-template <typename T>
-__device__ __forceinline__ void store2(T* out, float a, float b, bool two) {
-  if (two && (reinterpret_cast<uintptr_t>(out) & (2 * sizeof(T) - 1)) == 0) {
-    if constexpr (std::is_same<T, float>::value)
-      *reinterpret_cast<float2*>(out) = make_float2(a, b);
-    else
-      *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(a, b);
-  } else {
-    out[0] = from_f32<T>(a);
-    if (two) out[1] = from_f32<T>(b);
-  }
-}
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
@@ -251,174 +182,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
-}
-
-__device__ __forceinline__ float mask_value(const void* mask, int dtype, long long i) {
-  switch (dtype) {
-    case MASK_F32: return static_cast<const float*>(mask)[i];
-    case MASK_BF16: return __bfloat162float(static_cast<const __nv_bfloat16*>(mask)[i]);
-    case MASK_F16: return __half2float(static_cast<const __half*>(mask)[i]);
-    default: return (float)static_cast<const double*>(mask)[i];
-  }
-}
-
-// The forward kernel's bias of key `col`: -inf beyond S, else 0 or NEG_INF
-// from the keep-mask.
-__device__ __forceinline__ float key_bias_of(const Params& p, const void* mask, int b, int col) {
-  if (col >= p.S) return -INFINITY;
-  if (p.mask_dtype == MASK_NONE) return 0.0f;
-  return mask_value(mask, p.mask_dtype, (long long)b * p.mask_b + col) > 0.0f ? 0.0f : NEG_INF;
-}
-
-// Rows [t0, t0 + ROWS) of a [n, D] slice (rows `rs` elements apart) into
-// dst [ROWS][LD], zero beyond n rows and D columns: 16-byte cp.async
-// copies, or element copies where `vec` is false.
-template <typename T, int DMAX, int ROWS, int THREADS>
-__device__ __forceinline__ void load_rows(T* dst, const T* src, long long rs, int t0, int n,
-                                          int D, bool vec, int tid) {
-  using C = Cfg<T, DMAX>;
-  static_assert((ROWS * C::ROW_CHUNKS) % THREADS == 0, "chunks a thread");
-#pragma unroll
-  for (int i = 0; i < ROWS * C::ROW_CHUNKS / THREADS; ++i) {
-    const int c = tid + i * THREADS;
-    const int r = c / C::ROW_CHUNKS, col = (c % C::ROW_CHUNKS) * C::VE;
-    const int left = D - col;
-    const int valid = t0 + r < n ? (left < C::VE ? (left > 0 ? left : 0) : C::VE) : 0;
-    T* d = dst + r * C::LD + col;
-    const T* s = src + (int64_t)(t0 + r) * rs + col;
-    if (vec) {
-      cp_async16(d, valid > 0 ? s : src, valid * (int)sizeof(T));
-    } else {
-#pragma unroll
-      for (int e = 0; e < C::VE; ++e) d[e] = e < valid ? s[e] : zero<T>();
-    }
-  }
-}
-
-// s[16 x CHUNK] += A[a0 .. a0 + 16) . B[b0 .. b0 + CHUNK)^T and
-// t[16 x CHUNK] += A2[a0 ..) . B2[b0 ..)^T, over DMAX columns of [*][LD]
-// tiles (zero past D), in the m16n8 accumulator layout.  bf16: A by
-// ldmatrix, B (its rows are the product's columns) by ldmatrix.  f32: 3xTF32.
-template <typename T, int DMAX>
-__device__ __forceinline__ void score_products(float (&s)[Cfg<T, DMAX>::CT][4],
-                                               float (&t)[Cfg<T, DMAX>::CT][4], const T* A,
-                                               const T* B, const T* A2, const T* B2, int a0,
-                                               int b0, int lane) {
-  using C = Cfg<T, DMAX>;
-  if constexpr (C::BF16) {
-    // lane l addresses row l % 8 of 8x8 matrix l / 8
-    const int j = lane >> 3, r = lane & 7;
-#pragma unroll
-    for (int k16 = 0; k16 < DMAX; k16 += 16) {
-      uint32_t a[4], a2[4];
-      const int aoff = (a0 + (j & 1) * 8 + r) * C::LD + k16 + (j >> 1) * 8;
-      ldmatrix_x4(a, A + aoff);
-      ldmatrix_x4(a2, A2 + aoff);
-#pragma unroll
-      for (int np = 0; np < C::CT / 2; ++np) {
-        uint32_t b[4], b2[4];
-        const int boff = (b0 + np * 16 + (j >> 1) * 8 + r) * C::LD + k16 + (j & 1) * 8;
-        ldmatrix_x4(b, B + boff);
-        ldmatrix_x4(b2, B2 + boff);
-        mma_bf16(s[2 * np], a, b[0], b[1]);
-        mma_bf16(s[2 * np + 1], a, b[2], b[3]);
-        mma_bf16(t[2 * np], a2, b2[0], b2[1]);
-        mma_bf16(t[2 * np + 1], a2, b2[2], b2[3]);
-      }
-    }
-  } else {
-    const int g = lane >> 2, tq = lane & 3;
-#pragma unroll 2
-    for (int k8 = 0; k8 < DMAX; k8 += 8) {
-      uint32_t ab[4], as[4], a2b[4], a2s[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int off = (a0 + g + (e & 1) * 8) * C::LD + k8 + tq + (e >> 1) * 4;
-        split_3xtf32(A[off], ab[e], as[e]);
-        split_3xtf32(A2[off], a2b[e], a2s[e]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < C::CT; ++nt) {
-        uint32_t bb[2], bs[2], b2b[2], b2s[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int off = (b0 + nt * 8 + g) * C::LD + k8 + tq + e * 4;
-          split_3xtf32(B[off], bb[e], bs[e]);
-          split_3xtf32(B2[off], b2b[e], b2s[e]);
-        }
-        // small*big, big*small, big*big
-        mma_tf32(s[nt], as, bb);
-        mma_tf32(t[nt], a2s, b2b);
-        mma_tf32(s[nt], ab, bs);
-        mma_tf32(t[nt], a2b, b2s);
-        mma_tf32(s[nt], ab, bb);
-        mma_tf32(t[nt], a2b, b2b);
-      }
-    }
-  }
-}
-
-// acc[16 x DMAX] += a[16 x CHUNK] . X[x0 .. x0 + CHUNK)[0 .. DMAX), with a
-// in the m16n8 accumulator layout and X a [*][LD] tile.  bf16: a rounded to
-// bf16 straight into A fragments, X by ldmatrix.trans.  f32: a through the
-// warp's buffer into the A layout, 3xTF32, the chunk's products in a fresh
-// accumulator added to acc in f32.
-template <typename T, int DMAX>
-__device__ __forceinline__ void output_product(float (&acc)[Cfg<T, DMAX>::NT][4],
-                                               const float (&a)[Cfg<T, DMAX>::CT][4],
-                                               const T* X, int x0, float* buf, int lane) {
-  using C = Cfg<T, DMAX>;
-  if constexpr (C::BF16) {
-    const int j = lane >> 3, r = lane & 7;
-#pragma unroll
-    for (int kk = 0; kk < C::CT / 2; ++kk) {
-      const uint32_t af[4] = {pack_bf16(a[2 * kk][0], a[2 * kk][1]),
-                              pack_bf16(a[2 * kk][2], a[2 * kk][3]),
-                              pack_bf16(a[2 * kk + 1][0], a[2 * kk + 1][1]),
-                              pack_bf16(a[2 * kk + 1][2], a[2 * kk + 1][3])};
-#pragma unroll
-      for (int np = 0; np < DMAX / 16; ++np) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, X + (x0 + kk * 16 + (j & 1) * 8 + r) * C::LD + np * 16 + (j >> 1) * 8);
-        mma_bf16(acc[2 * np], af, b[0], b[1]);
-        mma_bf16(acc[2 * np + 1], af, b[2], b[3]);
-      }
-    }
-  } else {
-    const int g = lane >> 2, tq = lane & 3;
-#pragma unroll
-    for (int nt = 0; nt < C::CT; ++nt) {
-      *reinterpret_cast<float2*>(buf + g * C::LDC + nt * 8 + 2 * tq) =
-          make_float2(a[nt][0], a[nt][1]);
-      *reinterpret_cast<float2*>(buf + (g + 8) * C::LDC + nt * 8 + 2 * tq) =
-          make_float2(a[nt][2], a[nt][3]);
-    }
-    __syncwarp();
-    uint32_t ab[C::CT][4], as[C::CT][4];
-#pragma unroll
-    for (int kk = 0; kk < C::CT; ++kk)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        split_3xtf32(buf[(g + (e & 1) * 8) * C::LDC + kk * 8 + tq + (e >> 1) * 4], ab[kk][e],
-                   as[kk][e]);
-    __syncwarp();  // the buffer is free for the next chunk
-#pragma unroll
-    for (int nt = 0; nt < C::NT; ++nt) {
-      float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-      for (int kk = 0; kk < C::CT; ++kk) {
-        uint32_t bb[2], bs[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          split_3xtf32(X[(x0 + kk * 8 + tq + e * 4) * C::LD + nt * 8 + g], bb[e], bs[e]);
-        mma_tf32(part, as[kk], bb);
-        mma_tf32(part, ab[kk], bs);
-        mma_tf32(part, ab[kk], bb);
-      }
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[nt][c] += part[c];
-    }
-  }
 }
 
 template <typename T, int DMAX>
@@ -747,14 +510,6 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(g), lse, delta, mask, static_cast<T*>(dk), static_cast<T*>(dv), p);
   return cudaGetLastError();
-}
-
-// A 16-byte aligned base, and (b, h, t) strides of 16 bytes where the
-// dimension has more than one index.
-bool aligned16(const void* base, const Strides& s, int nb, int nh, int nt, int es) {
-  auto ok = [es](long long stride, int n) { return n <= 1 || (stride * es) % 16 == 0; };
-  return (reinterpret_cast<uintptr_t>(base) & 15) == 0 && ok(s.b, nb) && ok(s.h, nh) &&
-         ok(s.t, nt);
 }
 
 // Fills Params from the wrapper's 25 strides, or returns false on a shape

@@ -45,7 +45,8 @@ class TileConfig:
 #: (``csrc/fused_dense.cu`` and ``csrc/q_matmul.cu``: the skinny-M split-K
 #: GEMM of ``csrc/skinny_gemm.cuh``, 16 rows x 128 columns a block, K stages
 #: of 32 and 64 rows; ``csrc/int8_matmul.cu``: 64x64, K step 32;
-#: ``csrc/flash_attn_fwd.cu``: 64 query rows a block, 64-row K/V tiles;
+#: ``csrc/flash_attn_fwd.cu`` at D <= 64: ``block_q`` query rows a block,
+#: ``block_kv``-row K/V tiles, which ``flash_attention_plain`` follows;
 #: ``csrc/flash_attn_bwd.cu`` at D <= 64: ``block_q`` query rows a dQ
 #: block, ``block_kv`` key rows a dK/dV block and a dQ K/V tile; a dK/dV
 #: Q/dO tile is 64 rows).
@@ -57,7 +58,7 @@ DEFAULT_TILES: Dict[str, TileConfig] = {
     "fused_dense": TileConfig(block_m=16, block_n=128, block_k=32),
     "q_matmul": TileConfig(block_m=16, block_n=128, block_k=64),
     "int8_matmul": TileConfig(block_m=64, block_n=64, block_k=32),
-    "attention": TileConfig(block_q=64, block_kv=64),
+    "attention": TileConfig(block_q=128, block_kv=64),
     "attention_bwd": TileConfig(block_q=128, block_kv=64),
     "paged_attention": TileConfig(block_q=1, block_kv=16),
 }
