@@ -134,12 +134,14 @@ def library() -> ctypes.CDLL:
                 fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
                 fn.restype = None
             lib.dl4j_paged_attention.argtypes = (
-                [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float]
+                [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_float]
                 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
             lib.dl4j_paged_attention.restype = ctypes.c_int
             lib.dl4j_paged_attention_limits.argtypes = [
-                ctypes.POINTER(ctypes.c_int)] * 2
+                ctypes.POINTER(ctypes.c_int)] * 3
             lib.dl4j_paged_attention_limits.restype = None
+            lib.dl4j_paged_attention_tile_rows.argtypes = [ctypes.c_int] * 2
+            lib.dl4j_paged_attention_tile_rows.restype = ctypes.c_int
             lib.dl4j_conv3x3_wgrad.argtypes = (
                 [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
             lib.dl4j_conv3x3_wgrad.restype = ctypes.c_int
@@ -165,10 +167,8 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             lib.dl4j_layer_norm_bwd.argtypes = (
                 [ctypes.c_void_p] * 9 + [ctypes.c_int] * 2 + [ctypes.c_longlong] * 2
-                + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                + [ctypes.c_int] * 6 + [ctypes.c_void_p])
             lib.dl4j_layer_norm_bwd.restype = ctypes.c_int
-            lib.dl4j_layer_norm_bwd_blocks.argtypes = [ctypes.c_int] * 2
-            lib.dl4j_layer_norm_bwd_blocks.restype = ctypes.c_int
             for name in ("dl4j_flash_attn_tile", "dl4j_flash_attn_bwd_tile"):
                 fn = getattr(lib, name)
                 fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2

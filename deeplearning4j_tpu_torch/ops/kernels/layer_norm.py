@@ -4,20 +4,31 @@
 :func:`launch` (forward) and :func:`launch_bwd` (backward) check what the
 kernel takes, allocate outputs and scratch with ``torch.empty``, launch on
 PyTorch's current stream and raise if the launch fails.  ``LAUNCHES`` and
-``BWD_LAUNCHES`` count launches, and only those.  The public functions and
-the plain versions are in ``ops/norm_kernels.py``, which calls these only
-for CUDA tensors.
+``BWD_LAUNCHES`` count launches, and only those.  :func:`ln_bwd_plan` sizes
+the backward's grid.  The public functions and the plain versions are in
+``ops/norm_kernels.py``, which calls these only for CUDA tensors.
 """
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
 from deeplearning4j_tpu_torch.monitor.registry import registry
+from deeplearning4j_tpu_torch.ops.kernels.matmul import _sm_count
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _INT_MAX = 2 ** 31 - 1
 #: widest row the kernel takes (one block of 256 threads reduces a row)
 MAX_F = 8192
+#: blocks the backward's row grid aims at per SM (two blocks of 256
+#: threads fit an SM's registers)
+BWD_BLOCKS_PER_SM = 2
+#: threads of a backward block, and the f32 columns its shared memory holds
+#: (gain, then every row group's column sums: groups * F)
+_BWD_THREADS = 256
+_BWD_SMEM_FLOATS = 8192
 
 LAUNCHES = registry().counter(
     "ops_kernel_launches_total", help="hand-written kernel launches",
@@ -53,6 +64,29 @@ def bwd_supports(x, gain, mean=None, rstd=None, dy=None, **kw) -> bool:
                 and tuple(t.shape) == (rows,) for t in (mean, rstd))
     return (stats and isinstance(dy, torch.Tensor) and dy.dtype == x.dtype
             and dy.shape == x.shape)
+
+
+class LnBwdPlan(NamedTuple):
+    """The backward's row grid: ``threads_per_row`` threads reduce a row
+    (256 / that many rows in flight a block); block i takes rows
+    ``[i * rows_per_block, (i + 1) * rows_per_block)``."""
+    threads_per_row: int
+    rows_per_block: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=1024)
+def ln_bwd_plan(rows: int, F: int, sm_count: int) -> LnBwdPlan:
+    """A warp a row up to F = 1024, then 64, 128 or 256 threads (each
+    thread holds at most 32 elements of a row, and the block's row groups
+    fit its column-sum buffer); enough blocks for ``BWD_BLOCKS_PER_SM`` per
+    SM, each with at least one row per row group, and none empty."""
+    tpr = 32
+    while tpr < _BWD_THREADS and (tpr * 32 < F or (_BWD_THREADS // tpr) * F > _BWD_SMEM_FLOATS):
+        tpr *= 2
+    groups = _BWD_THREADS // tpr
+    per = max(groups, -(-rows // (BWD_BLOCKS_PER_SM * sm_count)))
+    return LnBwdPlan(tpr, per, max(1, -(-rows // per)))
 
 
 def _rows_view(t: torch.Tensor, F: int) -> torch.Tensor:
@@ -131,15 +165,16 @@ def launch_bwd(x: torch.Tensor, gain: torch.Tensor, mean: torch.Tensor,
             dbias.zero_()
         return dx.reshape(x.shape), dgain.zero_(), dbias
     lib = build.library()
-    nblk = lib.dl4j_layer_norm_bwd_blocks(rows, F)
-    partials = torch.empty((2, nblk, F), dtype=torch.float32, device=dev)
+    plan = ln_bwd_plan(rows, F, _sm_count(dev.index))
+    partials = torch.empty((2, plan.blocks, F), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.dl4j_layer_norm_bwd(
             x2.data_ptr(), gain.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
             dy2.data_ptr(), dx.data_ptr(), dgain.data_ptr(),
             None if dbias is None else dbias.data_ptr(), partials.data_ptr(),
-            rows, F, _row_stride(x2, F), _row_stride(dy2, F), nblk,
+            rows, F, _row_stride(x2, F), _row_stride(dy2, F), plan.threads_per_row,
+            plan.rows_per_block, plan.blocks,
             _DTYPE_CODES[x.dtype], _DTYPE_CODES[gain.dtype],
             _DTYPE_CODES[bias_dtype] if bias_dtype is not None else 0, stream)
     if rc != 0:

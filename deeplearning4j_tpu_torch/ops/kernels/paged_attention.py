@@ -11,8 +11,11 @@ implementations of one function:
   and the spec: gather each sequence's pages per its block table, masked
   softmax over the rebuilt history, f32 math;
 - the CUDA kernel in ``csrc/paged_attention.cu`` (see that file for its
-  design and bound), launched by :func:`paged_attention` on CUDA tensors,
-  which walks the pages with an online softmax in the TPU kernel's order.
+  design and bound), launched by :func:`paged_attention` on CUDA tensors:
+  each (sequence, head group)'s history is split over several blocks on
+  page boundaries (:func:`paged_plan`), each block runs an online softmax
+  over its pages, and the last block of a (sequence, head group) combines
+  the splits in split order.
 
 Int8 pages carry one f32 scale per (token, head) row, made by
 ``quantize_tensor(rows, axis=0)``; both implementations widen them with the
@@ -36,11 +39,15 @@ kernel launches, and only those.
 """
 from __future__ import annotations
 
+import functools
 import math
+import threading
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
 from deeplearning4j_tpu_torch.monitor.registry import registry
+from deeplearning4j_tpu_torch.ops.kernels.matmul import _current_stream, _on_device, _sm_count
 
 #: masked logits, not -inf, so fully masked tails stay NaN-free
 NEG_INF = -1e30
@@ -48,12 +55,73 @@ _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: the kernel's limits (``dl4j_paged_attention_limits``)
 MAX_D = 256
 MAX_PAGE = 64
+MAX_SPLITS = 128
+#: blocks the split grid aims at per SM, and the most heads a block takes
+#: side by side (chosen by ``paged_variants.py``'s timings on an H100)
+BLOCKS_PER_SM = 4
+HEADS_PER_BLOCK = 2
+#: threads of a block and rows a row group takes from each ring stage
+#: (``THREADS`` and ``ROWS_PER_GROUP`` in the source)
+_THREADS = 128
+_ROWS_PER_GROUP = 2
 
 LAUNCHES = registry().counter(
     "ops_kernel_launches_total", help="hand-written kernel launches",
     labels={"kernel": "paged_attention"})
 
 _limits_checked = False
+_counters_lock = threading.Lock()
+#: (device index, stream) -> int32 arrival counters, zero between launches
+_counters: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+class PagedPlan(NamedTuple):
+    """A launch of the split kernel: blocks of ``heads`` heads side by
+    side, ``splits`` blocks per (b, head group), split s taking the pages
+    ``[s * pages_per_split, (s + 1) * pages_per_split)`` of the block
+    table; ring stages of ``tile_rows`` rows (``tile_rows / heads``
+    tokens); ``blocks`` = B * H / heads * splits."""
+    splits: int
+    pages_per_split: int
+    heads: int
+    tile_rows: int
+    blocks: int
+
+
+def tile_rows(D: int, kv_itemsize: int) -> int:
+    """Rows of one ring stage (``geometry`` in the source): a row group
+    has as many lanes as the row has 16-byte pieces (a power of two, at
+    most 32), and takes ``_ROWS_PER_GROUP`` rows of a stage."""
+    pieces = -(-D * kv_itemsize // 16)
+    lanes = 1
+    while lanes < pieces and lanes < 32:
+        lanes *= 2
+    return _ROWS_PER_GROUP * (_THREADS // lanes)
+
+
+@functools.lru_cache(maxsize=1024)
+def paged_plan(B: int, H: int, D: int, page: int, max_pages: int,
+               kv_itemsize: int, sm_count: int) -> PagedPlan:
+    """The grid of a launch, from the shapes alone (never from the
+    lengths, so a decode step reads nothing back from the card): the most
+    heads a block takes (a power of two dividing H, at most
+    ``HEADS_PER_BLOCK`` and the block's row groups), then enough history
+    splits that the grid has ``BLOCKS_PER_SM`` blocks per SM, each split at
+    least one ring stage of tokens long and at most ``MAX_SPLITS``; splits
+    fall on page boundaries, and the last one is not empty."""
+    rows = tile_rows(D, kv_itemsize)
+    heads = 1
+    while (heads * 2 <= min(HEADS_PER_BLOCK, rows // _ROWS_PER_GROUP)
+           and H % (heads * 2) == 0):
+        heads *= 2
+    groups = B * H // heads
+    min_pages = max(1, rows // heads // page)
+    most = max(1, min(MAX_SPLITS, max_pages // min_pages))
+    want = -(-BLOCKS_PER_SM * sm_count // groups)
+    splits = max(1, min(most, want))
+    per = -(-max_pages // splits)
+    splits = -(-max_pages // per)
+    return PagedPlan(splits, per, heads, rows, groups * splits)
 
 
 def dequant_rows(x, scales, dtype=torch.float32):
@@ -134,13 +202,26 @@ def _check_limits(lib) -> None:
     if _limits_checked:
         return
     import ctypes
-    d, p = ctypes.c_int(), ctypes.c_int()
-    lib.dl4j_paged_attention_limits(ctypes.byref(d), ctypes.byref(p))
-    if (d.value, p.value) != (MAX_D, MAX_PAGE):
+    got = [ctypes.c_int() for _ in range(3)]
+    lib.dl4j_paged_attention_limits(*map(ctypes.byref, got))
+    got = tuple(v.value for v in got)
+    if got != (MAX_D, MAX_PAGE, MAX_SPLITS):
         raise RuntimeError(
-            f"paged_attention: the library takes D <= {d.value}, page <= "
-            f"{p.value}; this module says {MAX_D}, {MAX_PAGE}")
+            f"paged_attention: the library's (D, page, splits) limits are "
+            f"{got}; this module says {(MAX_D, MAX_PAGE, MAX_SPLITS)}")
     _limits_checked = True
+
+
+def _stream_counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """The stream's arrival counters, at least ``n``; a zeroed buffer
+    replaces one that is too small (launches on one stream run in order,
+    and the kernel leaves the counters zero)."""
+    with _counters_lock:
+        ctr = _counters.get((device.index, stream))
+        if ctr is None or ctr.numel() < n:
+            ctr = torch.zeros(n, dtype=torch.int32, device=device)
+            _counters[(device.index, stream)] = ctr
+        return ctr
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, seq_lens, scale=None,
@@ -159,21 +240,30 @@ def paged_attention(q, k_pages, v_pages, block_tables, seq_lens, scale=None,
     page = k_pages.shape[1]
     max_pages = block_tables.shape[1]
     quantized = k_pages.dtype == torch.int8
+    dev = q.device
     bt = block_tables.to(torch.int32).contiguous()
     sl = seq_lens.to(torch.int32).contiguous()
     qc = q.contiguous()
-    out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, H, D), dtype=q.dtype, device=dev)
     lib = build.library()
     _check_limits(lib)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+    with _on_device(dev):
+        stream = _current_stream(dev.index)
+        plan = paged_plan(B, H, D, page, max_pages, k_pages.element_size(),
+                          _sm_count(dev.index))
+        ws = ctr = None
+        if plan.splits > 1:
+            ws = torch.empty(B * H * plan.splits * (D + 2), dtype=torch.float32, device=dev)
+            ctr = _stream_counters(dev, stream, B * H)
         rc = lib.dl4j_paged_attention(
             qc.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             k_scales.data_ptr() if quantized else None,
             v_scales.data_ptr() if quantized else None,
-            bt.data_ptr(), sl.data_ptr(), out.data_ptr(), B, H, D, page,
-            max_pages, _sm_scale(D, scale), _Q_CODES[q.dtype], int(quantized),
-            stream)
+            bt.data_ptr(), sl.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(),
+            None if ctr is None else ctr.data_ptr(), B, H, D, page, max_pages,
+            plan.splits, plan.pages_per_split, plan.heads, _sm_scale(D, scale),
+            _Q_CODES[q.dtype], int(quantized), stream)
     if rc != 0:
         raise RuntimeError(
             f"paged_attention launch failed: {build.error_string(rc)} (code {rc})")

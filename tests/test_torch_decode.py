@@ -16,8 +16,9 @@ Bottom up, each on the same numpy inputs made from seeds:
   (no new shape after warmup, mid-flight admit/retire, cancel,
   exhaustion sheds, oversize prompts refused).
 
-The CUDA kernel is held to its plain version by the ``cuda``-marked test,
-which skips without a card.
+The CUDA kernel is held to its plain version by the ``cuda``-marked test
+(the cases above and lengths on its split boundaries, each call repeated
+bit for bit), which skips without a card.
 """
 import time
 from concurrent.futures import Future
@@ -392,13 +393,27 @@ def test_killed_engine_fails_in_flight_and_refuses():
     assert eng.cache.blocks_in_use == 0
 
 
+def _split_edge_case(dtype, seed):
+    """[5, 2, 64] over block tables 40 pages wide (page 8) with lengths on,
+    one before and one after the kernel's split boundaries, and short
+    ones that leave whole splits empty."""
+    plan = pa.paged_plan(5, 2, 64, 8, 40, 1 if dtype == "int8" else 4,
+                         torch.cuda.get_device_properties(0).multi_processor_count)
+    per = plan.pages_per_split * 8
+    lens = [min(n, 320) for n in (per, per - 1, per + 1, 1, 2 * per + 1)]
+    return dict(B=5, H=2, D=64, page=8, n_pages=200, max_pages=40, dtype=dtype,
+                seed=seed, seq_lens=lens)
+
+
 @pytest.mark.cuda
 def test_paged_kernel_matches_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    for case in sorted(PAGED_CASES):
+    cases = [PAGED_CASES[c] for c in sorted(PAGED_CASES)]
+    cases += [_split_edge_case("f32", 21), _split_edge_case("int8", 22)]
+    for case in cases:
         args = [None if a is None else torch.from_numpy(np.asarray(a)).cuda()
-                for a in _random_paged(**PAGED_CASES[case])]
+                for a in _random_paged(**case)]
         q, k, v, bt, sl, ks, vs = args
         before = pa.LAUNCHES.value
         got = pa.paged_attention(q, k, v, bt, sl, k_scales=ks, v_scales=vs)
@@ -406,3 +421,5 @@ def test_paged_kernel_matches_plain_on_card():
         assert pa.LAUNCHES.value == before + 1
         want = pa.paged_attention_plain(q, k, v, bt, sl, k_scales=ks, v_scales=vs)
         assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+        again = pa.paged_attention(q, k, v, bt, sl, k_scales=ks, v_scales=vs)
+        assert torch.equal(got, again)              # the splits combine in a fixed order

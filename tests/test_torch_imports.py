@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: no jax, nothing of deeplearning4j_tpu.
 
-An AST scan of every module of the port, chip_smoke.py and
-attn_variants.py finds no import of either; a fresh interpreter that
+An AST scan of every module of the port, chip_smoke.py,
+attn_variants.py and paged_variants.py finds no import of either; a fresh interpreter that
 imports the whole port has neither in `sys.modules` (nor the kernel build
 module, loaded lazily); and the entry points refuse to run without CUDA
 unless asked for the CPU (the decode engine's model and KV cache too), and
@@ -31,7 +31,8 @@ def _imported_roots(path):
 
 
 def test_no_forbidden_imports_in_port_sources():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "attn_variants.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "attn_variants.py",
+                                          ROOT / "paged_variants.py"]
     assert len(files) > 20
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN]

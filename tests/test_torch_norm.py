@@ -282,7 +282,7 @@ def test_backward_kernels_match_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     gen = torch.Generator(device="cuda").manual_seed(1)
-    for rows, F in [(8192, 768), (37, 1000), (1, 64), (3, 4096)]:
+    for rows, F in [(8192, 768), (37, 1000), (1, 64), (3, 4096), (5, 100)]:
         for dt, gdt in ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
                         (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)):
             for bias_dtype in (gdt, None):
@@ -294,6 +294,9 @@ def test_backward_kernels_match_plain_on_card():
                 got = layer_norm.launch_bwd(x, g, mean, rstd, dy, bias_dtype)
                 torch.cuda.synchronize()
                 assert layer_norm.BWD_LAUNCHES.value == before + 1
+                again = layer_norm.launch_bwd(x, g, mean, rstd, dy, bias_dtype)
+                assert all((a is None and b is None) or torch.equal(a, b)
+                           for a, b in zip(got, again))      # fixed-order column sums
                 want = nk.layer_norm_bwd_plain(x, g, mean, rstd, dy, bias_dtype)
                 for a, w in zip(got, want):
                     if w is None:
