@@ -10,12 +10,14 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 
 1. device  — nvidia-smi's name and power limit; compute capability (9, 0).
 2. build   — compile the CUDA kernels from ``csrc/`` (``nvcc``, sm_90a);
-   the registers and spills of ``fused_dense``, ``q_matmul`` and the two
-   conv kernels by name (none may spill), of each instance of the
-   attention forward and backward kernels (dtype x largest head
-   dimension; each must be reported), of the LayerNorm backward's two
-   kernels, and of each ``paged_attention`` instance (each must be
-   reported).
+   the registers and spills of ``fused_dense``, ``q_matmul``,
+   ``int8_matmul`` and the two conv kernels by name (none may spill), of
+   each instance of the attention forward and backward kernels (dtype x
+   largest head dimension; each must be reported), of each
+   ``int8_matmul`` instance (f32 or bf16 out x W by TMA or not; each must
+   be reported) and each ``layer_norm_fwd`` instance, of the LayerNorm
+   backward's two kernels, and of each ``paged_attention`` instance (each
+   must be reported).
 3. parity  — ``fused_dense`` against ``fused_dense_reference`` on the card
    at M in {1, 2, 4, 8, 16} (every bucket the slice serves) and {37, 128}
    (ragged and multi-tile), and (K, N) in {(25088, 4096), (4096, 4096),
@@ -83,10 +85,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    kernels line calls it ``product``, its ``route`` being ``cuda``) and
    the f32 SIMT bound (67 TFLOP/s) of the first design.
 11. ln_parity — ``layer_norm_fwd`` against ``layer_norm_plain`` at rows
-   8192 (as 64x128 and 4x2048), 37 and 1, F in {768, 1000, 64}, eps 1e-12
-   and 1e-5, f32 and bf16; y, mean and rstd each held to the tolerance
-   (mean and rstd are f32: 1e-4 * max|ref| in both dtypes); each call must
-   add one to the launch count.
+   8192 (as 64x128 and 4x2048), 37 and 1, F in {768, 1000, 64, 100, 1025}
+   (bf16 rows of 200 bytes take the element copies; 1025 the first row of
+   two warps), eps 1e-12 and 1e-5, f32 and bf16, with a bias and (F = 64)
+   without; and x as a strided [rows, F] view of [rows, F + 8] at F = 768
+   and 100; y, mean and rstd each held to the tolerance (mean and rstd are
+   f32: 1e-4 * max|ref| in both dtypes); each call must add one to the
+   launch count, and a second call must give the same bits.
 12. attn_parity — ``flash_attention`` (out, lse) against
    ``flash_attention_plain`` at [64,12,128,64], [4,12,2048,64] and the
    ragged [2,3,77,64] (S 77), [1,2,37,64] (S 200) and [2,2,130,128] (S
@@ -185,13 +190,15 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    SIMT bound of the first design; ``share_of_bound`` = bound_ms / ms.
 24. qmm_parity — ``q_matmul`` and ``int8_matmul`` against their plain
    versions at M in {1, 4, 16, 37} and (K, N) in {(25088, 4096), (4096,
-   4096), (4096, 1000), (800, 500)}: q_matmul in f32 (TF32 off, 1e-4 *
-   max|ref|) and bf16 (``Q_BF16_ULPS`` ulps of max|ref|), with and without a
-   bias; int8_matmul with and without a bias and an x_scale, bitwise; each
-   call adds one launch; q_matmul at fc6 gives the same bits twice in
-   both dtypes.  ``quantize_tensor``, ``quantize_activation`` and
-   the KV cache's ``quantize_rows`` on the card equal the CPU's bit for bit
-   (the CPU's equal the JAX package's numpy, ``tests/test_torch_quant.py``).
+   4096), (4096, 1000), (800, 500), (70, 45)} (K = 70: x rows off 16
+   bytes): q_matmul in f32 (TF32 off, 1e-4 * max|ref|) and bf16
+   (``Q_BF16_ULPS`` ulps of max|ref|), with and without a bias;
+   int8_matmul with and without a bias and an x_scale, f32 out, and bf16
+   out with both, bitwise; each call adds one launch; q_matmul at fc6
+   gives the same bits twice in both dtypes.  ``quantize_tensor``,
+   ``quantize_activation`` and the KV cache's ``quantize_rows`` on the card
+   equal the CPU's bit for bit (the CPU's equal the JAX package's numpy,
+   ``tests/test_torch_quant.py``).
 25. quant_slice — the int8 serving path: ``ModelServer(max_batch=16)``
    deploys full-width VGG16 (f32, version 1), ``quant.calibrate`` runs over
    2 batches of 8 (numpy seed 0), and ``registry.register_quantized`` rolls
@@ -208,10 +215,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    forward of each int8 version under ``torch.profiler``: ``q_matmul``'s
    and ``int8_matmul``'s device time.
 26. qmm_times — both kernels at VGG16's fc6, fc7 and output shapes, M = 16
-   (q_matmul in f32 and bf16): kernel, plain, ``torch.addmm`` on the weight
-   dequantized outside the timed region (``torch._int_mm`` takes no M =
-   16), bound (bytes over 3.35 TB/s, or operations over the f32, bf16 or
-   int8 peak) and ``share_of_bound``.
+   (q_matmul in f32 and bf16): kernel, plain, one PyTorch call as a
+   yardstick (q_matmul: ``torch.addmm`` on the weight dequantized outside
+   the timed region; int8_matmul: ``torch._int_mm``, whose smallest M is
+   17, on x padded with zero rows to 32 outside the timed region, the
+   int32 product only), bound (bytes over 3.35 TB/s, or operations over
+   the f32, bf16 or int8 peak) and ``share_of_bound``.
 27. paged_parity — ``paged_attention`` against its plain version at
    [8,4,16], [16,12,64] and [3,2,128], page 16, lengths from 1 to 2,048
    with partial last pages, and at [16,12,64] with block tables as wide
@@ -389,8 +398,10 @@ def phase_device():
 
 
 #: kernels whose registers and spills the build phase reports by name
-GEMM_KERNELS = ("fused_dense_kernel", "q_matmul_kernel", "conv3x3_wgrad_kernel",
-                "conv3x3_dgrad_kernel")
+GEMM_KERNELS = ("fused_dense_kernel", "q_matmul_kernel", "int8_matmul_kernel",
+                "conv3x3_wgrad_kernel", "conv3x3_dgrad_kernel")
+#: int8_matmul's instances: y f32 or bf16 x W by TMA or by cp.async
+INT8_INSTANCES = 4
 #: the LayerNorm backward's two kernels, reported over their instances
 LN_BWD_KERNELS = ("layer_norm_bwd_kernel", "column_sum_kernel")
 #: paged_attention's instances, (q, pages) x 16-byte copies or element
@@ -399,6 +410,24 @@ PAGED_INSTANCES = tuple(f"paged_attention_kernelI{q}{kv}Lb{vec}E"
                         for q, kv in (("f", "f"), ("13__nv_bfloat16", "S1_"), ("f", "a"),
                                       ("13__nv_bfloat16", "a"))
                         for vec in (1, 0))
+
+
+def _ptxas_instances(log, stem):
+    """{instance: {"registers": n, "spill_bytes": b}} for every function
+    whose mangled name holds `stem`, keyed by the name from `stem` to the
+    end of its template arguments."""
+    out, current = {}, None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            fn = line.split()[-1]
+            current = fn[fn.index(stem):].split("Ev")[0] if stem in fn else None
+        elif current and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            out[current] = {"spill_bytes": nums[1] + nums[2]}
+        elif current and "Used" in line and "registers" in line:
+            out.setdefault(current, {})["registers"] = int(line.split("Used")[1].split()[0])
+            current = None
+    return out
 
 
 def _ptxas_by_kernel(log, names):
@@ -441,10 +470,15 @@ def phase_build(build):
     attn_bwd = _ptxas_by_kernel(info.get("ptxas", ""), ATTN_BWD_INSTANCES)
     ln_bwd = _ptxas_by_kernel(info.get("ptxas", ""), LN_BWD_KERNELS)
     paged = _ptxas_by_kernel(info.get("ptxas", ""), PAGED_INSTANCES)
+    int8 = _ptxas_instances(info.get("ptxas", ""), "int8_matmul_kernel")
+    ln_fwd = _ptxas_instances(info.get("ptxas", ""), "layer_norm_fwd_kernel")
     emit("build", seconds=time.monotonic() - t0, cached=info["cached"],
          library=os.path.relpath(info["path"]), ptxas=sorted(set(ptxas)),
-         gemm_ptxas=gemm, attn_fwd_ptxas=attn_fwd, attn_bwd_ptxas=attn_bwd,
-         ln_bwd_ptxas=ln_bwd, paged_ptxas=paged)
+         gemm_ptxas=gemm, int8_ptxas=int8, attn_fwd_ptxas=attn_fwd,
+         attn_bwd_ptxas=attn_bwd, ln_fwd_ptxas=ln_fwd, ln_bwd_ptxas=ln_bwd,
+         paged_ptxas=paged)
+    require(info["cached"] or len(int8) == INT8_INSTANCES,
+            f"int8_matmul: ptxas reports {sorted(int8)}")
     require(info["cached"] or len(paged) == len(PAGED_INSTANCES),
             f"paged_attention: ptxas reports {sorted(paged)}")
     require(info["cached"] or len(attn_fwd) == len(ATTN_FWD_INSTANCES),
@@ -903,15 +937,23 @@ def phase_conv_times(ck, conv3x3, dev):
     return rows
 
 
+#: LayerNorm forward parity: (F, x a strided view, with a bias): BERT's
+#: 768, a ragged 1000, 64 without a bias, bf16 rows of 200 bytes (element
+#: copies), the first row of two warps, and x as [rows, F] of [rows, F + 8]
+LN_FWD_CASES = [(768, False, True), (1000, False, True), (64, False, False),
+                (100, False, True), (1025, False, True), (768, True, True), (100, True, True)]
+
+
 def phase_ln_parity(nk, layer_norm, dev):
     gen = torch.Generator(device=dev).manual_seed(2)
     cases = 0
     for lead in ((64, 128), (4, 2048), (37,), (1,)):
-        for F in (768, 1000, 64):
+        for F, strided, with_bias in LN_FWD_CASES:
             for dt in (torch.float32, torch.bfloat16):
-                x = (torch.randn(*lead, F, generator=gen, device=dev) * 2 + 0.5).to(dt)
+                x = (torch.randn(*lead, F + 8 * strided, generator=gen, device=dev) * 2
+                     + 0.5).to(dt)[..., :F]
                 g = torch.randn(F, generator=gen, device=dev).to(dt)
-                b = torch.randn(F, generator=gen, device=dev).to(dt)
+                b = torch.randn(F, generator=gen, device=dev).to(dt) if with_bias else None
                 errs = {}
                 for eps in (1e-12, 1e-5):
                     before = layer_norm.LAUNCHES.value
@@ -919,6 +961,9 @@ def phase_ln_parity(nk, layer_norm, dev):
                     torch.cuda.synchronize()
                     require(layer_norm.LAUNCHES.value == before + 1,
                             "layer_norm_fwd did not launch its kernel")
+                    again = nk.layer_norm_fwd(x, g, b, eps)
+                    require(all(torch.equal(a, r) for a, r in zip(got, again)),
+                            f"layer_norm_fwd {list(x.shape)} {dt} eps={eps}: two calls differ")
                     want = nk.layer_norm_plain(x, g, b, eps)
                     require(got[0].dtype == dt and got[0].shape == x.shape,
                             f"layer_norm_fwd output {got[0].dtype} {tuple(got[0].shape)}")
@@ -932,7 +977,8 @@ def phase_ln_parity(nk, layer_norm, dev):
                                 f"max|diff| {err} > tol {tolerance(d, rmax)}")
                         errs[eps][name] = err / max(rmax, 1e-30)
                     cases += 1
-                emit("ln_parity", shape=list(x.shape), dtype=str(dt), rel_errors=errs)
+                emit("ln_parity", shape=list(x.shape), dtype=str(dt), strided=strided,
+                     bias=with_bias, rel_errors=errs, bitwise_repeat=True)
     emit("ln_parity_done", cases=cases, ok=True)
 
 
@@ -1801,7 +1847,7 @@ def phase_qmm_parity(matmul, qk, dev):
     bit."""
     gen = torch.Generator(device=dev).manual_seed(3)
     cases = 0
-    for K, N in [(25088, 4096), (4096, 4096), (4096, 1000), (800, 500)]:
+    for K, N in [(25088, 4096), (4096, 4096), (4096, 1000), (800, 500), (70, 45)]:
         w = torch.randn(K, N, generator=gen, device=dev) / math.sqrt(K)
         qt = qk.quantize_tensor(w)
         host = qk.quantize_tensor(w.cpu())
@@ -1839,20 +1885,22 @@ def phase_qmm_parity(matmul, qk, dev):
             xq = qk.quantize_activation(x32, 0.05)
             require(torch.equal(xq.cpu(), qk.quantize_activation(x32.cpu(), 0.05)),
                     "quantize_activation on the card differs from the CPU's")
-            for xs in (None, 0.05):
-                for bias in (None, b):
-                    before = matmul.INT8_LAUNCHES.value
-                    y = matmul.int8_matmul(xq, qt.q, qt.scale, x_scale=xs, bias=bias)
-                    torch.cuda.synchronize()
-                    require(matmul.INT8_LAUNCHES.value == before + 1,
-                            "int8_matmul did not launch its kernel")
-                    r = matmul.int8_matmul_plain(xq, qt.q, qt.scale, x_scale=xs, bias=bias)
-                    require(y.dtype == torch.float32 and torch.equal(y, r),
-                            f"int8_matmul M={M} K={K} N={N} x_scale={xs} bias="
-                            f"{bias is not None} is not bitwise equal to its plain "
-                            f"version (max|diff| {(y - r).abs().max().item()})")
-                    cases += 1
-            errs["int8_matmul"] = "bitwise, 4 cases"
+            for xs, bias, out in ((None, None, torch.float32), (None, b, torch.float32),
+                                  (0.05, None, torch.float32), (0.05, b, torch.float32),
+                                  (0.05, b, torch.bfloat16)):
+                before = matmul.INT8_LAUNCHES.value
+                y = matmul.int8_matmul(xq, qt.q, qt.scale, x_scale=xs, bias=bias, out_dtype=out)
+                torch.cuda.synchronize()
+                require(matmul.INT8_LAUNCHES.value == before + 1,
+                        "int8_matmul did not launch its kernel")
+                r = matmul.int8_matmul_plain(xq, qt.q, qt.scale, x_scale=xs, bias=bias,
+                                             out_dtype=out)
+                require(y.dtype == out and torch.equal(y, r),
+                        f"int8_matmul M={M} K={K} N={N} x_scale={xs} bias={bias is not None} "
+                        f"{out} is not bitwise equal to its plain version (max|diff| "
+                        f"{(y.float() - r.float()).abs().max().item()})")
+                cases += 1
+            errs["int8_matmul"] = "bitwise, 5 cases (f32 out; bf16 out with x_scale and bias)"
             emit("qmm_parity", M=M, K=K, N=N, errors=errs)
     emit("qmm_parity_done", cases=cases, ok=True)
 
@@ -1984,8 +2032,9 @@ def phase_quant_profile(models, x16):
 def phase_qmm_times(matmul, qk, dev, M=16):
     """Each quantized kernel at VGG16's Dense shapes, M = 16: kernel, plain,
     one PyTorch call as a yardstick (``torch.addmm`` on the weight
-    dequantized outside the timed region; ``torch._int_mm`` where its shape
-    rules allow), bound."""
+    dequantized outside the timed region; ``torch._int_mm`` on x padded with
+    zero rows to 32, its smallest M past 16, outside the timed region),
+    bound."""
     rows = {}
     for layer, (K, N) in VGG_DENSE.items():
         gen = torch.Generator(device=dev).manual_seed(4)
@@ -2010,13 +2059,14 @@ def phase_qmm_times(matmul, qk, dev, M=16):
         fn = lambda: matmul.int8_matmul(xq, qt.q, qt.scale, x_scale=0.05, bias=b)  # noqa: E731
         plain = lambda: matmul.int8_matmul_plain(xq, qt.q, qt.scale, x_scale=0.05, bias=b)  # noqa: E731
         err = (fn() - plain()).abs().max().item()
-        # torch._int_mm wants M > 16 and K, N multiples of 8: no yardstick at M = 16
-        lib = (time_ms(lambda: torch._int_mm(xq, qt.q), dev)
-               if M > 16 and K % 8 == 0 and N % 8 == 0 else None)
+        # torch._int_mm wants M > 16 and K, N multiples of 8
+        xq32 = torch.cat([xq, xq.new_zeros(32 - M, K)]) if M < 32 else xq
+        lib = time_ms(lambda: torch._int_mm(xq32, qt.q), dev)
         bound_ms, bound_by = int8_bound(M, K, N, torch.float32)
         ms = time_ms(fn, dev)
         rows[("int8_matmul", layer)] = dict(
             ms=ms, plain_ms=time_ms(plain, dev), library_ms=lib,
+            library="torch._int_mm, x padded to 32 rows, int32 product only",
             bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms,
             max_abs_err=err)
         emit("qmm_times", kernel="int8_matmul", layer=layer, M=M, K=K, N=N,
@@ -2457,8 +2507,8 @@ def main():
             ("int8_matmul", qmm_rows[("int8_matmul", "fc6")],
              versions["static"]["launches"]["int8_matmul"],
              "fc6 M=16 K=25088 N=4096 int8 -> f32 with x_scale and bias; launches over the "
-             "static-activation VGG16 version's warmup and 12 requests; torch._int_mm takes "
-             "no M = 16")):
+             "static-activation VGG16 version's warmup and 12 requests; library: "
+             "torch._int_mm, x padded to 32 rows, int32 product only")):
         replaces, source = QMM_KERNELS[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -126,7 +126,8 @@ def library() -> ctypes.CDLL:
                 [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
             lib.dl4j_q_matmul.restype = ctypes.c_int
             lib.dl4j_int8_matmul.argtypes = (
-                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
+                                                             ctypes.c_void_p])
             lib.dl4j_int8_matmul.restype = ctypes.c_int
             for name in ("dl4j_fused_dense_tile", "dl4j_q_matmul_tile",
                          "dl4j_int8_matmul_tile"):
@@ -152,7 +153,7 @@ def library() -> ctypes.CDLL:
             lib.dl4j_conv3x3_tile.restype = None
             lib.dl4j_layer_norm_fwd.argtypes = (
                 [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
-                + [ctypes.c_longlong, ctypes.c_float] + [ctypes.c_int] * 2
+                + [ctypes.c_longlong, ctypes.c_float] + [ctypes.c_int] * 5
                 + [ctypes.c_void_p])
             lib.dl4j_layer_norm_fwd.restype = ctypes.c_int
             lib.dl4j_flash_attn_fwd.argtypes = (

@@ -1,134 +1,109 @@
-// int8_matmul: y = f32(xq @ Wq) * scale + b, int8 x int8 with an int32
+// int8_matmul: y = f32(xq @ Wq) * (x_scale * w_scale) + b, int8 x int8 with an int32
 // accumulator, for NVIDIA Hopper (sm_90a).
 //
-// Replaces the TPU kernel deeplearning4j_tpu/ops/pallas/matmul.py
-// `_matmul_kernel` as reached through `int8_matmul` (static activation
-// quantization): the int8 x int8 -> int32 contraction over every K block,
-// then the dequant epilogue (`quant_kernels.dequant_epilogue`) on the
-// combined per-channel scale x_scale * w_scale, which the wrapper computes
-// once in f32, as the JAX package's `_combined_scale` does.
+// Replaces the TPU kernel deeplearning4j_tpu/ops/pallas/matmul.py:79
+// `_matmul_kernel` as reached through `int8_matmul` (:185, static
+// activation quantization): the int8 x int8 -> int32 contraction over
+// every K block, then the dequant epilogue (`quant_kernels.dequant_epilogue`)
+// on the combined per-channel scale x_scale * w_scale, rounded to f32 once,
+// as the JAX package's `_combined_scale` does (here in the epilogue, so the
+// wrapper launches nothing else).
 //
-//   xq    [M, K] row-major int8
-//   Wq    [K, N] row-major int8
-//   scale [N] f32 (x_scale * w_scale, already rounded to f32)
-//   b     [N] f32, or null
-//   y     [M, N] row-major, f32 or bf16
+//   xq      [M, K] row-major int8
+//   Wq      [K, N] row-major int8
+//   w_scale [N] f32; x_scale an f32 scalar (1 when there is none)
+//   b       [N] f32, or null
+//   y       [M, N] row-major, f32 or bf16
+//   ws [S, M, N] int32 workspace, counters [ceil(N/128) * ceil(M/16)] int32
+//   (zero before the first launch; every launch leaves them zero)
 //
 // Bitwise contract.  An int32 sum of int8 products is exact in any order
 // (the wrapper refuses K above (2^31 - 1) / 127^2 = 133,144; VGG16's fc6
-// has K = 25088, |acc| <= 404.6 M), and the epilogue is two correctly
-// rounded f32 operations, __fmul_rn then __fadd_rn, which nvcc may not
-// contract into an FMA, so y equals the plain version's
-// `f32(acc) * scale + b` to the bit under any tiling.
-//
-// Design.  The 64x64 output tile and 4x4 micro-tiles of fused_dense.cu,
-// with int32 accumulators and __dp4a (four int8 products and their sum per
-// instruction).  A K step of 32: the x tile is stored K-contiguous per row
-// and the W tile transposed, K-contiguous per column, so each thread reads
-// four consecutive K values of a row or a column as one 32-bit word.  K is
-// zero-padded in shared memory (loads past K read 0, never past the end of
-// the arrays), as are ragged M and N.
+// has K = 25088, |acc| <= 404.6 M), the split-K partials stay int32 and are
+// summed in int32, and the epilogue is correctly rounded f32 operations,
+// __fmul_rn (x_scale * w_scale, then f32(acc) times that) then __fadd_rn,
+// which nvcc may not contract into an FMA, then one cast; so y equals the
+// plain version's `f32(acc) * scale + b` to the bit under any tiling and
+// split.
 //
 // Bound at the VGG16 serving shapes (M <= 16): bytes.  fc6 reads the int8 W
-// once, 102.8 MB, about 31 us at 3.35 TB/s.  Known gap, left for a later
-// change: the same skinny-M waste as q_matmul.cu, byte-wide global loads,
-// and no int8 tensor-core (mma.sync s8 / wgmma) path.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+// once, 102.8 MB, 0.031 ms at 3.35 TB/s; fc7 0.005 ms, output 0.0013 ms.
+// The first design (a 64x64 SIMT __dp4a tile, byte-wide global loads, 64
+// blocks for 132 SMs at fc6, no load in flight while a block computed) took
+// 1.23 ms at fc6, 40x the bound and slower than its own plain version.
+//
+// Design: the skinny-M, split-K GEMM of skinny_gemm.cuh on its int8 route.
+// BM = 16 rows (every serving bucket, the M of mma.sync.m16n8k32), BN = 128
+// columns, 128 threads; BK = 128 K bytes a stage (a W stage is 16 KB, each
+// W row a 128-byte line) in a ring of STAGES = 3, three blocks an SM (72 KB
+// of shared memory each), so up to 96 KB of W is in flight per SM; W by TMA
+// where its rows are 16-byte aligned (fc6, fc7), by 16/8-byte cp.async
+// elsewhere (N = 1000), x rows by 16-byte cp.async (narrower copies with
+// zero fill where K or the base is off 16 bytes).  Each landed W stage is
+// transposed to [BN][BK] in shared memory by 4 x 4 byte blocks and feeds the
+// int8 tensor cores (s32 accumulators) through non-transposing ldmatrix.
+// The K split is the wrapper's `gemm_plan(..., "int8_matmul")`; the last
+// block of a tile sums the int32 partials in the order s = 0..S-1 and runs
+// the epilogue.
+#include "skinny_gemm.cuh"
 
 namespace {
 
-constexpr int BM = 64;
-constexpr int BN = 64;
-constexpr int BK = 32;
-constexpr int TM = 4;
-constexpr int TN = 4;
-constexpr int THREADS = (BM / TM) * (BN / TN);  // 256
+using skinny::BM;
+using skinny::BN;
+constexpr int BK = 128;
+constexpr int STAGES = 3;
+template <typename Y, bool TMA>
+using Tile = skinny::Cfg<int8_t, int8_t, BK, STAGES, TMA, Y>;
 
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
+struct DequantEpilogue {
+  const float* w_scale;
+  float x_scale;
+  const float* bias;
+  __device__ __forceinline__ float operator()(int32_t acc, int n) const {
+    float v = __fmul_rn(__int2float_rn(acc), __fmul_rn(x_scale, w_scale[n]));
+    if (bias != nullptr) v = __fadd_rn(v, bias[n]);
+    return v;
+  }
+};
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+template <typename Y, bool TMA>
+__global__ void __launch_bounds__(skinny::THREADS)
 int8_matmul_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                   const float* __restrict__ scale, const float* __restrict__ bias,
-                   T* __restrict__ y, int M, int N, int K) {
-  __shared__ __align__(16) int8_t As[BM][BK];  // [row][k]
-  __shared__ __align__(16) int8_t Bs[BN][BK];  // [col][k]: W transposed
-
-  const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN);
-  const int ty = tid / (BN / TN);
-  const int row0 = blockIdx.y * BM;
-  const int col0 = blockIdx.x * BN;
-
-  int acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    // Neighbouring threads load neighbouring addresses of x and of W.
-#pragma unroll
-    for (int i = 0; i < (BM * BK) / THREADS; ++i) {
-      const int idx = tid + i * THREADS;
-      const int r = idx / BK, c = idx % BK;
-      const int gr = row0 + r, gc = k0 + c;
-      As[r][c] = (gr < M && gc < K) ? x[(int64_t)gr * K + gc] : int8_t(0);
-    }
-#pragma unroll
-    for (int i = 0; i < (BK * BN) / THREADS; ++i) {
-      const int idx = tid + i * THREADS;
-      const int r = idx / BN, c = idx % BN;
-      const int gr = k0 + r, gc = col0 + c;
-      Bs[c][r] = (gr < K && gc < N) ? w[(int64_t)gr * N + gc] : int8_t(0);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 4) {
-      int a[TM], b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-        a[i] = *reinterpret_cast<const int*>(&As[ty + i * (BM / TM)][kk]);
-#pragma unroll
-      for (int j = 0; j < TN; ++j)
-        b[j] = *reinterpret_cast<const int*>(&Bs[tx + j * (BN / TN)][kk]);
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = row0 + ty + i * (BM / TM);
-    if (r >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = col0 + tx + j * (BN / TN);
-      if (c >= N) continue;
-      float v = __fmul_rn(__int2float_rn(acc[i][j]), scale[c]);
-      if (bias != nullptr) v = __fadd_rn(v, bias[c]);
-      y[(int64_t)r * N + c] = from_f32<T>(v);
-    }
-  }
+                   const __grid_constant__ CUtensorMap wmap, const float* __restrict__ w_scale,
+                   float x_scale, const float* __restrict__ bias, Y* __restrict__ y, int32_t* ws,
+                   int* counters, int M, int N, int K, int S) {
+  skinny::gemm_body<Tile<Y, TMA>>(x, w, &wmap, y, ws, counters, M, N, K, S,
+                                  DequantEpilogue{w_scale, x_scale, bias});
 }
 
-template <typename T>
-cudaError_t launch(const int8_t* x, const int8_t* w, const float* scale,
-                   const float* bias, void* y, int M, int N, int K,
-                   cudaStream_t stream) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  int8_matmul_kernel<T><<<grid, THREADS, 0, stream>>>(
-      x, w, scale, bias, static_cast<T*>(y), M, N, K);
+template <typename Y, bool TMA>
+cudaError_t launch_tma(const int8_t* x, const int8_t* w, const CUtensorMap& wmap,
+                       const float* w_scale, float x_scale, const float* bias, void* y,
+                       int32_t* ws, int* counters, int M, int N, int K, int S,
+                       cudaStream_t stream) {
+  using C = Tile<Y, TMA>;
+  static bool raised[skinny::MAX_DEVICES];
+  cudaError_t e = skinny::allow_smem(reinterpret_cast<const void*>(&int8_matmul_kernel<Y, TMA>),
+                                     C::SMEM_BYTES, raised);
+  if (e != cudaSuccess) return e;
+  int8_matmul_kernel<Y, TMA><<<skinny::grid(M, N, S), skinny::THREADS, C::SMEM_BYTES, stream>>>(
+      x, w, wmap, w_scale, x_scale, bias, static_cast<Y*>(y), ws, counters, M, N, K, S);
   return cudaGetLastError();
+}
+
+// W goes through TMA where its base and row stride allow (16 bytes), else
+// through cp.async.
+template <typename Y>
+cudaError_t launch(const int8_t* x, const int8_t* w, const float* w_scale, float x_scale,
+                   const float* bias, void* y, int32_t* ws, int* counters, int M, int N, int K,
+                   int S, cudaStream_t stream) {
+  CUtensorMap wmap = {};
+  if (skinny::encode_w_map(&wmap, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, N, K, BN, BK, false))
+    return launch_tma<Y, true>(x, w, wmap, w_scale, x_scale, bias, y, ws, counters, M, N, K,
+                               S, stream);
+  return launch_tma<Y, false>(x, w, wmap, w_scale, x_scale, bias, y, ws, counters, M, N, K, S,
+                              stream);
 }
 
 }  // namespace
@@ -142,19 +117,24 @@ void dl4j_int8_matmul_tile(int* bm, int* bn, int* bk) {
   *bk = BK;
 }
 
-// out_dtype: 0 = f32, 1 = bf16.  Returns the launch's cudaError_t.
-int dl4j_int8_matmul(const void* x, const void* w, const void* scale,
-                     const void* bias, void* y, int M, int N, int K,
-                     int out_dtype, void* stream) {
-  if (M <= 0 || N <= 0 || K < 0 || K > 133144 || (M + BM - 1) / BM > 65535)
+// out_dtype: 0 = f32, 1 = bf16.  S: K slices (the wrapper's gemm_plan); ws
+// holds [S, M, N] int32.  Returns the launch's cudaError_t.
+int dl4j_int8_matmul(const void* x, const void* w, const void* w_scale, const void* bias,
+                     void* y, void* ws, void* counters, int M, int N, int K, int S,
+                     float x_scale, int out_dtype, void* stream) {
+  if (!skinny::shape_ok(M, N, K, S, ws, counters) || K > 133144)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int8_t* xq = static_cast<const int8_t*>(x);
   const int8_t* wq = static_cast<const int8_t*>(w);
-  const float* sc = static_cast<const float*>(scale);
+  const float* sc = static_cast<const float*>(w_scale);
   const float* b = static_cast<const float*>(bias);
-  if (out_dtype == 0) return (int)launch<float>(xq, wq, sc, b, y, M, N, K, s);
-  if (out_dtype == 1) return (int)launch<__nv_bfloat16>(xq, wq, sc, b, y, M, N, K, s);
+  int32_t* wsi = static_cast<int32_t*>(ws);
+  int* ctr = static_cast<int*>(counters);
+  if (out_dtype == 0)
+    return (int)launch<float>(xq, wq, sc, x_scale, b, y, wsi, ctr, M, N, K, S, s);
+  if (out_dtype == 1)
+    return (int)launch<__nv_bfloat16>(xq, wq, sc, x_scale, b, y, wsi, ctr, M, N, K, S, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,14 +1,14 @@
-// skinny_gemm.cuh: the skinny-M, split-K GEMM that fused_dense.cu and
-// q_matmul.cu share, for NVIDIA Hopper (sm_90a).
+// skinny_gemm.cuh: the skinny-M, split-K GEMM that fused_dense.cu,
+// q_matmul.cu and int8_matmul.cu share, for NVIDIA Hopper (sm_90a).
 //
-// Both kernels replace the TPU kernel deeplearning4j_tpu/ops/pallas/
-// matmul.py:79 `_matmul_kernel` (reached through `fused_dense` and
-// `q_matmul`): y = epilogue(x @ W) with x [M, K] row-major (f32 or bf16),
-// W [K, N] row-major (x's dtype, or int8 widened on chip), an f32
-// accumulator, and an epilogue that runs once, in f32, on the full sum.
-// This header holds the machinery; each .cu holds its epilogue, its
-// __global__ kernel (so the profiler names them apart) and its extern "C"
-// entry.
+// The three kernels replace the TPU kernel deeplearning4j_tpu/ops/pallas/
+// matmul.py:79 `_matmul_kernel` (reached through `fused_dense`, `q_matmul`
+// and `int8_matmul`): y = epilogue(x @ W) with x [M, K] row-major (f32,
+// bf16 or int8), W [K, N] row-major (x's dtype, or int8 widened on chip),
+// an f32 accumulator (int32 for int8 x), and an epilogue that runs once,
+// in f32, on the full sum.  This header holds the machinery; each .cu
+// holds its epilogue, its __global__ kernel (so the profiler names them
+// apart) and its extern "C" entry.
 //
 // The serving shapes (VGG16's Dense layers behind ModelServer(max_batch=16):
 // M = 1, 2, 4, 8 or 16; fc6 K = 25088, N = 4096; fc7 4096 x 4096; output
@@ -61,13 +61,25 @@
 //   (N-contiguous) tile by ldmatrix.trans, which hands each thread the
 //   K-pairs of one column the fragment wants; each warp owns 32 columns.
 //   int8 W first widens to bf16 (exact) in a shared-memory tile.
+//   int8 x (with int8 W): int8 tensor cores, mma.sync.aligned.m16n8k32.row
+//   .col.s32.s8.s8.s32, A = the 16 x 32-byte x tile by ldmatrix (each
+//   32-bit register is four consecutive K bytes of a row, as the fragment
+//   wants).  B wants four consecutive K bytes of one column in a register,
+//   which ldmatrix .trans (16-bit elements) cannot make from W's
+//   N-contiguous rows, so each landed W stage is rewritten in shared memory
+//   as [BN][BK] (K-contiguous): a thread moves 4 x 4 byte blocks with
+//   __byte_perm, lane l of a warp taking column block l and K block
+//   (l + d) % (BK/4) on diagonal d, into rows whose 16-byte chunk c sits at
+//   c ^ (n % 8).  The reads (one 128-byte W row a warp) and the writes
+//   (8 chunks x 4 words) hit 32 banks, and so do the non-transposing
+//   ldmatrix reads of B.  int32 sums are exact in any order.
 // * A deterministic split-K reduction in the same launch.  Each block
-//   stores its [16, 128] f32 partial to the workspace [S, M, N].  The last
-//   block of each (column tile, row tile) to arrive, found by an integer
-//   arrival counter after __threadfence(), sums the S partials in the fixed
-//   order s = 0..S-1 (ld.global.cg, past L1), runs the epilogue and stores
-//   y (16-byte loads of the partials where N % 4 == 0), then resets its
-//   counter to 0 for the next launch.  No float atomics:
+//   stores its [16, 128] f32 (int8 x: int32) partial to the workspace
+//   [S, M, N].  The last block of each (column tile, row tile) to arrive,
+//   found by an integer arrival counter after __threadfence(), sums the S
+//   partials in the fixed order s = 0..S-1 (ld.global.cg, past L1), runs
+//   the epilogue and stores y (16-byte loads of the partials where
+//   N % 4 == 0), then resets its counter to 0 for the next launch.  No float atomics:
 //   the same inputs give the same bits on every call.  The workspace and
 //   the counters are buffers the wrapper keeps per device and stream
 //   (launches on one stream run in order); the counters are zeroed once.
@@ -94,11 +106,14 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 }
 
 // One instantiation: x's and W's element types, BK K rows a stage, STAGES
-// stages in the ring, W by TMA or not, and the shared-memory layout.
-template <typename XT_, typename WT_, int BK_, int STAGES_, bool TMA_ = false>
+// stages in the ring, W by TMA or not, y's element type, and the
+// shared-memory layout.
+template <typename XT_, typename WT_, int BK_, int STAGES_, bool TMA_ = false,
+          typename YT_ = XT_>
 struct Cfg {
   using XT = XT_;
   using WT = WT_;
+  using YT = YT_;
   static constexpr int BK = BK_;
   static constexpr int STAGES = STAGES_;
   // W's tile arrives by one TMA copy a stage (2D tensor map, rows past K
@@ -109,6 +124,10 @@ struct Cfg {
   // bf16 x runs on tensor cores; int8 W then widens to bf16 in shared memory
   static constexpr bool MMA = std::is_same<XT, __nv_bfloat16>::value;
   static constexpr bool WIDEN = MMA && std::is_same<WT, int8_t>::value;
+  // int8 x runs on the int8 tensor cores with int32 sums (partials too);
+  // each W stage is transposed to [BN][BK] in shared memory first
+  static constexpr bool IMMA = std::is_same<XT, int8_t>::value;
+  using AT = typename std::conditional<IMMA, int32_t, float>::type;
   // SIMT: CT threads across the columns (4 each), KG groups of them split
   // each stage's K rows
   static constexpr int CT = BN / 4;
@@ -116,7 +135,8 @@ struct Cfg {
   // a bf16 W tile read by ldmatrix gets 8 columns of pad, so the 8 rows of
   // one 8x8 matrix fall in 8 different 16-byte bank groups
   static constexpr int W_LD = (MMA && !WIDEN && !TMA) ? BN + 8 : BN;
-  static constexpr int X_LD = MMA ? BK + 8 : BK;
+  // x rows read by ldmatrix get 16 bytes of pad (8 rows, 8 bank groups)
+  static constexpr int X_LD = (MMA || IMMA) ? BK + 16 / (int)sizeof(XT) : BK;
   static constexpr int W_BYTES = BK * W_LD * (int)sizeof(WT);
   static constexpr int X_BYTES = BM * X_LD * (int)sizeof(XT);
   // TMA with bf16 (read by ldmatrix) lands W as BN/64 boxes of 64 columns
@@ -129,10 +149,10 @@ struct Cfg {
       TMA ? (W_BYTES + X_BYTES + STAGE_ALIGN - 1) / STAGE_ALIGN * STAGE_ALIGN
           : W_BYTES + X_BYTES;
   static constexpr int CVT_LD = BN + 8;
-  static constexpr int CVT_BYTES = WIDEN ? BK * CVT_LD * 2 : 0;
+  static constexpr int CVT_BYTES = WIDEN ? BK * CVT_LD * 2 : IMMA ? BN * BK : 0;
   static constexpr int RING_BYTES = STAGES * STAGE_BYTES + CVT_BYTES;
   // the SIMT path's sum over its K groups reuses the ring
-  static constexpr int RED_BYTES = MMA ? 0 : KG * BM * BN * 4;
+  static constexpr int RED_BYTES = (MMA || IMMA) ? 0 : KG * BM * BN * 4;
   // + 1024: the ring starts at the first 1024-byte boundary (TMA's swizzle
   // atom)
   static constexpr int SMEM_BYTES = (RING_BYTES > RED_BYTES ? RING_BYTES : RED_BYTES) + 1024;
@@ -142,6 +162,10 @@ struct Cfg {
   static_assert(W_BYTES % 16 == 0 && X_BYTES % 16 == 0, "16-byte stages");
   static_assert(!TMA || W_BYTES % STAGE_ALIGN == 0, "TMA stages");
   static_assert(!SWZ || BN % SWZ_COLS == 0, "swizzled boxes");
+  // the transpose's lanes take BN / 4 = 32 column blocks, its rows are whole
+  // 128-byte lines
+  static_assert(!IMMA || (std::is_same<WT, int8_t>::value && BN == 128 && BK % 128 == 0),
+                "int8 tile");
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -460,24 +484,103 @@ __device__ __forceinline__ void widen_stage(const int8_t* src, __nv_bfloat16* ds
   }
 }
 
-// The block's partial sum over its K slice, stored to ws[s] (bf16 x).
+// ---- int8 x: int8 tensor cores ---------------------------------------------
+
+__device__ __forceinline__ void mma_s8(int32_t (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Byte offset of (column n, K byte k) in the transposed [BN][BK] tile: row n
+// holds BK bytes, its 16-byte chunk c at chunk c ^ (n % 8).
+template <int BK>
+__device__ __forceinline__ int t_offset(int n, int k) {
+  return n * BK + ((((k >> 4) ^ n) & 7) | ((k >> 4) & ~7)) * 16 + (k & 15);
+}
+
+// int8 W stage [BK][BN] (N-contiguous) -> [BN][BK] (K-contiguous, chunks
+// swizzled).  Block (kb, nb) is W rows 4kb..4kb+3 x columns 4nb..4nb+3,
+// four words in and four out; on diagonal d lane l takes nb = l and
+// kb = (l + d) % (BK/4), warp w the diagonals w, w + WARPS, ...
+template <class C>
+__device__ __forceinline__ void transpose_stage(const int8_t* src, int8_t* dst, int tid) {
+  constexpr int KB = C::BK / 4, NB = BN / 4;
+  static_assert(NB == 32 && KB % WARPS == 0, "diagonals");
+  const int warp = tid >> 5, lane = tid & 31;
+  const uint32_t* s = reinterpret_cast<const uint32_t*>(src);
+#pragma unroll
+  for (int it = 0; it < KB / WARPS; ++it) {
+    const int kb = (lane + warp + it * WARPS) & (KB - 1);
+    uint32_t r[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) r[j] = s[(4 * kb + j) * NB + lane];
+    // t0 = W[k][n], W[k+1][n], W[k][n+1], W[k+1][n+1] (k = 4kb, n = 4l) ...
+    const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140), t1 = __byte_perm(r[2], r[3], 0x5140);
+    const uint32_t t2 = __byte_perm(r[0], r[1], 0x7362), t3 = __byte_perm(r[2], r[3], 0x7362);
+    // ... so column n + i's four K bytes are
+    const uint32_t o[4] = {__byte_perm(t0, t1, 0x5410), __byte_perm(t0, t1, 0x7632),
+                           __byte_perm(t2, t3, 0x5410), __byte_perm(t2, t3, 0x7632)};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      *reinterpret_cast<uint32_t*>(dst + t_offset<C::BK>(4 * lane + i, 4 * kb)) = o[i];
+  }
+}
+
+// Warp `warp` owns columns [WN*warp, WN*warp + WN): WN / 8 tiles of n8, K
+// steps of 32 bytes.  Lane l addresses row l%8 of 8x8 (16-bit) matrix l/8.
+// A (x, [16][X_LD] bytes): matrices (rows 0-7, k 0-15), (8-15, 0-15),
+// (0-7, 16-31), (8-15, 16-31) are a0..a3, each register four K bytes of
+// row l/4.  B (the transposed tile): (n 0-7, k 0-15) and (n 0-7, k 16-31)
+// are b0, b1 of the first n8 tile, each register four K bytes of column
+// l/4; the next 8 columns the next tile's.
+template <class C>
+__device__ __forceinline__ void imma_stage(const int8_t* wt, const int8_t* xs,
+                                           int32_t (&acc)[C::WN / 8][4], int warp, int lane) {
+  const int j = lane >> 3, r = lane & 7;
+#pragma unroll
+  for (int k32 = 0; k32 < C::BK; k32 += 32) {
+    uint32_t a[4];
+    ldmatrix_x4(a, xs + ((j & 1) * 8 + r) * C::X_LD + k32 + (j >> 1) * 16);
+#pragma unroll
+    for (int p = 0; p < C::WN / 16; ++p) {
+      uint32_t b[4];
+      const int n = warp * C::WN + p * 16 + (j >> 1) * 8 + r;
+      ldmatrix_x4(b, wt + t_offset<C::BK>(n, k32 + (j & 1) * 16));
+      mma_s8(acc[2 * p], a, b[0], b[1]);
+      mma_s8(acc[2 * p + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// The block's partial sum over its K slice, stored to ws[s] (bf16 or int8
+// x: tensor cores).
 template <class C>
 __device__ __forceinline__ void partial_mma(char* smem, uint64_t* bars, const CUtensorMap* wmap,
-                                            const __nv_bfloat16* __restrict__ x,
-                                            const typename C::WT* __restrict__ w, float* ws,
-                                            int M, int N, int K, int row0, int col0, int s,
-                                            int k_begin, int k_end) {
+                                            const typename C::XT* __restrict__ x,
+                                            const typename C::WT* __restrict__ w,
+                                            typename C::AT* ws, int M, int N, int K, int row0,
+                                            int col0, int s, int k_begin, int k_end) {
+  using AT = typename C::AT;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   constexpr int NT = C::WN / 8;
-  float acc[NT][4];
+  AT acc[NT][4];
 #pragma unroll
   for (int t = 0; t < NT; ++t)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[t][c] = 0.0f;
+    for (int c = 0; c < 4; ++c) acc[t][c] = AT(0);
   pipeline<C>(smem, bars, wmap, x, w, M, N, K, row0, col0, k_begin, k_end, tid,
               [&](const char* stage) {
-    const auto* xs = reinterpret_cast<const __nv_bfloat16*>(stage + C::W_BYTES);
-    if constexpr (C::WIDEN) {
+    const auto* xs = reinterpret_cast<const typename C::XT*>(stage + C::W_BYTES);
+    if constexpr (C::IMMA) {
+      auto* wt = reinterpret_cast<int8_t*>(smem + C::STAGES * C::STAGE_BYTES);
+      transpose_stage<C>(reinterpret_cast<const int8_t*>(stage), wt, tid);
+      __syncthreads();
+      imma_stage<C>(wt, xs, acc, warp, lane);
+    } else if constexpr (C::WIDEN) {
       auto* wt = reinterpret_cast<__nv_bfloat16*>(smem + C::STAGES * C::STAGE_BYTES);
       widen_stage<C>(reinterpret_cast<const int8_t*>(stage), wt, tid);
       __syncthreads();
@@ -496,7 +599,7 @@ __device__ __forceinline__ void partial_mma(char* smem, uint64_t* bars, const CU
     for (int h = 0; h < 2; ++h) {
       const int m = row0 + g + 8 * h;
       if (m >= M) continue;
-      float* dst = ws + ((int64_t)s * M + m) * N + n;
+      AT* dst = ws + ((int64_t)s * M + m) * N + n;
       if (n < N) dst[0] = acc[jt][2 * h];
       if (n + 1 < N) dst[1] = acc[jt][2 * h + 1];
     }
@@ -508,20 +611,22 @@ __device__ __forceinline__ void partial_mma(char* smem, uint64_t* bars, const CU
 // y = epi(ws[0] + ws[1] + ... + ws[S-1]) over the tile, summed in that order;
 // one column a thread, two partials' loads in flight.
 template <class C, typename Epi>
-__device__ __forceinline__ void finish_tile(const float* ws, typename C::XT* __restrict__ y,
-                                            int M, int N, int S, int row0, int col0, int rows,
-                                            int tid, const Epi& epi) {
+__device__ __forceinline__ void finish_tile(const typename C::AT* ws,
+                                            typename C::YT* __restrict__ y, int M, int N, int S,
+                                            int row0, int col0, int rows, int tid,
+                                            const Epi& epi) {
+  using AT = typename C::AT;
   const int n = col0 + tid;
   if (n < N) {
-    float v[BM];
+    AT v[BM];
     for (int q = 0; q < S; q += 2) {
       const bool two = q + 1 < S;
-      float a[BM], b[BM];
-      const float* p = ws + ((int64_t)q * M + row0) * N + n;
+      AT a[BM], b[BM];
+      const AT* p = ws + ((int64_t)q * M + row0) * N + n;
 #pragma unroll
       for (int i = 0; i < BM; ++i) {
-        a[i] = i < rows ? __ldcg(p + (int64_t)i * N) : 0.0f;
-        b[i] = (two && i < rows) ? __ldcg(p + ((int64_t)M + i) * N) : 0.0f;
+        a[i] = i < rows ? __ldcg(p + (int64_t)i * N) : AT(0);
+        b[i] = (two && i < rows) ? __ldcg(p + ((int64_t)M + i) * N) : AT(0);
       }
 #pragma unroll
       for (int i = 0; i < BM; ++i) {
@@ -531,35 +636,43 @@ __device__ __forceinline__ void finish_tile(const float* ws, typename C::XT* __r
     }
 #pragma unroll
     for (int i = 0; i < BM; ++i)
-      if (i < rows) y[(int64_t)(row0 + i) * N + n] = from_f32<typename C::XT>(epi(v[i], n));
+      if (i < rows) y[(int64_t)(row0 + i) * N + n] = from_f32<typename C::YT>(epi(v[i], n));
   }
 }
 
 __device__ __forceinline__ void add4(float4& v, const float4& t) {
   v.x += t.x; v.y += t.y; v.z += t.z; v.w += t.w;
 }
+__device__ __forceinline__ void add4(int4& v, const int4& t) {
+  v.x += t.x; v.y += t.y; v.z += t.z; v.w += t.w;
+}
+template <typename AT> struct Vec4;
+template <> struct Vec4<float> { using type = float4; };
+template <> struct Vec4<int32_t> { using type = int4; };
 
 // The same sums when N % 4 == 0, with 16-byte loads: a thread takes 4
 // columns of 4 rows, four partials' loads in flight.
 template <class C, typename Epi>
-__device__ __forceinline__ void finish_tile_vec4(const float* ws, typename C::XT* __restrict__ y,
-                                                 int M, int N, int S, int row0, int col0,
-                                                 int rows, int tid, const Epi& epi) {
+__device__ __forceinline__ void finish_tile_vec4(const typename C::AT* ws,
+                                                 typename C::YT* __restrict__ y, int M, int N,
+                                                 int S, int row0, int col0, int rows, int tid,
+                                                 const Epi& epi) {
+  using V = typename Vec4<typename C::AT>::type;
   constexpr int QUADS = BN / 4, RB = 4;
   static_assert(QUADS * (BM / 4) == THREADS, "4 columns of 4 rows a thread");
   const int n = col0 + 4 * (tid % QUADS), r0 = 4 * (tid / QUADS);
   if (n < N) {
-    float4 v[4];
+    V v[4];
     for (int q = 0; q < S; q += RB) {
-      float4 t[RB][4];
+      V t[RB][4];
 #pragma unroll
       for (int r = 0; r < RB; ++r)
 #pragma unroll
         for (int i = 0; i < 4; ++i)
           t[r][i] = (q + r < S && r0 + i < rows)
-                        ? __ldcg(reinterpret_cast<const float4*>(
+                        ? __ldcg(reinterpret_cast<const V*>(
                               ws + ((int64_t)(q + r) * M + row0 + r0 + i) * N + n))
-                        : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+                        : V{};
 #pragma unroll
       for (int r = 0; r < RB; ++r)
 #pragma unroll
@@ -572,11 +685,11 @@ __device__ __forceinline__ void finish_tile_vec4(const float* ws, typename C::XT
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       if (r0 + i >= rows) continue;
-      typename C::XT* out = y + (int64_t)(row0 + r0 + i) * N + n;
-      out[0] = from_f32<typename C::XT>(epi(v[i].x, n));
-      out[1] = from_f32<typename C::XT>(epi(v[i].y, n + 1));
-      out[2] = from_f32<typename C::XT>(epi(v[i].z, n + 2));
-      out[3] = from_f32<typename C::XT>(epi(v[i].w, n + 3));
+      typename C::YT* out = y + (int64_t)(row0 + r0 + i) * N + n;
+      out[0] = from_f32<typename C::YT>(epi(v[i].x, n));
+      out[1] = from_f32<typename C::YT>(epi(v[i].y, n + 1));
+      out[2] = from_f32<typename C::YT>(epi(v[i].z, n + 2));
+      out[3] = from_f32<typename C::YT>(epi(v[i].w, n + 3));
     }
   }
 }
@@ -584,12 +697,12 @@ __device__ __forceinline__ void finish_tile_vec4(const float* ws, typename C::XT
 // ---- the kernel body ------------------------------------------------------
 
 // y[row tile, column tile] = epi(sum over s of ws[s]), by the last block of
-// the tile to arrive.  Epi: `float operator()(float acc, int n) const`.
+// the tile to arrive.  Epi: `float operator()(C::AT acc, int n) const`.
 template <class C, typename Epi>
 __device__ __forceinline__ void gemm_body(const typename C::XT* __restrict__ x,
                                           const typename C::WT* __restrict__ w,
                                           const CUtensorMap* wmap,
-                                          typename C::XT* __restrict__ y, float* ws,
+                                          typename C::YT* __restrict__ y, typename C::AT* ws,
                                           int* counters, int M, int N, int K, int S,
                                           const Epi& epi) {
   extern __shared__ __align__(16) char skinny_smem[];
@@ -608,7 +721,7 @@ __device__ __forceinline__ void gemm_body(const typename C::XT* __restrict__ x,
   }
   int k_begin, k_end;
   slice_bounds<C::BK>(K, S, s, &k_begin, &k_end);
-  if constexpr (C::MMA)
+  if constexpr (C::MMA || C::IMMA)
     partial_mma<C>(smem, bars, wmap, x, w, ws, M, N, K, row0, col0, s, k_begin, k_end);
   else
     partial_simt<C>(smem, bars, wmap, x, w, ws, M, N, K, row0, col0, s, k_begin, k_end);

@@ -4,9 +4,10 @@
 :func:`launch` (forward) and :func:`launch_bwd` (backward) check what the
 kernel takes, allocate outputs and scratch with ``torch.empty``, launch on
 PyTorch's current stream and raise if the launch fails.  ``LAUNCHES`` and
-``BWD_LAUNCHES`` count launches, and only those.  :func:`ln_bwd_plan` sizes
-the backward's grid.  The public functions and the plain versions are in
-``ops/norm_kernels.py``, which calls these only for CUDA tensors.
+``BWD_LAUNCHES`` count launches, and only those.  :func:`ln_fwd_plan` and
+:func:`ln_bwd_plan` size the two grids from shapes only.  The public
+functions and the plain versions are in ``ops/norm_kernels.py``, which
+calls these only for CUDA tensors.
 """
 from __future__ import annotations
 
@@ -22,12 +23,13 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _INT_MAX = 2 ** 31 - 1
 #: widest row the kernel takes (one block of 256 threads reduces a row)
 MAX_F = 8192
+#: threads of a forward or backward block
+_THREADS = 256
 #: blocks the backward's row grid aims at per SM (two blocks of 256
 #: threads fit an SM's registers)
 BWD_BLOCKS_PER_SM = 2
-#: threads of a backward block, and the f32 columns its shared memory holds
-#: (gain, then every row group's column sums: groups * F)
-_BWD_THREADS = 256
+#: f32 columns a backward block's shared memory holds (gain, then every row
+#: group's column sums: groups * F)
 _BWD_SMEM_FLOATS = 8192
 
 LAUNCHES = registry().counter(
@@ -66,6 +68,43 @@ def bwd_supports(x, gain, mean=None, rstd=None, dy=None, **kw) -> bool:
             and dy.shape == x.shape)
 
 
+class LnFwdPlan(NamedTuple):
+    """The forward's grid: ``threads_per_row`` threads reduce a row, each
+    holding ``nv`` 16-byte chunks of it (the kernel instance); ``blocks``
+    blocks of 256 threads take rows in a grid-stride loop, row group g of
+    block i rows ``(i + k * blocks) * groups + g``."""
+    threads_per_row: int
+    nv: int
+    blocks: int
+
+
+def fwd_blocks_per_sm(nv: int) -> int:
+    """Blocks an SM the forward's instance ``nv`` is launched for: its
+    launch bound (``min_blocks`` in ``csrc/layer_norm_fwd.cu``), which caps
+    its registers to fit that many."""
+    return 4 if nv <= 2 else 2 if nv <= 6 else 1
+
+
+@functools.lru_cache(maxsize=1024)
+def ln_fwd_plan(rows: int, F: int, itemsize: int, sm_count: int) -> LnFwdPlan:
+    """A warp a row up to F = 1024, then 64, 128 or 256 threads (each
+    thread holds at most 32 elements of a row); ``nv`` the smallest
+    instance (1, 2, 3, 4, 6, or 32 elements' worth) that holds a thread's
+    chunks of ``itemsize``-byte elements; one wave of blocks
+    (``fwd_blocks_per_sm`` an SM), none without a row."""
+    tpr = 32
+    while tpr < _THREADS and tpr * 32 < F:
+        tpr *= 2
+    vw = 16 // itemsize                   # elements a 16-byte chunk
+    nv_max = 32 // vw
+    chunks = -(-F // vw)
+    need = -(-chunks // tpr)
+    nv = need if need <= 4 else min(6, nv_max) if need <= 6 else nv_max
+    groups = _THREADS // tpr
+    blocks = min(-(-rows // groups), fwd_blocks_per_sm(nv) * sm_count)
+    return LnFwdPlan(tpr, nv, max(1, blocks))
+
+
 class LnBwdPlan(NamedTuple):
     """The backward's row grid: ``threads_per_row`` threads reduce a row
     (256 / that many rows in flight a block); block i takes rows
@@ -82,9 +121,9 @@ def ln_bwd_plan(rows: int, F: int, sm_count: int) -> LnBwdPlan:
     fit its column-sum buffer); enough blocks for ``BWD_BLOCKS_PER_SM`` per
     SM, each with at least one row per row group, and none empty."""
     tpr = 32
-    while tpr < _BWD_THREADS and (tpr * 32 < F or (_BWD_THREADS // tpr) * F > _BWD_SMEM_FLOATS):
+    while tpr < _THREADS and (tpr * 32 < F or (_THREADS // tpr) * F > _BWD_SMEM_FLOATS):
         tpr *= 2
-    groups = _BWD_THREADS // tpr
+    groups = _THREADS // tpr
     per = max(groups, -(-rows // (BWD_BLOCKS_PER_SM * sm_count)))
     return LnBwdPlan(tpr, per, max(1, -(-rows // per)))
 
@@ -123,12 +162,14 @@ def launch(x: torch.Tensor, gain: torch.Tensor, bias, eps: float):
         return y.reshape(x.shape), mean, rstd
     x_stride = _row_stride(x2, F)
     lib = build.library()
+    plan = ln_fwd_plan(rows, F, x.element_size(), _sm_count(x.device.index))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.dl4j_layer_norm_fwd(
             x2.data_ptr(), gain.data_ptr(),
             None if bias is None else bias.data_ptr(), y.data_ptr(),
             mean.data_ptr(), rstd.data_ptr(), rows, F, x_stride, float(eps),
+            plan.threads_per_row, plan.nv, plan.blocks,
             _DTYPE_CODES[x.dtype], _DTYPE_CODES[gain.dtype], stream)
     if rc != 0:
         raise RuntimeError(

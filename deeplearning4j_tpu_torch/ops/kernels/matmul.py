@@ -31,12 +31,12 @@ kernel of its own with its plain version beside it:
 
 ``Q_LAUNCHES`` and ``INT8_LAUNCHES`` count their launches.
 
-``fused_dense`` and ``q_matmul`` share one skinny-M, split-K GEMM
+The three kernels share one skinny-M, split-K GEMM
 (``csrc/skinny_gemm.cuh``): :func:`gemm_plan` picks its K split, and the
-wrappers hand it an f32 workspace for the partial sums and an int32
-counter buffer, both kept per device and stream (launches on one stream
-run in order, so they never share them at once; the kernel leaves the
-counters zero).
+wrappers hand it a workspace for the partial sums (f32, or int32 for
+``int8_matmul``: the same 4-byte words) and an int32 counter buffer, both
+kept per device and stream (launches on one stream run in order, so they
+never share them at once; the kernel leaves the counters zero).
 """
 from __future__ import annotations
 
@@ -93,7 +93,8 @@ BLOCKS_PER_SM = 2
 #: largest workspace kept between launches; a larger one is allocated per call
 MAX_CACHED_WORKSPACE = 32 << 20
 _buffers_lock = threading.Lock()
-#: (device index, stream) -> (f32 workspace, int32 arrival counters)
+#: (device index, stream) -> (workspace of 4-byte words, f32 or int32 as the
+#: kernel reads them; int32 arrival counters)
 _buffers: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 _sm_counts: Dict[int, int] = {}
 
@@ -101,7 +102,8 @@ _sm_counts: Dict[int, int] = {}
 class GemmPlan(NamedTuple):
     """A launch of the split-K GEMM: ``grid`` is (column tiles, ``splits``,
     row tiles); slice s sums K rows ``slices[s]``; ``workspace_bytes`` is
-    the f32 partials [splits, M, N]."""
+    the partials [splits, M, N], 4 bytes each (f32, or int32 for
+    ``int8_matmul``)."""
     block_m: int
     block_n: int
     block_k: int
@@ -114,7 +116,8 @@ class GemmPlan(NamedTuple):
 @functools.lru_cache(maxsize=1024)
 def gemm_plan(M: int, N: int, K: int, sm_count: int,
               kernel: str = "fused_dense") -> GemmPlan:
-    """The K split of ``kernel``'s launch (``fused_dense`` or ``q_matmul``):
+    """The K split of ``kernel``'s launch (``fused_dense``, ``q_matmul`` or
+    ``int8_matmul``):
     enough slices S that the grid has ``BLOCKS_PER_SM`` blocks per SM, at
     most one per K step of ``block_k`` rows.  Slice s covers the K steps
     ``[s*ksteps//S, (s+1)*ksteps//S)``, the last clipped at K;
@@ -309,7 +312,8 @@ def _combined_scale(w_scale, x_scale, N: int) -> torch.Tensor:
     """Per-channel weight scales (and an optional scalar activation scale)
     as the one [N] f32 row the epilogue multiplies by: ``f32(x_scale) *
     f32(w_scale)``, rounded once, as the JAX package's ``_combined_scale``.
-    Shared by the kernels' launchers and the plain versions."""
+    The plain version's; ``csrc/int8_matmul.cu`` rounds the same product in
+    its epilogue."""
     scale = w_scale.to(torch.float32).reshape(N)
     if x_scale is not None:
         xs = torch.as_tensor(x_scale, dtype=torch.float32, device=scale.device)
@@ -434,9 +438,12 @@ def int8_supports(xq, wq, w_scale, x_scale=None, bias=None,
 def int8_matmul(xq, wq, w_scale, x_scale=None, bias=None,
                 out_dtype=torch.float32) -> torch.Tensor:
     """Launch the int8 kernel (``csrc/int8_matmul.cu``) on CUDA tensors:
-    int32 accumulation, then ``f32(acc) * (x_scale * w_scale) + bias`` in
-    f32 with no fused multiply-add, then one cast; bitwise equal to
-    :func:`int8_matmul_plain`."""
+    int32 accumulation (split-K partials summed in int32), then
+    ``f32(acc) * (x_scale * w_scale) + bias`` in f32 with no fused
+    multiply-add, then one cast; bitwise equal to
+    :func:`int8_matmul_plain`.  x_scale goes to the kernel as an f32
+    argument, whose epilogue rounds ``x_scale * w_scale`` as
+    ``_combined_scale`` does."""
     from deeplearning4j_tpu_torch.ops.kernels import build
 
     if not int8_supports(xq, wq, w_scale, x_scale, bias, out_dtype):
@@ -447,20 +454,21 @@ def int8_matmul(xq, wq, w_scale, x_scale=None, bias=None,
     M = x2.shape[0]
     if M > _INT_MAX or N > _INT_MAX:
         raise ValueError(f"int8_matmul: M={M} N={N} exceed 32 bits")
-    scale = _combined_scale(w_scale, x_scale, N).contiguous()
-    bias = None if bias is None else bias.to(torch.float32).contiguous()
+    w_scale = _f32_row(w_scale, N)
+    xs = 1.0 if x_scale is None else float(x_scale)
+    bias = None if bias is None else _f32_row(bias, N)
     wq = wq.contiguous()
     y = torch.empty((M, N), dtype=out_dtype, device=xq.device)
     if M == 0 or N == 0:
         return y.reshape(lead + (N,))
     lib = build.library()
     _check_tile(lib, "int8_matmul")
-    with torch.cuda.device(xq.device):
-        stream = torch.cuda.current_stream(xq.device).cuda_stream
+    with _on_device(xq.device):
+        stream, S, ws, ctr = _gemm_args(xq.device, M, N, K, "int8_matmul")
         rc = lib.dl4j_int8_matmul(
-            x2.data_ptr(), wq.data_ptr(), scale.data_ptr(),
-            None if bias is None else bias.data_ptr(), y.data_ptr(),
-            M, N, K, _DTYPE_CODES[out_dtype], stream)
+            x2.data_ptr(), wq.data_ptr(), w_scale.data_ptr(),
+            None if bias is None else bias.data_ptr(), y.data_ptr(), ws, ctr,
+            M, N, K, S, xs, _DTYPE_CODES[out_dtype], stream)
     if rc != 0:
         raise RuntimeError(
             f"int8_matmul launch failed: {build.error_string(rc)} (code {rc})")

@@ -42,9 +42,9 @@ class TileConfig:
 
 
 #: Hopper tile per kernel: the tile each CUDA source is compiled for
-#: (``csrc/fused_dense.cu`` and ``csrc/q_matmul.cu``: the skinny-M split-K
-#: GEMM of ``csrc/skinny_gemm.cuh``, 16 rows x 128 columns a block, K stages
-#: of 32 and 64 rows; ``csrc/int8_matmul.cu``: 64x64, K step 32;
+#: (``csrc/fused_dense.cu``, ``csrc/q_matmul.cu`` and ``csrc/int8_matmul.cu``:
+#: the skinny-M split-K GEMM of ``csrc/skinny_gemm.cuh``, 16 rows x 128
+#: columns a block, K stages of 32, 64 and 128 rows;
 #: ``csrc/flash_attn_fwd.cu`` at D <= 64: ``block_q`` query rows a block,
 #: ``block_kv``-row K/V tiles, which ``flash_attention_plain`` follows;
 #: ``csrc/flash_attn_bwd.cu`` at D <= 64: ``block_q`` query rows a dQ
@@ -57,7 +57,7 @@ class TileConfig:
 DEFAULT_TILES: Dict[str, TileConfig] = {
     "fused_dense": TileConfig(block_m=16, block_n=128, block_k=32),
     "q_matmul": TileConfig(block_m=16, block_n=128, block_k=64),
-    "int8_matmul": TileConfig(block_m=64, block_n=64, block_k=32),
+    "int8_matmul": TileConfig(block_m=16, block_n=128, block_k=128),
     "attention": TileConfig(block_q=128, block_kv=64),
     "attention_bwd": TileConfig(block_q=128, block_kv=64),
     "paged_attention": TileConfig(block_q=1, block_kv=16),

@@ -20,6 +20,7 @@ The CUDA kernel is held to its plain version by the ``cuda``-marked test
 (the cases above and lengths on its split boundaries, each call repeated
 bit for bit), which skips without a card.
 """
+import threading
 import time
 from concurrent.futures import Future
 
@@ -339,18 +340,35 @@ def test_mid_flight_admit_and_retire():
 
 def test_cancel_waiting_and_active():
     eng = _engine(max_decode_batch=1)
+    # The worker is held after its first decode step until both cancels are
+    # in: `long` is then certain to be active, with tokens still to go, and
+    # `waiting` to be queued behind it (a loaded host could otherwise finish
+    # `long` first).  Waiting on the engine's condition releases its lock.
+    stepped, release = threading.Event(), threading.Event()
+    step = eng._step_locked
+
+    def step_then_hold():
+        step()
+        stepped.set()
+        while not release.is_set():
+            eng._cond.wait(timeout=0.01)
+
     try:
         eng.warmup()
+        eng._step_locked = step_then_hold
         long = eng.submit(np.arange(1, 4), max_new_tokens=40)
+        assert stepped.wait(timeout=60)
         waiting = eng.submit(np.arange(1, 4), max_new_tokens=40)
         assert eng.cancel(waiting) is True and waiting.cancelled()
         assert eng.cancel(long) is True
+        release.set()
         deadline = time.monotonic() + 5
         while eng.cache.blocks_in_use and time.monotonic() < deadline:
             time.sleep(0.01)
         assert eng.cache.blocks_in_use == 0
         assert eng.cancel(Future()) is False
     finally:
+        release.set()
         eng.shutdown(drain=False)
 
 

@@ -32,7 +32,7 @@ def _imported_roots(path):
 
 def test_no_forbidden_imports_in_port_sources():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "attn_variants.py",
-                                          ROOT / "paged_variants.py"]
+                                          ROOT / "paged_variants.py", ROOT / "int8_ln_variants.py"]
     assert len(files) > 20
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN]

@@ -15,9 +15,15 @@ mean and rstd: dx, dgain and dbias in f32 to 1e-5 of max|ref|, in bf16 to
 `FusedLayerNorm`, the kernel path's autograd wrapper, with both launches
 replaced by the plain versions passes gradcheck in f64 and matches
 `jax.grad` of the JAX reference in f32.  `LayerNormalizationLayer`
-matches its JAX counterpart, JSON included.  The CUDA kernels themselves
-are checked by the `cuda`-marked tests, which skip without a card.
+matches its JAX counterpart, JSON included.  `ln_fwd_plan`, the forward
+kernel's grid, covers every row once in its grid-stride loop, fills the
+card at BERT-base and picks the instance that holds a row, and the
+wrapper hands the library that plan.  The CUDA kernels themselves are
+checked by the `cuda`-marked tests, which skip without a card.
 """
+import contextlib
+import re
+from pathlib import Path
 import math
 
 import jax.numpy as jnp
@@ -29,7 +35,7 @@ from deeplearning4j_tpu import nn as jnn
 from deeplearning4j_tpu.ops import norm_kernels as jnk
 from deeplearning4j_tpu_torch import nn as tnn
 from deeplearning4j_tpu_torch.ops import norm_kernels as nk
-from deeplearning4j_tpu_torch.ops.kernels import dispatch, layer_norm
+from deeplearning4j_tpu_torch.ops.kernels import build, dispatch, layer_norm
 
 DTYPES = {"float32": (torch.float32, jnp.float32),
           "bfloat16": (torch.bfloat16, jnp.bfloat16)}
@@ -256,20 +262,102 @@ def test_backward_cuda_inputs_the_kernel_refuses_raise(case):
         layer_norm.launch_bwd(x, g, mean, rstd, dy)
 
 
+# ---------------------------------------------------------------------------
+# ln_fwd_plan
+# ---------------------------------------------------------------------------
+
+H100_SMS = 132
+LN_SHAPES = [(8192, 768), (512, 768), (37, 1000), (1, 64), (3, 4096), (8192, 1024),
+             (5, 1025), (7, 8192), (4, 2048), (9, 3000), (100000, 128), (37, 100)]
+_FWD_SRC = (Path(layer_norm.__file__).resolve().parent / "csrc" / "layer_norm_fwd.cu").read_text()
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("rows,F", LN_SHAPES)
+def test_ln_fwd_plan_covers_every_row_once_and_holds_the_row(rows, F, itemsize):
+    tpr, nv, blocks = layer_norm.ln_fwd_plan(rows, F, itemsize, H100_SMS)
+    assert tpr in (32, 64, 128, 256)
+    assert tpr == 32 if F <= 1024 else tpr * 32 >= F > tpr * 16   # <= 32 elements a thread
+    vw = 16 // itemsize
+    chunks = -(-F // vw)                                      # 16-byte chunks a row
+    need = -(-chunks // tpr)                                  # ... a thread
+    instances = sorted({1, 2, 3, 4, min(6, 32 // vw), 32 // vw})
+    assert nv == min(i for i in instances if i >= need)     # the smallest that holds it
+    groups = 256 // tpr
+    # block i, trip k, row group g takes row (i + k * blocks) * groups + g
+    seen = np.zeros(rows, np.int64)
+    for i in range(blocks):
+        base = i * groups
+        assert base < rows                                    # no block without a row
+        while base < rows:
+            seen[base:min(base + groups, rows)] += 1
+            base += blocks * groups
+    assert (seen == 1).all()
+    assert blocks <= layer_norm.fwd_blocks_per_sm(nv) * H100_SMS       # one wave
+
+
+@pytest.mark.parametrize("itemsize, nv", [(2, 3), (4, 6)])
+def test_ln_fwd_plan_fills_the_card_at_bert_base(itemsize, nv):
+    plan = layer_norm.ln_fwd_plan(8192, 768, itemsize, H100_SMS)
+    assert plan == (32, nv, layer_norm.fwd_blocks_per_sm(nv) * H100_SMS)
+    assert plan.blocks * 256 // 32 < 8192                     # rows in a loop: a next row in flight
+
+
+def test_ln_fwd_plan_mirrors_the_kernels_launch_bound():
+    """fwd_blocks_per_sm is the kernel's min_blocks, by its text."""
+    expr = re.search(r"constexpr int min_blocks\(int nv\) \{ return (.*?); \}", _FWD_SRC).group(1)
+    py = re.sub(r"(nv <= \d+) \? (\d+) :", r"\2 if \1 else", expr)
+    for nv in range(1, 9):
+        assert eval(py, {"nv": nv}) == layer_norm.fwd_blocks_per_sm(nv)
+
+
+def test_ln_fwd_wrapper_hands_the_library_its_plan():
+    calls = []
+
+    class Lib:
+        def dl4j_layer_norm_fwd(self, *args):
+            calls.append(args)
+            return 0
+
+    mp = pytest.MonkeyPatch()
+    try:
+        mp.setattr(build, "library", lambda: Lib())
+        mp.setattr(layer_norm, "_sm_count", lambda i: H100_SMS)
+        mp.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+
+        class Stream:
+            cuda_stream = 3
+        mp.setattr(torch.cuda, "current_stream", lambda d=None: Stream())
+        x = torch.zeros(64, 128, 776, dtype=torch.bfloat16)[..., :768]     # strided rows
+        y, mean, rstd = layer_norm.launch(x, torch.ones(768, dtype=torch.bfloat16), None, 1e-12)
+    finally:
+        mp.undo()
+    plan = layer_norm.ln_fwd_plan(8192, 768, 2, H100_SMS)
+    (args,) = calls
+    assert args[2] is None and args[6:13] == (8192, 768, 776, 1e-12, *plan)
+    assert y.shape == x.shape and mean.shape == rstd.shape == (8192,)
+
+
 @pytest.mark.cuda
 def test_kernel_matches_plain_version_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for rows, F in [(8192, 768), (37, 1000), (1, 64), (3, 4096)]:
+    for rows, F, pad in [(8192, 768, 0), (37, 1000, 0), (1, 64, 0), (3, 4096, 0), (37, 100, 0),
+                         (64, 768, 8), (37, 100, 8)]:
         for dt in (torch.float32, torch.bfloat16):
-            x = (torch.randn(rows, F, generator=gen, device="cuda") * 2 + 0.5).to(dt)
+            # pad > 0: x is a [rows, F] view of [rows, F + pad]
+            x = (torch.randn(rows, F + pad, generator=gen, device="cuda") * 2
+                 + 0.5).to(dt)[:, :F]
             g = torch.randn(F, generator=gen, device="cuda").to(dt)
             b = torch.randn(F, generator=gen, device="cuda").to(dt)
             before = layer_norm.LAUNCHES.value
             y, mean, rstd = nk.layer_norm_fwd(x, g, b, 1e-12)
             torch.cuda.synchronize()
             assert layer_norm.LAUNCHES.value == before + 1
+            # no atomics: the same call gives the same bits
+            assert all(torch.equal(a, r) for a, r in
+                       zip((y, mean, rstd), nk.layer_norm_fwd(x, g, b, 1e-12)))
             ry, rmean, rrstd = nk.layer_norm_plain(x, g, b, 1e-12)
             ref = ry.float().abs().max().item()
             tol = 1e-4 * ref if dt == torch.float32 else 2 * 2.0 ** (math.floor(math.log2(ref)) - 7)

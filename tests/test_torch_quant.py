@@ -438,7 +438,8 @@ def test_quantized_kernels_match_plain_on_card():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
-    shapes = [(M, 4096, 4096) for M in (1, 2, 4, 8, 16)] + [(37, 70, 45), (16, 800, 500)]
+    shapes = ([(M, 4096, 4096) for M in (1, 2, 4, 8, 16)]
+              + [(37, 70, 45), (1, 70, 45), (16, 800, 500)])
     for M, K, N in shapes:
         w = torch.randn(K, N, generator=gen, device="cuda")
         qt = tqk.quantize_tensor(w)
@@ -464,3 +465,8 @@ def test_quantized_kernels_match_plain_on_card():
         torch.cuda.synchronize()
         assert matmul.INT8_LAUNCHES.value == before + 1
         assert torch.equal(y, matmul.int8_matmul_plain(xq, qt.q, qt.scale, x_scale=0.02, bias=b))
+        # int32 split-K partials: exact, and the same bits call after call
+        assert torch.equal(matmul.int8_matmul(xq, qt.q, qt.scale, x_scale=0.02, bias=b), y)
+        yb = matmul.int8_matmul(xq, qt.q, qt.scale, x_scale=0.02, bias=b, out_dtype=torch.bfloat16)
+        assert torch.equal(yb, matmul.int8_matmul_plain(xq, qt.q, qt.scale, x_scale=0.02, bias=b,
+                                                        out_dtype=torch.bfloat16))
