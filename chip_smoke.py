@@ -21,7 +21,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 3. parity  — ``fused_dense`` against ``fused_dense_reference`` on the card
    at M in {1, 2, 4, 8, 16} (every bucket the slice serves) and {37, 128}
    (ragged and multi-tile), and (K, N) in {(25088, 4096), (4096, 4096),
-   (4096, 1000), (800, 500)}, every epilogue activation, f32 and bf16.
+   (4096, 1000), (800, 500)}, plus M = 256 at (800, 500) (LeNet's
+   training Dense), every epilogue activation, f32 and bf16.
    f32 (TF32 off): max|diff| <= 1e-4 * max|ref| (summation order differs
    at K = 25088).  bf16: max|diff| <= 2 bf16 ulps of max|ref|.  At fc6
    (K = 25088) the same call twice gives the same bits in both dtypes (the
@@ -37,8 +38,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    ``FORWARD_REPS``).
    profile — one bucket-16 forward under ``torch.profiler``: kernels by
    device time and the device's idle share of the window.
-   The parity phase also takes one backward through the kernel
-   (``FusedDense``) and holds its gradients to the plain version's.
+   The parity phase also takes backwards through the kernel
+   (``FusedDense``) at (16, 4096, 1000) with relu and gelu and at LeNet's
+   (256, 800, 500) with relu, and holds the gradients to the plain
+   version's.
 5. times   — fc6, fc7 and the output layer at M = 16 in f32 and bf16: the
    kernel, its plain version and ``torch.addmm`` + relu (a yardstick the
    port never calls), each the median of 25 launches timed with CUDA
@@ -250,6 +253,29 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    (the gather outside the timed region), beside the bound and
    ``share_of_bound``.
 
+31. lenet_train — MultiLayerNetwork training: full-width LeNet (28x28x1,
+   431,080 parameters, seed 123, Adam(1e-3), f32, TF32 off), batch 256
+   from ``RandomState(0)`` as bench.py makes it; a twin net loaded from a
+   ModelSerializer zip of the initial parameters runs in ``reference``
+   mode.  ``gradient_for`` per tensor within 1e-4 * max|ref|; then the
+   main path: the ``fused_dense`` count set to 0, 5 ``fit`` steps, one
+   ``score_for`` and one ``output``, the count read just after (exactly
+   one launch each: the 800 -> 500 relu Dense; the head and the 5x5 convs
+   take no kernel); the twin's 5 losses within 1e-4 relative and the
+   first Adam update within 1e-4 of its size in the L2 norm, both nets'
+   updates compared.  ``fit(ListDataSetIterator(4 batches), epochs=2)``:
+   epoch 2, iteration + 8, 8 launches.  ``save`` then ``load`` on the
+   card: params, layer state and Adam state bitwise equal, ``output``
+   bitwise equal, two more steps on both give the same bits (cuDNN held
+   deterministic for them); ``load`` on the CPU gives ``output`` within
+   1e-4 * max|ref|.  The end-to-end drive script (Dense 10 -> 32
+   relu, Output 2, Adam(1e-2), 50 fits, save/load): the score drops and
+   the loaded params are equal.  Median step ms over 20 steps after 3
+   warm-up steps in each mode, samples/s; one step under
+   ``torch.profiler`` (top kernels, idle share); and ``fused_dense`` at
+   (256, 800, 500) f32 relu: kernel, plain and ``torch.addmm`` + relu ms
+   beside the bound.
+
 Then the kernels line (each entry with ``share_of_bound``), nvidia-smi's
 line, and the last line ``{"ok": true, "device": {...}}``.  Exits
 non-zero, printing no result, without CUDA or outside a checkout of the
@@ -363,6 +389,13 @@ BERT_TRAIN_VOCAB = 30522
 #: reference mode by 7e-4 to 7.6e-3, so 1e-4 cannot hold; 1e-1 leaves
 #: tenfold room over the worst seen
 DIVERGED_LOSS_RTOL = 1e-1
+
+#: LeNet (BASELINE.json config 1) as bench.py trains it
+LENET_PARAMS = 431_080
+LENET_BATCH = 256
+LENET_DENSE = (800, 500)
+LENET_STEPS = 5
+LENET_TIMED_STEPS, LENET_WARMUP = 20, 3
 
 
 def emit(phase, **kw):
@@ -493,10 +526,10 @@ def phase_build(build):
 def phase_parity(matmul, dev):
     gen = torch.Generator(device=dev).manual_seed(0)
     worst = {}
-    for K, N in [(25088, 4096), (4096, 4096), (4096, 1000), (800, 500)]:
+    for K, N in [(25088, 4096), (4096, 4096), (4096, 1000), LENET_DENSE]:
         w32 = torch.randn(K, N, generator=gen, device=dev) / math.sqrt(K)
         b = torch.randn(N, generator=gen, device=dev)
-        for M in (1, 2, 4, 8, 16, 37, 128):
+        for M in (1, 2, 4, 8, 16, 37, 128) + ((LENET_BATCH,) if (K, N) == LENET_DENSE else ()):
             x32 = torch.randn(M, K, generator=gen, device=dev)
             for dt in (torch.float32, torch.bfloat16):
                 x, w = x32.to(dt), w32.to(dt)
@@ -524,12 +557,13 @@ def phase_parity(matmul, dev):
                     require(repeat, f"fused_dense fc6 M={M} {dt}: two calls differ")
                 emit("parity", M=M, K=K, N=N, dtype=str(dt), errors=errs,
                      bitwise_repeat=repeat)
-    # one backward through the kernel (FusedDense): the plain VJP
-    for act in ("relu", "gelu"):
-        x = torch.randn(16, 4096, generator=gen, device=dev, requires_grad=True)
-        w = (torch.randn(4096, 1000, generator=gen, device=dev) / 64.0).requires_grad_()
-        b = torch.randn(1000, generator=gen, device=dev, requires_grad=True)
-        g = torch.randn(16, 1000, generator=gen, device=dev)
+    # backwards through the kernel (FusedDense): the plain VJP
+    for (M, K, N), act in (((16, 4096, 1000), "relu"), ((16, 4096, 1000), "gelu"),
+                           ((LENET_BATCH,) + LENET_DENSE, "relu")):
+        x = torch.randn(M, K, generator=gen, device=dev, requires_grad=True)
+        w = (torch.randn(K, N, generator=gen, device=dev) / math.sqrt(K)).requires_grad_()
+        b = torch.randn(N, generator=gen, device=dev, requires_grad=True)
+        g = torch.randn(M, N, generator=gen, device=dev)
         before = matmul.LAUNCHES.value
         got = torch.autograd.grad(matmul.fused_dense(x, w, b, act), (x, w, b), g)
         require(matmul.LAUNCHES.value == before + 1,
@@ -543,7 +577,7 @@ def phase_parity(matmul, dev):
             require(err <= F32_RTOL * ref,
                     f"fused_dense backward d{name} {act}: {err} > {F32_RTOL * ref}")
             errs.append(err / ref)
-        emit("parity_backward", kernel="fused_dense", activation=act,
+        emit("parity_backward", kernel="fused_dense", M=M, K=K, N=N, activation=act,
              rel_errors=dict(zip(("dx", "dW", "db"), errs)))
     emit("parity_done", cases=len(worst), ok=True)
     return worst
@@ -2368,6 +2402,222 @@ def phase_paged_times(pa, dev, B=16, H=12, D=64, L=2048):
     return rows
 
 
+def _lenet_data(n_batches=1):
+    """bench.py's LeNet batch (RandomState(0): rand images, one-hot
+    labels), then more batches from the same stream."""
+    rng = np.random.RandomState(0)
+    return [(rng.rand(LENET_BATCH, 28, 28, 1).astype(np.float32),
+             np.eye(10, dtype=np.float32)[rng.randint(0, 10, LENET_BATCH)])
+            for _ in range(n_batches)]
+
+
+def _trees_equal(a, b):
+    """Every tensor of two nested dicts equal bit for bit (same keys)."""
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(_trees_equal(a[k], b[k]) for k in a)
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return a == b
+
+
+def _step_ms(net, x, y, steps, warmup):
+    """Median host ms of a fit step ending in a synchronize."""
+    for _ in range(warmup):
+        net.fit(x, y)
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        net.fit(x, y)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ms), ms
+
+
+def phase_lenet_train(matmul, dispatch, LeNet, Adam, MultiLayerNetwork, data, nn, dev):
+    """MultiLayerNetwork training on the card (phase 31 of the module
+    docstring).  Returns the main path's fused_dense launch count and the
+    kernel's row at (256, 800, 500)."""
+    import tempfile
+
+    (xn, yn), = _lenet_data()
+    x, y = torch.as_tensor(xn, device=dev), torch.as_tensor(yn, device=dev)
+    net = LeNet(seed=123, updater=Adam(1e-3)).init_model(device=dev)
+    require(net.num_params() == LENET_PARAMS,
+            f"LeNet has {net.num_params()} parameters, want {LENET_PARAMS}")
+    tmp = tempfile.mkdtemp(prefix="lenet_")
+    net.save(os.path.join(tmp, "init.zip"))
+    twin = MultiLayerNetwork.load(os.path.join(tmp, "init.zip"), device=dev)
+    require(torch.equal(_flat_params(twin), _flat_params(net)),
+            "the twin loaded from the initial zip differs")
+
+    # gradient_for on the initial parameters, kernel against plain
+    g_auto = net.gradient_for(x, y)
+    prev = dispatch.set_dispatch_mode("reference")
+    try:
+        g_ref = twin.gradient_for(x, y)
+    finally:
+        dispatch.set_dispatch_mode(prev)
+    worst_grad = 0.0
+    for name, sub in g_ref.items():
+        for k, r in sub.items():
+            err = (g_auto[name][k] - r).abs().max().item()
+            rmax = r.abs().max().item()
+            require(err <= F32_RTOL * rmax,
+                    f"LeNet gradient_for {name}.{k}: max|diff| {err} > {F32_RTOL} * {rmax}")
+            worst_grad = max(worst_grad, err / max(rmax, 1e-30))
+
+    # the main path: the count set to 0 just before, read just after
+    theta0 = _flat_params(net)
+    matmul.LAUNCHES.reset()
+    losses, ms = _fit_steps(net, x, y, 1)
+    theta1 = _flat_params(net)
+    more, more_ms = _fit_steps(net, x, y, LENET_STEPS - 1)
+    fit_launches = matmul.LAUNCHES.value
+    net.score_for(x, y)
+    out = net.output(x)
+    launches = matmul.LAUNCHES.value
+    losses, ms = losses + more, ms + more_ms
+    require(fit_launches == LENET_STEPS and launches == LENET_STEPS + 2,
+            f"fused_dense launches {fit_launches} in {LENET_STEPS} fit steps and "
+            f"{launches} with score_for and output; want one a call")
+    require(out.shape == (LENET_BATCH, 10) and bool(torch.isfinite(out).all()),
+            f"LeNet output {tuple(out.shape)}")
+    prev = dispatch.set_dispatch_mode("reference")
+    try:
+        ref_losses, _ = _fit_steps(twin, x, y, 1)
+        ref_theta1 = _flat_params(twin)
+        r_more, _ = _fit_steps(twin, x, y, LENET_STEPS - 1)
+        ref_losses += r_more
+    finally:
+        dispatch.set_dispatch_mode(prev)
+    rel = [abs(a - r) / abs(r) for a, r in zip(losses, ref_losses)]
+    upd, ref_upd = theta1 - theta0, ref_theta1 - theta0
+    update_l2 = ((upd - ref_upd).norm() / ref_upd.norm()).item()
+    update_max = ((upd - ref_upd).abs().max() / ref_upd.abs().max()).item()
+    final_rel = ((_flat_params(net) - _flat_params(twin)).norm()
+                 / (_flat_params(twin) - theta0).norm()).item()
+    require(all(math.isfinite(v) for v in losses + ref_losses), "non-finite LeNet loss")
+    require(max(rel) <= F32_RTOL, f"LeNet losses {losses} vs reference {ref_losses}")
+    require(update_l2 <= F32_RTOL,
+            f"LeNet first Adam update differs from reference mode's by {update_l2} (L2)")
+
+    # fit over an iterator: 4 batches, 2 epochs
+    batches = _lenet_data(4)
+    it0, before = net.iteration, matmul.LAUNCHES.value
+    net.fit(data.ListDataSetIterator([data.DataSet(a, b) for a, b in batches]), epochs=2)
+    iter_launches = matmul.LAUNCHES.value - before
+    require(net.epoch == 2 and net.iteration == it0 + 8 and iter_launches == 8,
+            f"fit(iterator, epochs=2): epoch {net.epoch}, iteration {net.iteration} "
+            f"(from {it0}), {iter_launches} launches")
+    iter_loss, iter_end = net.score(), net.iteration
+    require(math.isfinite(iter_loss), "non-finite loss after fit(iterator)")
+
+    # exact resume through the zip
+    path = os.path.join(tmp, "lenet.zip")
+    net.save(path)
+    loaded = MultiLayerNetwork.load(path, device=dev)
+    same_state = (_trees_equal(dict(net.params_), dict(loaded.params_))
+                  and _trees_equal(net.state_, loaded.state_)
+                  and _trees_equal(net.opt_state_, loaded.opt_state_)
+                  and (loaded.iteration, loaded.epoch) == (net.iteration, net.epoch))
+    require(same_state, "save/load on the card: params, state or Adam state differ")
+    want = loaded.output(x)
+    require(torch.equal(want, net.output(x)), "loaded output differs")
+    cudnn_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for _ in range(2):
+            net.fit(x, y)
+            loaded.fit(x, y)
+        resumed = (torch.equal(_flat_params(net), _flat_params(loaded))
+                   and net.score() == loaded.score())
+    finally:
+        torch.backends.cudnn.deterministic = cudnn_det
+    require(resumed, "two steps after save/load differ from the original's")
+    on_cpu = MultiLayerNetwork.load(path, device="cpu")
+    want = want.cpu()
+    got = on_cpu.output(xn)
+    cpu_err = (got - want).abs().max().item()
+    require(cpu_err <= F32_RTOL * want.abs().max().item(),
+            f"load(device='cpu') output differs by {cpu_err}")
+
+    drive = _drive_script(MultiLayerNetwork, nn, Adam, dev, tmp)
+
+    # step times in each mode, samples/s; one step under the profiler
+    step_ms, step_all = _step_ms(net, x, y, LENET_TIMED_STEPS, LENET_WARMUP)
+    prev = dispatch.set_dispatch_mode("reference")
+    try:
+        ref_ms, ref_all = _step_ms(twin, x, y, LENET_TIMED_STEPS, LENET_WARMUP)
+    finally:
+        dispatch.set_dispatch_mode(prev)
+
+    def step():
+        net.fit(x, y)
+        net.score()
+
+    window_ms, busy_ms, by_name, n = _trace(step)
+    profile = ({"window_ms": window_ms, "device_busy_ms": "not measured",
+                "idle_share": "not measured"} if busy_ms is None else
+               {"window_ms": window_ms, "device_busy_ms": busy_ms,
+                "idle_share": max(0.0, 1.0 - busy_ms / window_ms), "kernels": n,
+                "fused_dense_ms": _share(by_name, "fused_dense_kernel"),
+                "top": _top(by_name, 10)})
+
+    # the kernel at LeNet's shape
+    M, (K, N) = LENET_BATCH, LENET_DENSE
+    gen = torch.Generator(device=dev).manual_seed(2)
+    xa = torch.randn(M, K, generator=gen, device=dev)
+    wa = torch.randn(K, N, generator=gen, device=dev) / math.sqrt(K)
+    ba = torch.randn(N, generator=gen, device=dev)
+    ya = matmul.fused_dense(xa, wa, ba, "relu")
+    err = (ya - matmul.fused_dense_reference(xa, wa, ba, "relu")).abs().max().item()
+    bound_ms, bound_by = bound(M, K, N, torch.float32)
+    row = dict(ms=time_ms(lambda: matmul.fused_dense(xa, wa, ba, "relu"), dev),
+               plain_ms=time_ms(lambda: matmul.fused_dense_reference(xa, wa, ba, "relu"), dev),
+               library_ms=time_ms(lambda: torch.relu(torch.addmm(ba, xa, wa)), dev),
+               bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    emit("lenet_train", model="LeNet", input="28x28x1 f32", classes=10,
+         batch=LENET_BATCH, params=LENET_PARAMS, updater="Adam(1e-3)", steps=LENET_STEPS,
+         losses=losses, reference_losses=ref_losses, rel_loss_diff=rel,
+         step1_update_l2_rel_diff=update_l2, step1_update_max_rel_diff=update_max,
+         final_params_l2_rel_diff=final_rel, max_rel_grad_diff=worst_grad,
+         fused_dense_launches_fit=fit_launches, fused_dense_launches=launches,
+         iterator={"batches": 4, "epochs": 2, "iteration": iter_end,
+                   "launches": iter_launches, "loss": iter_loss},
+         resume_bitwise=resumed, cpu_load_max_abs_err=cpu_err, drive_script=drive,
+         step_ms=step_ms, step_ms_all=step_all, reference_step_ms=ref_ms,
+         reference_step_ms_all=ref_all, samples_per_sec=LENET_BATCH * 1e3 / step_ms,
+         reference_samples_per_sec=LENET_BATCH * 1e3 / ref_ms,
+         profile=profile, fused_dense_256x800x500=row)
+    return launches, row
+
+
+def _drive_script(MultiLayerNetwork, nn, Adam, dev, tmp):
+    """The end-to-end drive script on the card: a small MLN trained 50
+    steps, saved and loaded."""
+    rng = np.random.RandomState(1)
+    x = rng.randn(256, 10).astype(np.float32)
+    y = np.eye(2, dtype=np.float32)[(x.sum(1) > 0).astype(int)]
+    conf = (nn.NeuralNetConfiguration.builder().seed(1).updater(Adam(1e-2))
+            .list([nn.DenseLayer(n_out=32, activation="relu"),
+                   nn.OutputLayer(n_out=2, loss="mcxent", activation="softmax")])
+            .set_input_type(nn.InputType.feed_forward(10)).build())
+    net = MultiLayerNetwork(conf, device=dev).init()
+    before = net.score_for(x, y)
+    for _ in range(50):
+        net.fit(x, y)
+    after = net.score_for(x, y)
+    path = os.path.join(tmp, "drive.zip")
+    net.save(path)
+    loaded = MultiLayerNetwork.load(path, device=dev)
+    equal = bool(np.array_equal(net.params(), loaded.params()))
+    require(after < 0.5 * before, f"drive script: score {before} -> {after}")
+    require(equal, "drive script: params differ after load")
+    return {"score_before": before, "score_after": after, "params_equal_after_load": equal}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2382,11 +2632,13 @@ def main():
                                                       layer_norm, matmul)
     from deeplearning4j_tpu_torch.ops.kernels import paged_attention as pa
     from deeplearning4j_tpu_torch.serving import decode as dec
+    from deeplearning4j_tpu_torch import data, nn
     from deeplearning4j_tpu_torch.data import MultiDataSet
     from deeplearning4j_tpu_torch.nlp import BertIterator, BertWordPieceTokenizer
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
     from deeplearning4j_tpu_torch.serving import ModelServer
     from deeplearning4j_tpu_torch.train import Adam, Nesterovs
-    from deeplearning4j_tpu_torch.zoo import BertConfig, BertModel, ResNet50
+    from deeplearning4j_tpu_torch.zoo import BertConfig, BertModel, LeNet, ResNet50
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2401,6 +2653,8 @@ def main():
     phase_profile(model, dev)
     del model
     rows = phase_times(matmul, dev)
+    lenet_launches, lenet_row = phase_lenet_train(matmul, dispatch, LeNet, Adam,
+                                                  MultiLayerNetwork, data, nn, dev)
     phase_conv_parity(ck, conv3x3, dev)
     net, x, y, conv_launches = phase_train(conv3x3, dispatch, ResNet50,
                                            Nesterovs, dev)
@@ -2454,7 +2708,11 @@ def main():
         "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
-        "shape": "fc6 M=16 K=25088 N=4096 f32 relu"}]
+        "shape": "fc6 M=16 K=25088 N=4096 f32 relu; launches over the VGG16 "
+                 "serving slice's warmup and 12 requests",
+        "lenet_train": {"launches": lenet_launches, **lenet_row,
+                        "shape": "M=256 K=800 N=500 f32 relu; launches over 5 LeNet "
+                                 "fit steps, one score_for and one output"}}]
     for name, (replaces, source) in CONV_KERNELS.items():
         row = conv_rows[(name, "s0", torch.float32)]
         kernels.append({

@@ -17,6 +17,17 @@ the JAX package's ``params_`` as it is: named arrays plus the stacked
 (``bert_opt_state_from_jax``/``bert_opt_state_to_jax``, Adam's ``m`` and
 ``v``) is a dict of such trees.
 
+A MultiLayerNetwork's or ComputationGraph's updater state
+(``opt_state_to_jax``/``opt_state_from_jax``) is ``{layer_name:
+updater_state}``, where each updater's state is built of trees that mirror
+the layer's parameters (Adam ``{"m": {"W", "b"}, "v": {...}}``, Nesterovs
+``{"W", "b"}``, Sgd ``()``).  A moment is keyed by the parameter it
+belongs to, so it crosses in that parameter's layout: the moments of a
+conv ``W`` are HWIO in the JAX tree and OIHW in the port, like ``W``.
+``layout_leaves`` lists the tensors of any such network-keyed tree
+(parameters, state or updater state) in the JAX package's ``tree_leaves``
+order with their layout permutation, for the ModelSerializer zip.
+
 A quantized model's tree (``quant_params_from_jax``/``quant_params_to_jax``)
 is the same ``{layer_name: {param_key: leaf}}`` tree in which a quantized
 leaf crosses as ``{"q": int8 array, "scale": f32 array, "axis": int}``
@@ -28,7 +39,7 @@ the same in both packages.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -147,26 +158,96 @@ def state_from_jax(net, tree: Tree) -> None:
             t.copy_(torch.from_numpy(np.array(arr)))
 
 
-def _numpy_tree(tree) -> Dict:
+class _Layout:
+    """Stands in for a layer where a tree has no layout permutations (a
+    graph vertex without a layer)."""
+
+    TORCH_LAYOUT: Dict = {}
+
+
+def _numpy_tree(tree, layer=None, key=None):
+    """A nested dict of tensors as numpy arrays.  With `layer`, each leaf
+    goes to the JAX layout of the parameter its key names (bf16 widens to
+    f32); without, every leaf widens to f32."""
     if isinstance(tree, dict):
-        return {k: _numpy_tree(v) for k, v in tree.items()}
+        return {k: _numpy_tree(v, layer, k) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tree
+    if layer is not None:
+        return to_jax_layout(layer, key, tree)
     return tree.detach().float().cpu().numpy()
 
 
 @torch.no_grad()
-def _load_tree(dst, src, where: str) -> None:
+def _load_tree(dst, src, where: str, layer=None) -> None:
     """Copy a nested dict of numpy arrays into the tensors of `dst`, in
-    place; keys and shapes must match."""
+    place; keys and shapes must match.  With `layer`, each array is in the
+    JAX layout of the parameter its key names."""
+    if isinstance(dst, tuple):
+        if len(dst) or len(src):
+            raise ValueError(f"{where}: only empty tuples are state leaves")
+        return
     if set(src) != set(dst):
         raise ValueError(f"{where}: keys differ: {sorted(src)} vs {sorted(dst)}")
     for k, t in dst.items():
-        if isinstance(t, dict):
-            _load_tree(t, src[k], f"{where}{k}.")
+        if isinstance(t, (dict, tuple)):
+            _load_tree(t, src[k], f"{where}{k}.", layer)
             continue
         arr = np.asarray(src[k])
-        if tuple(arr.shape) != tuple(t.shape):
-            raise ValueError(f"{where}{k}: shape {arr.shape} != {tuple(t.shape)}")
-        t.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
+        new = (from_jax_layout(layer, k, arr) if layer is not None
+               else torch.from_numpy(np.array(arr, dtype=np.float32)))
+        if tuple(new.shape) != tuple(t.shape):
+            raise ValueError(f"{where}{k}: shape {tuple(new.shape)} (port layout) "
+                             f"!= {tuple(t.shape)}")
+        t.copy_(new)
+
+
+def _layer_or_layout(net, name: str):
+    try:
+        return net.layer_by_name(name)
+    except KeyError:            # a graph vertex that is not a layer
+        return _Layout
+
+
+def opt_state_to_jax(net) -> Dict:
+    """A MultiLayerNetwork's or ComputationGraph's updater state as the
+    JAX package's ``opt_state_`` of numpy arrays, each moment in the JAX
+    layout of its parameter (bf16 widens to f32)."""
+    return {name: _numpy_tree(sub, _layer_or_layout(net, name))
+            for name, sub in net.opt_state_.items()}
+
+
+def opt_state_from_jax(net, tree: Dict) -> None:
+    """Load the JAX package's ``opt_state_`` (numpy arrays, JAX layouts)
+    into a MultiLayerNetwork's or ComputationGraph's updater state, in
+    place; names, keys and shapes must match."""
+    state = net.opt_state_
+    if set(tree) != set(state):
+        raise ValueError(f"layer names differ: {sorted(tree)} vs {sorted(state)}")
+    for name, sub in state.items():
+        _load_tree(sub, tree[name], f"{name}.", _layer_or_layout(net, name))
+
+
+def layout_leaves(net, tree) -> List[Tuple[torch.Tensor, Optional[Tuple[int, ...]]]]:
+    """Every tensor of a network-keyed tree (``{layer_name: subtree}``:
+    parameters, layer state or updater state) in the JAX package's
+    ``tree_leaves`` order (dict keys sorted as strings at every level),
+    each with the permutation taking its JAX layout to the port's (None
+    where they are the same)."""
+    out: List = []
+
+    def walk(sub, layout, key):
+        if isinstance(sub, dict):
+            for k in sorted(sub):
+                walk(sub[k], layout, k)
+        elif isinstance(sub, torch.Tensor):
+            out.append((sub, layout.get(key)))
+        elif not (isinstance(sub, tuple) and not sub):
+            raise TypeError(f"unexpected tree leaf {type(sub).__name__}")
+
+    for name in sorted(tree):
+        walk(tree[name], _layer_or_layout(net, name).TORCH_LAYOUT, None)
+    return out
 
 
 def bert_params_to_jax(model) -> Dict:

@@ -1,11 +1,19 @@
 """Cached metric handles for the port's hot paths (the port of
-``monitor/instrument.py``, in part: the quantization and decode bundles).
+``monitor/instrument.py``, in part: the training, quantization and decode
+bundles).
 
 Each subsystem grabs its bundle once and records through plain attribute
 access; labeled children are created lazily and memoized.  The rest of the
-JAX module (training, pipeline, resilience, fleet and ops bundles) and its
-process-wide telemetry switch are not ported yet.
+JAX module (pipeline, resilience, fleet and ops bundles) and its
+process-wide telemetry switch are not ported yet.  The training bundle has
+no compile series: the port's step is eager, so there is no executable
+cache to watch (``training_compiles_total`` and
+``training_donated_bytes`` come with a compiled step).
 
+  training_step_ms{model=}           host time of one training step
+  training_steps_total{model=}       optimizer steps
+  training_dispatches_total{model=}  step dispatches (one per step)
+  training_epochs_total{model=}      completed epochs
   quant_calibration_batches_total    batches consumed by PTQ calibration
   quant_bytes_saved                  f32 minus quantized resident bytes
   quant_accuracy_delta               latest parity-check disagreement
@@ -22,6 +30,36 @@ from __future__ import annotations
 from typing import Optional
 
 from deeplearning4j_tpu_torch.monitor.registry import MetricsRegistry, registry
+
+
+class TrainingInstruments:
+    """Per-model handles over shared series labeled by model kind (two
+    networks of one class share series)."""
+
+    def __init__(self, model_kind: str,
+                 registry_: Optional[MetricsRegistry] = None):
+        reg = registry_ if registry_ is not None else registry()
+        lbl = {"model": model_kind}
+        self.step_ms = reg.histogram(
+            "training_step_ms", help="host wall time per training step (ms; "
+            "kernels are queued, not waited for)", labels=lbl)
+        self.steps = reg.counter(
+            "training_steps_total", help="optimizer steps run", labels=lbl)
+        self.dispatches = reg.counter(
+            "training_dispatches_total",
+            help="training step dispatches (one per step)", labels=lbl)
+        self.epochs = reg.counter(
+            "training_epochs_total", help="completed epochs", labels=lbl)
+
+    def record_dispatch(self, dt_s: float, steps: int = 1) -> None:
+        """One dispatch of `steps` optimizer steps taking `dt_s` host
+        seconds."""
+        self.steps.inc(steps)
+        self.dispatches.inc()
+        self.step_ms.observe(dt_s * 1000.0 / max(steps, 1))
+
+    def record_epoch(self) -> None:
+        self.epochs.inc()
 
 
 class QuantInstruments:

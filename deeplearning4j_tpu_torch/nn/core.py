@@ -102,10 +102,13 @@ class Layer:
         raise NotImplementedError
 
     def apply(self, params: Params, state: Dict, x: torch.Tensor, *,
-              train: bool = False, rng: Optional[torch.Generator] = None
+              train: bool = False, rng: Optional[torch.Generator] = None,
+              mask: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, Dict]:
         """Forward; returns (output, new_state).  `train` selects batch
-        statistics and input dropout; `rng` draws the dropout masks."""
+        statistics and input dropout; `rng` draws the dropout masks; `mask`
+        is a [B, T] sequence mask (used by the layers that pool over
+        time)."""
         raise NotImplementedError
 
     def regularizable_mask(self, params: Params) -> Dict[str, bool]:

@@ -18,10 +18,14 @@ parameters in place under ``torch.no_grad()``.  Under
 master parameters, so the gradients reach the f32 parameters.  Dropout
 masks come from a ``torch.Generator`` seeded from the configuration seed.
 
+Each step's per-vertex update is ``nn.multilayer.apply_updates``, the
+helper ``MultiLayerNetwork`` runs too.  ``save``/``load`` write and read
+the ModelSerializer zip (``utils/serialization.py``).
+
 Not ported yet: ``fit_steps`` / fused k-step loops, iterators and
 epochs, gradient sharing, ZeRO, the executable cache, compile schedules,
 device normalizers, instruments, listeners, gradient checkpointing
-(``remat``), evaluation and save/load.
+(``remat``) and evaluation.
 """
 from __future__ import annotations
 
@@ -35,10 +39,9 @@ from torch import nn
 
 from deeplearning4j_tpu_torch import convert
 from deeplearning4j_tpu_torch.nn.core import InputType, Layer
-from deeplearning4j_tpu_torch.nn.multilayer import (_add_scaled_where,
-                                                    _masked_leaves, torch_dtype)
-from deeplearning4j_tpu_torch.train.updaters import (
-    IUpdater, Sgd, apply_gradient_normalization, tree_map)
+from deeplearning4j_tpu_torch.nn.multilayer import (apply_updates, grads_of,
+                                                    reg_penalty, torch_dtype)
+from deeplearning4j_tpu_torch.train.updaters import IUpdater, Sgd
 from deeplearning4j_tpu_torch.utils.devices import resolve_device
 
 Params = Dict[str, Dict[str, torch.Tensor]]
@@ -449,7 +452,8 @@ class GraphBuilder:
 
 class ComputationGraph(nn.Module):
     """DAG network: `init`, `fit(features, labels)`, `score`, `score_for`,
-    `output(*features)`, `gradient_for`, `params`/`set_params`.  Lives on
+    `output(*features)`, `gradient_for`, `params`/`set_params`,
+    `save`/`load`.  Lives on
     `device` (``"cuda"`` by default, which raises without CUDA unless the
     caller passes ``device="cpu"``)."""
 
@@ -589,67 +593,22 @@ class ComputationGraph(nn.Module):
                 train=train, rng=lrng, mask=lmask)
         return loss + self._reg_penalty(params), new_state
 
-    def _reg_penalty(self, params: Params):
-        penalty = 0.0
-        for name in self._topo:
-            layer = self._layer_of(name)
-            if layer is None:
-                continue
-            l1 = layer.l1 if layer.l1 is not None else self.conf.l1
-            l2 = layer.l2 if layer.l2 is not None else self.conf.l2
-            if l1 == 0.0 and l2 == 0.0:
-                continue
-            rmask = layer.regularizable_mask(params[name])
-            for w in _masked_leaves(params[name], rmask):
-                if l1:
-                    penalty = penalty + l1 * torch.sum(torch.abs(w))
-                if l2:
-                    penalty = penalty + 0.5 * l2 * torch.sum(w * w)
-        return penalty
+    def _named_layers(self):
+        return [(name, self._layer_of(name)) for name in self._topo]
 
-    def _grads(self, loss: torch.Tensor, params: Params) -> Params:
-        """d loss / d params by autograd, zeros where a parameter does not
-        reach the loss (as jax.grad gives)."""
-        leaves = [(n, k, p) for n in self._topo for k, p in params[n].items()]
-        got = torch.autograd.grad(loss, [p for _, _, p in leaves],
-                                  allow_unused=True) if leaves else ()
-        grads: Params = {n: {} for n in self._topo}
-        for (n, k, p), g in zip(leaves, got):
-            grads[n][k] = torch.zeros_like(p) if g is None else g
-        return grads
+    def _reg_penalty(self, params: Params):
+        return reg_penalty(self.conf, self._named_layers(), params)
 
     # ---- one training step ----
     def _fit_batch(self, inputs: Dict[str, torch.Tensor],
                    labels: List[torch.Tensor], lmasks=None) -> None:
-        conf = self.conf
         params = self.params_
         loss, new_state = self._loss(params, self.state_, inputs, labels,
                                      self._rng, lmasks)
-        grads = self._grads(loss, params)
-        it, ep = self.iteration, self.epoch
-        with torch.no_grad():
-            for name in self._topo:
-                layer = self._layer_of(name)
-                if not params[name] or (layer is not None and layer.frozen):
-                    continue
-                g = grads[name]
-                own = layer is not None and layer.gradient_normalization is not None
-                gn = layer.gradient_normalization if own else conf.gradient_normalization
-                if gn:
-                    thr = (layer.gradient_normalization_threshold if own
-                           else conf.gradient_normalization_threshold)
-                    g = apply_gradient_normalization(g, gn, thr)
-                upd_cfg = self._updater_for(name)
-                upd, self.opt_state_[name] = upd_cfg.apply(
-                    self.opt_state_[name], g, it, ep, params=params[name])
-                wd = (layer.weight_decay if layer is not None and
-                      layer.weight_decay is not None else conf.weight_decay)
-                if wd and layer is not None:
-                    lr = upd_cfg.lr_at(it, ep)
-                    upd = _add_scaled_where(upd, params[name],
-                                            layer.regularizable_mask(params[name]),
-                                            lr * wd)
-                tree_map(lambda p, u: p.sub_(u), params[name], upd)
+        grads = grads_of(loss, params)
+        apply_updates(self.conf, self._named_layers(), params, grads,
+                      self.opt_state_, self._updater_for, self.iteration,
+                      self.epoch)
         self._set_state(new_state)
         self._score = loss.detach()
         self.iteration += 1
@@ -711,7 +670,7 @@ class ComputationGraph(nn.Module):
         params = self.params_
         loss, _ = self._loss(params, self.state_, self._as_input_dict(features),
                              self._as_list(labels), None, train=False)
-        return self._grads(loss, params)
+        return grads_of(loss, params)
 
     # ---- flat-param view (JAX tree_leaves order) ----
     def num_params(self) -> int:
@@ -722,3 +681,14 @@ class ComputationGraph(nn.Module):
 
     def set_params(self, flat: np.ndarray) -> None:
         convert.set_flat_params(self, flat)
+
+    # ---- persistence (the ModelSerializer zip) ----
+    def save(self, path: str, save_updater: bool = True) -> None:
+        from deeplearning4j_tpu_torch.utils.serialization import write_model
+        write_model(self, path, save_updater=save_updater)
+
+    @staticmethod
+    def load(path: str, load_updater: bool = True,
+             device=None) -> "ComputationGraph":
+        from deeplearning4j_tpu_torch.utils.serialization import read_model
+        return read_model(path, load_updater=load_updater, device=device)

@@ -80,7 +80,7 @@ class DenseLayer(Layer):
                     else InputType.feed_forward(self.n_out))
         return params, {}, out_type
 
-    def apply(self, params, state, x, *, train=False, rng=None):
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
         x = self.maybe_input_dropout(x, train, rng)
         if x.ndim > 2 and x.ndim != 3:
             x = x.reshape(x.shape[0], -1)
@@ -141,7 +141,7 @@ class LossLayer(Layer):
         get_loss(self.loss)
         return {}, {}, input_type
 
-    def apply(self, params, state, x, *, train=False, rng=None):
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
         return self.act_fn()(x), state
 
     def compute_loss(self, params, state, x, labels, *, train=True, rng=None,
@@ -159,7 +159,7 @@ class ActivationLayer(Layer):
     def initialize(self, gen, input_type, dtype=torch.float32, device=None):
         return {}, {}, input_type
 
-    def apply(self, params, state, x, *, train=False, rng=None):
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
         fn = self.act_fn()
         if self.activation_args:
             return fn(x, **self.activation_args), state
@@ -178,7 +178,7 @@ class DropoutLayer(Layer):
     def initialize(self, gen, input_type, dtype=torch.float32, device=None):
         return {}, {}, input_type
 
-    def apply(self, params, state, x, *, train=False, rng=None):
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
         return self.maybe_input_dropout(x, train, rng), state
 
 
@@ -236,7 +236,7 @@ class ConvolutionLayer(Layer):
         oh, ow = self._spatial((h, w))
         return params, {}, InputType.convolutional(oh, ow, self.n_out)
 
-    def apply(self, params, state, x, *, train=False, rng=None):
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
         x = self.maybe_input_dropout(x, train, rng)
         w = params["W"]
         b = params.get("b") if self.has_bias else None
@@ -289,7 +289,7 @@ class SubsamplingLayer(Layer):
         oh, ow = helper._spatial((h, w))
         return {}, {}, InputType.convolutional(oh, ow, c)
 
-    def apply(self, params, state, x, *, train=False, rng=None):
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
         k = _pair(self.kernel_size)
         s = _pair(self.stride)
         pad = _padding_2d(self.convolution_mode, self.padding)
@@ -318,8 +318,8 @@ class SubsamplingLayer(Layer):
 @dataclasses.dataclass(kw_only=True)
 class GlobalPoolingLayer(Layer):
     """Global pooling over the spatial (or time) dims: MAX | AVG | SUM |
-    PNORM.  The JAX layer's sequence mask is not ported (no graph in the
-    port passes one)."""
+    PNORM.  A [B, T] `mask` on a [B, T, F] input pools only the steps it
+    keeps, as the JAX layer does."""
 
     pooling_type: str = "MAX"
     pnorm: int = 2
@@ -330,9 +330,21 @@ class GlobalPoolingLayer(Layer):
             return {}, {}, InputType.feed_forward(input_type.shape[-1])
         return {}, {}, input_type
 
-    def apply(self, params, state, x, *, train=False, rng=None):
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
         dims = tuple(range(1, x.ndim - 1))
         pt = self.pooling_type.upper()
+        if mask is not None and x.ndim == 3:
+            m = mask[..., None].to(x.dtype)
+            if pt == "MAX":
+                y = torch.amax(torch.where(m > 0, x, -torch.inf), dim=1)
+            elif pt in ("AVG", "AVERAGE"):
+                y = torch.sum(x * m, dim=1) / torch.clamp(torch.sum(m, dim=1), min=1.0)
+            elif pt == "SUM":
+                y = torch.sum(x * m, dim=1)
+            else:
+                p = float(self.pnorm)
+                y = torch.sum((x.abs() ** p) * m, dim=1) ** (1.0 / p)
+            return y, state
         if pt == "MAX":
             y = torch.amax(x, dim=dims)
         elif pt in ("AVG", "AVERAGE"):
@@ -374,7 +386,7 @@ class BatchNormalizationLayer(Layer):
                  "var": torch.ones((c,), dtype=dtype, device=dev)}
         return params, state, input_type
 
-    def apply(self, params, state, x, *, train=False, rng=None):
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
         dims = tuple(range(x.ndim - 1))
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if train:
@@ -416,5 +428,5 @@ class LayerNormalizationLayer(Layer):
         return {"gamma": torch.ones((c,), dtype=dtype, device=dev),
                 "beta": torch.zeros((c,), dtype=dtype, device=dev)}, {}, input_type
 
-    def apply(self, params, state, x, *, train=False, rng=None):
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
         return fused_layer_norm(x, params["gamma"], params["beta"], self.eps), state

@@ -1,5 +1,5 @@
 """MultiLayerNetwork: the sequential-stack model (the port of
-``nn/multilayer.py``, inference half).
+``nn/multilayer.py``).
 
 The configuration, its builder and its JSON are the JAX package's, field
 for field, so ``MultiLayerConfiguration.to_json()`` is the same string in
@@ -13,13 +13,30 @@ keys sorted as strings (``layer_10`` before ``layer_2``, ``W`` before
 
 Randomness comes from an explicit ``torch.Generator`` seeded from the
 config seed; the network lives on the ``device`` it is given (``"cuda"``
-by default).  ``fit``, scoring and serialization come with the training
-slice.
+by default).
+
+Training runs eagerly: one ``fit(x, y)`` is one step.  The loss (the
+output head's, plus the l1/l2 penalty) is differentiated by autograd in
+place of ``jax.value_and_grad``; then ``apply_updates`` runs each layer's
+gradient normalization, updater and decoupled weight decay, and subtracts
+the update from the parameters in place under ``torch.no_grad()``, as the
+JAX step does layer by layer.  ``ComputationGraph`` runs the same helper.
+The step never waits for the card: the loss stays a device tensor
+(``score_array``) until ``score()`` reads it.  Dropout masks come from a
+second generator on the network's device, seeded from the config seed
+(Philox: the masks match the JAX package's in distribution only).
+``remat`` recomputes each layer's forward in the backward
+(``torch.utils.checkpoint``), with the same dropout masks.
+
+Not ported yet, and raising ``NotImplementedError``: ``fit_steps`` and
+``fused_steps > 1``, ``set_normalizer``, ``set_gradient_sharing``,
+``set_executable_cache``, ``apply_schedule`` and ``evaluate``.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -27,9 +44,11 @@ import torch
 from torch import nn
 
 from deeplearning4j_tpu_torch import convert
+from deeplearning4j_tpu_torch.monitor.instrument import TrainingInstruments
+from deeplearning4j_tpu_torch.monitor.spans import span
 from deeplearning4j_tpu_torch.nn.core import InputType, Layer
-from deeplearning4j_tpu_torch.train.updaters import (IUpdater, Sgd, tree_leaves,
-                                                     tree_map)
+from deeplearning4j_tpu_torch.train.updaters import (
+    IUpdater, Sgd, apply_gradient_normalization, tree_leaves, tree_map)
 from deeplearning4j_tpu_torch.utils.devices import resolve_device
 
 Params = Dict[str, Dict[str, torch.Tensor]]
@@ -62,6 +81,76 @@ def _add_scaled_where(upd, params, mask, scale):
     if mask:
         return tree_map(lambda u, p: u + scale * p, upd, params)
     return upd
+
+
+def reg_penalty(conf, layers, params):
+    """The l1/l2 penalty the score includes: l1 * sum|w| + 0.5 * l2 * sum
+    w^2 over each layer's regularizable parameters (a layer's own l1/l2
+    over the configuration's).  `layers` yields (name, layer or None)."""
+    penalty = 0.0
+    for name, layer in layers:
+        if layer is None:
+            continue
+        l1 = layer.l1 if layer.l1 is not None else conf.l1
+        l2 = layer.l2 if layer.l2 is not None else conf.l2
+        if l1 == 0.0 and l2 == 0.0:
+            continue
+        for w in _masked_leaves(params[name], layer.regularizable_mask(params[name])):
+            if l1:
+                penalty = penalty + l1 * torch.sum(torch.abs(w))
+            if l2:
+                penalty = penalty + 0.5 * l2 * torch.sum(w * w)
+    return penalty
+
+
+def grads_of(loss: torch.Tensor, params) -> Dict:
+    """d loss / d params by autograd, as a tree of the params' shape, with
+    zeros where a parameter does not reach the loss (as jax.grad gives)."""
+    leaves = [(n, k, p) for n in params for k, p in params[n].items()]
+    got = torch.autograd.grad(loss, [p for _, _, p in leaves],
+                              allow_unused=True) if leaves else ()
+    grads: Dict = {n: {} for n in params}
+    for (n, k, p), g in zip(leaves, got):
+        grads[n][k] = torch.zeros_like(p) if g is None else g
+    return grads
+
+
+@torch.no_grad()
+def apply_updates(conf, layers, params, grads, opt_state, updater_for,
+                  iteration: int, epoch: int) -> None:
+    """One optimizer step over every layer, in place: the JAX step's
+    per-layer loop.  `layers` yields (name, layer or None: a graph vertex
+    without one); a frozen layer, or one without parameters, is left as
+    it is, updater state included.  Each other layer's gradient goes
+    through its gradient normalization (the layer's own, else the
+    configuration's), then its updater (`updater_for(name)`), then gains
+    the decoupled weight decay lr * coeff * w on its regularizable
+    parameters, and is subtracted from the parameters."""
+    for name, layer in layers:
+        if not params[name] or (layer is not None and layer.frozen):
+            continue
+        g = grads[name]
+        own = layer is not None and layer.gradient_normalization is not None
+        gn = layer.gradient_normalization if own else conf.gradient_normalization
+        if gn:
+            thr = (layer.gradient_normalization_threshold if own
+                   else conf.gradient_normalization_threshold)
+            g = apply_gradient_normalization(g, gn, thr)
+        upd_cfg = updater_for(name)
+        upd, opt_state[name] = upd_cfg.apply(opt_state[name], g, iteration,
+                                             epoch, params=params[name])
+        wd = (layer.weight_decay if layer is not None and layer.weight_decay
+              is not None else conf.weight_decay)
+        if wd and layer is not None:
+            lr = upd_cfg.lr_at(iteration, epoch)
+            upd = _add_scaled_where(upd, params[name],
+                                    layer.regularizable_mask(params[name]),
+                                    lr * wd)
+        tree_map(lambda p, u: p.sub_(u), params[name], upd)
+
+
+def _not_ported(what: str):
+    raise NotImplementedError(f"{what} is not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -222,7 +311,9 @@ class NeuralNetConfiguration:
 # ---------------------------------------------------------------------------
 
 class MultiLayerNetwork(nn.Module):
-    """Sequential network: `init`, `output`, `params`/`set_params`.
+    """Sequential network: `init`, `fit(x, y | iterator)`, `output`,
+    `feed_forward`, `score`/`score_array`/`score_for`, `gradient_for`,
+    `params`/`set_params`, `save`/`load`.
 
     One submodule per layer, named by `conf.layer_name(i)`, holds that
     layer's parameters; layers without parameters hold none."""
@@ -232,7 +323,19 @@ class MultiLayerNetwork(nn.Module):
         self.conf = conf
         self.device = resolve_device(device)
         self.state_: Optional[Dict[str, Dict]] = None
+        self.opt_state_: Optional[Dict[str, Any]] = None
+        self.iteration = 0
+        self.epoch = 0
+        self.listeners: List[Any] = []
+        self._rng: Optional[torch.Generator] = None
+        self._score: Optional[torch.Tensor] = None
+        self._instr: Optional[TrainingInstruments] = None
         self._layer_types: List[InputType] = []
+
+    def _instruments(self) -> TrainingInstruments:
+        if self._instr is None:
+            self._instr = TrainingInstruments(type(self).__name__)
+        return self._instr
 
     # ---- init ----
     def init(self) -> "MultiLayerNetwork":
@@ -255,6 +358,8 @@ class MultiLayerNetwork(nn.Module):
             state[name] = s
             self._layer_types.append(it)
         self.state_ = state
+        self._rng = torch.Generator(device=self.device).manual_seed(self.conf.seed)
+        self.opt_state_ = self._init_opt_state(self.params_)
         return self
 
     @property
@@ -272,6 +377,18 @@ class MultiLayerNetwork(nn.Module):
                 return layer
         raise KeyError(name)
 
+    def _named_layers(self):
+        return [(self.conf.layer_name(i), layer)
+                for i, layer in enumerate(self.conf.layers)]
+
+    def _updater_for(self, name: str) -> IUpdater:
+        layer = self.layer_by_name(name)
+        return layer.updater if layer.updater is not None else self.conf.updater
+
+    def _init_opt_state(self, params: Params) -> Dict[str, Any]:
+        return {name: self._updater_for(name).init_state(params[name])
+                for name, _ in self._named_layers()}
+
     # ---- forward ----
     def _cast_compute(self, params: Params, x: torch.Tensor):
         """Mixed precision: with `compute_dtype`, cast params and a floating
@@ -288,24 +405,203 @@ class MultiLayerNetwork(nn.Module):
         return params, x
 
     def _forward(self, params: Params, state: Dict, x: torch.Tensor, *,
-                 train: bool = False) -> Tuple[torch.Tensor, Dict]:
-        if train:
-            raise NotImplementedError(
-                "training forward (dropout, batch statistics) is not ported yet")
+                 train: bool = False, rng: Optional[torch.Generator] = None,
+                 mask: Optional[torch.Tensor] = None,
+                 upto: Optional[int] = None) -> Tuple[torch.Tensor, Dict]:
+        """Layers [0, upto) (all by default).  In train mode a STOCHASTIC
+        layer draws its dropout mask from `rng`; a [B, T] `mask` reaches
+        each layer until one leaves sequence space or changes the sequence
+        length."""
         params, x = self._cast_compute(params, x)
         new_state = dict(state)
-        for i in range(len(self.conf.layers)):
+        n = len(self.conf.layers) if upto is None else upto
+        for i in range(n):
+            layer = self.conf.layers[i]
             name = self.conf.layer_name(i)
-            x, new_state[name] = self.conf.layers[i].apply(
-                params[name], state[name], x)
+            lrng = rng if (rng is not None and layer.STOCHASTIC) else None
+            if self.conf.remat and train:
+                x, new_state[name] = self._checkpointed(
+                    layer, params[name], state[name], x, lrng, mask)
+            else:
+                x, new_state[name] = layer.apply(params[name], state[name], x,
+                                                 train=train, rng=lrng, mask=mask)
+            if mask is not None and self._layer_types:
+                t_in, t_out = self._layer_types[i], self._layer_types[i + 1]
+                if (t_out.kind != "recurrent"
+                        or (t_in.kind == "recurrent"
+                            and t_in.shape[0] != t_out.shape[0])):
+                    mask = None
         return x, new_state
+
+    def _checkpointed(self, layer, p, s, x, rng, mask):
+        """One layer under `torch.utils.checkpoint`: its activations are
+        recomputed in the backward.  Dropout draws from a copy of `rng`
+        made before the layer, so the recomputation draws the same mask;
+        `rng` then moves on as if the layer had drawn from it."""
+        from torch.utils.checkpoint import checkpoint
+        start = None if rng is None else rng.get_state()
+        used = []
+
+        def run(p_, s_, x_, m_):
+            g = None
+            if start is not None:
+                g = torch.Generator(device=self.device)
+                g.set_state(start)
+            used.append(g)
+            return layer.apply(p_, s_, x_, train=True, rng=g, mask=m_)
+
+        out = checkpoint(run, p, s, x, mask, use_reentrant=False)
+        if rng is not None:
+            rng.set_state(used[0].get_state())
+        return out
+
+    def _loss(self, params: Params, state: Dict, x, y, rng,
+              features_mask=None, labels_mask=None, train: bool = True):
+        """Score = the head's data loss + the l1/l2 penalty.
+        `features_mask` feeds the forward, `labels_mask` the loss."""
+        out_idx = len(self.conf.layers) - 1
+        head = self.conf.layers[out_idx]
+        if not hasattr(head, "compute_loss"):
+            raise ValueError("Last layer must be an OutputLayer/LossLayer")
+        h, new_state = self._forward(params, state, x, train=train, rng=rng,
+                                     mask=features_mask, upto=out_idx)
+        name = self.conf.layer_name(out_idx)
+        hp, h = self._cast_compute({name: params[name]}, h)   # bf16 head too
+        loss = head.compute_loss(hp[name], state[name], h, y, train=train,
+                                 rng=rng if head.STOCHASTIC else None,
+                                 mask=labels_mask)
+        return loss + self._reg_penalty(params), new_state
+
+    def _reg_penalty(self, params: Params):
+        return reg_penalty(self.conf, self._named_layers(), params)
+
+    def _tensor(self, a) -> Optional[torch.Tensor]:
+        return None if a is None else torch.as_tensor(a, device=self.device)
+
+    # ---- one training step ----
+    def _fit_batch(self, x, y, fmask=None, lmask=None) -> None:
+        t0 = time.perf_counter()
+        params = self.params_
+        loss, new_state = self._loss(params, self.state_, x, y, self._rng,
+                                     fmask, lmask)
+        grads = grads_of(loss, params)
+        apply_updates(self.conf, self._named_layers(), params, grads,
+                      self.opt_state_, self._updater_for, self.iteration,
+                      self.epoch)
+        self.state_ = tree_map(lambda t: t.detach(), new_state)
+        self._instruments().record_dispatch(time.perf_counter() - t0)
+        self._score = loss.detach()
+        self._last_batch_size = int(x.shape[0])
+        self.iteration += 1
+        for lst in self.listeners:
+            lst.iteration_done(self, self.iteration, self.epoch)
+
+    # ---- public API ----
+    def fit(self, data, labels=None, *, epochs: int = 1, features_mask=None,
+            labels_mask=None, fused_steps: Optional[int] = None):
+        """fit(x, y) for one batch, or fit(iterator, epochs=N): `reset()`
+        the iterator each epoch, one step per DataSet, then count the
+        epoch and call each listener's `on_epoch_end`."""
+        if fused_steps not in (None, 1):
+            _not_ported("fused_steps > 1 (fit_steps)")
+        if labels is not None:
+            self._fit_batch(self._tensor(data), self._tensor(labels),
+                            self._tensor(features_mask), self._tensor(labels_mask))
+            return self
+        for _ in range(epochs):
+            if hasattr(data, "reset"):
+                data.reset()
+            with span("fit_epoch", model=type(self).__name__):
+                for ds in data:
+                    self._fit_dataset(ds)
+            self.epoch += 1
+            self._instruments().record_epoch()
+            for lst in self.listeners:
+                if hasattr(lst, "on_epoch_end"):
+                    lst.on_epoch_end(self)
+        return self
+
+    def _fit_dataset(self, ds) -> None:
+        self._fit_batch(self._tensor(ds.features), self._tensor(ds.labels),
+                        self._tensor(getattr(ds, "features_mask", None)),
+                        self._tensor(getattr(ds, "labels_mask", None)))
+
+    def fit_steps(self, xs, ys, features_masks=None, labels_masks=None):
+        _not_ported("fit_steps (k steps in one dispatch)")
+
+    def set_normalizer(self, normalizer):
+        _not_ported("set_normalizer (the on-device normalizer)")
+
+    def set_gradient_sharing(self, sharing):
+        _not_ported("set_gradient_sharing (hierarchical gradient sharing)")
+
+    def set_executable_cache(self, cache):
+        _not_ported("set_executable_cache (the compiled-step cache)")
+
+    def apply_schedule(self, schedule):
+        _not_ported("apply_schedule (compile schedules)")
+
+    def evaluate(self, iterator, evaluation=None):
+        _not_ported("evaluate (train/evaluation.py)")
+
+    def score(self) -> float:
+        """Loss of the most recent minibatch; reading it waits for the
+        step to finish."""
+        return float(self._score) if self._score is not None else float("nan")
+
+    def score_array(self) -> Optional[torch.Tensor]:
+        """Loss of the most recent minibatch as a device tensor (None before
+        the first step); never waits for the card."""
+        return self._score
+
+    @torch.no_grad()
+    def score_for(self, x, y, features_mask=None, labels_mask=None) -> float:
+        """Score on given data without updating, in eval mode (no dropout,
+        BN running statistics)."""
+        loss, _ = self._loss(self.params_, self.state_, self._tensor(x),
+                             self._tensor(y), None, self._tensor(features_mask),
+                             self._tensor(labels_mask), train=False)
+        return float(loss)
 
     @torch.inference_mode()
     def output(self, x, train: bool = False) -> torch.Tensor:
         """Inference forward pass; `x` (numpy or tensor, NHWC for image
         models) moves to the network's device.  Returns a tensor there."""
-        x = torch.as_tensor(x, device=self.device)
-        return self._forward(self.params_, self.state_, x, train=train)[0]
+        return self._forward(self.params_, self.state_, self._tensor(x),
+                             train=train)[0]
+
+    @torch.inference_mode()
+    def feed_forward(self, x, train: bool = False) -> List[torch.Tensor]:
+        """Every layer's activation, the input first, on the master
+        parameters (no compute-dtype cast) and without dropout."""
+        acts = [self._tensor(x)]
+        h = acts[0]
+        if h.is_floating_point():
+            h = h.to(torch_dtype(self.conf.dtype))
+        params = self.params_
+        for name, layer in self._named_layers():
+            h, _ = layer.apply(params[name], self.state_[name], h, train=train)
+            acts.append(h)
+        return acts
+
+    def gradient_for(self, x, y, features_mask=None, labels_mask=None) -> Params:
+        """Analytic gradients {layer: {key: tensor}} of the score, in the
+        port's layouts, in eval mode (consistent with `score_for`)."""
+        params = self.params_
+        loss, _ = self._loss(params, self.state_, self._tensor(x), self._tensor(y),
+                             None, self._tensor(features_mask),
+                             self._tensor(labels_mask), train=False)
+        return grads_of(loss, params)
+
+    def set_listeners(self, *listeners) -> "MultiLayerNetwork":
+        """Listeners are duck-typed: `iteration_done(model, iteration,
+        epoch)` after each step, `on_epoch_end(model)` if present."""
+        self.listeners = list(listeners)
+        return self
+
+    def add_listeners(self, *listeners) -> "MultiLayerNetwork":
+        self.listeners.extend(listeners)
+        return self
 
     # ---- flat-param view (JAX tree_leaves order) ----
     def _jax_leaves(self) -> List[Tuple[str, str]]:
@@ -321,3 +617,14 @@ class MultiLayerNetwork(nn.Module):
 
     def set_params(self, flat: np.ndarray) -> None:
         convert.set_flat_params(self, flat)
+
+    # ---- persistence (the ModelSerializer zip) ----
+    def save(self, path: str, save_updater: bool = True) -> None:
+        from deeplearning4j_tpu_torch.utils.serialization import write_model
+        write_model(self, path, save_updater=save_updater)
+
+    @staticmethod
+    def load(path: str, load_updater: bool = True,
+             device=None) -> "MultiLayerNetwork":
+        from deeplearning4j_tpu_torch.utils.serialization import read_model
+        return read_model(path, load_updater=load_updater, device=device)

@@ -119,10 +119,3 @@ def test_bf16_compute_dtype(lenet):
     assert got.dtype == torch.bfloat16
     want = tnet.output(x).numpy()
     assert float(np.abs(got.float().numpy() - want).max()) < 5e-2
-
-
-def test_training_forward_not_ported(lenet):
-    _, tnet, _ = lenet
-    x = torch.zeros(1, 28, 28, 1)
-    with pytest.raises(NotImplementedError):
-        tnet._forward(tnet.params_, tnet.state_, x, train=True)

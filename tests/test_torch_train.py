@@ -146,6 +146,13 @@ UPDATERS = [
         initial_value=0.1, decay_rate=0.5, step=1))),
     ("Adam", dict(learning_rate=1e-2)),
     ("Adam", dict(learning_rate=dict(initial_value=1e-2, gamma=0.8))),
+    ("AdamW", dict(learning_rate=1e-2, weight_decay=0.05)),
+    ("AMSGrad", dict(learning_rate=1e-2)),
+    ("Nadam", dict(learning_rate=1e-2)),
+    ("AdaMax", dict(learning_rate=1e-2)),
+    ("AdaGrad", dict(learning_rate=0.1)),
+    ("RmsProp", dict(learning_rate=0.05)),
+    ("AdaDelta", dict(rho=0.9)),
 ]
 
 
@@ -168,7 +175,8 @@ def test_updater_steps_match_jax(cls, kw):
     tstate = tu.init_state(_torch_tree(params))
     jp, tp = params, _torch_tree(params)
     for it, g in enumerate(grads):
-        jupd_, jstate = ju.apply(jstate, jax.tree_util.tree_map(jnp.asarray, g), it)
+        jupd_, jstate = ju.apply(jstate, jax.tree_util.tree_map(jnp.asarray, g), it,
+                                 params=jax.tree_util.tree_map(jnp.asarray, jp))
         tupd_, tstate = tu.apply(tstate, _torch_tree(g), it, params=tp)
         jp = jax.tree_util.tree_map(lambda p, u: p - u, jp, jupd_)
         tp = tupd.tree_map(lambda p, u: p - u, tp, tupd_)
@@ -194,8 +202,8 @@ def test_gradient_normalization_matches_jax(mode):
 
 
 def test_unported_updaters_and_modes_raise():
-    with pytest.raises(ValueError, match="not ported yet"):
-        tupd.IUpdater.from_json(jupd.AdamW().to_json())
+    with pytest.raises(ValueError, match="unknown updater 'Bogus'"):
+        tupd.IUpdater.from_json(dict(jupd.Adam().to_json(), **{"@updater": "Bogus"}))
     with pytest.raises(ValueError, match="Unknown gradient normalization"):
         tupd.apply_gradient_normalization({"W": torch.ones(2)}, "Bogus")
 
