@@ -22,7 +22,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    at M in {1, 2, 4, 8, 16} (every bucket the slice serves) and {37, 128}
    (ragged and multi-tile), and (K, N) in {(25088, 4096), (4096, 4096),
    (4096, 1000), (800, 500)}, plus M = 256 at (800, 500) (LeNet's
-   training Dense), every epilogue activation, f32 and bf16.
+   training Dense) and M = 32 at (25088, 4096) and (4096, 4096) (VGG16's
+   fc6 and fc7 in training), every epilogue activation, f32 and bf16.
    f32 (TF32 off): max|diff| <= 1e-4 * max|ref| (summation order differs
    at K = 25088).  bf16: max|diff| <= 2 bf16 ulps of max|ref|.  At fc6
    (K = 25088) the same call twice gives the same bits in both dtypes (the
@@ -39,9 +40,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    profile — one bucket-16 forward under ``torch.profiler``: kernels by
    device time and the device's idle share of the window.
    The parity phase also takes backwards through the kernel
-   (``FusedDense``) at (16, 4096, 1000) with relu and gelu and at LeNet's
-   (256, 800, 500) with relu, and holds the gradients to the plain
-   version's.
+   (``FusedDense``) at (16, 4096, 1000) with relu and gelu, at LeNet's
+   (256, 800, 500) and at VGG16's fc6 in training (32, 25088, 4096) with
+   relu, and holds the gradients to the plain version's.
 5. times   — fc6, fc7 and the output layer at M = 16 in f32 and bf16: the
    kernel, its plain version and ``torch.addmm`` + relu (a yardstick the
    port never calls), each the median of 25 launches timed with CUDA
@@ -56,7 +57,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    plain versions at ResNet-50's four body shapes at batch 64 (56x56x64,
    28x28x128, 14x14x256, 7x7x512) and at ragged shapes (3x13x13, Ci 24,
    Co 40; 5x7x7, Ci 96, Co 80; 2x9x11, Ci 3, Co 5; 2x16x16, Ci 3, Co 64:
-   VGG16's first conv has Ci = 3), f32 (3xTF32 products) and bf16; each
+   VGG16's first conv has Ci = 3) and at the zoo's training shapes at
+   batch 32 (VGG16's 224x224 with Ci 64 and with Ci 3, Co 64; Darknet19's
+   7x7 with Ci 512, Co 1024), f32 (3xTF32 products) and bf16; each
    call must add one to its launch count, and a second call must give the
    same bits.  f32: max|diff| <= 1e-4 * max|ref| (K reaches 200k terms
    summed in another order); bf16 inputs: 2 bf16 ulps of max|ref|.
@@ -275,8 +278,46 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    ``torch.profiler`` (top kernels, idle share); and ``fused_dense`` at
    (256, 800, 500) f32 relu: kernel, plain and ``torch.addmm`` + relu ms
    beside the bound.
+32. vgg16_train — MultiLayerNetwork training and evaluation at VGG16's
+   published width (224x224x3, 1000 classes, 138,357,544 parameters,
+   seed 123, Adam(1e-3), f32, TF32 off), batch 32 from ``RandomState(0)``
+   as bench.py makes them; a twin net loaded from a zip of the initial
+   parameters runs in ``reference`` mode, its dropout generator checked
+   to be in the same state, so both draw the same dropout-0.5 masks.
+   ``gradient_for`` per tensor within 1e-4 * max|ref|; then the main path,
+   3 ``fit`` steps, the counts set to 0 just before each and read just
+   after: exactly 2 ``fused_dense`` (fc6, fc7), 13 wgrad and 12 dgrad
+   launches (the first conv's input needs no gradient); the twin's losses
+   within 1e-4 relative (``DIVERGED_LOSS_RTOL`` once reference mode's loss
+   rises above its first, with a second reference run from the zip to
+   show how far two runs part) and the first Adam update within 1e-4 in
+   the L2 norm.  ``fit(ListDataSetIterator(4 batches), epochs=1)`` with
+   ``ScoreIterationListener``, ``CollectScoresListener``,
+   ``PerformanceListener`` and ``CheckpointListener(every_n_iterations=2,
+   keep_last=1)`` (the twin: the first three, in reference mode): epoch
+   + 1, iteration + 4, 4 x the launches, the collected scores within the
+   loss bound of the twin's, samples/s reported, exactly one zip kept,
+   which ``MultiLayerNetwork.load`` restores bitwise to the parameters it
+   was saved with.  ``evaluate`` over 2 batches: 2 ``fused_dense``
+   launches a batch and no conv kernel; its confusion matrix equal to
+   ``Evaluation`` over ``output`` batch by batch, and to the twin's on
+   every row whose top-two margin in both nets is at least 1e-4 *
+   max|output| (the near ties are counted).  Synchronizing CUDA calls a
+   step (``torch.cuda.set_sync_debug_mode("warn")``) with the three
+   listeners that never save (logger muted) equal those without
+   listeners.  Median step ms over 10 steps after 2 warm-up in each mode,
+   samples/s, peak memory; one step under ``torch.profiler``; and
+   ``fused_dense`` at (32, 25088, 4096) and the conv pair at 32x224x224,
+   Ci = Co = 64, f32: kernel, plain and library ms beside the bound.
+33. zoo_train — SimpleCNN (48x48x3, 10 classes, Adam), AlexNet and
+   Darknet19 (224x224x3, 1000 classes; Nesterovs(1e-2, 0.9) and Adam) at
+   their published widths, batch 32, each against a twin loaded from its
+   initial zip in ``reference`` mode: ``gradient_for`` per tensor within
+   1e-4 * max|ref|, two ``fit`` steps with the launches exact a step
+   (``ZOO_TRAIN``) and the losses held as in phase 32.
 
-Then the kernels line (each entry with ``share_of_bound``), nvidia-smi's
+Then the kernels line (each entry with ``share_of_bound``; ``fused_dense``
+and the conv pair carry ``vgg16_train`` and ``zoo_train`` entries), nvidia-smi's
 line, and the last line ``{"ok": true, "device": {...}}``.  Exits
 non-zero, printing no result, without CUDA or outside a checkout of the
 repository.
@@ -318,6 +359,9 @@ BODY_SHAPES = {"s0": (64, 56, 56, 64, 64), "s1": (64, 28, 28, 128, 128),
                "s2": (64, 14, 14, 256, 256), "s3": (64, 7, 7, 512, 512)}
 RAGGED_SHAPES = [(3, 13, 13, 24, 40), (5, 7, 7, 96, 80), (2, 9, 11, 3, 5),
                  (2, 16, 16, 3, 64)]
+#: training shapes of the zoo's MLNs at batch 32: VGG16's first block
+#: (Ci = 64 and the data's Ci = 3) and Darknet19's last stage
+ZOO_CONV_SHAPES = [(32, 224, 224, 64, 64), (32, 224, 224, 3, 64), (32, 7, 7, 512, 1024)]
 BODY_CONVS = 16
 ACTS = ("identity", "linear", "relu", "tanh", "sigmoid", "gelu")
 #: runs in the median of a bucket-16 VGG16 forward: the kernels move it by
@@ -396,6 +440,26 @@ LENET_BATCH = 256
 LENET_DENSE = (800, 500)
 LENET_STEPS = 5
 LENET_TIMED_STEPS, LENET_WARMUP = 20, 3
+
+#: VGG16 (the zoo's, published width) trained as bench.py's image models are
+VGG16_PARAMS = 138_357_544
+VGG_BATCH = 32
+VGG_STEPS = 3
+VGG_ITER_BATCHES, VGG_EVAL_BATCHES = 4, 2
+VGG_TIMED_STEPS, VGG_WARMUP = 10, 2
+#: launches per VGG16 fit step: fused_dense (fc6 and fc7; the softmax head
+#: is a plain product), conv3x3_wgrad (13 3x3 Same convs) and
+#: conv3x3_dgrad (12: the first conv's input is the data, which needs no
+#: gradient)
+VGG_STEP_LAUNCHES = (2, 13, 12)
+#: the zoo_train models, (input, classes, per-step launches as above):
+#: SimpleCNN's relu Dense and six 3x3 convs; AlexNet's two relu Dense and
+#: three 3x3 convs, the first fed by a pool; Darknet19's twelve 3x3 convs
+#: (its Dense-free head takes no kernel)
+ZOO_TRAIN = {"SimpleCNN": ((48, 48, 3), 10, (1, 6, 5)),
+             "AlexNet": ((224, 224, 3), 1000, (2, 3, 3)),
+             "Darknet19": ((224, 224, 3), 1000, (0, 12, 11))}
+ZOO_STEPS = 2
 
 
 def emit(phase, **kw):
@@ -529,7 +593,9 @@ def phase_parity(matmul, dev):
     for K, N in [(25088, 4096), (4096, 4096), (4096, 1000), LENET_DENSE]:
         w32 = torch.randn(K, N, generator=gen, device=dev) / math.sqrt(K)
         b = torch.randn(N, generator=gen, device=dev)
-        for M in (1, 2, 4, 8, 16, 37, 128) + ((LENET_BATCH,) if (K, N) == LENET_DENSE else ()):
+        extra = {LENET_DENSE: (LENET_BATCH,), VGG_DENSE["fc6"]: (VGG_BATCH,),
+                 VGG_DENSE["fc7"]: (VGG_BATCH,)}.get((K, N), ())
+        for M in (1, 2, 4, 8, 16, 37, 128) + extra:
             x32 = torch.randn(M, K, generator=gen, device=dev)
             for dt in (torch.float32, torch.bfloat16):
                 x, w = x32.to(dt), w32.to(dt)
@@ -559,7 +625,8 @@ def phase_parity(matmul, dev):
                      bitwise_repeat=repeat)
     # backwards through the kernel (FusedDense): the plain VJP
     for (M, K, N), act in (((16, 4096, 1000), "relu"), ((16, 4096, 1000), "gelu"),
-                           ((LENET_BATCH,) + LENET_DENSE, "relu")):
+                           ((LENET_BATCH,) + LENET_DENSE, "relu"),
+                           ((VGG_BATCH,) + VGG_DENSE["fc6"], "relu")):
         x = torch.randn(M, K, generator=gen, device=dev, requires_grad=True)
         w = (torch.randn(K, N, generator=gen, device=dev) / math.sqrt(K)).requires_grad_()
         b = torch.randn(N, generator=gen, device=dev, requires_grad=True)
@@ -743,7 +810,7 @@ def _conv_inputs(shape, dt, dev, seed):
 
 
 def phase_conv_parity(ck, conv3x3, dev):
-    shapes = list(BODY_SHAPES.values()) + RAGGED_SHAPES
+    shapes = list(BODY_SHAPES.values()) + RAGGED_SHAPES + ZOO_CONV_SHAPES
     cases = 0
     for i, shape in enumerate(shapes):
         for dt in (torch.float32, torch.bfloat16):
@@ -2402,13 +2469,18 @@ def phase_paged_times(pa, dev, B=16, H=12, D=64, L=2048):
     return rows
 
 
-def _lenet_data(n_batches=1):
-    """bench.py's LeNet batch (RandomState(0): rand images, one-hot
-    labels), then more batches from the same stream."""
-    rng = np.random.RandomState(0)
-    return [(rng.rand(LENET_BATCH, 28, 28, 1).astype(np.float32),
-             np.eye(10, dtype=np.float32)[rng.randint(0, 10, LENET_BATCH)])
+def _image_batches(n_batches, batch, shape, classes, seed=0):
+    """Images and one-hot labels as bench.py makes them (RandomState: rand
+    images, randint labels), batch after batch from one stream."""
+    rng = np.random.RandomState(seed)
+    return [(rng.rand(batch, *shape).astype(np.float32),
+             np.eye(classes, dtype=np.float32)[rng.randint(0, classes, batch)])
             for _ in range(n_batches)]
+
+
+def _lenet_data(n_batches=1):
+    """bench.py's LeNet batch, then more batches from the same stream."""
+    return _image_batches(n_batches, LENET_BATCH, (28, 28, 1), 10)
 
 
 def _trees_equal(a, b):
@@ -2434,6 +2506,27 @@ def _step_ms(net, x, y, steps, warmup):
     return statistics.median(ms), ms
 
 
+def _grad_parity(net, twin, dispatch, x, y, tag):
+    """gradient_for on both nets, `net` in auto mode and `twin` in
+    reference mode: each tensor within 1e-4 * max|ref|; returns the worst
+    relative difference."""
+    g_auto = net.gradient_for(x, y)
+    prev = dispatch.set_dispatch_mode("reference")
+    try:
+        g_ref = twin.gradient_for(x, y)
+    finally:
+        dispatch.set_dispatch_mode(prev)
+    worst = 0.0
+    for name, sub in g_ref.items():
+        for k, r in sub.items():
+            err = (g_auto[name][k] - r).abs().max().item()
+            rmax = r.abs().max().item()
+            require(err <= F32_RTOL * rmax,
+                    f"{tag} gradient_for {name}.{k}: max|diff| {err} > {F32_RTOL} * {rmax}")
+            worst = max(worst, err / max(rmax, 1e-30))
+    return worst
+
+
 def phase_lenet_train(matmul, dispatch, LeNet, Adam, MultiLayerNetwork, data, nn, dev):
     """MultiLayerNetwork training on the card (phase 31 of the module
     docstring).  Returns the main path's fused_dense launch count and the
@@ -2452,20 +2545,7 @@ def phase_lenet_train(matmul, dispatch, LeNet, Adam, MultiLayerNetwork, data, nn
             "the twin loaded from the initial zip differs")
 
     # gradient_for on the initial parameters, kernel against plain
-    g_auto = net.gradient_for(x, y)
-    prev = dispatch.set_dispatch_mode("reference")
-    try:
-        g_ref = twin.gradient_for(x, y)
-    finally:
-        dispatch.set_dispatch_mode(prev)
-    worst_grad = 0.0
-    for name, sub in g_ref.items():
-        for k, r in sub.items():
-            err = (g_auto[name][k] - r).abs().max().item()
-            rmax = r.abs().max().item()
-            require(err <= F32_RTOL * rmax,
-                    f"LeNet gradient_for {name}.{k}: max|diff| {err} > {F32_RTOL} * {rmax}")
-            worst_grad = max(worst_grad, err / max(rmax, 1e-30))
+    worst_grad = _grad_parity(net, twin, dispatch, x, y, "LeNet")
 
     # the main path: the count set to 0 just before, read just after
     theta0 = _flat_params(net)
@@ -2618,6 +2698,421 @@ def _drive_script(MultiLayerNetwork, nn, Adam, dev, tmp):
     return {"score_before": before, "score_after": after, "params_equal_after_load": equal}
 
 
+def _step_counts(matmul, conv3x3):
+    return (matmul.LAUNCHES.value, conv3x3.WGRAD_LAUNCHES.value,
+            conv3x3.DGRAD_LAUNCHES.value)
+
+
+def _reset_counts(matmul, conv3x3):
+    for c in (matmul.LAUNCHES, conv3x3.WGRAD_LAUNCHES, conv3x3.DGRAD_LAUNCHES):
+        c.reset()
+
+
+def _twin_of(net, MultiLayerNetwork, dev, tmp, tag):
+    """A second net loaded from a zip of `net`'s initial parameters (the
+    updater state is left out: at the start it is zeros, which `load`
+    makes afresh), with its dropout generator in the same state, so both
+    nets draw the same masks."""
+    path = os.path.join(tmp, f"{tag}_init.zip")
+    t0 = time.perf_counter()
+    net.save(path, save_updater=False)
+    save_s = time.perf_counter() - t0
+    twin = MultiLayerNetwork.load(path, device=dev)
+    require(torch.equal(_flat_params(twin), _flat_params(net)),
+            f"{tag}: the twin loaded from the initial zip differs")
+    require(torch.equal(twin._rng.get_state(), net._rng.get_state()),
+            f"{tag}: the twin's dropout generator is in another state")
+    return twin, path, save_s
+
+
+def _main_steps(net, matmul, conv3x3, x, y, steps, per_step, tag):
+    """The main path: `steps` fit steps, the counts set to 0 just before
+    each and read just after, each equal to `per_step`.  Returns the
+    losses, step ms, the parameters before and after the first step."""
+    theta0 = _flat_params(net)
+    losses, ms, theta1 = [], [], None
+    for i in range(steps):
+        _reset_counts(matmul, conv3x3)
+        loss, t = _fit_steps(net, x, y, 1)
+        got = _step_counts(matmul, conv3x3)
+        require(got == per_step, f"{tag} step {i + 1}: launches (fused_dense, wgrad, "
+                                 f"dgrad) {got}, want {per_step}")
+        losses += loss
+        ms += t
+        if theta1 is None:
+            theta1 = _flat_params(net)
+    return losses, ms, theta0, theta1
+
+
+def _reference_steps(twin, dispatch, x, y, steps):
+    prev = dispatch.set_dispatch_mode("reference")
+    try:
+        losses, _ = _fit_steps(twin, x, y, 1)
+        theta1 = _flat_params(twin)
+        more, _ = _fit_steps(twin, x, y, steps - 1)
+    finally:
+        dispatch.set_dispatch_mode(prev)
+    return losses + more, theta1
+
+
+def _hold_losses(losses, ref_losses, rerun, tag):
+    """Each loss within 1e-4 relative of reference mode's, or within
+    DIVERGED_LOSS_RTOL once reference mode's loss has risen above its
+    first (`rerun`: a second reference run's losses, or None)."""
+    rel = [abs(a - r) / abs(r) for a, r in zip(losses, ref_losses)]
+    require(all(math.isfinite(v) for v in losses + ref_losses), f"{tag}: non-finite loss")
+    for i, (a, r) in enumerate(zip(rel, ref_losses)):
+        tol = DIVERGED_LOSS_RTOL if r > ref_losses[0] else F32_RTOL
+        require(a <= tol, f"{tag} step {i + 1} loss rel diff {a} > {tol} "
+                          f"(losses {losses}, reference {ref_losses}, rerun {rerun})")
+    return rel
+
+
+def _rerun_if_diverged(ref_losses, init_zip, MultiLayerNetwork, dispatch, dev, x, y):
+    """Where reference mode's loss rises above its first, a second
+    reference run from the same zip: how far two runs of the same code
+    part (relative to the first run's losses); None otherwise."""
+    if max(ref_losses) <= ref_losses[0]:
+        return None
+    again = MultiLayerNetwork.load(init_zip, device=dev)
+    losses, _ = _reference_steps(again, dispatch, x, y, len(ref_losses))
+    del again
+    return [abs(a - r) / abs(r) for a, r in zip(losses, ref_losses)]
+
+
+def _syncs_per_step(net, x, y, steps=3, read_score=False):
+    """Synchronizing CUDA calls a fit step (and a `score()` read after it,
+    with `read_score`), counted by torch.cuda.set_sync_debug_mode("warn")
+    over `steps` steps after one uncounted step (one-off work stays out),
+    and their distinct messages."""
+    import warnings
+    net.fit(x, y)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(steps):
+                net.fit(x, y)
+                if read_score:
+                    net.score()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    # the mode's own one-off notice ("Synchronization debug mode is a
+    # prototype feature ...") is not a synchronizing call
+    msgs = [str(w.message) for w in caught if "synchroniz" in str(w.message)
+            and "prototype feature" not in str(w.message)]
+    return len(msgs) / steps, sorted(set(m[:160] for m in msgs))
+
+
+class _ParamSnapshots:
+    """Keeps a copy of the parameters at every `every`-th iteration (what a
+    CheckpointListener with the same cadence has just saved)."""
+
+    def __init__(self, every):
+        self.every, self.kept = every, {}
+
+    def iteration_done(self, model, iteration, epoch):
+        if iteration % self.every == 0:
+            self.kept[iteration] = {k: v.detach().clone()
+                                    for k, v in model.state_dict().items()}
+
+
+def _top2_margins(out):
+    top = out.float().topk(2, dim=-1).values
+    return (top[:, 0] - top[:, 1])
+
+
+def phase_vgg16_train(matmul, conv3x3, dispatch, VGG16, Adam, MultiLayerNetwork, data,
+                      train, dev, image=224, classes=1000, batch=VGG_BATCH,
+                      expect_params=VGG16_PARAMS):
+    """VGG16 training and evaluation through MultiLayerNetwork (phase 32 of
+    the module docstring).  Returns the launches of the main path's steps
+    and the kernels' rows at VGG16's largest training shapes."""
+    import logging
+    import shutil
+    import tempfile
+
+    logging.getLogger("deeplearning4j_tpu_torch").setLevel(logging.WARNING)
+    shape = (image, image, 3)
+    (xn, yn), = _image_batches(1, batch, shape, classes)
+    x, y = torch.as_tensor(xn, device=dev), torch.as_tensor(yn, device=dev)
+    net = VGG16(n_classes=classes, input_shape=shape, seed=123,
+                updater=Adam(1e-3)).init_model(device=dev)
+    require(expect_params is None or net.num_params() == expect_params,
+            f"VGG16 has {net.num_params()} parameters, want {expect_params}")
+    tmp = tempfile.mkdtemp(prefix="vgg16_")
+    try:
+        twin, init_zip, init_save_s = _twin_of(net, MultiLayerNetwork, dev, tmp, "vgg16")
+        worst_grad = _grad_parity(net, twin, dispatch, x, y, "VGG16")
+
+        # the main path: fit steps with dropout on, counts per step
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms, theta0, theta1 = _main_steps(net, matmul, conv3x3, x, y, VGG_STEPS,
+                                                 VGG_STEP_LAUNCHES, "VGG16")
+        ref_losses, ref_theta1 = _reference_steps(twin, dispatch, x, y, VGG_STEPS)
+        upd, ref_upd = theta1 - theta0, ref_theta1 - theta0
+        update_l2 = ((upd - ref_upd).norm() / ref_upd.norm()).item()
+        update_max = ((upd - ref_upd).abs().max() / ref_upd.abs().max()).item()
+        del theta0, theta1, ref_theta1, upd, ref_upd
+        rerun = _rerun_if_diverged(ref_losses, init_zip, MultiLayerNetwork, dispatch,
+                                   dev, x, y)
+        rel = _hold_losses(losses, ref_losses, rerun, "VGG16")
+        require(update_l2 <= F32_RTOL,
+                f"VGG16 first Adam update differs from reference mode's by {update_l2} (L2)")
+
+        # fit over an iterator with the listeners of the path; the twin
+        # hears the same listeners but the checkpoints
+        ck_dir = os.path.join(tmp, "checkpoints")
+        ck = train.CheckpointListener(ck_dir, every_n_iterations=2, keep_last=1)
+        snaps = _ParamSnapshots(2)
+        collect, perf = train.CollectScoresListener(1), train.PerformanceListener(1)
+        net.set_listeners(train.ScoreIterationListener(1), collect, perf, ck, snaps)
+        t_collect, t_perf = train.CollectScoresListener(1), train.PerformanceListener(1)
+        twin.set_listeners(train.ScoreIterationListener(1), t_collect, t_perf)
+        batches = _image_batches(VGG_ITER_BATCHES, batch, shape, classes, seed=1)
+        it0, ep0 = net.iteration, net.epoch
+        _reset_counts(matmul, conv3x3)
+        t0 = time.perf_counter()
+        net.fit(data.ListDataSetIterator([data.DataSet(a, b) for a, b in batches]), epochs=1)
+        iter_s = time.perf_counter() - t0
+        iter_launches = _step_counts(matmul, conv3x3)
+        require(iter_launches == tuple(VGG_ITER_BATCHES * n for n in VGG_STEP_LAUNCHES),
+                f"VGG16 fit(iterator): launches {iter_launches}")
+        require((net.epoch, net.iteration) == (ep0 + 1, it0 + VGG_ITER_BATCHES),
+                f"VGG16 fit(iterator): epoch {net.epoch}, iteration {net.iteration} "
+                f"(from {ep0}, {it0})")
+        prev = dispatch.set_dispatch_mode("reference")
+        try:
+            twin.fit(data.ListDataSetIterator([data.DataSet(a, b) for a, b in batches]),
+                     epochs=1)
+        finally:
+            dispatch.set_dispatch_mode(prev)
+        scores, t_scores = collect.scores, t_collect.scores
+        require(collect.iterations == t_collect.iterations
+                == list(range(it0 + 1, it0 + VGG_ITER_BATCHES + 1)),
+                f"VGG16 CollectScoresListener iterations {collect.iterations}")
+        score_rel = _hold_losses(scores, t_scores, None, "VGG16 CollectScoresListener")
+        require(perf.last_samples_per_sec is not None and perf.last_samples_per_sec > 0,
+                "VGG16 PerformanceListener reported no samples/s")
+        kept = sorted(os.listdir(ck_dir))
+        last_it = it0 + VGG_ITER_BATCHES - (it0 + VGG_ITER_BATCHES) % 2
+        require(kept == [f"checkpoint_iter_{last_it}.zip"]
+                and ck.last_checkpoint() == os.path.join(ck_dir, kept[0]),
+                f"VGG16 CheckpointListener kept {kept}")
+        t0 = time.perf_counter()
+        loaded = MultiLayerNetwork.load(ck.last_checkpoint(), device=dev)
+        load_s = time.perf_counter() - t0
+        require(loaded.iteration == last_it
+                and _trees_equal(dict(loaded.state_dict()), snaps.kept[last_it]),
+                "VGG16 checkpoint does not load bitwise into the saved parameters")
+        del loaded, snaps
+        net.set_listeners()
+        twin.set_listeners()
+
+        # evaluate over 2 batches: output + Evaluation, and the twin
+        ev_batches = _image_batches(VGG_EVAL_BATCHES, batch, shape, classes, seed=2)
+        ev_iter = data.ListDataSetIterator([data.DataSet(a, b) for a, b in ev_batches])
+        _reset_counts(matmul, conv3x3)
+        ev = net.evaluate(ev_iter)
+        ev_launches = _step_counts(matmul, conv3x3)
+        require(ev_launches == (2 * VGG_EVAL_BATCHES, 0, 0),
+                f"VGG16 evaluate launches {ev_launches}")
+        prev = dispatch.set_dispatch_mode("reference")
+        try:
+            t_ev = twin.evaluate(ev_iter)
+            t_outs = [twin.output(a) for a, _ in ev_batches]
+        finally:
+            dispatch.set_dispatch_mode(prev)
+        outs = [net.output(a) for a, _ in ev_batches]
+        by_output, t_by_output = train.Evaluation(), train.Evaluation()
+        clear, t_clear = train.Evaluation(num_classes=classes), \
+            train.Evaluation(num_classes=classes)
+        near_ties = 0
+        for (_, b), o, t in zip(ev_batches, outs, t_outs):
+            by_output.eval(b, o)
+            t_by_output.eval(b, t)
+            tol = F32_RTOL * max(o.abs().max().item(), t.abs().max().item())
+            keep = ((_top2_margins(o) >= tol) & (_top2_margins(t) >= tol)).cpu().numpy()
+            near_ties += int((~keep).sum())
+            clear.eval(b[keep], o[torch.as_tensor(keep, device=dev)])
+            t_clear.eval(b[keep], t[torch.as_tensor(keep, device=dev)])
+        require(np.array_equal(ev.confusion, by_output.confusion),
+                "VGG16 evaluate differs from output + Evaluation")
+        require(np.array_equal(t_ev.confusion, t_by_output.confusion),
+                "VGG16 twin's evaluate differs from its output + Evaluation")
+        require(np.array_equal(clear.confusion, t_clear.confusion),
+                "VGG16 evaluate differs from reference mode's away from near ties")
+        flips = int((ev.confusion != t_ev.confusion).sum())
+        stats_lines = ev.stats().splitlines()
+        del outs, t_outs
+
+        # synchronizing calls a step (the nets part
+        # here): listeners (logger muted) against none
+        syncs_bare, sync_msgs = _syncs_per_step(net, x, y)
+        net.set_listeners(train.ScoreIterationListener(1), train.CollectScoresListener(1),
+                          train.PerformanceListener(1))
+        syncs_listeners, listener_msgs = _syncs_per_step(net, x, y)
+        net.set_listeners()
+        require(syncs_listeners == syncs_bare,
+                f"VGG16 listeners add synchronizing calls: {syncs_listeners} a step "
+                f"({listener_msgs}) against {syncs_bare} ({sync_msgs})")
+        # the count sees a sync where there is one: the loss read back
+        syncs_read, read_msgs = _syncs_per_step(net, x, y, read_score=True)
+        require(syncs_read >= syncs_bare + 1,
+                f"VGG16 sync count saw {syncs_read} a step with score() read back")
+
+        # step times in each mode, samples/s, peak memory; one profiled step
+        torch.cuda.reset_peak_memory_stats()
+        step_ms, step_all = _step_ms(net, x, y, VGG_TIMED_STEPS, VGG_WARMUP)
+        peak = torch.cuda.max_memory_allocated()
+        prev = dispatch.set_dispatch_mode("reference")
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            ref_ms, ref_all = _step_ms(twin, x, y, VGG_TIMED_STEPS, VGG_WARMUP)
+            ref_peak = torch.cuda.max_memory_allocated()
+        finally:
+            dispatch.set_dispatch_mode(prev)
+        del twin
+
+        def step():
+            net.fit(x, y)
+            net.score()
+
+        window_ms, busy_ms, by_name, n = _trace(step)
+        profile = ({"window_ms": window_ms, "device_busy_ms": "not measured",
+                    "idle_share": "not measured"} if busy_ms is None else
+                   {"window_ms": window_ms, "device_busy_ms": busy_ms,
+                    "idle_share": max(0.0, 1.0 - busy_ms / window_ms), "kernels": n,
+                    "fused_dense_ms": _share(by_name, "fused_dense_kernel"),
+                    "conv3x3_wgrad_ms": _share(by_name, "conv3x3_wgrad"),
+                    "conv3x3_dgrad_ms": _share(by_name, "conv3x3_dgrad"),
+                    "top": _top(by_name, 15)})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del net
+    rows = _vgg_kernel_rows(matmul, conv3x3, dev, batch, image)
+    emit("vgg16_train", model="VGG16", input=f"{image}x{image}x3 f32", classes=classes,
+         batch=batch, params=expect_params, updater="Adam(1e-3)", steps=VGG_STEPS,
+         losses=losses, reference_losses=ref_losses, rel_loss_diff=rel,
+         reference_rerun_rel_loss_diff=rerun,
+         step1_update_l2_rel_diff=update_l2, step1_update_max_rel_diff=update_max,
+         max_rel_grad_diff=worst_grad,
+         launches_per_step=dict(zip(("fused_dense", "conv3x3_wgrad", "conv3x3_dgrad"),
+                                    VGG_STEP_LAUNCHES)),
+         iterator={"batches": VGG_ITER_BATCHES, "epoch": ep0 + 1,
+                   "iteration": it0 + VGG_ITER_BATCHES, "launches": iter_launches,
+                   "seconds": iter_s, "scores": scores, "reference_scores": t_scores,
+                   "rel_score_diff": score_rel,
+                   "samples_per_sec": perf.last_samples_per_sec,
+                   "checkpoint": kept[0], "checkpoint_load_s": load_s,
+                   "init_zip_save_s": init_save_s},
+         syncs_per_step={"listeners": syncs_listeners, "none": syncs_bare,
+                         "calls": sync_msgs, "with_score_read": syncs_read,
+                         "score_read_calls": read_msgs},
+         evaluate={"batches": VGG_EVAL_BATCHES, "launches": ev_launches,
+                   "accuracy": ev.accuracy(), "reference_accuracy": t_ev.accuracy(),
+                   "near_tie_rows": near_ties, "confusion_cells_differing": flips,
+                   "stats_head": stats_lines[:6]},
+         step_ms=step_ms, step_ms_all=step_all, reference_step_ms=ref_ms,
+         reference_step_ms_all=ref_all, samples_per_sec=batch * 1e3 / step_ms,
+         reference_samples_per_sec=batch * 1e3 / ref_ms,
+         max_memory_allocated_gb=peak / 1e9, reference_max_memory_allocated_gb=ref_peak / 1e9,
+         profile=profile, kernels_at_largest_shape=rows)
+    return VGG_STEP_LAUNCHES, rows
+
+
+def _vgg_kernel_rows(matmul, conv3x3, dev, batch=VGG_BATCH, image=224):
+    """fused_dense at fc6 (32, 25088, 4096) and the conv pair at the first
+    block's 32x224x224, Ci = Co = 64, f32: kernel, plain and library ms
+    (``torch.addmm`` + relu; cuDNN's ``conv2d_weight`` / ``conv2d_input``)
+    beside the bound."""
+    from deeplearning4j_tpu_torch.ops import conv_kernels as ck
+    rows = {}
+    M, N = batch, VGG_DENSE["fc6"][1]
+    K = (image // 32) ** 2 * 512
+    gen = torch.Generator(device=dev).manual_seed(3)
+    xa = torch.randn(M, K, generator=gen, device=dev)
+    wa = torch.randn(K, N, generator=gen, device=dev) / math.sqrt(K)
+    ba = torch.randn(N, generator=gen, device=dev)
+    err = (matmul.fused_dense(xa, wa, ba, "relu")
+           - matmul.fused_dense_reference(xa, wa, ba, "relu")).abs().max().item()
+    bound_ms, bound_by = bound(M, K, N, torch.float32)
+    ms = time_ms(lambda: matmul.fused_dense(xa, wa, ba, "relu"), dev)
+    rows["fused_dense"] = dict(
+        shape=f"M={M} K={K} N={N} f32 relu", ms=ms,
+        plain_ms=time_ms(lambda: matmul.fused_dense_reference(xa, wa, ba, "relu"), dev),
+        library_ms=time_ms(lambda: torch.relu(torch.addmm(ba, xa, wa)), dev),
+        bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms,
+        max_abs_err=err)
+    del xa, wa
+    shape = (batch, image, image, 64, 64)
+    B, H, W, Ci, Co = shape
+    x, dy, w = _conv_inputs(shape, torch.float32, dev, seed=4)
+    xc, dyc = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+    for name, fn, plain, lib in (
+            ("conv3x3_wgrad", lambda: ck.conv3x3_wgrad(x, dy),
+             lambda: ck.conv3x3_wgrad_reference(x, dy),
+             lambda: torch.nn.grad.conv2d_weight(xc, w.shape, dyc, padding=1)),
+            ("conv3x3_dgrad", lambda: ck.conv3x3_dgrad(dy, w),
+             lambda: ck.conv3x3_dgrad_reference(dy, w),
+             lambda: torch.nn.grad.conv2d_input(xc.shape, w, dyc, padding=1))):
+        err = (fn() - plain()).abs().max().item()
+        route = conv3x3.ROUTES[torch.float32]
+        bound_ms, bound_by = conv_bound(name, B, H, W, Ci, Co, torch.float32, route)
+        ms = time_ms(fn, dev)
+        rows[name] = dict(
+            shape=f"B={B} {H}x{W} Ci={Ci} Co={Co} f32", ms=ms,
+            plain_ms=time_ms(plain, dev), library_ms=time_ms(lib, dev), route=route,
+            bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms,
+            simt_bound_ms=conv_bound(name, B, H, W, Ci, Co, torch.float32, "simt")[0],
+            max_abs_err=err)
+    return rows
+
+
+def phase_zoo_train(matmul, conv3x3, dispatch, zoo, MultiLayerNetwork, dev,
+                    models=ZOO_TRAIN, batch=VGG_BATCH):
+    """SimpleCNN, AlexNet and Darknet19 training on the card (phase 33 of
+    the module docstring).  Returns each model's launches per step."""
+    import shutil
+    import tempfile
+
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="zoo_")
+    try:
+        for name, (shape, classes, per_step) in models.items():
+            (xn, yn), = _image_batches(1, batch, shape, classes)
+            x, y = torch.as_tensor(xn, device=dev), torch.as_tensor(yn, device=dev)
+            net = getattr(zoo, name)(n_classes=classes, input_shape=shape,
+                                     seed=123).init_model(device=dev)
+            twin, init_zip, _ = _twin_of(net, MultiLayerNetwork, dev, tmp, name)
+            worst_grad = _grad_parity(net, twin, dispatch, x, y, name)
+            losses, ms, theta0, theta1 = _main_steps(net, matmul, conv3x3, x, y,
+                                                     ZOO_STEPS, per_step, name)
+            ref_losses, ref_theta1 = _reference_steps(twin, dispatch, x, y, ZOO_STEPS)
+            upd, ref_upd = theta1 - theta0, ref_theta1 - theta0
+            update_l2 = ((upd - ref_upd).norm() / ref_upd.norm()).item()
+            del twin, theta0, theta1, ref_theta1, upd, ref_upd
+            rerun = _rerun_if_diverged(ref_losses, init_zip, MultiLayerNetwork, dispatch,
+                                       dev, x, y)
+            rel = _hold_losses(losses, ref_losses, rerun, name)
+            out[name] = {"input": "x".join(map(str, shape)), "classes": classes,
+                         "batch": batch, "params": net.num_params(),
+                         "updater": type(net.conf.updater).__name__,
+                         "launches_per_step": dict(zip(
+                             ("fused_dense", "conv3x3_wgrad", "conv3x3_dgrad"), per_step)),
+                         "max_rel_grad_diff": worst_grad, "losses": losses,
+                         "reference_losses": ref_losses, "rel_loss_diff": rel,
+                         "reference_rerun_rel_loss_diff": rerun,
+                         "step1_update_l2_rel_diff": update_l2, "step_ms_all": ms}
+            del net
+            emit("zoo_train", model=name, **out[name])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2632,13 +3127,13 @@ def main():
                                                       layer_norm, matmul)
     from deeplearning4j_tpu_torch.ops.kernels import paged_attention as pa
     from deeplearning4j_tpu_torch.serving import decode as dec
-    from deeplearning4j_tpu_torch import data, nn
+    from deeplearning4j_tpu_torch import data, nn, train, zoo
     from deeplearning4j_tpu_torch.data import MultiDataSet
     from deeplearning4j_tpu_torch.nlp import BertIterator, BertWordPieceTokenizer
     from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
     from deeplearning4j_tpu_torch.serving import ModelServer
     from deeplearning4j_tpu_torch.train import Adam, Nesterovs
-    from deeplearning4j_tpu_torch.zoo import BertConfig, BertModel, LeNet, ResNet50
+    from deeplearning4j_tpu_torch.zoo import BertConfig, BertModel, LeNet, ResNet50, VGG16
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2655,6 +3150,9 @@ def main():
     rows = phase_times(matmul, dev)
     lenet_launches, lenet_row = phase_lenet_train(matmul, dispatch, LeNet, Adam,
                                                   MultiLayerNetwork, data, nn, dev)
+    vgg_launches, vgg_rows = phase_vgg16_train(matmul, conv3x3, dispatch, VGG16, Adam,
+                                               MultiLayerNetwork, data, train, dev)
+    zoo_res = phase_zoo_train(matmul, conv3x3, dispatch, zoo, MultiLayerNetwork, dev)
     phase_conv_parity(ck, conv3x3, dev)
     net, x, y, conv_launches = phase_train(conv3x3, dispatch, ResNet50,
                                            Nesterovs, dev)
@@ -2712,7 +3210,12 @@ def main():
                  "serving slice's warmup and 12 requests",
         "lenet_train": {"launches": lenet_launches, **lenet_row,
                         "shape": "M=256 K=800 N=500 f32 relu; launches over 5 LeNet "
-                                 "fit steps, one score_for and one output"}}]
+                                 "fit steps, one score_for and one output"},
+        "vgg16_train": {"launches": vgg_launches[0] * VGG_STEPS, **vgg_rows["fused_dense"],
+                        "shape": vgg_rows["fused_dense"]["shape"] + "; launches over "
+                                 f"{VGG_STEPS} VGG16 fit steps at batch {VGG_BATCH}"},
+        "zoo_train": {m: r["launches_per_step"]["fused_dense"] * ZOO_STEPS
+                      for m, r in zoo_res.items()}}]
     for name, (replaces, source) in CONV_KERNELS.items():
         row = conv_rows[(name, "s0", torch.float32)]
         kernels.append({
@@ -2723,7 +3226,13 @@ def main():
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "product": row["route"], "simt_bound_ms": row["simt_bound_ms"],
             "shape": "ResNet-50 s0 B=64 56x56 Ci=Co=64 f32; launches over "
-                     "3 fit steps"})
+                     "3 fit steps",
+            "vgg16_train": {"launches": vgg_launches[1 if name == "conv3x3_wgrad" else 2]
+                            * VGG_STEPS, **vgg_rows[name],
+                            "shape": vgg_rows[name]["shape"] + "; launches over "
+                                     f"{VGG_STEPS} VGG16 fit steps at batch {VGG_BATCH}"},
+            "zoo_train": {m: r["launches_per_step"][name] * ZOO_STEPS
+                          for m, r in zoo_res.items()}})
     for name, (replaces, source), row, n_launched, shape in (
             ("flash_attn_fwd", ATTN_KERNEL, attn_rows[("t128", torch.float32)],
              bert_launches[0], "BERT-base q/k/v [64,12,128,64] f32"),

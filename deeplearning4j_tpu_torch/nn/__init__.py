@@ -1,16 +1,30 @@
-"""Layer-config NN API of the port: the layer types the zoo's sequential
-classifiers and ResNet-50 use, LayerNormalization, MultiLayerNetwork
-(inference) and ComputationGraph (training and inference)."""
+"""Layer-config NN API of the port: every layer of the JAX package's
+``nn/layers.py`` and ``nn/shape_ops.py``, MultiLayerNetwork and
+ComputationGraph (training, inference and evaluation)."""
 from deeplearning4j_tpu_torch.nn.core import InputType, Layer  # noqa: F401
 from deeplearning4j_tpu_torch.nn.layers import (  # noqa: F401
-    ActivationLayer, BatchNormalizationLayer, ConvolutionLayer, DenseLayer,
-    DropoutLayer, GlobalPoolingLayer, LayerNormalizationLayer, LossLayer,
-    OutputLayer, SubsamplingLayer)
+    ActivationLayer, BatchNormalizationLayer, Convolution1DLayer,
+    ConvolutionLayer, Deconvolution2DLayer, DenseLayer,
+    DepthwiseConvolution2DLayer, DropoutLayer, ElementWiseMultiplicationLayer,
+    EmbeddingLayer, EmbeddingSequenceLayer, GlobalPoolingLayer,
+    LayerNormalizationLayer, LocalResponseNormalizationLayer, LossLayer,
+    OutputLayer, SeparableConvolution2DLayer, SubsamplingLayer,
+    Upsampling2DLayer, ZeroPaddingLayer)
+from deeplearning4j_tpu_torch.nn.shape_ops import (  # noqa: F401
+    FlattenLayer, PermuteLayer, RepeatVectorLayer, ReshapeLayer,
+    TimeDistributed, input_type_from_shape)
 
-_LAYER_CLASSES = [ActivationLayer, BatchNormalizationLayer, ConvolutionLayer,
-                  DenseLayer, DropoutLayer, GlobalPoolingLayer,
-                  LayerNormalizationLayer, LossLayer, OutputLayer,
-                  SubsamplingLayer]
+_LAYER_CLASSES = [
+    ActivationLayer, BatchNormalizationLayer, Convolution1DLayer,
+    ConvolutionLayer, Deconvolution2DLayer, DenseLayer,
+    DepthwiseConvolution2DLayer, DropoutLayer, ElementWiseMultiplicationLayer,
+    EmbeddingLayer, EmbeddingSequenceLayer, GlobalPoolingLayer,
+    LayerNormalizationLayer, LocalResponseNormalizationLayer, LossLayer,
+    OutputLayer, SeparableConvolution2DLayer, SubsamplingLayer,
+    Upsampling2DLayer, ZeroPaddingLayer,
+    FlattenLayer, PermuteLayer, RepeatVectorLayer, ReshapeLayer,
+    TimeDistributed,
+]
 
 LAYER_REGISTRY = {c.__name__: c for c in _LAYER_CLASSES}
 

@@ -45,6 +45,13 @@ class InputType:
         # (T, F) without batch; T may be None (dynamic padded length)
         return InputType("recurrent", (timesteps if timesteps is None else int(timesteps), int(size)))
 
+    @staticmethod
+    def convolutional3d(depth: int, height: int, width: int,
+                        channels: int) -> "InputType":
+        # NDHWC without batch: (D, H, W, C)
+        return InputType("convolutional3d",
+                         (int(depth), int(height), int(width), int(channels)))
+
     def flat_size(self) -> int:
         n = 1
         for s in self.shape:

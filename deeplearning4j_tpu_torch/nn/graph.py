@@ -24,8 +24,9 @@ the ModelSerializer zip (``utils/serialization.py``).
 
 Not ported yet: ``fit_steps`` / fused k-step loops, iterators and
 epochs, gradient sharing, ZeRO, the executable cache, compile schedules,
-device normalizers, instruments, listeners, gradient checkpointing
-(``remat``) and evaluation.
+device normalizers, instruments, listeners and gradient checkpointing
+(``remat``).  ``evaluate`` takes single-output graphs, as in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -662,6 +663,24 @@ class ComputationGraph(nn.Module):
                                 self._as_input_dict(features), train=train,
                                 rng=None)
         return [acts[n] for n in self.conf.network_outputs]
+
+    def evaluate(self, iterator, evaluation=None):
+        """Classification evaluation of a single-output graph over an
+        iterator (a multi-output graph raises `ValueError`: run `output`
+        and feed an `Evaluation` per head)."""
+        if len(self.conf.network_outputs) != 1:
+            raise ValueError(
+                "evaluate() requires a single-output graph; this one has "
+                f"{self.conf.network_outputs} — use output() + Evaluation "
+                "per head")
+        from deeplearning4j_tpu_torch.train.evaluation import Evaluation
+        ev = evaluation or Evaluation()
+        if hasattr(iterator, "reset"):
+            iterator.reset()
+        for ds in iterator:
+            labels = ds.labels if isinstance(ds.labels, (list, tuple)) else [ds.labels]
+            ev.eval(labels[0], self.output(ds.features)[0])
+        return ev
 
     def gradient_for(self, features, labels) -> Params:
         """Analytic gradients {vertex: {key: tensor}} in the port's layouts,

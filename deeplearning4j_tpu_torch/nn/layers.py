@@ -1,15 +1,23 @@
 """Feed-forward and convolutional layers (the port of ``nn/layers.py``).
 
-Ported: Dense, Output, Loss, Activation, Dropout, Convolution,
-Subsampling, GlobalPooling, BatchNormalization and LayerNormalization, with
-the JAX package's config fields and semantics:
+Every layer of the JAX package's ``nn/layers.py``: Dense, Output, Loss,
+Activation, Dropout, ElementWiseMultiplication, Embedding,
+EmbeddingSequence, Convolution, Convolution1D, DepthwiseConvolution2D,
+SeparableConvolution2D, Deconvolution2D, Subsampling, GlobalPooling,
+Upsampling2D, ZeroPadding, BatchNormalization, LocalResponseNormalization
+and LayerNormalization, with the JAX package's config fields, JSON and
+semantics:
 
 * activations are NHWC at every layer boundary.  Convolution and pooling
   run on an NCHW view of the NHWC tensor (``permute``; a channels-last
   view, no copy), so a flatten before a Dense layer sees NHWC order, as in
   the JAX package;
 * a conv ``W`` is stored OIHW (PyTorch's layout); the JAX tree holds HWIO
-  (``TORCH_LAYOUT``);
+  (``TORCH_LAYOUT``; Convolution1D [O, I, k] for WIO, Deconvolution2D
+  [I, O, kh, kw]).  The depthwise and separable convs run ``groups`` =
+  channels, which orders output channels as ``feature_group_count`` does;
+* the layers without a kernel of their own (all but Dense, Convolution
+  and LayerNormalization) are plain torch ops on any device;
 * padding follows ``lax``: ``Same`` mode pads ``(out - 1) * s + k_eff - in``
   in total with the smaller half first, ``Truncate`` pads ``padding`` on
   both sides;
@@ -182,6 +190,93 @@ class DropoutLayer(Layer):
         return self.maybe_input_dropout(x, train, rng), state
 
 
+@dataclasses.dataclass(kw_only=True)
+class ElementWiseMultiplicationLayer(Layer):
+    """Per-feature learned scale ``W`` (ones at init) and bias ``b``."""
+
+    STOCHASTIC = True
+
+    def initialize(self, gen, input_type, dtype=torch.float32, device=None):
+        n = input_type.flat_size()
+        dev = gen.device if device is None else device
+        params = {"W": torch.ones((n,), dtype=dtype, device=dev),
+                  "b": torch.full((n,), self.bias_init, dtype=dtype, device=dev)}
+        return params, {}, input_type
+
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        x = self.maybe_input_dropout(x, train, rng)
+        return self.act_fn()(x * params["W"] + params["b"]), state
+
+
+# ---------------------------------------------------------------------------
+# Embedding
+# ---------------------------------------------------------------------------
+
+def _table(layer, gen, dtype, device):
+    """An embedding layer's params: the [n_in, n_out] table ``W`` and, with
+    `has_bias`, ``b``."""
+    params = {"W": init_weights(gen, (layer.n_in, layer.n_out), layer.winit(),
+                                dtype, device)}
+    if layer.has_bias:
+        params["b"] = torch.full((layer.n_out,), layer.bias_init, dtype=dtype,
+                                 device=params["W"].device)
+    return params
+
+
+def _gather_rows(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``W[x]`` with ``jnp`` indexing's rules: indices truncate to integers
+    and a negative one wraps once; one still out of range reads the
+    nearest row (the gather clamps) and sends no gradient back (the
+    scatter-add of the backward drops it).  A torch index out of range
+    would raise, or on the card assert and poison the CUDA context."""
+    n = w.shape[0]
+    idx = x.to(torch.int64)
+    idx = torch.where(idx < 0, idx + n, idx)
+    inside = ((idx >= 0) & (idx < n))[..., None]
+    rows = w[idx.clamp(0, n - 1)]
+    return torch.where(inside, rows, rows.detach())
+
+
+@dataclasses.dataclass(kw_only=True)
+class EmbeddingLayer(Layer):
+    """Index -> vector lookup: a [batch] or [batch, 1] index input gives
+    [batch, n_out]."""
+
+    n_in: int = 0   # vocab size
+    n_out: int = 0
+    has_bias: bool = False
+
+    def initialize(self, gen, input_type, dtype=torch.float32, device=None):
+        return _table(self, gen, dtype, device), {}, InputType.feed_forward(self.n_out)
+
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        if x.ndim == 2 and x.shape[-1] == 1:
+            x = x[..., 0]
+        y = _gather_rows(params["W"], x)
+        if self.has_bias:
+            y = y + params["b"]
+        return self.act_fn()(y), state
+
+
+@dataclasses.dataclass(kw_only=True)
+class EmbeddingSequenceLayer(Layer):
+    """A [batch, time] index sequence -> [batch, time, n_out]."""
+
+    n_in: int = 0
+    n_out: int = 0
+    has_bias: bool = False
+
+    def initialize(self, gen, input_type, dtype=torch.float32, device=None):
+        t = input_type.shape[0] if input_type.kind == "recurrent" else None
+        return _table(self, gen, dtype, device), {}, InputType.recurrent(self.n_out, t)
+
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        y = _gather_rows(params["W"], x)
+        if self.has_bias:
+            y = y + params["b"]
+        return self.act_fn()(y), state
+
+
 # ---------------------------------------------------------------------------
 # Convolution (NHWC at the boundary, OIHW weights)
 # ---------------------------------------------------------------------------
@@ -193,6 +288,23 @@ def _padding_2d(mode: str, padding) -> Any:
         return "SAME"
     ph, pw = _pair(padding)
     return ((ph, ph), (pw, pw))
+
+
+def _conv_nhwc(x, w, b, stride, pad, dilation=(1, 1), groups=1):
+    """NHWC `x` conv OIHW `w` (+ `b`) -> NHWC, with lax's padding for
+    `pad` ("SAME" or ((lo, hi), (lo, hi))): a symmetric pad goes to
+    ``F.conv2d``, an asymmetric one is applied first."""
+    xc = x.permute(0, 3, 1, 2)
+    kh, kw = w.shape[2], w.shape[3]
+    dh, dw = dilation
+    pads = resolve_pad(pad, xc.shape[2], xc.shape[3],
+                       ((kh - 1) * dh + 1, (kw - 1) * dw + 1), stride)
+    (plh, phh), (plw, phw) = pads
+    if plh == phh and plw == phw:
+        y = F.conv2d(xc, w, b, stride, (plh, plw), dilation, groups)
+    else:
+        y = F.conv2d(pad_nchw(xc, pads, 0.0), w, b, stride, 0, dilation, groups)
+    return y.permute(0, 2, 3, 1)
 
 
 @dataclasses.dataclass(kw_only=True)
@@ -248,20 +360,204 @@ class ConvolutionLayer(Layer):
             if b is not None:
                 y = y + b
             return self.act_fn()(y), state
-        xc = x.permute(0, 3, 1, 2)
-        kh, kw = _pair(self.kernel_size)
-        dh, dw = _pair(self.dilation)
-        pads = resolve_pad(pad, xc.shape[2], xc.shape[3],
-                           ((kh - 1) * dh + 1, (kw - 1) * dw + 1),
-                           _pair(self.stride))
-        (plh, phh), (plw, phw) = pads
-        if plh == phh and plw == phw:
-            y = F.conv2d(xc, params["W"], b, _pair(self.stride), (plh, plw),
-                         (dh, dw))
+        y = _conv_nhwc(x, w, b, _pair(self.stride), pad, _pair(self.dilation))
+        return self.act_fn()(y), state
+
+
+@dataclasses.dataclass(kw_only=True)
+class Convolution1DLayer(Layer):
+    """1-D conv over [batch, time, features]; `W` stored [O, I, k] (the
+    JAX package's is WIO)."""
+
+    n_out: int = 0
+    kernel_size: int = 3
+    stride: int = 1
+    padding: int = 0
+    dilation: int = 1
+    convolution_mode: str = "Same"
+    has_bias: bool = True
+
+    TORCH_LAYOUT = {"W": (2, 1, 0)}        # WIO -> OIW
+
+    def initialize(self, gen, input_type, dtype=torch.float32, device=None):
+        f = input_type.shape[-1]
+        k = int(self.kernel_size)
+        wio = init_weights(gen, (k, f, self.n_out), self.winit("RELU"), dtype, device)
+        params = {"W": wio.permute(*self.TORCH_LAYOUT["W"]).contiguous()}
+        if self.has_bias:
+            params["b"] = torch.full((self.n_out,), self.bias_init, dtype=dtype,
+                                     device=wio.device)
+        t = input_type.shape[0]
+        if t is not None:
+            if self.convolution_mode.lower() == "same":
+                t = -(-t // int(self.stride))
+            else:
+                eff_k = (k - 1) * int(self.dilation) + 1
+                t = (t + 2 * int(self.padding) - eff_k) // int(self.stride) + 1
+        return params, {}, InputType.recurrent(self.n_out, t)
+
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        x = self.maybe_input_dropout(x, train, rng)
+        s, d = int(self.stride), int(self.dilation)
+        k = params["W"].shape[-1]
+        if self.convolution_mode.lower() == "same":
+            (lo, hi), _ = resolve_pad("SAME", x.shape[1], 1, ((k - 1) * d + 1, 1), (s, 1))
         else:
-            y = F.conv2d(pad_nchw(xc, pads, 0.0), params["W"], b,
-                         _pair(self.stride), 0, (dh, dw))
-        return self.act_fn()(y.permute(0, 2, 3, 1)), state
+            lo = hi = int(self.padding)
+        xc = F.pad(x.permute(0, 2, 1), (lo, hi))
+        b = params.get("b") if self.has_bias else None
+        y = F.conv1d(xc, params["W"], b, s, 0, d)
+        return self.act_fn()(y.permute(0, 2, 1)), state
+
+
+@dataclasses.dataclass(kw_only=True)
+class DepthwiseConvolution2DLayer(Layer):
+    """Depthwise conv: `depth_multiplier` filters per input channel, output
+    channel o reading input channel o // depth_multiplier (``groups`` =
+    channels, as the JAX package's ``feature_group_count``).  `W` stored
+    [C*m, 1, kh, kw] (the JAX package's is HWIO [kh, kw, 1, C*m])."""
+
+    depth_multiplier: int = 1
+    kernel_size: Any = (3, 3)
+    stride: Any = (1, 1)
+    padding: Any = (0, 0)
+    convolution_mode: str = "Truncate"
+    has_bias: bool = True
+
+    TORCH_LAYOUT = {"W": (3, 2, 0, 1)}     # HWIO -> OIHW
+
+    def initialize(self, gen, input_type, dtype=torch.float32, device=None):
+        h, w, c = input_type.shape
+        kh, kw = _pair(self.kernel_size)
+        n_out = c * self.depth_multiplier
+        hwio = init_weights(gen, (kh, kw, 1, n_out), self.winit("RELU"), dtype, device)
+        params = {"W": hwio.permute(*self.TORCH_LAYOUT["W"]).contiguous()}
+        if self.has_bias:
+            params["b"] = torch.full((n_out,), self.bias_init, dtype=dtype,
+                                     device=hwio.device)
+        helper = ConvolutionLayer(n_out=n_out, kernel_size=self.kernel_size,
+                                  stride=self.stride, padding=self.padding,
+                                  convolution_mode=self.convolution_mode)
+        oh, ow = helper._spatial((h, w))
+        return params, {}, InputType.convolutional(oh, ow, n_out)
+
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        x = self.maybe_input_dropout(x, train, rng)
+        b = params.get("b") if self.has_bias else None
+        y = _conv_nhwc(x, params["W"], b, _pair(self.stride),
+                       _padding_2d(self.convolution_mode, self.padding),
+                       groups=x.shape[-1])
+        return self.act_fn()(y), state
+
+
+@dataclasses.dataclass(kw_only=True)
+class SeparableConvolution2DLayer(Layer):
+    """Depthwise-separable conv: a depthwise conv (`W_depth`, depth
+    multiplier m) then a 1x1 conv (`W_point`) to `n_out` channels, then the
+    bias.  Both stored OIHW (the JAX package's are HWIO)."""
+
+    n_out: int = 0
+    depth_multiplier: int = 1
+    kernel_size: Any = (3, 3)
+    stride: Any = (1, 1)
+    padding: Any = (0, 0)
+    convolution_mode: str = "Truncate"
+    has_bias: bool = True
+
+    REGULARIZABLE = ("W_depth", "W_point")
+    TORCH_LAYOUT = {"W_depth": (3, 2, 0, 1), "W_point": (3, 2, 0, 1)}
+
+    def initialize(self, gen, input_type, dtype=torch.float32, device=None):
+        h, w, c = input_type.shape
+        kh, kw = _pair(self.kernel_size)
+        mid = c * self.depth_multiplier
+        depth = init_weights(gen, (kh, kw, 1, mid), self.winit("RELU"), dtype, device)
+        point = init_weights(gen, (1, 1, mid, self.n_out), self.winit("RELU"), dtype,
+                             device)
+        params = {"W_depth": depth.permute(*self.TORCH_LAYOUT["W_depth"]).contiguous(),
+                  "W_point": point.permute(*self.TORCH_LAYOUT["W_point"]).contiguous()}
+        if self.has_bias:
+            params["b"] = torch.full((self.n_out,), self.bias_init, dtype=dtype,
+                                     device=depth.device)
+        helper = ConvolutionLayer(n_out=self.n_out, kernel_size=self.kernel_size,
+                                  stride=self.stride, padding=self.padding,
+                                  convolution_mode=self.convolution_mode)
+        oh, ow = helper._spatial((h, w))
+        return params, {}, InputType.convolutional(oh, ow, self.n_out)
+
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        x = self.maybe_input_dropout(x, train, rng)
+        y = _conv_nhwc(x, params["W_depth"], None, _pair(self.stride),
+                       _padding_2d(self.convolution_mode, self.padding),
+                       groups=x.shape[-1])
+        y = _conv_nhwc(y, params["W_point"], None, (1, 1), "VALID")
+        if self.has_bias:
+            y = y + params["b"]
+        return self.act_fn()(y), state
+
+
+def _transpose_pads(mode: str, k: int, s: int, p: int) -> Tuple[int, int]:
+    """(lo, hi) padding of the stride-dilated input in the JAX package's
+    transposed conv: ``lax.conv_transpose``'s own rule for SAME, and
+    k - 1 - p on both sides otherwise (output s * (in - 1) + k - 2p)."""
+    if mode.lower() == "same":
+        pad_len = k + s - 2
+        lo = k - 1 if s > k - 1 else -(-pad_len // 2)
+        return lo, pad_len - lo
+    return k - 1 - p, k - 1 - p
+
+
+@dataclasses.dataclass(kw_only=True)
+class Deconvolution2DLayer(Layer):
+    """Transposed conv in the gradient form (TF/Keras): each input pixel
+    scatters W times itself into a stride-spaced output.  `W` stored
+    [Cin, Cout, kh, kw], ``F.conv_transpose2d``'s layout (the JAX package's
+    is HWIO [kh, kw, Cin, Cout], flipped there for ``lax.conv_transpose``).
+    The full transposed conv (every tap, (in - 1) * s + k) is cropped, or
+    zero-padded, to the JAX package's padding."""
+
+    n_out: int = 0
+    kernel_size: Any = (2, 2)
+    stride: Any = (2, 2)
+    padding: Any = (0, 0)
+    convolution_mode: str = "Truncate"
+    has_bias: bool = True
+
+    TORCH_LAYOUT = {"W": (2, 3, 0, 1)}     # HWIO -> IOHW
+
+    def initialize(self, gen, input_type, dtype=torch.float32, device=None):
+        h, w, c = input_type.shape
+        kh, kw = _pair(self.kernel_size)
+        sh, sw = _pair(self.stride)
+        ph, pw = _pair(self.padding)
+        hwio = init_weights(gen, (kh, kw, c, self.n_out), self.winit("RELU"), dtype,
+                            device)
+        params = {"W": hwio.permute(*self.TORCH_LAYOUT["W"]).contiguous()}
+        if self.has_bias:
+            params["b"] = torch.full((self.n_out,), self.bias_init, dtype=dtype,
+                                     device=hwio.device)
+        if self.convolution_mode.lower() == "same":
+            oh, ow = h * sh, w * sw
+        else:
+            oh = sh * (h - 1) + kh - 2 * ph
+            ow = sw * (w - 1) + kw - 2 * pw
+        return params, {}, InputType.convolutional(oh, ow, self.n_out)
+
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        x = self.maybe_input_dropout(x, train, rng)
+        kh, kw = _pair(self.kernel_size)
+        sh, sw = _pair(self.stride)
+        ph, pw = _pair(self.padding)
+        loh, hih = _transpose_pads(self.convolution_mode, kh, sh, ph)
+        low, hiw = _transpose_pads(self.convolution_mode, kw, sw, pw)
+        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), params["W"], None, (sh, sw))
+        # the full output pads k - 1 on each side; F.pad crops where the
+        # JAX package pads less
+        y = F.pad(y, (low - (kw - 1), hiw - (kw - 1), loh - (kh - 1), hih - (kh - 1)))
+        y = y.permute(0, 2, 3, 1)
+        if self.has_bias:
+            y = y + params["b"]
+        return self.act_fn()(y), state
 
 
 # ---------------------------------------------------------------------------
@@ -358,6 +654,49 @@ class GlobalPoolingLayer(Layer):
             raise ValueError(f"Unknown pooling type {self.pooling_type}")
         return y, state
 
+@dataclasses.dataclass(kw_only=True)
+class Upsampling2DLayer(Layer):
+    """Nearest-neighbour upsampling by `size` (each pixel repeated)."""
+
+    size: Any = (2, 2)
+    REGULARIZABLE = ()
+
+    def initialize(self, gen, input_type, dtype=torch.float32, device=None):
+        h, w, c = input_type.shape
+        sh, sw = _pair(self.size)
+        return {}, {}, InputType.convolutional(h * sh, w * sw, c)
+
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        sh, sw = _pair(self.size)
+        return x.repeat_interleave(sh, dim=1).repeat_interleave(sw, dim=2), state
+
+
+@dataclasses.dataclass(kw_only=True)
+class ZeroPaddingLayer(Layer):
+    """Spatial zero padding.  `padding` is an int, a symmetric (ph, pw)
+    pair, or per side ((top, bottom), (left, right))."""
+
+    padding: Any = (1, 1)
+    REGULARIZABLE = ()
+
+    def _sides(self):
+        ph, pw = _pair(self.padding) if not (
+            isinstance(self.padding, (tuple, list))
+            and len(self.padding) == 2
+            and isinstance(self.padding[0], (tuple, list))) else self.padding
+        top, bot = _pair(ph)
+        left, right = _pair(pw)
+        return (int(top), int(bot)), (int(left), int(right))
+
+    def initialize(self, gen, input_type, dtype=torch.float32, device=None):
+        h, w, c = input_type.shape
+        (t, b), (le, r) = self._sides()
+        return {}, {}, InputType.convolutional(h + t + b, w + le + r, c)
+
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        (t, b), (le, r) = self._sides()
+        return F.pad(x, (0, 0, le, r, t, b)), state
+
 
 # ---------------------------------------------------------------------------
 # Normalization
@@ -412,6 +751,29 @@ class BatchNormalizationLayer(Layer):
         if not self.lock_gamma_beta:
             y = y * params["gamma"] + params["beta"]
         return self.act_fn()(y), new_state
+
+
+@dataclasses.dataclass(kw_only=True)
+class LocalResponseNormalizationLayer(Layer):
+    """LRN across channels: x / (k + alpha * sum of x^2 over `n` adjacent
+    channels) ** beta, the window zero-padded at the ends (NHWC, last
+    axis)."""
+
+    k: float = 2.0
+    n: int = 5
+    alpha: float = 1e-4
+    beta: float = 0.75
+    REGULARIZABLE = ()
+
+    def initialize(self, gen, input_type, dtype=torch.float32, device=None):
+        return {}, {}, input_type
+
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        half = self.n // 2
+        c = x.shape[-1]
+        padded = F.pad(x * x, (half, half))
+        window = sum(padded[..., i:i + c] for i in range(self.n))
+        return x / (self.k + self.alpha * window) ** self.beta, state
 
 
 @dataclasses.dataclass(kw_only=True)

@@ -28,9 +28,13 @@ second generator on the network's device, seeded from the config seed
 ``remat`` recomputes each layer's forward in the backward
 (``torch.utils.checkpoint``), with the same dropout masks.
 
+``evaluate`` runs ``output`` per batch of an iterator and feeds an
+``Evaluation`` (``train/evaluation.py``); listeners
+(``train/listeners.py``) hear of every step and epoch.
+
 Not ported yet, and raising ``NotImplementedError``: ``fit_steps`` and
 ``fused_steps > 1``, ``set_normalizer``, ``set_gradient_sharing``,
-``set_executable_cache``, ``apply_schedule`` and ``evaluate``.
+``set_executable_cache`` and ``apply_schedule``.
 """
 from __future__ import annotations
 
@@ -313,7 +317,7 @@ class NeuralNetConfiguration:
 class MultiLayerNetwork(nn.Module):
     """Sequential network: `init`, `fit(x, y | iterator)`, `output`,
     `feed_forward`, `score`/`score_array`/`score_for`, `gradient_for`,
-    `params`/`set_params`, `save`/`load`.
+    `evaluate`, `params`/`set_params`, `save`/`load`.
 
     One submodule per layer, named by `conf.layer_name(i)`, holds that
     layer's parameters; layers without parameters hold none."""
@@ -542,7 +546,16 @@ class MultiLayerNetwork(nn.Module):
         _not_ported("apply_schedule (compile schedules)")
 
     def evaluate(self, iterator, evaluation=None):
-        _not_ported("evaluate (train/evaluation.py)")
+        """Classification evaluation over an iterator: `reset()` it, run
+        `output` on each batch's features and feed `evaluation` (a new
+        `Evaluation` by default) the labels and outputs."""
+        from deeplearning4j_tpu_torch.train.evaluation import Evaluation
+        ev = evaluation or Evaluation()
+        if hasattr(iterator, "reset"):
+            iterator.reset()
+        for ds in iterator:
+            ev.eval(ds.labels, self.output(ds.features))
+        return ev
 
     def score(self) -> float:
         """Loss of the most recent minibatch; reading it waits for the
@@ -594,8 +607,9 @@ class MultiLayerNetwork(nn.Module):
         return grads_of(loss, params)
 
     def set_listeners(self, *listeners) -> "MultiLayerNetwork":
-        """Listeners are duck-typed: `iteration_done(model, iteration,
-        epoch)` after each step, `on_epoch_end(model)` if present."""
+        """Listeners (``train/listeners.py``, or any object with
+        `iteration_done(model, iteration, epoch)`) hear of each step, and
+        of each epoch through `on_epoch_end(model)` if they have it."""
         self.listeners = list(listeners)
         return self
 
