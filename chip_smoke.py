@@ -316,9 +316,66 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    1e-4 * max|ref|, two ``fit`` steps with the launches exact a step
    (``ZOO_TRAIN``) and the losses held as in phase 32.
 
+34. fused_resnet50 — bench.py's fused configuration: full-width ResNet-50,
+   batch 64, Nesterovs(0.1, 0.9), bf16 compute then f32.  Two
+   ``fit_steps`` blocks of k = 5 on ``broadcast_to(x, (5,) + x.shape)`` (as
+   ``_time_train`` builds them), each one CUDA-graph replay, against a twin
+   loaded from the same initial ``state_dict`` that runs ``fit(x, y)`` 10
+   times eagerly in the same dispatch mode, and a second eager twin (the
+   noise yardstick): the 10 losses held as phase 7 holds them (1e-4
+   relative, 1e-3 in bf16, ``DIVERGED_LOSS_RTOL`` once the loss has risen
+   above the first step's), and the first step's update of a third net
+   that takes a k = 1 block, within 1e-4 of its size (1e-3 in bf16).
+   The f32 runs take cuDNN's deterministic algorithms (its default
+   backward of the 1x1 and 7x7 convs is not bitwise repeatable, and ten
+   diverging steps amplify that past any bound).
+   Exactly one capture for the shape, one dispatch a block.  The timed and
+   traced graphs are the port's own ``torch.cuda.CUDAGraph``s; three
+   replays under ``torch.profiler`` show each hand-written kernel run and
+   none run more than it should (the profiler loses some kernel records
+   of graph replays).  A second capture of the same block, made apart as
+   a debug-mode graph that keeps its nodes, holds exactly 5 x 16
+   ``conv3x3_wgrad`` and 5 x 16 ``conv3x3_dgrad`` kernel nodes and 5
+   times an eager step's ``fused_dense`` launches (read from its DOT
+   dump); a block captured in ``reference`` mode (a capture of its own)
+   launches none of them in its trace, and its capture none at all.
+   Step ms of the graph (the median block after the first, over 5) and
+   eager (the median step after the first), samples/s, device busy and
+   idle share of one block, capture seconds and peak memory.
+35. fused_lenet — LeNet at bench.py's batch 256 with ``fused_steps=10``
+   and Adam on a ``StepSchedule`` whose steps fall inside the first block:
+   23 batches of an ``ArrayDataSetIterator`` from a seed through
+   ``DevicePrefetchIterator(depth=2)`` with a fitted
+   ``NormalizerStandardize`` set by ``set_normalizer`` (2 graph blocks and
+   3 tail steps), against an eager twin fed the same batches with the host
+   normalizer as its pre-processor: the losses the listeners see and the
+   parameters within 1e-4 relative (the phase takes cuDNN's deterministic
+   algorithms: Adam turns the default 5x5 conv backward's noise in
+   near-zero gradients into whole steps).  The pipeline counters equal the
+   batches staged and their bytes.  A second epoch of 2 blocks under
+   ``torch.cuda.set_sync_debug_mode("warn")`` makes 0 synchronizing calls
+   (``score()`` after it is the positive control).  The graph's kernel
+   nodes hold 10 times an eager step's ``fused_dense`` (the profiler's
+   count of three replays may fall short, never over).  Step ms of the
+   graph and eager (an epoch of 20 batches each, and the median of 5
+   replays of a staged block against 10 eager steps), idle share of one
+   block and the prefetch wait.  The Python ``fused_dense`` count over the
+   first epoch is 1 (the warm-up body) + 10 (the captured bodies) + 3 (the
+   tail steps): replays do not tick it.
+36. fused_dropout — a small MLN with dropout 0.5 and lr 0, the same batch
+   at every step, one graph block of k = 4: where this PyTorch has
+   ``CUDAGraph.register_generator_state`` the four losses are not all
+   equal (fresh masks each step), and whether they equal an eager twin's
+   drawn from the same generator state is reported; where it has not,
+   the graph path must raise for this network.  The line says which was
+   checked.
+
 Then the kernels line (each entry with ``share_of_bound``; ``fused_dense``
-and the conv pair carry ``vgg16_train`` and ``zoo_train`` entries), nvidia-smi's
-line, and the last line ``{"ok": true, "device": {...}}``.  Exits
+and the conv pair carry ``vgg16_train``, ``zoo_train``, ``fused_resnet50``
+and ``fused_lenet`` entries; the last two count the launches of one
+replayed block by the graph's kernel nodes, beside the profiler's counts
+of traced replays and the Python counts made at the warm-up and the
+capture), nvidia-smi's line, and the last line ``{"ok": true, "device": {...}}``.  Exits
 non-zero, printing no result, without CUDA or outside a checkout of the
 repository.
 """
@@ -460,6 +517,19 @@ ZOO_TRAIN = {"SimpleCNN": ((48, 48, 3), 10, (1, 6, 5)),
              "AlexNet": ((224, 224, 3), 1000, (2, 3, 3)),
              "Darknet19": ((224, 224, 3), 1000, (0, 12, 11))}
 ZOO_STEPS = 2
+#: bench.py's fused training blocks (`bench_resnet50`, `bench_lenet`)
+FUSED_R50_K = 5
+FUSED_R50_TIMED_BLOCKS = 5
+#: the loss and first-update bound of a bf16-compute step against its eager
+#: twin (bf16 rounds each product to 8 bits; the twins differ only in
+#: accumulation order)
+BF16_LOSS_RTOL = 1e-3
+FUSED_LENET_K = 10
+FUSED_LENET_BATCHES = 23
+#: StepSchedule(1e-3, 0.5, 4): the lr halves at steps 4 and 8 of the first
+#: block
+FUSED_LENET_LR = (1e-3, 0.5, 4)
+FUSED_DROPOUT_K = 4
 
 
 def emit(phase, **kw):
@@ -2780,22 +2850,16 @@ def _rerun_if_diverged(ref_losses, init_zip, MultiLayerNetwork, dispatch, dev, x
     return [abs(a - r) / abs(r) for a, r in zip(losses, ref_losses)]
 
 
-def _syncs_per_step(net, x, y, steps=3, read_score=False):
-    """Synchronizing CUDA calls a fit step (and a `score()` read after it,
-    with `read_score`), counted by torch.cuda.set_sync_debug_mode("warn")
-    over `steps` steps after one uncounted step (one-off work stays out),
-    and their distinct messages."""
+def _sync_calls(fn):
+    """Synchronizing CUDA calls made by fn (torch.cuda.set_sync_debug_mode
+    "warn"), and their distinct messages."""
     import warnings
-    net.fit(x, y)
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            for _ in range(steps):
-                net.fit(x, y)
-                if read_score:
-                    net.score()
+            fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
@@ -2803,7 +2867,24 @@ def _syncs_per_step(net, x, y, steps=3, read_score=False):
     # prototype feature ...") is not a synchronizing call
     msgs = [str(w.message) for w in caught if "synchroniz" in str(w.message)
             and "prototype feature" not in str(w.message)]
-    return len(msgs) / steps, sorted(set(m[:160] for m in msgs))
+    return len(msgs), sorted(set(m[:160] for m in msgs))
+
+
+def _syncs_per_step(net, x, y, steps=3, read_score=False):
+    """Synchronizing CUDA calls a fit step (and a `score()` read after it,
+    with `read_score`), counted by `_sync_calls` over `steps` steps after
+    one uncounted step (one-off work stays out), and their distinct
+    messages."""
+    net.fit(x, y)
+
+    def run():
+        for _ in range(steps):
+            net.fit(x, y)
+            if read_score:
+                net.score()
+
+    n, msgs = _sync_calls(run)
+    return n / steps, msgs
 
 
 class _ParamSnapshots:
@@ -3113,6 +3194,452 @@ def phase_zoo_train(matmul, conv3x3, dispatch, zoo, MultiLayerNetwork, dev,
     return out
 
 
+def _count_kernels(by_name, tag):
+    return sum(n for name, (_, n) in by_name.items() if tag in name)
+
+
+def _hand_launches(by_name):
+    """Launches of the hand-written kernels on the training paths in a
+    trace, by the profiler's kernel names (dgrad's filter pack is not
+    counted)."""
+    return {"fused_dense": _count_kernels(by_name, "fused_dense_kernel"),
+            "conv3x3_wgrad": _count_kernels(by_name, "conv3x3_wgrad_kernel"),
+            "conv3x3_dgrad": _count_kernels(by_name, "conv3x3_dgrad_kernel")}
+
+
+class _KeptGraph(torch.cuda.CUDAGraph):
+    """A CUDAGraph that keeps its graph after instantiation, with debug mode
+    on, so that its kernel nodes (what every replay launches) can be read
+    back: `_kept_launches`.  Never timed."""
+
+    def __new__(cls, *args, **kwargs):
+        return super().__new__(cls, keep_graph=True)
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(keep_graph=True)
+        self.enable_debug_mode()
+
+
+class _keep_graphs:
+    """Within the block, the port's CUDA graphs are `_KeptGraph`s."""
+
+    def __enter__(self):
+        self.prev, torch.cuda.CUDAGraph = torch.cuda.CUDAGraph, _KeptGraph
+
+    def __exit__(self, *exc):
+        torch.cuda.CUDAGraph = self.prev
+
+
+def _kept_launches(net, block, want, tag):
+    """A graph of `block()` (one ``fit_steps`` of `net`) captured afresh as
+    a `_KeptGraph`: ({kernel: nodes} of the hand-written kernels, all
+    kernel nodes), read from its DOT dump, what each replay of that block
+    launches; the hand-written kernels' nodes must equal `want`.  The
+    net's own graph step is put back after, so its timed graphs stay the
+    port's plain ones."""
+    import tempfile
+    own, net._scan_step = net._scan_step, None
+    try:
+        with _keep_graphs():
+            block()
+        (rec,) = net._scan_step._graphs.values()
+        path = os.path.join(tempfile.mkdtemp(prefix="graph_"), "g.dot")
+        rec.graph.debug_dump(path)
+    finally:
+        net._scan_step = own
+    with open(path) as f:
+        txt = f.read()
+    os.remove(path)
+    nodes = {"fused_dense": txt.count("fused_dense_kernel"),
+             "conv3x3_wgrad": txt.count("conv3x3_wgrad_kernel"),
+             "conv3x3_dgrad": txt.count("conv3x3_dgrad_kernel")}
+    require(nodes == want, f"{tag}: the graph launches {nodes} a replay, want {want}")
+    return nodes, txt.count("KERNEL")
+
+
+def _traced_replays(fn, want, tag, tries=3):
+    """fn (one replayed block) under the profiler `tries` times: the trace
+    with the most kernel records, and every trace's (kernels, launches of
+    the hand-written kernels).  Each hand-written kernel of `want` shows
+    in every trace, none more than `want`: the profiler loses kernel
+    records of graph replays (LeNet: 9 of 10 `fused_dense` in every
+    trace of three whole runs, plain and debug-mode graphs alike), so the
+    exact count is `_kept_launches`'."""
+    best, seen = None, []
+    for _ in range(tries):
+        got = _trace(fn)
+        seen.append((got[3], _hand_launches(got[2])))
+        if best is None or got[3] > best[3]:
+            best = got
+    require(all(0 < t[1][n] <= want[n] if want[n] else t[1][n] == 0
+                for t in seen for n in want),
+            f"{tag}: traced replays launched {seen}, want {want}")
+    return best, seen
+
+
+def _synced(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _rel(got, want):
+    return [abs(a - r) / max(abs(r), 1e-30) for a, r in zip(got, want)]
+
+
+def _hold_fused_losses(losses, ref_losses, rerun, tol, tag):
+    """Each loss within `tol` relative of the eager twin's, or within
+    DIVERGED_LOSS_RTOL once the twin's loss has risen above its first; a
+    step where both runs' losses have overflowed (after the rise) agrees."""
+    rel = _rel(losses, ref_losses)
+    require(math.isfinite(losses[0]) and math.isfinite(ref_losses[0]),
+            f"{tag}: non-finite first loss")
+    for i, (a, g, r) in enumerate(zip(rel, losses, ref_losses)):
+        diverged = not math.isfinite(r) or r > ref_losses[0]
+        if diverged and not math.isfinite(g) and not math.isfinite(r):
+            continue                     # both runs overflowed at this step
+        bound = DIVERGED_LOSS_RTOL if diverged else tol
+        require(a <= bound, f"{tag} step {i + 1} loss rel diff {a} > {bound} "
+                            f"(graph {losses}, eager {ref_losses}, eager rerun {rerun})")
+    return rel
+
+
+def _fused_resnet50_run(conv3x3, matmul, dispatch, ResNet50, Nesterovs, dev, x, y,
+                        compute_dtype, k, image, classes):
+    """One compute dtype of phase 34; returns its report."""
+    cd = None if compute_dtype == "float32" else compute_dtype
+    tol = F32_RTOL if cd is None else BF16_LOSS_RTOL
+    tag = f"fused_resnet50 {compute_dtype}"
+    steps = 2 * k
+    net = _resnet50(ResNet50, Nesterovs, dev, compute_dtype=cd, image=image, classes=classes)
+    state0 = {n: v.clone() for n, v in net.state_dict().items()}
+
+    def fresh():
+        twin = _resnet50(ResNet50, Nesterovs, dev, compute_dtype=cd, image=image,
+                         classes=classes)
+        twin.load_state_dict(state0)
+        return twin
+
+    # the eager twin: 10 fit steps, then a second one (the yardstick)
+    twin = fresh()
+    theta0 = _flat_params(twin)
+    _reset_counts(matmul, conv3x3)
+    eager, eager_ms = _fit_steps(twin, x, y, 1)
+    theta1 = _flat_params(twin)
+    more, more_ms = _fit_steps(twin, x, y, steps - 1)
+    eager, eager_ms = eager + more, eager_ms + more_ms
+    eager_counts = _step_counts(matmul, conv3x3)
+    eager_per_step = tuple(c / steps for c in eager_counts)
+    del twin
+    again = fresh()
+    rerun, _ = _fit_steps(again, x, y, steps)
+    del again
+
+    # a k = 1 block on a third net: the first step's update on the graph path
+    one = fresh()
+    one.fit_steps(x[None], y[None])
+    update = (theta1 - theta0).abs().max().item()
+    update_diff = (_flat_params(one) - theta1).abs().max().item() / update
+    del one
+
+    # the main path: bench.py's stride-0 blocks, counts set to 0 just before
+    xs = torch.broadcast_to(x, (k,) + tuple(x.shape))
+    ys = torch.broadcast_to(y, (k,) + tuple(y.shape))
+    ins = net._instruments()
+    step_dispatches0, compiles0 = ins.dispatches.value, ins.compiles.value
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(matmul, conv3x3)
+    first, first_ms = _synced(lambda: net.fit_steps(xs, ys))
+    second, second_ms = _synced(lambda: net.fit_steps(xs, ys))
+    capture_counts = _step_counts(matmul, conv3x3)
+    dispatches = ins.dispatches.value - step_dispatches0
+    compiles = ins.compiles.value - compiles0
+    peak = torch.cuda.max_memory_allocated()
+    step = net._scan_step
+    captures = step.captures
+    losses = first.tolist() + second.tolist()
+    rel = _hold_fused_losses(losses, eager, rerun, tol, tag)
+    rerun_rel = _rel(rerun, eager)
+    require(update_diff <= tol,
+            f"{tag}: the first step's update differs from the eager twin's by {update_diff}")
+    require(captures == 1 and compiles == 1,
+            f"{tag}: {captures} captures ({compiles} counted) for one shape, want 1")
+    require(dispatches == 2, f"{tag}: {dispatches} dispatches for 2 blocks")
+    require(isinstance(net.score_array(), torch.Tensor) and net.iteration == steps,
+            f"{tag}: score_array / iteration after 2 blocks")
+
+    # more blocks for the time, then one under the profiler
+    block_ms = [second_ms]
+    for _ in range(FUSED_R50_TIMED_BLOCKS - 2):
+        block_ms.append(_synced(lambda: net.fit_steps(xs, ys))[1])
+    want = {"fused_dense": round(k * eager_per_step[0]),
+            "conv3x3_wgrad": k * BODY_CONVS, "conv3x3_dgrad": k * BODY_CONVS}
+    (window_ms, busy_ms, by_name, n_kernels), traces = _traced_replays(
+        lambda: net.fit_steps(xs, ys), want, tag)
+    require(busy_ms is not None, f"{tag}: the profiler saw no device activity")
+    replay, graph_kernels = _kept_launches(net, lambda: net.fit_steps(xs, ys), want, tag)
+
+    # a block in reference mode: a capture of its own, no hand-written kernel
+    prev = dispatch.set_dispatch_mode("reference")
+    try:
+        _reset_counts(matmul, conv3x3)
+        _, _, ref_by_name, _ = _trace(lambda: net.fit_steps(xs, ys))
+        ref_counts = _step_counts(matmul, conv3x3)
+    finally:
+        dispatch.set_dispatch_mode(prev)
+    ref_traced = _hand_launches(ref_by_name)
+    require(step.captures == 2, f"{tag}: the reference-mode block did not capture anew")
+    require(not any(ref_traced.values()) and not any(ref_counts),
+            f"{tag}: a reference-mode block launched {ref_traced} (counted at its "
+            f"warm-up and capture {ref_counts})")
+    graph_ms = statistics.median(block_ms) / k
+    eager_step_ms = statistics.median(eager_ms[1:])
+    report = dict(
+        k=k, losses=losses, eager_losses=eager, eager_rerun_losses=rerun,
+        rel_loss_diff=rel, rerun_rel_loss_diff=rerun_rel,
+        step1_update_rel_diff=update_diff, captures=captures, dispatches=dispatches,
+        capture_s=(step.capture_seconds or [None])[0], first_block_ms=first_ms,
+        block_ms_all=block_ms, graph_step_ms=graph_ms, eager_step_ms=eager_step_ms,
+        eager_step_ms_all=eager_ms, graph_samples_per_sec=x.shape[0] * 1e3 / graph_ms,
+        eager_samples_per_sec=x.shape[0] * 1e3 / eager_step_ms,
+        block_window_ms=window_ms, block_busy_ms=busy_ms,
+        block_idle_share=max(0.0, 1.0 - busy_ms / window_ms), block_kernels=n_kernels,
+        replay_launches=replay, graph_kernel_nodes=graph_kernels,
+        replay_traces=traces, eager_launches_per_step=eager_per_step,
+        launches_counted_at_capture=capture_counts,
+        reference_block_launches=ref_traced, max_memory_allocated_gb=peak / 1e9,
+        top=_top(by_name, 8))
+    del net, step
+    return report
+
+
+def phase_fused_resnet50(conv3x3, matmul, dispatch, ResNet50, Nesterovs, dev,
+                         k=FUSED_R50_K, batch=64, image=224, classes=1000):
+    """bench.py's fused ResNet-50 blocks as CUDA graphs (phase 34 of the
+    module docstring).  Returns {compute dtype: report}."""
+    rng = np.random.RandomState(0)
+    x = torch.as_tensor(rng.rand(batch, image, image, 3).astype(np.float32), device=dev)
+    y = torch.as_tensor(np.eye(classes, dtype=np.float32)[
+        rng.randint(0, classes, batch)], device=dev)
+    out = {}
+    for cd in ("bfloat16", "float32"):
+        # f32: cuDNN's default backward of the 1x1 and 7x7 convs is not
+        # bitwise repeatable, and ten steps of a diverging run amplify it
+        # past any bound (two eager runs part by 0.28 at step 5), so the f32
+        # runs take cuDNN's deterministic algorithms
+        prev = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = cd == "float32"
+        try:
+            out[cd] = _fused_resnet50_run(conv3x3, matmul, dispatch, ResNet50, Nesterovs,
+                                          dev, x, y, cd, k, image, classes)
+        finally:
+            torch.backends.cudnn.deterministic = prev
+        emit("fused_resnet50", model="ResNet50", compute_dtype=cd,
+             input=f"{image}x{image}x3", classes=classes, batch=batch,
+             updater="Nesterovs(0.1, 0.9)", cudnn_deterministic=cd == "float32",
+             **out[cd])
+    return out
+
+
+def phase_fused_lenet(matmul, data, LeNet, Adam, StepSchedule, dev,
+                      k=FUSED_LENET_K, n_batches=FUSED_LENET_BATCHES, batch=LENET_BATCH):
+    """LeNet's fused blocks through the device pipeline (phase 35), under
+    cuDNN's deterministic algorithms: the 5x5 convs' default backward is
+    not bitwise repeatable, and Adam turns its noise in near-zero
+    gradients into whole steps (one run parted the two nets by 5.6e-2 of
+    a tensor's largest parameter)."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _fused_lenet(matmul, data, LeNet, Adam, StepSchedule, dev, k, n_batches,
+                            batch)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def _fused_lenet(matmul, data, LeNet, Adam, StepSchedule, dev, k, n_batches, batch):
+    import tempfile
+
+    rng = np.random.RandomState(0)
+    xs_host = rng.rand(n_batches * batch, 28, 28, 1).astype(np.float32)
+    ys_host = np.eye(10, dtype=np.float32)[rng.randint(0, 10, n_batches * batch)]
+
+    def batches():
+        return data.ArrayDataSetIterator(xs_host, ys_host, batch)
+
+    nz = data.NormalizerStandardize().fit(batches())
+    net = LeNet(seed=123, updater=Adam(StepSchedule(*FUSED_LENET_LR))).init_model(device=dev)
+    tmp = tempfile.mkdtemp(prefix="fused_lenet_")
+    path = os.path.join(tmp, "init.zip")
+    net.save(path)
+    twin = type(net).load(path, device=dev)
+    net.set_normalizer(nz)
+
+    class Scores:
+        def __init__(self):
+            self.seen = []
+
+        def iteration_done(self, model, iteration, epoch):
+            self.seen.append((iteration, model.score_array()))
+
+    graph_seen, eager_seen = Scores(), Scores()
+    net.set_listeners(graph_seen)
+    twin.set_listeners(eager_seen)
+    from deeplearning4j_tpu_torch.data import pipeline
+    from deeplearning4j_tpu_torch.monitor.instrument import pipeline_instruments
+    pins = pipeline_instruments()
+    staged0, bytes0 = pins.batches.value, pins.h2d_bytes.value
+    pf = data.DevicePrefetchIterator(batches(), depth=2, device=dev)
+    matmul.LAUNCHES.reset()
+    _, graph_epoch_ms = _synced(lambda: net.fit(pf, fused_steps=k))
+    pf.close()
+    # the Python counter ticks at the warm-up body, the k captured bodies
+    # and the eager tail steps, never at a replay
+    tails = n_batches % k
+    epoch_counted = matmul.LAUNCHES.value
+    require(epoch_counted == 1 + k + tails,
+            f"fused_lenet: fused_dense counted {epoch_counted} times in the first epoch, "
+            f"want 1 warm-up + {k} captured + {tails} tail steps")
+    staged, staged_bytes = pins.batches.value - staged0, pins.h2d_bytes.value - bytes0
+    host_it = batches().set_pre_processor(nz)
+    _, eager_epoch_ms = _synced(lambda: twin.fit(host_it))
+    require(net.iteration == twin.iteration == n_batches,
+            f"fused_lenet: iterations {net.iteration} / {twin.iteration}")
+    want_iters = [k, 2 * k] + list(range(2 * k + 1, n_batches + 1))
+    require([i for i, _ in graph_seen.seen] == want_iters,
+            f"fused_lenet: listener iterations {[i for i, _ in graph_seen.seen]}")
+    eager_by_iter = {i: float(s) for i, s in eager_seen.seen}
+    losses = [float(s) for _, s in graph_seen.seen]
+    ref = [eager_by_iter[i] for i in want_iters]
+    rel = _rel(losses, ref)
+    require(all(r <= F32_RTOL for r in rel), f"fused_lenet: losses {losses} vs eager {ref}")
+    worst_param, worst_name = 0.0, None
+    for (name, a), (_, b) in zip(net.state_dict().items(), twin.state_dict().items()):
+        if a.is_floating_point():
+            err = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+            if err >= worst_param:
+                worst_param, worst_name = err, name
+    require(worst_param <= F32_RTOL,
+            f"fused_lenet: {worst_name} differs by {worst_param} of its largest value")
+    x_bytes = batch * 28 * 28 * 4 + batch * 10 * 4
+    require(staged == n_batches and staged_bytes == n_batches * x_bytes,
+            f"fused_lenet: staged {staged} batches / {staged_bytes} bytes, want "
+            f"{n_batches} / {n_batches * x_bytes}")
+    step = net._scan_step
+    require(step.captures == 1, f"fused_lenet: {step.captures} captures for one shape")
+
+    # an epoch of 2 blocks, synchronizing calls counted; score() the control
+    two = lambda: data.ArrayDataSetIterator(xs_host[:2 * k * batch], ys_host[:2 * k * batch],
+                                            batch)
+    pf2 = data.DevicePrefetchIterator(two(), depth=2, device=dev)
+    syncs, sync_msgs = _sync_calls(lambda: net.fit(pf2, fused_steps=k))
+    pf2.close()
+    control, _ = _sync_calls(lambda: net.score())
+    require(syncs == 0, f"fused_lenet: {syncs} synchronizing calls in 2 blocks: {sync_msgs}")
+    require(control >= 1, "fused_lenet: score() was not seen to synchronize (the control)")
+    pf3 = data.DevicePrefetchIterator(two(), depth=2, device=dev)
+    _, graph_epoch2_ms = _synced(lambda: net.fit(pf3, fused_steps=k))
+    pf3.close()
+    _, eager_epoch2_ms = _synced(lambda: twin.fit(two().set_pre_processor(nz)))
+
+    # a staged block: replays timed, one traced; eager steps on device batches
+    staged_block = [pipeline.ready(pipeline.stage(ds, device=dev))
+                    for ds in list(batches())[:k]]
+    xl = [ds.features for ds in staged_block]
+    yl = [ds.labels for ds in staged_block]
+    block_ms = [_synced(lambda: net.fit_steps(xl, yl))[1] for _ in range(5)]
+    want = {"fused_dense": k, "conv3x3_wgrad": 0, "conv3x3_dgrad": 0}
+    (window_ms, busy_ms, by_name, n_kernels), traces = _traced_replays(
+        lambda: net.fit_steps(xl, yl), want, "fused_lenet")
+    require(busy_ms is not None, "fused_lenet: the profiler saw no device activity")
+    replay, graph_kernels = _kept_launches(net, lambda: net.fit_steps(xl, yl), want,
+                                           "fused_lenet")
+    xd = nz.transform(data.DataSet(xs_host[:batch].copy(), ys_host[:batch])).features
+    x0 = torch.as_tensor(xd, device=dev)
+    y0 = torch.as_tensor(ys_host[:batch], device=dev)
+    eager_ms, _ = _step_ms(twin, x0, y0, 10, 2)
+    wait = pins.producer_wait_ms
+    report = dict(
+        k=k, batches=n_batches, batch=batch, lr=f"StepSchedule{FUSED_LENET_LR}",
+        cudnn_deterministic=True, listener_iterations=want_iters, losses=losses,
+        eager_losses=ref, rel_loss_diff=rel, max_rel_param_diff=worst_param,
+        worst_param=worst_name, staged_batches=staged,
+        staged_bytes=staged_bytes, captures=step.captures,
+        capture_s=(step.capture_seconds or [None])[0], sync_calls_in_2_blocks=syncs,
+        score_sync_calls=control,
+        graph_epoch_ms_per_step=graph_epoch_ms / n_batches,
+        eager_epoch_ms_per_step=eager_epoch_ms / n_batches,
+        graph_2block_epoch_ms_per_step=graph_epoch2_ms / (2 * k),
+        eager_2block_epoch_ms_per_step=eager_epoch2_ms / (2 * k),
+        graph_step_ms=statistics.median(block_ms) / k, block_ms_all=block_ms,
+        eager_step_ms=eager_ms, block_window_ms=window_ms, block_busy_ms=busy_ms,
+        block_idle_share=max(0.0, 1.0 - busy_ms / window_ms), block_kernels=n_kernels,
+        replay_launches=replay, graph_kernel_nodes=graph_kernels, replay_traces=traces,
+        launches_counted_in_first_epoch=epoch_counted,
+        prefetch_wait_ms={"count": wait.count, "mean": wait.sum / max(wait.count, 1),
+                          **wait.percentiles((50, 99))})
+    emit("fused_lenet", model="LeNet", normalizer="NormalizerStandardize",
+         pipeline="DevicePrefetchIterator(depth=2)", **report)
+    return report
+
+
+def phase_fused_dropout(nn, train, dev, k=FUSED_DROPOUT_K, batch=64, n_in=256):
+    """Dropout masks drawn afresh on every replay (phase 36)."""
+    import tempfile
+
+    conf = (nn.NeuralNetConfiguration.builder().seed(7).updater(train.Sgd(0.0))
+            .list([nn.DenseLayer(n_out=256, activation="relu", dropout=0.5),
+                   nn.DenseLayer(n_out=256, activation="relu", dropout=0.5),
+                   nn.OutputLayer(n_out=10, loss="mcxent", activation="softmax")])
+            .set_input_type(nn.InputType.feed_forward(n_in)).build())
+    net = nn.MultiLayerNetwork(conf, device=dev).init()
+    rng = np.random.RandomState(0)
+    x = torch.as_tensor(rng.randn(batch, n_in).astype(np.float32), device=dev)
+    y = torch.as_tensor(np.eye(10, dtype=np.float32)[rng.randint(0, 10, batch)], device=dev)
+    xs = torch.broadcast_to(x, (k,) + tuple(x.shape))
+    ys = torch.broadcast_to(y, (k,) + tuple(y.shape))
+    can = hasattr(torch.cuda.CUDAGraph, "register_generator_state")
+    if not can:
+        try:
+            net.fit_steps(xs, ys)
+        except RuntimeError as e:
+            emit("fused_dropout", checked="raises without register_generator_state",
+                 error=str(e)[:200])
+            return {"checked": "raises"}
+        raise AssertionError("fused_dropout: the graph path ran a dropout network "
+                             "without register_generator_state")
+    tmp = tempfile.mkdtemp(prefix="fused_dropout_")
+    twin, _, _ = _twin_of(net, nn.MultiLayerNetwork, dev, tmp, "dropout")
+    losses = net.fit_steps(xs, ys).tolist()
+    eager, _ = _fit_steps(twin, x, y, k)
+    second = net.fit_steps(xs, ys).tolist()
+    require(len(set(losses)) > 1, f"fused_dropout: one mask replayed, losses {losses}")
+    require(second != losses, f"fused_dropout: the second replay repeated the first {losses}")
+    emit("fused_dropout", checked="fresh masks on each replay", k=k, losses=losses,
+         second_block_losses=second, eager_losses=eager,
+         equal_to_eager=[a == b for a, b in zip(losses, eager)],
+         max_rel_diff_to_eager=max(_rel(losses, eager)))
+    return {"checked": "fresh masks"}
+
+
+def _fused_entries(name, fused_r50, fused_lenet):
+    """A kernel's launches in one replayed block of phases 34 and 35 (the
+    profiler's kernel names), beside what the Python counter saw over the
+    warm-up and the capture."""
+    i = ("fused_dense", "conv3x3_wgrad", "conv3x3_dgrad").index(name)
+    return {
+        "fused_resnet50": {
+            cd: {"launches_per_replayed_block": r["replay_launches"][name], "k": r["k"],
+                 "profiled_replays": [t[1][name] for t in r["replay_traces"]],
+                 "counted_at_warmup_and_capture": r["launches_counted_at_capture"][i]}
+            for cd, r in fused_r50.items()},
+        "fused_lenet": {"launches_per_replayed_block": fused_lenet["replay_launches"][name],
+                        "profiled_replays": [t[1][name] for t in fused_lenet["replay_traces"]],
+                        "k": fused_lenet["k"]}}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3133,6 +3660,7 @@ def main():
     from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
     from deeplearning4j_tpu_torch.serving import ModelServer
     from deeplearning4j_tpu_torch.train import Adam, Nesterovs
+    from deeplearning4j_tpu_torch.train.schedules import StepSchedule
     from deeplearning4j_tpu_torch.zoo import BertConfig, BertModel, LeNet, ResNet50, VGG16
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3153,6 +3681,8 @@ def main():
     vgg_launches, vgg_rows = phase_vgg16_train(matmul, conv3x3, dispatch, VGG16, Adam,
                                                MultiLayerNetwork, data, train, dev)
     zoo_res = phase_zoo_train(matmul, conv3x3, dispatch, zoo, MultiLayerNetwork, dev)
+    fused_lenet = phase_fused_lenet(matmul, data, LeNet, Adam, StepSchedule, dev)
+    phase_fused_dropout(nn, train, dev)
     phase_conv_parity(ck, conv3x3, dev)
     net, x, y, conv_launches = phase_train(conv3x3, dispatch, ResNet50,
                                            Nesterovs, dev)
@@ -3161,6 +3691,7 @@ def main():
     net = phase_train_bf16(conv3x3, ResNet50, Nesterovs, dev, x, y)
     phase_train_profile(net, x, y, phase="train_bf16_profile", compute_dtype="bfloat16")
     del net, x, y
+    fused_r50 = phase_fused_resnet50(conv3x3, matmul, dispatch, ResNet50, Nesterovs, dev)
     conv_rows = phase_conv_times(ck, conv3x3, dev)
     phase_ln_parity(nk, layer_norm, dev)
     phase_attn_parity(ak, attention, dev)
@@ -3215,7 +3746,8 @@ def main():
                         "shape": vgg_rows["fused_dense"]["shape"] + "; launches over "
                                  f"{VGG_STEPS} VGG16 fit steps at batch {VGG_BATCH}"},
         "zoo_train": {m: r["launches_per_step"]["fused_dense"] * ZOO_STEPS
-                      for m, r in zoo_res.items()}}]
+                      for m, r in zoo_res.items()},
+        **_fused_entries("fused_dense", fused_r50, fused_lenet)}]
     for name, (replaces, source) in CONV_KERNELS.items():
         row = conv_rows[(name, "s0", torch.float32)]
         kernels.append({
@@ -3232,7 +3764,8 @@ def main():
                             "shape": vgg_rows[name]["shape"] + "; launches over "
                                      f"{VGG_STEPS} VGG16 fit steps at batch {VGG_BATCH}"},
             "zoo_train": {m: r["launches_per_step"][name] * ZOO_STEPS
-                          for m, r in zoo_res.items()}})
+                          for m, r in zoo_res.items()},
+            **_fused_entries(name, fused_r50, fused_lenet)})
     for name, (replaces, source), row, n_launched, shape in (
             ("flash_attn_fwd", ATTN_KERNEL, attn_rows[("t128", torch.float32)],
              bert_launches[0], "BERT-base q/k/v [64,12,128,64] f32"),

@@ -1,19 +1,27 @@
 """Cached metric handles for the port's hot paths (the port of
-``monitor/instrument.py``, in part: the training, quantization and decode
-bundles).
+``monitor/instrument.py``, in part: the training, input-pipeline,
+quantization and decode bundles).
 
 Each subsystem grabs its bundle once and records through plain attribute
 access; labeled children are created lazily and memoized.  The rest of the
-JAX module (pipeline, resilience, fleet and ops bundles) and its
-process-wide telemetry switch are not ported yet.  The training bundle has
-no compile series: the port's step is eager, so there is no executable
-cache to watch (``training_compiles_total`` and
-``training_donated_bytes`` come with a compiled step).
+JAX module (resilience, fleet and ops bundles) and its process-wide
+telemetry switch are not ported yet.  A "compile" of the training bundle
+is a CUDA-graph capture of a fused k-step block (``utils/scan_fit.py``);
+the eager step compiles nothing.
 
   training_step_ms{model=}           host time of one training step
   training_steps_total{model=}       optimizer steps
-  training_dispatches_total{model=}  step dispatches (one per step)
+  training_dispatches_total{model=}  step dispatches (a fused block is 1)
+  training_compiles_total{model=}    CUDA-graph captures of a fused block
+  training_donated_bytes{model=}     bytes of the carried tensors (params,
+                                     layer and updater state), sampled at
+                                     each capture
   training_epochs_total{model=}      completed epochs
+  pipeline_prefetch_depth            batches staged ahead of the consumer
+  pipeline_producer_wait_ms          consumer wait on the ETL producer
+  pipeline_h2d_bytes_total           bytes staged host -> device
+  pipeline_batches_total             batches staged
+  pipeline_producer_retries_total    producer restarts (retries=)
   quant_calibration_batches_total    batches consumed by PTQ calibration
   quant_bytes_saved                  f32 minus quantized resident bytes
   quant_accuracy_delta               latest parity-check disagreement
@@ -47,9 +55,18 @@ class TrainingInstruments:
             "training_steps_total", help="optimizer steps run", labels=lbl)
         self.dispatches = reg.counter(
             "training_dispatches_total",
-            help="training step dispatches (one per step)", labels=lbl)
+            help="training step dispatches (a fused k-step block is 1)",
+            labels=lbl)
+        self.compiles = reg.counter(
+            "training_compiles_total",
+            help="CUDA-graph captures of a fused k-step block", labels=lbl)
+        self.donated_bytes = reg.gauge(
+            "training_donated_bytes",
+            help="bytes of the carried params/state/opt-state tensors a "
+            "captured block writes in place (sampled at captures)", labels=lbl)
         self.epochs = reg.counter(
             "training_epochs_total", help="completed epochs", labels=lbl)
+        self._captures: dict = {}
 
     def record_dispatch(self, dt_s: float, steps: int = 1) -> None:
         """One dispatch of `steps` optimizer steps taking `dt_s` host
@@ -58,8 +75,64 @@ class TrainingInstruments:
         self.dispatches.inc()
         self.step_ms.observe(dt_s * 1000.0 / max(steps, 1))
 
+    def check_compile(self, step, model=None) -> None:
+        """Count the new CUDA-graph captures of `step` (a
+        ``scan_fit.GraphStep``) since the last call; at a capture, set
+        ``training_donated_bytes`` to the bytes of `model`'s carried
+        tensors.  Only capture events walk the model."""
+        n = getattr(step, "captures", None)
+        if n is None:
+            return
+        prev = self._captures.get(id(step), 0)
+        if n > prev:
+            self.compiles.inc(n - prev)
+            if model is not None:
+                self.donated_bytes.set(_carried_nbytes(model))
+        self._captures[id(step)] = n
+
     def record_epoch(self) -> None:
         self.epochs.inc()
+
+
+def _carried_nbytes(model) -> int:
+    from deeplearning4j_tpu_torch.train.updaters import tree_leaves
+    total = 0
+    for tree in (getattr(model, "params_", None), getattr(model, "state_", None),
+                 getattr(model, "opt_state_", None)):
+        if tree is None:
+            continue
+        for leaf in tree_leaves(tree):
+            if hasattr(leaf, "element_size"):
+                total += leaf.numel() * leaf.element_size()
+    return total
+
+
+class PipelineInstruments:
+    """Input-pipeline handles (one unlabeled series set per process: the
+    prefetch iterators all feed the same trainer)."""
+
+    def __init__(self, registry_: Optional[MetricsRegistry] = None):
+        reg = registry_ if registry_ is not None else registry()
+        self.prefetch_depth = reg.gauge(
+            "pipeline_prefetch_depth",
+            help="batches currently staged on device ahead of the consumer")
+        self.producer_wait_ms = reg.histogram(
+            "pipeline_producer_wait_ms",
+            help="time the consumer waited on the ETL producer per batch "
+            "(ms); sustained >0 means ETL is the bottleneck")
+        self.h2d_bytes = reg.counter(
+            "pipeline_h2d_bytes_total",
+            help="bytes staged host->device by the input pipeline")
+        self.batches = reg.counter(
+            "pipeline_batches_total", help="batches staged to device")
+        self.producer_retries = reg.counter(
+            "pipeline_producer_retries_total",
+            help="producer restarts by DevicePrefetchIterator retries=")
+
+    def record_stage(self, wait_s: float, depth: int) -> None:
+        self.producer_wait_ms.observe(wait_s * 1000.0)
+        self.prefetch_depth.set(depth)
+        self.batches.inc()
 
 
 class QuantInstruments:
@@ -176,8 +249,17 @@ class DecodeInstruments:
         self.restarts(model).inc()
 
 
+_pipeline: Optional[PipelineInstruments] = None
 _quant: Optional[QuantInstruments] = None
 _decode: Optional[DecodeInstruments] = None
+
+
+def pipeline_instruments() -> PipelineInstruments:
+    """Process-wide input-pipeline handle bundle (lazy singleton)."""
+    global _pipeline
+    if _pipeline is None:
+        _pipeline = PipelineInstruments()
+    return _pipeline
 
 
 def quant_instruments() -> QuantInstruments:

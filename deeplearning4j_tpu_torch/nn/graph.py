@@ -9,29 +9,34 @@ layer state as buffers (BatchNormalization's running ``mean``/``var``).
 ``params()``/``set_params()`` keep the JAX flat order (``tree_leaves``:
 vertex names, then keys, sorted as strings).
 
-Training runs eagerly: one ``fit(features, labels)`` call is one step.  The
-summed loss of the output heads plus the l1/l2 penalty is differentiated by
-autograd (in place of ``jax.value_and_grad``), then each vertex's updater
-runs in topological order and its update is subtracted from the
-parameters in place under ``torch.no_grad()``.  Under
-``compute_dtype="bfloat16"`` the forward runs on bf16 casts of the f32
-master parameters, so the gradients reach the f32 parameters.  Dropout
-masks come from a ``torch.Generator`` seeded from the configuration seed.
+One step body serves every training entry point, as in
+``MultiLayerNetwork``: the summed loss of the output heads (each with its
+labels mask) plus the l1/l2 penalty is differentiated by autograd (in
+place of ``jax.value_and_grad``), then each vertex's updater runs in
+topological order and its update is subtracted from the parameters in
+place under ``torch.no_grad()`` (``nn.multilayer.apply_updates``); the
+layer state, the updater state and the int32 iteration counter on the
+device are written in place too.  ``fit(features, labels)`` runs the body
+once, eagerly; ``fit_steps`` runs k of them as one CUDA-graph replay on
+the card (``utils/scan_fit.py``); ``fit(iterator, epochs, fused_steps)``
+steps per batch or in staged blocks.  Under ``compute_dtype="bfloat16"``
+the forward runs on bf16 casts of the f32 master parameters, so the
+gradients reach the f32 parameters.  Dropout masks come from a
+``torch.Generator`` seeded from the configuration seed.  A fitted
+normalizer per input (``set_normalizer``) runs inside the step, ``output``
+and ``score_for``.  Listeners hear of each step (once a fused block) and
+epoch.  ``save``/``load`` write and read the ModelSerializer zip
+(``utils/serialization.py``).
 
-Each step's per-vertex update is ``nn.multilayer.apply_updates``, the
-helper ``MultiLayerNetwork`` runs too.  ``save``/``load`` write and read
-the ModelSerializer zip (``utils/serialization.py``).
-
-Not ported yet: ``fit_steps`` / fused k-step loops, iterators and
-epochs, gradient sharing, ZeRO, the executable cache, compile schedules,
-device normalizers, instruments, listeners and gradient checkpointing
-(``remat``).  ``evaluate`` takes single-output graphs, as in the JAX
-package.
+Not ported yet: gradient sharing, ZeRO, the executable cache, compile
+schedules and gradient checkpointing (``remat``).  ``evaluate`` takes
+single-output graphs, as in the JAX package.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -39,11 +44,16 @@ import torch
 from torch import nn
 
 from deeplearning4j_tpu_torch import convert
+from deeplearning4j_tpu_torch.monitor.instrument import TrainingInstruments
+from deeplearning4j_tpu_torch.monitor.spans import span
 from deeplearning4j_tpu_torch.nn.core import InputType, Layer
-from deeplearning4j_tpu_torch.nn.multilayer import (apply_updates, grads_of,
-                                                    reg_penalty, torch_dtype)
-from deeplearning4j_tpu_torch.train.updaters import IUpdater, Sgd
+from deeplearning4j_tpu_torch.nn.multilayer import (apply_updates, block_tensor,
+                                                    grads_of, reg_penalty,
+                                                    torch_dtype)
+from deeplearning4j_tpu_torch.train.updaters import IUpdater, Sgd, tree_leaves
+from deeplearning4j_tpu_torch.utils.counters import advance, device_counters
 from deeplearning4j_tpu_torch.utils.devices import resolve_device
+from deeplearning4j_tpu_torch.utils.scan_fit import GraphStep, check_steps_axes
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 
@@ -452,9 +462,10 @@ class GraphBuilder:
 # ---------------------------------------------------------------------------
 
 class ComputationGraph(nn.Module):
-    """DAG network: `init`, `fit(features, labels)`, `score`, `score_for`,
-    `output(*features)`, `gradient_for`, `params`/`set_params`,
-    `save`/`load`.  Lives on
+    """DAG network: `init`, `fit(features, labels | iterator)`,
+    `fit_steps`, `score`/`score_array`/`score_for`, `output(*features)`,
+    `feed_forward`, `gradient_for`, `evaluate`, `set_normalizer`,
+    `set_listeners`, `params`/`set_params`, `save`/`load`.  Lives on
     `device` (``"cuda"`` by default, which raises without CUDA unless the
     caller passes ``device="cpu"``)."""
 
@@ -470,6 +481,15 @@ class ComputationGraph(nn.Module):
         self._consumed = {s for ins in conf.vertex_inputs.values() for s in ins}
         self._rng: Optional[torch.Generator] = None
         self._score: Optional[torch.Tensor] = None
+        self.listeners: List[Any] = []
+        self._instr: Optional[TrainingInstruments] = None
+        self._device_norm: Dict[str, Any] = {}
+        self._scan_step: Optional[GraphStep] = None
+
+    def _instruments(self) -> TrainingInstruments:
+        if self._instr is None:
+            self._instr = TrainingInstruments(type(self).__name__)
+        return self._instr
 
     def _layer_of(self, name: str) -> Optional[Layer]:
         v = self.conf.vertices[name]
@@ -601,18 +621,107 @@ class ComputationGraph(nn.Module):
         return reg_penalty(self.conf, self._named_layers(), params)
 
     # ---- one training step ----
-    def _fit_batch(self, inputs: Dict[str, torch.Tensor],
-                   labels: List[torch.Tensor], lmasks=None) -> None:
+    def _carry(self) -> List[torch.Tensor]:
+        """The tensors a step writes in place: parameters, layer state,
+        updater state and the iteration counter."""
+        return ([p for sub in self.params_.values() for p in sub.values()]
+                + [t for sub in self.state_.values() for t in sub.values()]
+                + [t for t in tree_leaves(self.opt_state_) if isinstance(t, torch.Tensor)]
+                + [device_counters(self)[0]])
+
+    def _batch(self, inputs: Dict[str, torch.Tensor], labels: List[torch.Tensor],
+               lmasks) -> List[Optional[torch.Tensor]]:
+        """One step's tensors in a fixed order: the network inputs, the
+        labels and the labels masks (None where a head has none)."""
+        n_out = len(self.conf.network_outputs)
+        return ([inputs[n] for n in self.conf.network_inputs] + list(labels)
+                + (list(lmasks) if lmasks else [None] * n_out))
+
+    def _train_tick(self, carry, epoch, batch) -> torch.Tensor:
+        """One step body on `_batch`'s list; every result is written into
+        the tensor it replaces, the iteration counter included; returns
+        the loss."""
+        n_in, n_out = len(self.conf.network_inputs), len(self.conf.network_outputs)
+        inputs = self._apply_device_norm(dict(zip(self.conf.network_inputs, batch[:n_in])))
+        labels = list(batch[n_in:n_in + n_out])
+        lm = batch[n_in + n_out:]
+        lmasks = None if all(m is None for m in lm) else list(lm)
         params = self.params_
         loss, new_state = self._loss(params, self.state_, inputs, labels,
                                      self._rng, lmasks)
         grads = grads_of(loss, params)
         apply_updates(self.conf, self._named_layers(), params, grads,
-                      self.opt_state_, self._updater_for, self.iteration,
-                      self.epoch)
+                      self.opt_state_, self._updater_for, self._iter_dev, epoch)
         self._set_state(new_state)
-        self._score = loss.detach()
-        self.iteration += 1
+        with torch.no_grad():
+            self._iter_dev.add_(1)
+        return loss.detach()
+
+    def _fit_batch(self, inputs: Dict[str, torch.Tensor],
+                   labels: List[torch.Tensor], lmasks=None) -> None:
+        t0 = time.perf_counter()
+        _, epoch = device_counters(self)
+        loss = self._train_tick(None, epoch, self._batch(inputs, labels, lmasks))
+        self._instruments().record_dispatch(time.perf_counter() - t0)
+        self._score = loss
+        self._last_batch_size = int(next(iter(inputs.values())).shape[0])
+        advance(self)
+        for lst in self.listeners:
+            lst.iteration_done(self, self.iteration, self.epoch)
+
+    def _get_scan_step(self) -> GraphStep:
+        if self._scan_step is None:
+            self._scan_step = GraphStep(self._train_tick)
+        return self._scan_step
+
+    def fit_steps(self, features, labels, labels_masks=None) -> torch.Tensor:
+        """Run k training steps as one block (one CUDA-graph replay on the
+        card); every array in `features`/`labels`/`labels_masks` carries a
+        leading `[k, batch]` steps axis (a stride-0 ``broadcast_to`` view
+        included).  The same math as k sequential `fit` calls; listeners
+        fire once per block.  Returns the k losses as a fresh device
+        tensor."""
+        if isinstance(features, dict):
+            inputs = {n: block_tensor(a, self.device) for n, a in features.items()}
+        else:
+            if not isinstance(features, (list, tuple)):
+                features = [features]
+            inputs = {n: block_tensor(a, self.device)
+                      for n, a in zip(self.conf.network_inputs, features)}
+        if not isinstance(labels, (list, tuple)):
+            labels = [labels]
+        labels = [block_tensor(l, self.device) for l in labels]
+        if labels_masks is not None and not isinstance(labels_masks, (list, tuple)):
+            labels_masks = [labels_masks]
+        lmasks = (None if labels_masks is None
+                  else [block_tensor(m, self.device) for m in labels_masks])
+        k = check_steps_axes(
+            [(f"input '{n}'", a) for n, a in inputs.items()]
+            + [(f"label {i}", l) for i, l in enumerate(labels)]
+            + [(f"labels_mask {i}", m) for i, m in enumerate(lmasks or [])])
+        return self._fit_block(self._batch(inputs, labels, lmasks), int(k),
+                               int(next(iter(inputs.values())).shape[1]))
+
+    def _fit_block(self, block, k: int, batch_n: int) -> torch.Tensor:
+        """One block of k steps through the graph step; `block` is
+        `_batch`'s list with, per entry, None, a stacked `[k, ...]` tensor
+        or a list of k per-step tensors (copied straight into the graph's
+        input buffers)."""
+        step = self._get_scan_step()
+        _, epoch = device_counters(self)
+        t0 = time.perf_counter()
+        losses = step(self._carry(), epoch, block,
+                      key=tuple(sorted((n, id(d)) for n, d in self._device_norm.items())),
+                      generator=self._rng)
+        ins = self._instruments()
+        ins.record_dispatch(time.perf_counter() - t0, steps=k)
+        ins.check_compile(step, self)
+        self._score = losses[-1]
+        self._last_batch_size = batch_n
+        advance(self, k)
+        for lst in self.listeners:
+            lst.iteration_done(self, self.iteration, self.epoch)
+        return losses
 
     # ---- public API ----
     def _as_input_dict(self, features) -> Dict[str, torch.Tensor]:
@@ -629,24 +738,126 @@ class ComputationGraph(nn.Module):
             labels = [labels]
         return [torch.as_tensor(l, device=self.device) for l in labels]
 
-    def fit(self, features, labels=None) -> "ComputationGraph":
-        """One training step on one batch: fit(features, labels), single-
-        or multi-input/output (lists, or a dict of inputs by name)."""
-        if labels is None:
-            raise NotImplementedError(
-                "fit over an iterator is not ported yet; call "
-                "fit(features, labels) per batch")
-        self._fit_batch(self._as_input_dict(features), self._as_list(labels))
+    def _masks(self, lmasks) -> Optional[List[Optional[torch.Tensor]]]:
+        if lmasks is None:
+            return None
+        if not isinstance(lmasks, (list, tuple)):
+            lmasks = [lmasks]
+        return [None if m is None else torch.as_tensor(m, device=self.device)
+                for m in lmasks]
+
+    def fit(self, data, labels=None, *, epochs: int = 1,
+            fused_steps: Optional[int] = None) -> "ComputationGraph":
+        """fit(features, labels) for one batch (single- or multi-input and
+        output: lists, or a dict of inputs by name), or fit(iterator,
+        epochs=N): `reset()` the iterator each epoch, one step per DataSet
+        (its `labels_mask`, one or a list per head, reaches the loss), then
+        count the epoch and call each listener's `on_epoch_end`.
+
+        `fused_steps=k` fuses blocks of k consecutive same-shape batches,
+        staged on the device and stacked there, into `fit_steps`; tails and
+        shape changes step one by one (the same math either way)."""
+        if labels is not None:
+            if fused_steps not in (None, 1):
+                raise ValueError(
+                    "fused_steps applies to the iterator form only; for a "
+                    "pre-stacked [k, batch, ...] block call fit_steps")
+            self._fit_batch(self._as_input_dict(data), self._as_list(labels))
+            return self
+        fused_steps = fused_steps or 1
+        for _ in range(epochs):
+            if hasattr(data, "reset"):
+                data.reset()
+            with span("fit_epoch", model=type(self).__name__):
+                if fused_steps > 1:
+                    self._fit_epoch_fused(data, fused_steps)
+                else:
+                    for ds in data:
+                        self._fit_dataset(ds)
+            self.epoch += 1
+            self._instruments().record_epoch()
+            for lst in self.listeners:
+                if hasattr(lst, "on_epoch_end"):
+                    lst.on_epoch_end(self)
         return self
+
+    def _fit_dataset(self, ds) -> None:
+        self._fit_batch(self._as_input_dict(ds.features), self._as_list(ds.labels),
+                        self._masks(getattr(ds, "labels_mask", None)))
+
+    def _fit_epoch_fused(self, iterator, k: int) -> None:
+        """Blocks of k batches staged on the device
+        (`data.pipeline.device_blocks`), each loaded into the graph's input
+        buffers; tails, shape changes and blocks that mix masked and
+        unmasked batches step one by one."""
+        from deeplearning4j_tpu_torch.data.pipeline import device_blocks
+        for kind, payload in device_blocks(iterator, k, device=self.device):
+            if kind == "single":
+                self._fit_dataset(payload)
+                continue
+            xs, ys, _, lms = payload
+            feats = [self._as_input_dict(x) for x in xs]
+            labs = [self._as_list(y) for y in ys]
+            masks = None if lms is None else [self._masks(m) for m in lms]
+            self._fit_block(
+                self._batch({n: [f[n] for f in feats] for n in feats[0]},
+                            [[l[i] for l in labs] for i in range(len(labs[0]))],
+                            None if masks is None else
+                            [None if masks[0][i] is None else [m[i] for m in masks]
+                             for i in range(len(masks[0]))]),
+                len(feats), int(next(iter(feats[0].values())).shape[0]))
 
     def score(self) -> float:
         """The most recent minibatch loss (blocks until it is computed)."""
         return float(self._score) if self._score is not None else float("nan")
 
+    def score_array(self) -> Optional[torch.Tensor]:
+        """The most recent minibatch loss as a device tensor (None before
+        the first step); never waits for the card."""
+        return self._score
+
+    def _apply_device_norm(self, inputs: Dict[str, Any]) -> Dict[str, Any]:
+        """Each normalized input (f32, as the host transform gives it) in
+        the graph's dtype, as the JAX package's promotion gives it."""
+        if not self._device_norm:
+            return inputs
+        dt = torch_dtype(self.conf.dtype)
+        return {n: (self._device_norm[n].apply_features(a).to(dt)
+                    if n in self._device_norm else a)
+                for n, a in inputs.items()}
+
+    def set_normalizer(self, normalizers) -> "ComputationGraph":
+        """Fold fitted normalizers into the training step, `output` and
+        `score_for` as an on-device prologue.  `normalizers` is
+        `{input_name: normalizer}` (a bare normalizer applies to every
+        network input), or None to clear.  Labels pass through untouched
+        (the MultiNormalizer features-only contract).  Captured fused
+        steps are dropped."""
+        from deeplearning4j_tpu_torch.data.pipeline import DeviceNormalizer
+        if normalizers is None:
+            self._device_norm = {}
+        else:
+            if not isinstance(normalizers, dict):
+                normalizers = {n: normalizers for n in self.conf.network_inputs}
+            unknown = set(normalizers) - set(self.conf.network_inputs)
+            if unknown:
+                raise ValueError(f"unknown network inputs: {sorted(unknown)}")
+            self._device_norm = {n: DeviceNormalizer.from_host(nz, self.device)
+                                 for n, nz in normalizers.items()}
+        self._scan_step = None
+        return self
+
+    def set_listeners(self, *listeners) -> "ComputationGraph":
+        """Listeners (``train/listeners.py``) hear of each step through
+        `iteration_done(model, iteration, epoch)`, and of each epoch
+        through `on_epoch_end(model)` if they have it."""
+        self.listeners = list(listeners)
+        return self
+
     @torch.no_grad()
     def score_for(self, features, labels) -> float:
         loss, _ = self._loss(self.params_, self.state_,
-                             self._as_input_dict(features),
+                             self._apply_device_norm(self._as_input_dict(features)),
                              self._as_list(labels), None, train=False)
         return float(loss)
 
@@ -660,9 +871,21 @@ class ComputationGraph(nn.Module):
         else:
             features = list(features)
         acts, _ = self._forward(self.params_, self.state_,
-                                self._as_input_dict(features), train=train,
-                                rng=None)
+                                self._apply_device_norm(self._as_input_dict(features)),
+                                train=train, rng=None)
         return [acts[n] for n in self.conf.network_outputs]
+
+    @torch.inference_mode()
+    def feed_forward(self, *features, train: bool = False) -> Dict[str, torch.Tensor]:
+        """Every vertex's activation (and each input) by name, without
+        dropout and without the normalizer, as the JAX package's."""
+        if len(features) == 1 and isinstance(features[0], (list, tuple, dict)):
+            features = features[0]
+        else:
+            features = list(features)
+        acts, _ = self._forward(self.params_, self.state_,
+                                self._as_input_dict(features), train=train, rng=None)
+        return acts
 
     def evaluate(self, iterator, evaluation=None):
         """Classification evaluation of a single-output graph over an

@@ -15,26 +15,36 @@ Randomness comes from an explicit ``torch.Generator`` seeded from the
 config seed; the network lives on the ``device`` it is given (``"cuda"``
 by default).
 
-Training runs eagerly: one ``fit(x, y)`` is one step.  The loss (the
-output head's, plus the l1/l2 penalty) is differentiated by autograd in
-place of ``jax.value_and_grad``; then ``apply_updates`` runs each layer's
-gradient normalization, updater and decoupled weight decay, and subtracts
-the update from the parameters in place under ``torch.no_grad()``, as the
-JAX step does layer by layer.  ``ComputationGraph`` runs the same helper.
-The step never waits for the card: the loss stays a device tensor
-(``score_array``) until ``score()`` reads it.  Dropout masks come from a
-second generator on the network's device, seeded from the config seed
-(Philox: the masks match the JAX package's in distribution only).
+One step body serves every training entry point.  The loss (the output
+head's, plus the l1/l2 penalty) is differentiated by autograd in place of
+``jax.value_and_grad``; then ``apply_updates`` runs each layer's gradient
+normalization, updater and decoupled weight decay, and subtracts the
+update from the parameters in place under ``torch.no_grad()``, as the JAX
+step does layer by layer.  The body writes every result into the tensor it
+replaces: parameters, updater state, layer state and the iteration counter
+(an int32 tensor on the device, ``utils/counters.py``, from which the
+learning rate and the bias corrections are computed).  ``fit(x, y)`` runs
+it once, eagerly; ``fit_steps`` runs k of them as one CUDA-graph replay on
+the card (``utils/scan_fit.py``), and ``fit(iterator, fused_steps=k)``
+feeds it staged blocks (``data/pipeline.py``).  ``ComputationGraph`` runs
+the same helpers.  The step never waits for the card: the loss stays a
+device tensor (``score_array``) until ``score()`` reads it.  Dropout masks
+come from a second generator on the network's device, seeded from the
+config seed (Philox: the masks match the JAX package's in distribution
+only); a CUDA graph registers it, so each replay draws fresh masks.
 ``remat`` recomputes each layer's forward in the backward
 (``torch.utils.checkpoint``), with the same dropout masks.
+``set_normalizer`` folds a fitted normalizer into the step, ``output``,
+``score_for`` and ``gradient_for``.
 
 ``evaluate`` runs ``output`` per batch of an iterator and feeds an
 ``Evaluation`` (``train/evaluation.py``); listeners
-(``train/listeners.py``) hear of every step and epoch.
+(``train/listeners.py``) hear of every step (once a fused block) and
+epoch.
 
-Not ported yet, and raising ``NotImplementedError``: ``fit_steps`` and
-``fused_steps > 1``, ``set_normalizer``, ``set_gradient_sharing``,
-``set_executable_cache`` and ``apply_schedule``.
+Not ported yet, and raising ``NotImplementedError``:
+``set_gradient_sharing``, ``set_executable_cache`` and
+``apply_schedule``.
 """
 from __future__ import annotations
 
@@ -52,8 +62,11 @@ from deeplearning4j_tpu_torch.monitor.instrument import TrainingInstruments
 from deeplearning4j_tpu_torch.monitor.spans import span
 from deeplearning4j_tpu_torch.nn.core import InputType, Layer
 from deeplearning4j_tpu_torch.train.updaters import (
-    IUpdater, Sgd, apply_gradient_normalization, tree_leaves, tree_map)
+    IUpdater, Sgd, StepScalars, apply_gradient_normalization, scalar_dtype,
+    tree_leaves, tree_map)
+from deeplearning4j_tpu_torch.utils.counters import advance, device_counters
 from deeplearning4j_tpu_torch.utils.devices import resolve_device
+from deeplearning4j_tpu_torch.utils.scan_fit import GraphStep, check_steps_axes
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 
@@ -119,9 +132,19 @@ def grads_of(loss: torch.Tensor, params) -> Dict:
     return grads
 
 
+def copy_into(dst, src) -> None:
+    """Write each tensor of tree `src` into the tensor of tree `dst` at
+    the same place, in place, so carried state keeps its addresses."""
+    if isinstance(dst, dict):
+        for k, d in dst.items():
+            copy_into(d, src[k])
+    elif isinstance(dst, torch.Tensor) and dst is not src:
+        dst.copy_(src)
+
+
 @torch.no_grad()
 def apply_updates(conf, layers, params, grads, opt_state, updater_for,
-                  iteration: int, epoch: int) -> None:
+                  iteration, epoch) -> None:
     """One optimizer step over every layer, in place: the JAX step's
     per-layer loop.  `layers` yields (name, layer or None: a graph vertex
     without one); a frozen layer, or one without parameters, is left as
@@ -129,7 +152,11 @@ def apply_updates(conf, layers, params, grads, opt_state, updater_for,
     through its gradient normalization (the layer's own, else the
     configuration's), then its updater (`updater_for(name)`), then gains
     the decoupled weight decay lr * coeff * w on its regularizable
-    parameters, and is subtracted from the parameters."""
+    parameters, and is subtracted from the parameters.  The updater
+    writes its state in place.  `iteration` and `epoch` are the step's
+    int32 counter tensors (``utils/counters.py``); each distinct updater's
+    scalars are computed from them once."""
+    scalars = StepScalars(iteration, epoch, scalar_dtype(params))
     for name, layer in layers:
         if not params[name] or (layer is not None and layer.frozen):
             continue
@@ -141,16 +168,28 @@ def apply_updates(conf, layers, params, grads, opt_state, updater_for,
                    else conf.gradient_normalization_threshold)
             g = apply_gradient_normalization(g, gn, thr)
         upd_cfg = updater_for(name)
-        upd, opt_state[name] = upd_cfg.apply(opt_state[name], g, iteration,
-                                             epoch, params=params[name])
+        s = scalars.of(upd_cfg)
+        upd, _ = upd_cfg.apply(opt_state[name], g, iteration, epoch,
+                               params=params[name], scalars=s)
         wd = (layer.weight_decay if layer is not None and layer.weight_decay
               is not None else conf.weight_decay)
         if wd and layer is not None:
-            lr = upd_cfg.lr_at(iteration, epoch)
             upd = _add_scaled_where(upd, params[name],
                                     layer.regularizable_mask(params[name]),
-                                    lr * wd)
+                                    s["lr"] * wd)
         tree_map(lambda p, u: p.sub_(u), params[name], upd)
+
+
+def block_tensor(a, device) -> Optional[torch.Tensor]:
+    """A [k, ...] block on `device`.  A host array whose steps axis has
+    stride 0 (``np.broadcast_to``) crosses as one step and is broadcast
+    again on the device."""
+    if a is None or isinstance(a, torch.Tensor):
+        return None if a is None else a.to(device)
+    a = np.asarray(a)
+    if a.ndim and a.shape[0] > 1 and a.strides[0] == 0:
+        return torch.as_tensor(a[0].copy(), device=device).expand(a.shape)
+    return torch.as_tensor(a, device=device)
 
 
 def _not_ported(what: str):
@@ -335,6 +374,8 @@ class MultiLayerNetwork(nn.Module):
         self._score: Optional[torch.Tensor] = None
         self._instr: Optional[TrainingInstruments] = None
         self._layer_types: List[InputType] = []
+        self._device_norm = None
+        self._scan_step: Optional[GraphStep] = None
 
     def _instruments(self) -> TrainingInstruments:
         if self._instr is None:
@@ -483,41 +524,129 @@ class MultiLayerNetwork(nn.Module):
         return None if a is None else torch.as_tensor(a, device=self.device)
 
     # ---- one training step ----
-    def _fit_batch(self, x, y, fmask=None, lmask=None) -> None:
-        t0 = time.perf_counter()
+    def _carry(self) -> List[torch.Tensor]:
+        """The tensors a step writes in place: parameters, layer state,
+        updater state and the iteration counter."""
+        return ([p for sub in self.params_.values() for p in sub.values()]
+                + [t for t in tree_leaves(self.state_) if isinstance(t, torch.Tensor)]
+                + [t for t in tree_leaves(self.opt_state_) if isinstance(t, torch.Tensor)]
+                + [device_counters(self)[0]])
+
+    def _train_tick(self, carry, epoch, batch) -> torch.Tensor:
+        """One step body on batch [x, y, features mask, labels mask]:
+        every result is written into the tensor it replaces (``carry``),
+        the iteration counter included; returns the loss."""
+        x, y, fmask, lmask = batch
+        if self._device_norm is not None:
+            x = self._device_norm.apply_features(x)
+            y = self._device_norm.apply_labels(y)
         params = self.params_
         loss, new_state = self._loss(params, self.state_, x, y, self._rng,
                                      fmask, lmask)
         grads = grads_of(loss, params)
         apply_updates(self.conf, self._named_layers(), params, grads,
-                      self.opt_state_, self._updater_for, self.iteration,
-                      self.epoch)
-        self.state_ = tree_map(lambda t: t.detach(), new_state)
+                      self.opt_state_, self._updater_for, self._iter_dev, epoch)
+        with torch.no_grad():
+            copy_into(self.state_, new_state)
+            self._iter_dev.add_(1)
+        return loss.detach()
+
+    def _fit_batch(self, x, y, fmask=None, lmask=None) -> None:
+        t0 = time.perf_counter()
+        _, epoch = device_counters(self)
+        loss = self._train_tick(None, epoch, [x, y, fmask, lmask])
         self._instruments().record_dispatch(time.perf_counter() - t0)
-        self._score = loss.detach()
+        self._score = loss
         self._last_batch_size = int(x.shape[0])
-        self.iteration += 1
+        advance(self)
         for lst in self.listeners:
             lst.iteration_done(self, self.iteration, self.epoch)
+
+    def _get_scan_step(self) -> GraphStep:
+        if self._scan_step is None:
+            self._scan_step = GraphStep(self._train_tick)
+        return self._scan_step
+
+    def fit_steps(self, xs, ys, features_masks=None, labels_masks=None):
+        """Run `k` training steps as one block: one CUDA-graph replay on
+        the card, the same body k times on the CPU.
+
+        Two input forms: stacked `[k, batch, ...]` arrays with a leading
+        steps axis (a stride-0 ``broadcast_to`` view included), or lists of
+        `k` per-step `[batch, ...]` arrays (the staged prefetch path),
+        copied into the graph's input buffers on the device.  The same
+        math as `k` sequential `fit(x, y)` calls; listeners fire once per
+        block.  Returns the k losses as a fresh device tensor."""
+        if isinstance(xs, (list, tuple)):
+            k = len(xs)
+            if not (isinstance(ys, (list, tuple)) and len(ys) == k):
+                raise ValueError("list-form fit_steps needs xs and ys as "
+                                 f"equal-length lists, got {k} xs / "
+                                 f"{'non-list' if not isinstance(ys, (list, tuple)) else len(ys)} ys")
+
+            def steps(ms, what):
+                if ms is None:
+                    return None
+                if len(ms) != k or any(m is None for m in ms):
+                    raise ValueError(f"list-form fit_steps needs {what} for "
+                                     f"all {k} steps or none")
+                return [self._tensor(m) for m in ms]
+
+            block = [[self._tensor(a) for a in xs], [self._tensor(a) for a in ys],
+                     steps(features_masks, "features_masks"),
+                     steps(labels_masks, "labels_masks")]
+            batch_n = int(block[0][0].shape[0])
+        else:
+            block = [block_tensor(a, self.device)
+                     for a in (xs, ys, features_masks, labels_masks)]
+            check_steps_axes(zip(("xs", "ys", "features_masks", "labels_masks"), block))
+            k = int(block[0].shape[0])
+            batch_n = int(block[0].shape[1])
+        step = self._get_scan_step()
+        _, epoch = device_counters(self)
+        t0 = time.perf_counter()
+        losses = step(self._carry(), epoch, block, key=(id(self._device_norm),),
+                      generator=self._rng)
+        ins = self._instruments()
+        ins.record_dispatch(time.perf_counter() - t0, steps=k)
+        ins.check_compile(step, self)
+        self._score = losses[-1]
+        self._last_batch_size = batch_n
+        advance(self, k)
+        for lst in self.listeners:
+            lst.iteration_done(self, self.iteration, self.epoch)
+        return losses
 
     # ---- public API ----
     def fit(self, data, labels=None, *, epochs: int = 1, features_mask=None,
             labels_mask=None, fused_steps: Optional[int] = None):
         """fit(x, y) for one batch, or fit(iterator, epochs=N): `reset()`
         the iterator each epoch, one step per DataSet, then count the
-        epoch and call each listener's `on_epoch_end`."""
-        if fused_steps not in (None, 1):
-            _not_ported("fused_steps > 1 (fit_steps)")
+        epoch and call each listener's `on_epoch_end`.
+
+        `fused_steps=k` trains blocks of k consecutive same-shape batches,
+        staged on the device (`data.pipeline.device_blocks`), through
+        `fit_steps`; tails and batches whose shape differs from their
+        block take the per-step path, so results equal `fused_steps=1`'s
+        up to listener cadence."""
         if labels is not None:
+            if fused_steps not in (None, 1):
+                raise ValueError(
+                    "fused_steps applies to the iterator form only; for a "
+                    "pre-stacked [k, batch, ...] block call fit_steps(xs, ys)")
             self._fit_batch(self._tensor(data), self._tensor(labels),
                             self._tensor(features_mask), self._tensor(labels_mask))
             return self
+        fused_steps = fused_steps or 1
         for _ in range(epochs):
             if hasattr(data, "reset"):
                 data.reset()
             with span("fit_epoch", model=type(self).__name__):
-                for ds in data:
-                    self._fit_dataset(ds)
+                if fused_steps > 1:
+                    self._fit_epoch_fused(data, fused_steps)
+                else:
+                    for ds in data:
+                        self._fit_dataset(ds)
             self.epoch += 1
             self._instruments().record_epoch()
             for lst in self.listeners:
@@ -530,11 +659,33 @@ class MultiLayerNetwork(nn.Module):
                         self._tensor(getattr(ds, "features_mask", None)),
                         self._tensor(getattr(ds, "labels_mask", None)))
 
-    def fit_steps(self, xs, ys, features_masks=None, labels_masks=None):
-        _not_ported("fit_steps (k steps in one dispatch)")
+    def _fit_epoch_fused(self, iterator, k: int) -> None:
+        """Blocks of k staged batches through `fit_steps`' list form;
+        tails, shape changes and mixed-mask blocks step one by one."""
+        from deeplearning4j_tpu_torch.data.pipeline import device_blocks
+        for kind, payload in device_blocks(iterator, k, device=self.device):
+            if kind == "single":
+                self._fit_dataset(payload)
+            else:
+                self.fit_steps(*payload)
 
-    def set_normalizer(self, normalizer):
-        _not_ported("set_normalizer (the on-device normalizer)")
+    def set_normalizer(self, normalizer) -> "MultiLayerNetwork":
+        """Fold a fitted normalizer (NormalizerStandardize / MinMaxScaler /
+        ImagePreProcessingScaler, or a DeviceNormalizer) into the training
+        step, `output`, `score_for` and `gradient_for` as an on-device
+        prologue, in place of host-side `set_pre_processor` ETL.  None
+        clears it.  Captured fused steps are dropped."""
+        from deeplearning4j_tpu_torch.data.pipeline import DeviceNormalizer
+        self._device_norm = (None if normalizer is None
+                             else DeviceNormalizer.from_host(normalizer, self.device))
+        self._scan_step = None
+        return self
+
+    def _normalized(self, x, y=None):
+        if self._device_norm is None:
+            return x, y
+        return (self._device_norm.apply_features(x),
+                self._device_norm.apply_labels(y))
 
     def set_gradient_sharing(self, sharing):
         _not_ported("set_gradient_sharing (hierarchical gradient sharing)")
@@ -571,8 +722,9 @@ class MultiLayerNetwork(nn.Module):
     def score_for(self, x, y, features_mask=None, labels_mask=None) -> float:
         """Score on given data without updating, in eval mode (no dropout,
         BN running statistics)."""
-        loss, _ = self._loss(self.params_, self.state_, self._tensor(x),
-                             self._tensor(y), None, self._tensor(features_mask),
+        x, y = self._normalized(self._tensor(x), self._tensor(y))
+        loss, _ = self._loss(self.params_, self.state_, x, y, None,
+                             self._tensor(features_mask),
                              self._tensor(labels_mask), train=False)
         return float(loss)
 
@@ -580,8 +732,8 @@ class MultiLayerNetwork(nn.Module):
     def output(self, x, train: bool = False) -> torch.Tensor:
         """Inference forward pass; `x` (numpy or tensor, NHWC for image
         models) moves to the network's device.  Returns a tensor there."""
-        return self._forward(self.params_, self.state_, self._tensor(x),
-                             train=train)[0]
+        x, _ = self._normalized(self._tensor(x))
+        return self._forward(self.params_, self.state_, x, train=train)[0]
 
     @torch.inference_mode()
     def feed_forward(self, x, train: bool = False) -> List[torch.Tensor]:
@@ -601,8 +753,9 @@ class MultiLayerNetwork(nn.Module):
         """Analytic gradients {layer: {key: tensor}} of the score, in the
         port's layouts, in eval mode (consistent with `score_for`)."""
         params = self.params_
-        loss, _ = self._loss(params, self.state_, self._tensor(x), self._tensor(y),
-                             None, self._tensor(features_mask),
+        x, y = self._normalized(self._tensor(x), self._tensor(y))
+        loss, _ = self._loss(params, self.state_, x, y, None,
+                             self._tensor(features_mask),
                              self._tensor(labels_mask), train=False)
         return grads_of(loss, params)
 

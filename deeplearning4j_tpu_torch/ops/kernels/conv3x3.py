@@ -8,7 +8,9 @@ launch fails.  :func:`conv_plan` picks the grid and the split of the
 reduction; the split's f32 workspace, its int32 arrival counters and
 dgrad's packed filter are buffers kept per (device, stream), as
 ``matmul.py`` keeps its own (launches on one stream run in order, so they
-never share them at once; the kernels leave the counters zero).
+never share them at once; the kernels leave the counters zero, so a
+replayed CUDA graph starts clean; a graph being captured holds the ones
+it bakes in, ``matmul.hold_if_capturing``).
 ``WGRAD_LAUNCHES`` and ``DGRAD_LAUNCHES`` count launches, one a call, and
 only those.  The public functions and their plain versions are in
 ``ops/conv_kernels.py``, which calls these only for CUDA tensors.
@@ -23,7 +25,8 @@ import torch
 
 from deeplearning4j_tpu_torch.monitor.registry import registry
 from deeplearning4j_tpu_torch.ops.kernels.matmul import (_current_stream,
-                                                         _on_device, _sm_count)
+                                                         _on_device, _sm_count,
+                                                         hold_if_capturing)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: the product each dtype runs on: 3xTF32 tensor-core products for f32,
@@ -189,6 +192,7 @@ def _launch_args(kernel: str, t: torch.Tensor, Ci: int, Co: int):
             wp = torch.empty(max(16, plan.packed_w_bytes), dtype=torch.uint8,
                              device=device)
         _buffers[(idx, stream)] = (ws, ctr, wp)
+    hold_if_capturing(ws, ctr, wp)
     return lib, stream, plan, ws.data_ptr(), ctr.data_ptr(), wp.data_ptr()
 
 

@@ -36,14 +36,16 @@ The three kernels share one skinny-M, split-K GEMM
 wrappers hand it a workspace for the partial sums (f32, or int32 for
 ``int8_matmul``: the same 4-byte words) and an int32 counter buffer, both
 kept per device and stream (launches on one stream run in order, so they
-never share them at once; the kernel leaves the counters zero).
+never share them at once; the kernel leaves the counters zero, so a
+replayed CUDA graph starts clean).  A CUDA graph bakes the buffers of its
+capture stream in; :func:`hold_if_capturing` keeps them for it.
 """
 from __future__ import annotations
 
 import contextlib
 import functools
 import threading
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -96,6 +98,11 @@ _buffers_lock = threading.Lock()
 #: (device index, stream) -> (workspace of 4-byte words, f32 or int32 as the
 #: kernel reads them; int32 arrival counters)
 _buffers: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+#: the buffers launches used while their stream was being captured into a
+#: CUDA graph: the graph bakes their addresses in, so its owner takes them
+#: (:func:`take_captured_buffers`) and keeps them as long as the graph, even
+#: after a larger buffer replaces one in ``_buffers``
+_captured: List[torch.Tensor] = []
 _sm_counts: Dict[int, int] = {}
 
 
@@ -160,6 +167,21 @@ def _f32_row(t: torch.Tensor, N: int) -> torch.Tensor:
     return t.to(torch.float32).reshape(N).contiguous()
 
 
+def hold_if_capturing(*buffers: torch.Tensor) -> None:
+    """Keep `buffers` for the graph being captured on the current stream."""
+    if torch.cuda.is_current_stream_capturing():
+        with _buffers_lock:
+            _captured.extend(buffers)
+
+
+def take_captured_buffers() -> List[torch.Tensor]:
+    """The buffers held since the last call (see ``_captured``)."""
+    with _buffers_lock:
+        out = list(_captured)
+        _captured.clear()
+    return out
+
+
 def _gemm_args(device: torch.device, M: int, N: int, K: int, kernel: str):
     """(stream, S, workspace pointer, counters pointer) for one launch of
     ``kernel`` on the device's current stream.  The workspace and counters
@@ -181,7 +203,8 @@ def _gemm_args(device: torch.device, M: int, N: int, K: int, kernel: str):
                 ws = torch.empty(n_ws, dtype=torch.float32, device=device)
             ws_now = ws
         _buffers[(idx, stream)] = (ws, ctr)
-        return stream, plan.splits, ws_now.data_ptr(), ctr.data_ptr()
+    hold_if_capturing(ws_now, ctr)
+    return stream, plan.splits, ws_now.data_ptr(), ctr.data_ptr()
 
 
 def fused_dense_reference(x: torch.Tensor, w: torch.Tensor,

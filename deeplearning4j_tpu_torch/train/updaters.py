@@ -9,10 +9,20 @@ key order).  ``apply_gradient_normalization`` is the JAX package's too.  An upda
 over a tree of tensors (a vertex's ``{param key: tensor}``, nested dicts
 allowed): ``init_state(params)`` gives its state and
 ``apply(state, grads, iteration, epoch, params)`` returns
-``(update, new_state)``.  ``apply`` builds new state tensors and never
-writes to its arguments; the network subtracts the returned update from
-its parameters in place under ``torch.no_grad()``, as the reference's
-optimizer loop does (``params.subi(update)``).
+``(update, state)``.  ``apply`` writes the new state into the tensors of
+`state` in place (each with the roundings of the JAX formula, so a
+carried state keeps its addresses and is read and written once a step)
+and never writes to the gradients; the network subtracts the returned
+update from its parameters in place under ``torch.no_grad()``, as the
+reference's optimizer loop does (``params.subi(update)``).
+
+Every per-step scalar (the learning rate, Adam's bias corrections) comes
+from ``scalars(iteration, epoch, dtype)``: 0-dim tensors computed from the
+iteration and epoch counters.  A training step passes the int32 counter
+tensors of its device (``utils/counters.py``), so the scalars are computed
+there and a captured CUDA graph replays them from the current counts; it
+computes them once a step per distinct updater (:class:`StepScalars`) and
+hands them to ``apply``.  Python ints give the same scalars as CPU tensors.
 """
 from __future__ import annotations
 
@@ -45,6 +55,38 @@ def _zeros_like_tree(params: Tree) -> Tree:
     return tree_map(lambda p: torch.zeros_like(p, requires_grad=False), params)
 
 
+def scalar_dtype(tree: Tree) -> torch.dtype:
+    """The dtype of a step's learning rate: f64 for f64 parameters, else
+    f32 (the JAX package computes its schedules in the default float type,
+    f64 only with x64 on)."""
+    for leaf in tree_leaves(tree):
+        if isinstance(leaf, torch.Tensor) and leaf.dtype == torch.float64:
+            return torch.float64
+    return torch.float32
+
+
+def _counter(c) -> torch.Tensor:
+    return c if isinstance(c, torch.Tensor) else torch.tensor(int(c), dtype=torch.int32)
+
+
+class StepScalars:
+    """One training step's updater scalars, computed once a step for each
+    distinct updater (by identity) from the step's counter tensors, so an
+    eager step launches no per-layer scalar work."""
+
+    def __init__(self, iteration: torch.Tensor, epoch: torch.Tensor,
+                 dtype: torch.dtype = torch.float32):
+        self.iteration, self.epoch, self.dtype = iteration, epoch, dtype
+        self._memo: Dict[int, Dict[str, torch.Tensor]] = {}
+
+    def of(self, updater: "IUpdater") -> Dict[str, torch.Tensor]:
+        got = self._memo.get(id(updater))
+        if got is None:
+            got = self._memo[id(updater)] = updater.scalars(
+                self.iteration, self.epoch, self.dtype)
+        return got
+
+
 @dataclasses.dataclass
 class IUpdater:
     """Base updater config."""
@@ -54,15 +96,30 @@ class IUpdater:
     def lr_at(self, iteration, epoch=0) -> float:
         return resolve_schedule(self.learning_rate).value_at(iteration, epoch)
 
+    def scalars(self, iteration, epoch=0, dtype=torch.float32) -> Dict[str, torch.Tensor]:
+        """This step's scalars as 0-dim tensors on the counters' device:
+        ``lr`` in `dtype` (the schedule's tensor form), and the updater's
+        own (``alpha``, the bias corrections) in f32, as the JAX package
+        takes them.  `iteration` and `epoch` are int32 tensors or ints."""
+        it, ep = _counter(iteration), _counter(epoch)
+        return {"lr": resolve_schedule(self.learning_rate).value_tensor(it, ep, dtype)}
+
     def init_state(self, params: Tree) -> Tree:
         return ()
 
     def apply(self, state: Tree, grads: Tree, iteration, epoch=0,
-              params: Tree = None) -> Tuple[Tree, Tree]:
-        """Returns (update_to_subtract, new_state).  `params` is given for
+              params: Tree = None, scalars=None) -> Tuple[Tree, Tree]:
+        """Returns (update_to_subtract, state), the new state written into
+        `state`'s tensors in place.  `params` is given for
         updaters that read the current parameters (decoupled weight
-        decay); the others ignore it."""
+        decay); the others ignore it.  `scalars` are this step's
+        ``scalars(iteration, epoch, dtype)``, computed here when not
+        given."""
         raise NotImplementedError
+
+    def _scalars(self, scalars, iteration, epoch, grads) -> Dict[str, torch.Tensor]:
+        return scalars if scalars is not None else self.scalars(
+            iteration, epoch, scalar_dtype(grads))
 
     def to_json(self) -> dict:
         d = {}
@@ -88,8 +145,8 @@ class IUpdater:
 
 @dataclasses.dataclass
 class Sgd(IUpdater):
-    def apply(self, state, grads, iteration, epoch=0, params=None):
-        lr = self.lr_at(iteration, epoch)
+    def apply(self, state, grads, iteration, epoch=0, params=None, scalars=None):
+        lr = self._scalars(scalars, iteration, epoch, grads)["lr"]
         return tree_map(lambda g: lr * g, grads), state
 
 
@@ -97,7 +154,7 @@ class Sgd(IUpdater):
 class NoOp(IUpdater):
     """Gradient passed through unmodified."""
 
-    def apply(self, state, grads, iteration, epoch=0, params=None):
+    def apply(self, state, grads, iteration, epoch=0, params=None, scalars=None):
         return grads, state
 
 
@@ -112,35 +169,39 @@ class Nesterovs(IUpdater):
     def init_state(self, params):
         return _zeros_like_tree(params)
 
-    def apply(self, state, grads, iteration, epoch=0, params=None):
-        lr = self.lr_at(iteration, epoch)
+    def apply(self, state, grads, iteration, epoch=0, params=None, scalars=None):
+        lr = self._scalars(scalars, iteration, epoch, grads)["lr"]
         mu = self.momentum
-        v_new = tree_map(lambda v, g: mu * v - lr * g, state, grads)
-        upd = tree_map(lambda v, vn: mu * v - (1.0 + mu) * vn, state, v_new)
-        return upd, v_new
 
+        def leaf(v, g):
+            mv = mu * v
+            torch.sub(mv, lr * g, out=v)            # v <- mu*v - lr*g
+            return mv.sub_((1.0 + mu) * v)
 
-def _f32(v) -> torch.Tensor:
-    return torch.tensor(v, dtype=torch.float32)
+        return tree_map(leaf, state, grads), state
 
 
 def _step_t(iteration) -> torch.Tensor:
     """The 1-based step count as the f32 scalar the JAX package raises the
-    betas to.  The f32 scalars stay 0-dim CPU tensors: PyTorch takes them
-    as scalars beside CUDA tensors, so no copy to the card is made."""
-    return _f32(float(iteration)) + 1.0
+    betas to."""
+    return _counter(iteration).to(torch.float32) + 1.0
 
 
-def _adam_alpha(u, iteration, epoch) -> torch.Tensor:
-    """lr * sqrt(1 - b2^t) / (1 - b1^t) in f32 (Adam, AdamW, AMSGrad)."""
+def _adam_scalars(u, iteration, epoch, dtype) -> Dict[str, torch.Tensor]:
+    """lr, and alpha = lr * sqrt(1 - b2^t) / (1 - b1^t) in f32 (Adam,
+    AdamW, AMSGrad): the JAX package's weakly typed lr meets the f32 bias
+    terms, so alpha is f32 whatever the parameters' dtype."""
+    s = IUpdater.scalars(u, iteration, epoch, dtype)
     t = _step_t(iteration)
-    return (_f32(u.lr_at(iteration, epoch)) * torch.sqrt(1.0 - _f32(u.beta2) ** t)
-            / (1.0 - _f32(u.beta1) ** t))
+    s["alpha"] = (s["lr"].to(torch.float32) * torch.sqrt(1.0 - torch.pow(u.beta2, t))
+                  / (1.0 - torch.pow(u.beta1, t)))
+    return s
 
 
 def _moments(state, grads, b1, b2):
-    m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g, state["m"], grads)
-    v = tree_map(lambda v_, g: b2 * v_ + (1 - b2) * g * g, state["v"], grads)
+    """m <- b1*m + (1-b1)*g and v <- b2*v + (1-b2)*g*g, in place."""
+    m = tree_map(lambda m_, g: m_.mul_(b1).add_((1 - b1) * g), state["m"], grads)
+    v = tree_map(lambda v_, g: v_.mul_(b2).add_((1 - b2) * g * g), state["v"], grads)
     return m, v
 
 
@@ -158,13 +219,16 @@ class Adam(IUpdater):
     def init_state(self, params):
         return {"m": _zeros_like_tree(params), "v": _zeros_like_tree(params)}
 
-    def apply(self, state, grads, iteration, epoch=0, params=None):
+    def scalars(self, iteration, epoch=0, dtype=torch.float32):
+        return _adam_scalars(self, iteration, epoch, dtype)
+
+    def apply(self, state, grads, iteration, epoch=0, params=None, scalars=None):
         eps = self.epsilon
-        alpha = _adam_alpha(self, iteration, epoch)
+        alpha = self._scalars(scalars, iteration, epoch, grads)["alpha"]
         m, v = _moments(state, grads, self.beta1, self.beta2)
         upd = tree_map(lambda m_, v_: alpha * m_ / (torch.sqrt(v_) + eps),
                        m, v)
-        return upd, {"m": m, "v": v}
+        return upd, state
 
 
 @dataclasses.dataclass
@@ -174,10 +238,11 @@ class AdamW(Adam):
 
     weight_decay: float = 0.01
 
-    def apply(self, state, grads, iteration, epoch=0, params=None):
-        upd, new_state = super().apply(state, grads, iteration, epoch)
+    def apply(self, state, grads, iteration, epoch=0, params=None, scalars=None):
+        scalars = self._scalars(scalars, iteration, epoch, grads)
+        upd, new_state = super().apply(state, grads, iteration, epoch, scalars=scalars)
         if params is not None and self.weight_decay:
-            lr = self.lr_at(iteration, epoch)
+            lr = scalars["lr"]
             upd = tree_map(lambda u, p: u + lr * self.weight_decay * p, upd, params)
         return upd, new_state
 
@@ -195,14 +260,17 @@ class AMSGrad(IUpdater):
         z = _zeros_like_tree
         return {"m": z(params), "v": z(params), "vhat": z(params)}
 
-    def apply(self, state, grads, iteration, epoch=0, params=None):
+    def scalars(self, iteration, epoch=0, dtype=torch.float32):
+        return _adam_scalars(self, iteration, epoch, dtype)
+
+    def apply(self, state, grads, iteration, epoch=0, params=None, scalars=None):
         eps = self.epsilon
-        alpha = _adam_alpha(self, iteration, epoch)
+        alpha = self._scalars(scalars, iteration, epoch, grads)["alpha"]
         m, v = _moments(state, grads, self.beta1, self.beta2)
-        vhat = tree_map(torch.maximum, state["vhat"], v)
+        vhat = tree_map(lambda vh, v_: torch.maximum(vh, v_, out=vh), state["vhat"], v)
         upd = tree_map(lambda m_, vh: alpha * m_ / (torch.sqrt(vh) + eps),
                        m, vhat)
-        return upd, {"m": m, "v": v, "vhat": vhat}
+        return upd, state
 
 
 @dataclasses.dataclass
@@ -217,12 +285,17 @@ class Nadam(IUpdater):
     def init_state(self, params):
         return {"m": _zeros_like_tree(params), "v": _zeros_like_tree(params)}
 
-    def apply(self, state, grads, iteration, epoch=0, params=None):
-        lr = self.lr_at(iteration, epoch)
+    def scalars(self, iteration, epoch=0, dtype=torch.float32):
+        s = super().scalars(iteration, epoch, dtype)
         t = _step_t(iteration)
+        s["one_minus_b1t"] = 1.0 - torch.pow(self.beta1, t)
+        s["one_minus_b2t"] = 1.0 - torch.pow(self.beta2, t)
+        return s
+
+    def apply(self, state, grads, iteration, epoch=0, params=None, scalars=None):
+        s = self._scalars(scalars, iteration, epoch, grads)
+        lr, one_minus_b1t, one_minus_b2t = s["lr"], s["one_minus_b1t"], s["one_minus_b2t"]
         b1, b2, eps = self.beta1, self.beta2, self.epsilon
-        one_minus_b1t = 1.0 - _f32(b1) ** t
-        one_minus_b2t = 1.0 - _f32(b2) ** t
         m, v = _moments(state, grads, b1, b2)
 
         def leaf(m_, v_, g):
@@ -230,7 +303,7 @@ class Nadam(IUpdater):
             vhat = v_ / one_minus_b2t
             return lr * (b1 * mhat + (1 - b1) * g / one_minus_b1t) / (torch.sqrt(vhat) + eps)
 
-        return tree_map(leaf, m, v, grads), {"m": m, "v": v}
+        return tree_map(leaf, m, v, grads), state
 
 
 @dataclasses.dataclass
@@ -246,14 +319,20 @@ class AdaMax(IUpdater):
     def init_state(self, params):
         return {"m": _zeros_like_tree(params), "u": _zeros_like_tree(params)}
 
-    def apply(self, state, grads, iteration, epoch=0, params=None):
-        t = _step_t(iteration)
+    def scalars(self, iteration, epoch=0, dtype=torch.float32):
+        s = super().scalars(iteration, epoch, dtype)
+        s["alpha"] = s["lr"].to(torch.float32) / (
+            1.0 - torch.pow(self.beta1, _step_t(iteration)))
+        return s
+
+    def apply(self, state, grads, iteration, epoch=0, params=None, scalars=None):
+        alpha = self._scalars(scalars, iteration, epoch, grads)["alpha"]
         b1, b2, eps = self.beta1, self.beta2, self.epsilon
-        m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g, state["m"], grads)
-        u = tree_map(lambda u_, g: torch.maximum(b2 * u_, torch.abs(g)), state["u"], grads)
-        alpha = _f32(self.lr_at(iteration, epoch)) / (1.0 - _f32(b1) ** t)
+        m = tree_map(lambda m_, g: m_.mul_(b1).add_((1 - b1) * g), state["m"], grads)
+        u = tree_map(lambda u_, g: torch.maximum(u_.mul_(b2), torch.abs(g), out=u_),
+                     state["u"], grads)
         upd = tree_map(lambda m_, u_: alpha * m_ / (u_ + eps), m, u)
-        return upd, {"m": m, "u": u}
+        return upd, state
 
 
 @dataclasses.dataclass
@@ -266,11 +345,11 @@ class AdaGrad(IUpdater):
     def init_state(self, params):
         return _zeros_like_tree(params)
 
-    def apply(self, state, grads, iteration, epoch=0, params=None):
-        lr = self.lr_at(iteration, epoch)
-        h = tree_map(lambda h_, g: h_ + g * g, state, grads)
+    def apply(self, state, grads, iteration, epoch=0, params=None, scalars=None):
+        lr = self._scalars(scalars, iteration, epoch, grads)["lr"]
+        h = tree_map(lambda h_, g: h_.add_(g * g), state, grads)
         upd = tree_map(lambda h_, g: lr * g / (torch.sqrt(h_) + self.epsilon), h, grads)
-        return upd, h
+        return upd, state
 
 
 @dataclasses.dataclass
@@ -285,12 +364,12 @@ class RmsProp(IUpdater):
     def init_state(self, params):
         return _zeros_like_tree(params)
 
-    def apply(self, state, grads, iteration, epoch=0, params=None):
-        lr = self.lr_at(iteration, epoch)
+    def apply(self, state, grads, iteration, epoch=0, params=None, scalars=None):
+        lr = self._scalars(scalars, iteration, epoch, grads)["lr"]
         rho = self.rms_decay
-        r = tree_map(lambda r_, g: rho * r_ + (1 - rho) * g * g, state, grads)
+        r = tree_map(lambda r_, g: r_.mul_(rho).add_((1 - rho) * g * g), state, grads)
         upd = tree_map(lambda r_, g: lr * g / torch.sqrt(r_ + self.epsilon), r, grads)
-        return upd, r
+        return upd, state
 
 
 @dataclasses.dataclass
@@ -305,13 +384,16 @@ class AdaDelta(IUpdater):
     def init_state(self, params):
         return {"msg": _zeros_like_tree(params), "msdx": _zeros_like_tree(params)}
 
-    def apply(self, state, grads, iteration, epoch=0, params=None):
+    def scalars(self, iteration, epoch=0, dtype=torch.float32):
+        return {}
+
+    def apply(self, state, grads, iteration, epoch=0, params=None, scalars=None):
         rho, eps = self.rho, self.epsilon
-        msg = tree_map(lambda a, g: rho * a + (1 - rho) * g * g, state["msg"], grads)
+        msg = tree_map(lambda a, g: a.mul_(rho).add_((1 - rho) * g * g), state["msg"], grads)
         upd = tree_map(lambda msg_, msdx_, g: g * torch.sqrt(msdx_ + eps) / torch.sqrt(msg_ + eps),
                        msg, state["msdx"], grads)
-        msdx = tree_map(lambda a, d: rho * a + (1 - rho) * d * d, state["msdx"], upd)
-        return upd, {"msg": msg, "msdx": msdx}
+        tree_map(lambda a, d: a.mul_(rho).add_((1 - rho) * d * d), state["msdx"], upd)
+        return upd, state
 
 
 UPDATERS: Dict[str, type] = {

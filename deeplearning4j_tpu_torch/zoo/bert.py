@@ -26,7 +26,8 @@ Training is the JAX package's step: the masked-LM loss (sparse [B, T] or
 one-hot [B, T, V] labels under a [B, T] label mask) when the batch has
 ``labels_masks``, else the classification loss; autograd of the loss over
 the f32 master parameters, then ``updater.apply(opt_state, grads,
-iteration, epoch, params=...)``, whose update is subtracted from the
+iteration, epoch, params=...)`` with the int32 counters on the device
+(``utils/counters.py``), whose update is subtracted from the
 parameters in place under ``torch.no_grad()``.  On CUDA an MLM step's
 backward launches the flash-attention dQ and dK/dV kernels once per block
 and the LayerNorm backward kernel once per LayerNorm (12, 12 and 26 at
@@ -255,13 +256,16 @@ class BertModel(nn.Module):
         return self._loss_and_grads(*self._batch(mds))[1]
 
     def _step(self, loss_fn, batch) -> torch.Tensor:
+        from deeplearning4j_tpu_torch.utils.counters import advance, device_counters
         loss, grads = self._loss_and_grads(loss_fn, batch)
         params = self.params_
+        it, epoch = device_counters(self)
         with torch.no_grad():
             upd, self.opt_state_ = self.updater.apply(
-                self.opt_state_, grads, self.iteration, self.epoch, params=params)
+                self.opt_state_, grads, it, epoch, params=params)
             tree_map(lambda p, u: p.sub_(u), params, upd)
-        self.iteration += 1
+            it.add_(1)
+        advance(self)
         self._score = loss
         return loss
 

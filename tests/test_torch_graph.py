@@ -217,8 +217,9 @@ def test_graph_entry_points_refuse_to_run_without_cuda():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         TResNet50().init_model()
     assert tnn.ComputationGraph(_dense_graph(tnn), device="cpu").device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="iterator"):
-        tnn.ComputationGraph(_dense_graph(tnn), device="cpu").init().fit([])
+    # an empty iterator is one epoch of no steps
+    empty = tnn.ComputationGraph(_dense_graph(tnn), device="cpu").init().fit([])
+    assert (empty.iteration, empty.epoch) == (0, 1)
 
 
 def test_full_depth_resnet50_forward_and_gradients_match_jax():

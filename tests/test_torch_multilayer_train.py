@@ -431,10 +431,7 @@ def test_left_out_entry_points_raise_not_implemented():
     net = MultiLayerNetwork(MultiLayerConfiguration.from_json(
         _small_conf(jupd.Adam()).to_json()), device="cpu").init()
     x, y = _batches((5,), 3, 1, seed=16)[0]
-    calls = [lambda: net.fit_steps(x[None], y[None]),
-             lambda: net.fit(ListDataSetIterator([DataSet(x, y)]), fused_steps=2),
-             lambda: net.set_normalizer(None),
-             lambda: net.set_gradient_sharing(None),
+    calls = [lambda: net.set_gradient_sharing(None),
              lambda: net.set_executable_cache(None),
              lambda: net.apply_schedule(None)]
     for call in calls:
