@@ -171,8 +171,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    mode's; 3 steps in each mode, finite losses within
    ``BERT_BF16_LOSS_RTOL`` of reference mode's; ``fit_steps`` over a stack
    of 5 copies of the batch (as bench.py builds it) against 5 ``fit_batch``
-   calls from the same start, losses within 1e-6 relative and 5 x the
-   launch counts.
+   calls from the same start, losses within 1e-6 relative, and 6 x the
+   launch counts counted at its first call (the warm-up body and the 5
+   captured bodies of its CUDA graph; a replay ticks no Python count).
 20. bert_train_iter — one ``fit(BertIterator(...))`` epoch of 2 batches of
    64 at T = 128 over a 30,522-word vocab the script makes (``[PAD]``,
    ``[UNK]``, ``[CLS]``, ``[SEP]``, ``[MASK]``, then ``w5`` ... ``w30521``)
@@ -369,10 +370,58 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    drawn from the same generator state is reported; where it has not,
    the graph path must raise for this network.  The line says which was
    checked.
+37. fused_bert — bench.py's fused BERT blocks (``bench.py:208-248``):
+   BERT-base (110,106,428 parameters, vocab 30,522) in bf16 compute with
+   f32 master parameters, Adam(1e-4), masked LM, ``fit_steps`` on a
+   stride-0 block of k = 5 copies of bench.py's batch, at batch 64, T =
+   128 and at batch 4, T = 2048.  Two replayed blocks against an eager
+   twin from the same initial ``state_dict`` that runs ``fit_batch`` 10
+   times: the 10 losses, every parameter and every Adam tensor equal bit
+   for bit.  Exactly one capture for the shape; each later block is one
+   ``replay()`` (counted on the graph) and ticks no Python launch count
+   (the first block's count is the warm-up body and the 5 captured
+   bodies).  A second capture of the block, made apart as a debug-mode
+   graph, holds exactly 5 x (12 flash forward, 12 dQ, 12 dK/dV, 26
+   LayerNorm forward, 26 LayerNorm backward) kernel nodes; three replays
+   under ``torch.profiler`` show each kernel, none more than that; a
+   block captured in ``reference`` mode holds none of those nodes and
+   counts none.  Graph ms per step (the median of 3 timed blocks over
+   k) and eager ms per step (the median step after the first), tokens/s
+   of each, device busy and idle share of one replayed block, capture
+   seconds and peak memory.  At T = 128 also ``fit(list of 11 MLM
+   batches, fused_steps=5)``: its losses (two blocks, then one tail
+   step) and parameters equal those of the same batches through
+   ``fit_steps`` twice and ``fit_batch`` once, bit for bit, with one
+   capture.
+38. zoo_graphs — SqueezeNet v1.1 (224x224x3, 1000 classes, batch 32,
+   Adam(1e-3), dropout 0.5) and U-Net at ``UNet.java``'s width (64 base
+   filters, 512x512x3, one sigmoid class, batch 4) at seed 123, f32, each
+   against a twin loaded from its initial zip in ``reference`` mode (the
+   same dropout generator state): ``gradient_for`` per tensor within 1e-4
+   * max|ref|, two ``fit`` steps with the launches exact a step
+   (``ZOO_GRAPHS``: one wgrad per stride-1 3x3 conv, one dgrad per such
+   conv whose input needs a gradient; SqueezeNet's stride-2 stem goes to
+   cuDNN) and the losses held as in phase 32; step ms and peak memory.
+39. records_train — DL4J's CSV path: a 4,096-row CSV (784 feature
+   columns, a string class column of 10 classes, from numpy seed 0)
+   written to a temporary directory, read by ``CSVRecordReader``, a
+   ``TransformProcess`` that maps the class to an integer,
+   ``RecordReaderDataSetIterator`` (batch 256) and a fitted
+   ``NormalizerStandardize`` as its pre-processor, trains an MLN of Dense
+   784 -> 500 relu and Output 500 -> 10 softmax (mcxent), Adam(1e-3),
+   seed 123, through ``fit(iterator)`` for one epoch; a twin from the
+   same initial ``state_dict`` trains over the same iterator in
+   ``reference`` mode: each of the 16 losses within 1e-4 relative, and
+   exactly one ``fused_dense`` launch a step (the relu Dense; the softmax
+   head is plain).  Seconds of the CSV write, of one pass of the reader
+   pipeline, and of the epoch.
 
 Then the kernels line (each entry with ``share_of_bound``; ``fused_dense``
 and the conv pair carry ``vgg16_train``, ``zoo_train``, ``fused_resnet50``
-and ``fused_lenet`` entries; the last two count the launches of one
+and ``fused_lenet`` entries, the conv pair ``zoo_graphs`` and
+``fused_dense`` ``records_train`` ones, and the attention and LayerNorm
+kernels ``fused_bert`` ones (their nodes in one replayed block at each
+shape); the last two count the launches of one
 replayed block by the graph's kernel nodes, beside the profiler's counts
 of traced replays and the Python counts made at the warm-up and the
 capture), nvidia-smi's line, and the last line ``{"ok": true, "device": {...}}``.  Exits
@@ -530,6 +579,29 @@ FUSED_LENET_BATCHES = 23
 #: block
 FUSED_LENET_LR = (1e-3, 0.5, 4)
 FUSED_DROPOUT_K = 4
+#: bench.py's fused BERT blocks (`bench.py:208-248`): stride-0 blocks of 5
+#: at (batch, T) = (64, 128) and the long-sequence (4, 2048)
+FUSED_BERT_K = 5
+FUSED_BERT_SHAPES = ((64, 128), (4, 2048))
+FUSED_BERT_TIMED_BLOCKS = 3
+FUSED_BERT_ITER_BATCHES = 11
+#: the five kernels of a BERT MLM step, (launch name, kernel name) in
+#: BERT_STEP_LAUNCHES' order
+BERT_KERNEL_TAGS = (("flash_attn_fwd", "flash_attn_fwd_kernel"),
+                    ("flash_attn_bwd_dq", "flash_attn_bwd_dq_kernel"),
+                    ("flash_attn_bwd_dkv", "flash_attn_bwd_dkv_kernel"),
+                    ("layer_norm_fwd", "layer_norm_fwd_kernel"),
+                    ("layer_norm_bwd", "layer_norm_bwd_kernel"))
+#: the zoo's graph models at their published widths, (config, batch,
+#: launches a fit step as VGG_STEP_LAUNCHES counts them): SqueezeNet's 8
+#: fire-module 3x3 expands (each fed by its squeeze conv; the stride-2 stem
+#: is no kernel shape); U-Net's 18 double-conv 3x3s (the first reads the
+#: data, so 17 dgrad).  No Dense layer in either.
+ZOO_GRAPHS = {"SqueezeNet": (dict(n_classes=1000, input_shape=(224, 224, 3)), 32, (0, 8, 8)),
+              "UNet": (dict(n_classes=1, input_shape=(512, 512, 3), base_filters=64), 4,
+                       (0, 18, 17))}
+#: the CSV of records_train: rows, feature columns, classes, batch
+RECORDS_CSV = (4096, 784, 10, 256)
 
 
 def emit(phase, **kw):
@@ -1747,8 +1819,10 @@ def phase_bert_train(BertModel, BertConfig, Adam, MultiDataSet, dispatch, attent
     restart()
     (fs_losses,), fs_ms, fs_counts = _train_steps(bf, lambda: bf.fit_steps(stacked), counters, 1)
     fs_rel = max(abs(a - r) / abs(r) for a, r in zip(fs_losses, seq_losses))
-    require(fs_counts[0] == tuple(k * n for n in BERT_STEP_LAUNCHES),
-            f"fit_steps launches {fs_counts[0]} != {k} x {BERT_STEP_LAUNCHES}")
+    # a CUDA graph: the warm-up body and the k captured bodies tick the
+    # counts, the replay none
+    require(fs_counts[0] == tuple((k + 1) * n for n in BERT_STEP_LAUNCHES),
+            f"fit_steps launches {fs_counts[0]} != {k + 1} x {BERT_STEP_LAUNCHES}")
     require(bf.iteration == k, f"fit_steps advanced iteration to {bf.iteration}")
     require(fs_rel <= 1e-6, f"fit_steps losses {fs_losses} vs fit_batch {seq_losses}")
     b_step_ms = statistics.median(b_ms[1:])
@@ -3230,26 +3304,36 @@ class _keep_graphs:
         torch.cuda.CUDAGraph = self.prev
 
 
-def _kept_launches(net, block, want, tag):
-    """A graph of `block()` (one ``fit_steps`` of `net`) captured afresh as
-    a `_KeptGraph`: ({kernel: nodes} of the hand-written kernels, all
-    kernel nodes), read from its DOT dump, what each replay of that block
-    launches; the hand-written kernels' nodes must equal `want`.  The
-    net's own graph step is put back after, so its timed graphs stay the
-    port's plain ones."""
+def _kept_dot(owner, attr, fresh, block):
+    """The DOT dump of a graph of `block()` captured afresh as a
+    `_KeptGraph`: `owner.<attr>` (its graph step, or a dict of them) is set
+    to `fresh` for the capture and put back after, so the owner's timed
+    graphs stay the port's plain ones."""
     import tempfile
-    own, net._scan_step = net._scan_step, None
+    own = getattr(owner, attr)
+    setattr(owner, attr, fresh)
     try:
         with _keep_graphs():
             block()
-        (rec,) = net._scan_step._graphs.values()
+        steps = getattr(owner, attr)
+        (step,) = steps.values() if isinstance(steps, dict) else (steps,)
+        (rec,) = step._graphs.values()
         path = os.path.join(tempfile.mkdtemp(prefix="graph_"), "g.dot")
         rec.graph.debug_dump(path)
     finally:
-        net._scan_step = own
+        setattr(owner, attr, own)
     with open(path) as f:
         txt = f.read()
     os.remove(path)
+    return txt
+
+
+def _kept_launches(net, block, want, tag):
+    """A graph of `block()` (one ``fit_steps`` of `net`) captured afresh as
+    a `_KeptGraph` (`_kept_dot`): ({kernel: nodes} of the hand-written
+    kernels, all kernel nodes), what each replay of that block launches;
+    the hand-written kernels' nodes must equal `want`."""
+    txt = _kept_dot(net, "_scan_step", None, block)
     nodes = {"fused_dense": txt.count("fused_dense_kernel"),
              "conv3x3_wgrad": txt.count("conv3x3_wgrad_kernel"),
              "conv3x3_dgrad": txt.count("conv3x3_dgrad_kernel")}
@@ -3257,18 +3341,18 @@ def _kept_launches(net, block, want, tag):
     return nodes, txt.count("KERNEL")
 
 
-def _traced_replays(fn, want, tag, tries=3):
+def _traced_replays(fn, want, tag, tries=3, launches=_hand_launches):
     """fn (one replayed block) under the profiler `tries` times: the trace
     with the most kernel records, and every trace's (kernels, launches of
-    the hand-written kernels).  Each hand-written kernel of `want` shows
-    in every trace, none more than `want`: the profiler loses kernel
-    records of graph replays (LeNet: 9 of 10 `fused_dense` in every
+    the hand-written kernels by `launches`).  Each hand-written kernel of
+    `want` shows in every trace, none more than `want`: the profiler loses
+    kernel records of graph replays (LeNet: 9 of 10 `fused_dense` in every
     trace of three whole runs, plain and debug-mode graphs alike), so the
     exact count is `_kept_launches`'."""
     best, seen = None, []
     for _ in range(tries):
         got = _trace(fn)
-        seen.append((got[3], _hand_launches(got[2])))
+        seen.append((got[3], launches(got[2])))
         if best is None or got[3] > best[3]:
             best = got
     require(all(0 < t[1][n] <= want[n] if want[n] else t[1][n] == 0
@@ -3624,6 +3708,345 @@ def phase_fused_dropout(nn, train, dev, k=FUSED_DROPOUT_K, batch=64, n_in=256):
     return {"checked": "fresh masks"}
 
 
+def _bert_block(MultiDataSet, mds, k):
+    """A stride-0 block of k copies of one batch, as bench.py builds it."""
+    def b(t):
+        return t.broadcast_to((k,) + tuple(t.shape))
+    return MultiDataSet(features=[b(f) for f in mds.features],
+                        labels=[b(l) for l in mds.labels],
+                        labels_masks=[b(m) for m in mds.labels_masks])
+
+
+def _bert_launches(by_name):
+    """Launches of the BERT step's five kernels in a trace, by name."""
+    return {name: _count_kernels(by_name, tag) for name, tag in BERT_KERNEL_TAGS}
+
+
+def _bert_kept_launches(model, block, want, tag):
+    """The BERT kernels' nodes of a debug-mode capture of `block()` (one
+    ``fit_steps`` of `model`), made apart (`_kept_dot`); must equal `want`."""
+    txt = _kept_dot(model, "_scan_steps", {}, block)
+    nodes = {name: txt.count(kernel) for name, kernel in BERT_KERNEL_TAGS}
+    require(nodes == want, f"{tag}: the graph launches {nodes} a replay, want {want}")
+    return nodes, txt.count("KERNEL")
+
+
+def _counting_replays(graph):
+    """Wrap `graph.replay` with a counter: {"replays": n}."""
+    seen = {"replays": 0}
+    replay = graph.replay
+
+    def counted():
+        seen["replays"] += 1
+        return replay()
+
+    graph.replay = counted
+    return seen
+
+
+def _fused_bert_run(BertModel, BertConfig, Adam, MultiDataSet, dispatch, attention,
+                    layer_norm, dev, batch, t, k):
+    """One shape of phase 37; returns its report."""
+    tag = f"fused_bert batch {batch} T {t}"
+    cfg = {"compute_dtype": "bfloat16", **({"max_len": t} if t > 512 else {})}
+    counters = _train_counters(attention, layer_norm)
+    mds = _bert_train_batch(MultiDataSet, dev, batch, t)
+    block = _bert_block(MultiDataSet, mds, k)
+    steps = 2 * k
+    model = _bert_train_model(BertModel, BertConfig, Adam, dev, **cfg)
+
+    # the eager twin: 2k fit_batch calls from the same initial parameters
+    twin = _bert_train_model(BertModel, BertConfig, Adam, dev, **cfg)
+    twin.load_state_dict(model.state_dict())
+    eager, eager_ms, eager_counts = _train_steps(twin, lambda: twin.fit_batch(mds),
+                                                 counters, steps)
+    require(all(c == BERT_STEP_LAUNCHES for c in eager_counts),
+            f"{tag}: eager launches per step {eager_counts} != {BERT_STEP_LAUNCHES}")
+    want_carry = [c.clone() for c in twin._carry()[:-1]]      # params, Adam state
+    del twin
+
+    # the main path: two replayed blocks, the counts set to 0 just before
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.reset()
+    first, first_ms = _synced(lambda: model.fit_steps(block))
+    step = model._scan_steps["mlm"]
+    (rec,) = step._graphs.values()
+    replays = _counting_replays(rec.graph)
+    at_capture = tuple(int(c.value) for c in counters)
+    second, second_ms = _synced(lambda: model.fit_steps(block))
+    after_replay = tuple(int(c.value) for c in counters)
+    peak = torch.cuda.max_memory_allocated()
+    losses = first.tolist() + second.tolist()
+    carry = model._carry()
+    differ = [i for i, (a, b) in enumerate(zip(carry[:-1], want_carry)) if not torch.equal(a, b)]
+    del want_carry
+    require(losses == eager, f"{tag}: graph losses {losses} != eager {eager}")
+    require(not differ, f"{tag}: {len(differ)} of {len(carry) - 1} parameter and Adam "
+                        f"tensors differ from the eager twin's (first {differ[:5]})")
+    require(model.iteration == steps and int(carry[-1]) == steps,
+            f"{tag}: iteration {model.iteration} / {int(carry[-1])} after 2 blocks")
+    require(model.score() == losses[-1], f"{tag}: score() is not the block's last loss")
+    require(step.captures == 1 and list(model._scan_steps) == ["mlm"],
+            f"{tag}: {step.captures} captures for one shape")
+    require(at_capture == tuple((k + 1) * n for n in BERT_STEP_LAUNCHES)
+            and after_replay == at_capture and replays["replays"] == 1,
+            f"{tag}: counted {at_capture} at the capture, {after_replay} after a replay, "
+            f"{replays['replays']} replays for one block")
+
+    # more blocks for the time, one under the profiler, the graph's nodes
+    block_ms = [second_ms]
+    for _ in range(FUSED_BERT_TIMED_BLOCKS - 1):
+        block_ms.append(_synced(lambda: model.fit_steps(block))[1])
+    require(replays["replays"] == FUSED_BERT_TIMED_BLOCKS and step.captures == 1,
+            f"{tag}: {replays['replays']} replays for {FUSED_BERT_TIMED_BLOCKS} blocks")
+    want = {name: k * n for (name, _), n in zip(BERT_KERNEL_TAGS, BERT_STEP_LAUNCHES)}
+    (window_ms, busy_ms, by_name, n_kernels), traces = _traced_replays(
+        lambda: model.fit_steps(block), want, tag, launches=_bert_launches)
+    require(busy_ms is not None, f"{tag}: the profiler saw no device activity")
+    nodes, graph_kernels = _bert_kept_launches(model, lambda: model.fit_steps(block), want,
+                                               tag)
+    model._scan_steps = {}                 # the timed graph's pool goes
+    torch.cuda.empty_cache()
+
+    # a block captured in reference mode: none of the kernels' nodes
+    prev = dispatch.set_dispatch_mode("reference")
+    try:
+        for c in counters:
+            c.reset()
+        ref_nodes, _ = _bert_kept_launches(model, lambda: model.fit_steps(block),
+                                           {name: 0 for name, _ in BERT_KERNEL_TAGS}, tag)
+        ref_counts = tuple(int(c.value) for c in counters)
+    finally:
+        dispatch.set_dispatch_mode(prev)
+    require(not any(ref_counts), f"{tag}: a reference-mode block counted {ref_counts}")
+    graph_ms = statistics.median(block_ms) / k
+    eager_step_ms = statistics.median(eager_ms[1:])
+    report = dict(
+        k=k, losses=losses, eager_losses=eager, bitwise_equal=True,
+        captures=step.captures, replays=replays["replays"],
+        capture_s=step.capture_seconds[0], first_block_ms=first_ms,
+        block_ms_all=block_ms, graph_step_ms=graph_ms, eager_step_ms=eager_step_ms,
+        eager_step_ms_all=eager_ms, graph_tokens_per_sec=batch * t * 1e3 / graph_ms,
+        eager_tokens_per_sec=batch * t * 1e3 / eager_step_ms,
+        block_window_ms=window_ms, block_busy_ms=busy_ms,
+        block_idle_share=max(0.0, 1.0 - busy_ms / window_ms), block_kernels=n_kernels,
+        replay_launches=nodes, graph_kernel_nodes=graph_kernels, replay_traces=traces,
+        launches_counted_at_capture=at_capture, reference_block_nodes=ref_nodes,
+        max_memory_allocated_gb=peak / 1e9, top=_top(by_name, 8))
+    del model, step, rec
+    torch.cuda.empty_cache()
+    return report
+
+
+def _fused_bert_iter(BertModel, BertConfig, Adam, MultiDataSet, dev, batch, t, k, n):
+    """`fit(list of n MLM batches, fused_steps=k)` against the same batches
+    through `fit_steps` and `fit_batch` from the same start, bitwise."""
+    rng = np.random.RandomState(5)
+    batches = []
+    for _ in range(n):
+        ids = rng.randint(0, BERT_TRAIN_VOCAB, (batch, t)).astype(np.int32)
+        lmask = (rng.rand(batch, t) < 0.15).astype(np.float32)
+        batches.append(MultiDataSet([ids, np.ones((batch, t), np.float32)], [ids],
+                                    labels_masks=[lmask]))
+    fused = _bert_train_model(BertModel, BertConfig, Adam, dev, compute_dtype="bfloat16")
+    manual = _bert_train_model(BertModel, BertConfig, Adam, dev, compute_dtype="bfloat16")
+    manual.load_state_dict(fused.state_dict())
+    got = []
+    fit_steps, fit_batch = fused.fit_steps, fused.fit_batch
+    fused.fit_steps = lambda m: got.append(fit_steps(m).tolist()) or None
+    fused.fit_batch = lambda m: got.append([float(fit_batch(m))]) or None
+    fused.fit(batches, fused_steps=k)
+    want = []
+    for lo in range(0, n - n % k, k):
+        part = batches[lo:lo + k]
+        want.append(manual.fit_steps(MultiDataSet(
+            [np.stack([b.features[j] for b in part]) for j in range(2)],
+            [np.stack([b.labels[0] for b in part])],
+            labels_masks=[np.stack([b.labels_masks[0] for b in part])])).tolist())
+    for b in batches[n - n % k:]:
+        want.append([float(manual.fit_batch(b))])
+    same = all(torch.equal(a, b) for a, b in zip(fused._carry(), manual._carry()))
+    captures = fused._scan_steps["mlm"].captures
+    require(got == want and same, f"fit(iterator, fused_steps={k}) losses {got} != "
+                                  f"fit_steps / fit_batch {want} (parameters equal: {same})")
+    require(captures == 1 and fused.iteration == n and fused.epoch == 1,
+            f"fit(iterator): {captures} captures, iteration {fused.iteration}")
+    del fused, manual
+    torch.cuda.empty_cache()
+    return {"batches": n, "blocks": [len(g) for g in got], "losses": got,
+            "captures": captures}
+
+
+def phase_fused_bert(BertModel, BertConfig, Adam, MultiDataSet, dispatch, attention,
+                     layer_norm, dev, shapes=FUSED_BERT_SHAPES, k=FUSED_BERT_K):
+    """bench.py's fused BERT blocks as CUDA graphs (phase 37 of the module
+    docstring).  Returns {(batch, T): report}."""
+    out = {}
+    for batch, t in shapes:
+        out[(batch, t)] = _fused_bert_run(BertModel, BertConfig, Adam, MultiDataSet, dispatch,
+                                          attention, layer_norm, dev, batch, t, k)
+        extra = {}
+        if (batch, t) == shapes[0]:
+            extra["fit_iterator"] = _fused_bert_iter(BertModel, BertConfig, Adam,
+                                                     MultiDataSet, dev, batch, t, k,
+                                                     FUSED_BERT_ITER_BATCHES)
+        emit("fused_bert", model="BERT-base", params=BERT_BASE_PARAMS, batch=batch, T=t,
+             compute_dtype="bfloat16", master_dtype="float32", updater="Adam(1e-4)",
+             task="mlm", **out[(batch, t)], **extra)
+    return out
+
+
+def _zoo_graph_data(name, cfg, batch):
+    """bench.py-style inputs: RandomState(0) images, and one-hot classes
+    (SqueezeNet) or a per-pixel 0/1 mask (U-Net)."""
+    rng = np.random.RandomState(0)
+    h, w, c = cfg["input_shape"]
+    x = rng.rand(batch, h, w, c).astype(np.float32)
+    if name == "UNet":
+        y = (rng.rand(batch, h, w, cfg["n_classes"]) > 0.5).astype(np.float32)
+    else:
+        y = np.eye(cfg["n_classes"], dtype=np.float32)[rng.randint(0, cfg["n_classes"], batch)]
+    return x, y
+
+
+def phase_zoo_graphs(matmul, conv3x3, dispatch, zoo, ComputationGraph, dev,
+                     models=ZOO_GRAPHS):
+    """SqueezeNet and U-Net training on the card (phase 38 of the module
+    docstring).  Returns each model's report."""
+    import shutil
+    import tempfile
+
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="zoo_graphs_")
+    try:
+        for name, (cfg, batch, per_step) in models.items():
+            xn, yn = _zoo_graph_data(name, cfg, batch)
+            x, y = torch.as_tensor(xn, device=dev), torch.as_tensor(yn, device=dev)
+            net = getattr(zoo, name)(seed=123, **cfg).init_model(device=dev)
+            twin, init_zip, _ = _twin_of(net, ComputationGraph, dev, tmp, name)
+            worst_grad = _grad_parity(net, twin, dispatch, x, y, name)
+            torch.cuda.reset_peak_memory_stats()
+            losses, ms, theta0, theta1 = _main_steps(net, matmul, conv3x3, x, y,
+                                                     ZOO_STEPS, per_step, name)
+            peak = torch.cuda.max_memory_allocated()
+            ref_losses, ref_theta1 = _reference_steps(twin, dispatch, x, y, ZOO_STEPS)
+            upd, ref_upd = theta1 - theta0, ref_theta1 - theta0
+            update_l2 = ((upd - ref_upd).norm() / ref_upd.norm()).item()
+            del twin, theta0, theta1, ref_theta1, upd, ref_upd
+            rerun = _rerun_if_diverged(ref_losses, init_zip, ComputationGraph, dispatch,
+                                       dev, x, y)
+            rel = _hold_losses(losses, ref_losses, rerun, name)
+            out[name] = {"input": "x".join(map(str, cfg["input_shape"])),
+                         "classes": cfg["n_classes"], "batch": batch,
+                         **({"base_filters": cfg["base_filters"]}
+                            if "base_filters" in cfg else {}),
+                         "params": net.num_params(),
+                         "updater": type(net.conf.updater).__name__,
+                         "launches_per_step": dict(zip(
+                             ("fused_dense", "conv3x3_wgrad", "conv3x3_dgrad"), per_step)),
+                         "max_rel_grad_diff": worst_grad, "losses": losses,
+                         "reference_losses": ref_losses, "rel_loss_diff": rel,
+                         "reference_rerun_rel_loss_diff": rerun,
+                         "step1_update_l2_rel_diff": update_l2, "step_ms_all": ms,
+                         "step_ms": ms[-1], "max_memory_allocated_gb": peak / 1e9}
+            del net, x, y
+            torch.cuda.empty_cache()
+            emit("zoo_graphs", model=name, **out[name])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+class _StepLosses:
+    """A listener that keeps each step's loss tensor and the `fused_dense`
+    launches counted since the step before (the count is set to 0 just
+    before `fit`)."""
+
+    def __init__(self, counter):
+        self.counter, self.losses, self.launches = counter, [], []
+
+    def iteration_done(self, model, iteration, epoch):
+        self.losses.append(model.score_array())
+        self.launches.append(int(self.counter.value))
+        self.counter.reset()
+
+
+def phase_records_train(matmul, dispatch, data, nn, Adam, dev, shape=RECORDS_CSV):
+    """DL4J's CSV path on the card (phase 39 of the module docstring)."""
+    import shutil
+    import tempfile
+
+    rows, n_feat, classes, batch = shape
+    rng = np.random.RandomState(0)
+    labels = rng.randint(0, classes, rows)
+    x = (rng.rand(rows, n_feat) + 0.05 * labels[:, None]).astype(np.float32)
+    names = [f"class{i}" for i in range(classes)]
+    tmp = tempfile.mkdtemp(prefix="records_")
+    try:
+        path = os.path.join(tmp, "train.csv")
+        t0 = time.perf_counter()
+        with open(path, "w") as f:
+            for row, lab in zip(x.tolist(), labels):
+                f.write(",".join("%.6f" % v for v in row) + "," + names[lab] + "\n")
+        write_s = time.perf_counter() - t0
+        schema = (data.Schema.builder().add_column_double(*[f"x{i}" for i in range(n_feat)])
+                  .add_column_categorical("label", names).build())
+        tp = data.TransformProcess.builder(schema).categorical_to_integer("label").build()
+        it = data.RecordReaderDataSetIterator(
+            data.TransformProcessRecordReader(data.CSVRecordReader(path), tp), batch,
+            label_index=-1, num_classes=classes)
+        t0 = time.perf_counter()
+        nz = data.NormalizerStandardize().fit(it)
+        read_s = time.perf_counter() - t0
+        it.set_pre_processor(nz)
+        conf = (nn.NeuralNetConfiguration.builder().seed(123).updater(Adam(1e-3))
+                .list([nn.DenseLayer(n_out=500, activation="relu"),
+                       nn.OutputLayer(n_out=classes, loss="mcxent", activation="softmax")])
+                .set_input_type(nn.InputType.feed_forward(n_feat)).build())
+        net = nn.MultiLayerNetwork(conf, device=dev).init()
+        twin = nn.MultiLayerNetwork(nn.MultiLayerConfiguration.from_json(conf.to_json()),
+                                    device=dev).init()
+        twin.load_state_dict(net.state_dict())
+        main = _StepLosses(matmul.LAUNCHES)
+        net.set_listeners(main)
+        matmul.LAUNCHES.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit(it, epochs=1)
+        losses = [float(v) for v in main.losses]
+        epoch_s = time.perf_counter() - t0
+        ref = _StepLosses(matmul.LAUNCHES)
+        twin.set_listeners(ref)
+        prev = dispatch.set_dispatch_mode("reference")
+        try:
+            matmul.LAUNCHES.reset()
+            twin.fit(it, epochs=1)
+            ref_losses = [float(v) for v in ref.losses]
+        finally:
+            dispatch.set_dispatch_mode(prev)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    steps = -(-rows // batch)
+    rel = [abs(a - r) / abs(r) for a, r in zip(losses, ref_losses)]
+    require(len(losses) == len(ref_losses) == steps and net.epoch == 1,
+            f"records_train: {len(losses)} steps, {len(ref_losses)} in reference mode, "
+            f"want {steps}")
+    require(all(math.isfinite(v) for v in losses + ref_losses), "records_train: non-finite loss")
+    require(max(rel) <= F32_RTOL, f"records_train losses {losses} vs reference {ref_losses}")
+    require(main.launches == [1] * steps and ref.launches == [0] * steps,
+            f"records_train: fused_dense launches a step {main.launches}, in reference mode "
+            f"{ref.launches}")
+    emit("records_train", rows=rows, feature_columns=n_feat, classes=classes, batch=batch,
+         reader="CSVRecordReader -> TransformProcess(categorical_to_integer) -> "
+                "RecordReaderDataSetIterator -> NormalizerStandardize",
+         model="Dense 784->500 relu, Output 500->10 softmax", updater="Adam(1e-3)",
+         steps=steps, losses=losses, reference_losses=ref_losses, rel_loss_diff=rel,
+         launches_per_step=main.launches, csv_write_s=write_s, reader_pass_s=read_s,
+         epoch_s=epoch_s)
+    return {"launches": sum(main.launches), "steps": steps}
+
+
 def _fused_entries(name, fused_r50, fused_lenet):
     """A kernel's launches in one replayed block of phases 34 and 35 (the
     profiler's kernel names), beside what the Python counter saw over the
@@ -3638,6 +4061,15 @@ def _fused_entries(name, fused_r50, fused_lenet):
         "fused_lenet": {"launches_per_replayed_block": fused_lenet["replay_launches"][name],
                         "profiled_replays": [t[1][name] for t in fused_lenet["replay_traces"]],
                         "k": fused_lenet["k"]}}
+
+
+def _fused_bert_entries(name, fused_bert):
+    """A kernel's nodes in one replayed block of phase 37 at each shape,
+    beside the profiler's counts of traced replays."""
+    return {f"batch{b}_T{t}": {"launches_per_replayed_block": r["replay_launches"][name],
+                               "k": r["k"],
+                               "profiled_replays": [tr[1][name] for tr in r["replay_traces"]]}
+            for (b, t), r in fused_bert.items()}
 
 
 def main():
@@ -3657,7 +4089,7 @@ def main():
     from deeplearning4j_tpu_torch import data, nn, train, zoo
     from deeplearning4j_tpu_torch.data import MultiDataSet
     from deeplearning4j_tpu_torch.nlp import BertIterator, BertWordPieceTokenizer
-    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn import ComputationGraph, MultiLayerNetwork
     from deeplearning4j_tpu_torch.serving import ModelServer
     from deeplearning4j_tpu_torch.train import Adam, Nesterovs
     from deeplearning4j_tpu_torch.train.schedules import StepSchedule
@@ -3681,8 +4113,10 @@ def main():
     vgg_launches, vgg_rows = phase_vgg16_train(matmul, conv3x3, dispatch, VGG16, Adam,
                                                MultiLayerNetwork, data, train, dev)
     zoo_res = phase_zoo_train(matmul, conv3x3, dispatch, zoo, MultiLayerNetwork, dev)
+    graphs_res = phase_zoo_graphs(matmul, conv3x3, dispatch, zoo, ComputationGraph, dev)
     fused_lenet = phase_fused_lenet(matmul, data, LeNet, Adam, StepSchedule, dev)
     phase_fused_dropout(nn, train, dev)
+    records_res = phase_records_train(matmul, dispatch, data, nn, Adam, dev)
     phase_conv_parity(ck, conv3x3, dev)
     net, x, y, conv_launches = phase_train(conv3x3, dispatch, ResNet50,
                                            Nesterovs, dev)
@@ -3715,6 +4149,8 @@ def main():
                                                  attention, layer_norm, dev)
     phase_bert_train_profile(long_model, long_mds, "bert_train_long_profile", batch=4, t=2048)
     del long_model, long_mds
+    fused_bert = phase_fused_bert(BertModel, BertConfig, Adam, MultiDataSet, dispatch,
+                                  attention, layer_norm, dev)
     attn_bwd_rows = phase_attn_bwd_times(ak, attention, dev)
     ln_bwd_rows = phase_ln_bwd_times(nk, layer_norm, dev)
     phase_qmm_parity(matmul, qk, dev)
@@ -3747,6 +4183,10 @@ def main():
                                  f"{VGG_STEPS} VGG16 fit steps at batch {VGG_BATCH}"},
         "zoo_train": {m: r["launches_per_step"]["fused_dense"] * ZOO_STEPS
                       for m, r in zoo_res.items()},
+        "records_train": {"launches": records_res["launches"],
+                          "shape": f"M={RECORDS_CSV[3]} K={RECORDS_CSV[1]} N=500 f32 relu; "
+                                   f"launches over one epoch of {records_res['steps']} "
+                                   "steps from the CSV"},
         **_fused_entries("fused_dense", fused_r50, fused_lenet)}]
     for name, (replaces, source) in CONV_KERNELS.items():
         row = conv_rows[(name, "s0", torch.float32)]
@@ -3765,6 +4205,8 @@ def main():
                                      f"{VGG_STEPS} VGG16 fit steps at batch {VGG_BATCH}"},
             "zoo_train": {m: r["launches_per_step"][name] * ZOO_STEPS
                           for m, r in zoo_res.items()},
+            "zoo_graphs": {m: r["launches_per_step"][name] * ZOO_STEPS
+                           for m, r in graphs_res.items()},
             **_fused_entries(name, fused_r50, fused_lenet)})
     for name, (replaces, source), row, n_launched, shape in (
             ("flash_attn_fwd", ATTN_KERNEL, attn_rows[("t128", torch.float32)],
@@ -3778,6 +4220,7 @@ def main():
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             **({"product": row["route"], "share_of_bound": row["share_of_bound"],
                 "simt_bound_ms": row["simt_bound_ms"]} if "route" in row else {}),
+            "fused_bert": _fused_bert_entries(name, fused_bert),
             "shape": shape + "; launches in one f32 output_mlm at batch 64, T 128"})
     for name, (replaces, source), row, n_launched, shape in (
             ("flash_attn_bwd_dq", ATTN_BWD_KERNELS["flash_attn_bwd_dq"],
@@ -3795,6 +4238,7 @@ def main():
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             **({"product": row["route"], "simt_bound_ms": row["simt_bound_ms"]}
                if "route" in row else {}),
+            "fused_bert": _fused_bert_entries(name, fused_bert),
             "shape": shape + "; launches in one f32 MLM fit_batch step at batch 64, T 128"
                      + ("; plain and library compute dq, dk and dv together"
                         if name.startswith("flash") else "")})

@@ -72,6 +72,19 @@ def apply_loss(loss, act_fn, pre, labels, mask=None):
     return get_loss(loss)(labels, act_fn(pre), mask)
 
 
+def _relu(x):
+    """max(x, 0) with the JAX package's gradient at x == 0: half of it
+    (``jnp.maximum`` and ``jnp.clip`` split a tie; ``torch.clamp`` passes
+    all of it, ``torch.maximum`` splits it)."""
+    return torch.maximum(x, torch.zeros_like(x))
+
+
+def _abs(x):
+    """|x| with the JAX package's gradient at x == 0: all of it, as
+    ``jnp.abs`` gives (``torch.abs`` gives none)."""
+    return torch.where(x >= 0, x, -x)
+
+
 def mcxent(labels, logits, mask=None):
     """Multi-class cross entropy on logits (log-softmax)."""
     per = -torch.sum(labels * F.log_softmax(logits, dim=-1), dim=-1)
@@ -84,9 +97,11 @@ def negativeloglikelihood(labels, probs, mask=None):
 
 
 def xent(labels, logits, mask=None):
-    """Binary cross entropy on logits (fused with sigmoid)."""
-    elem = (torch.clamp(logits, min=0) - logits * labels
-            + torch.log1p(torch.exp(-torch.abs(logits))))
+    """Binary cross entropy on logits (fused with sigmoid).  ``_relu`` and
+    ``_abs`` take the JAX package's gradients at a logit of exactly 0,
+    where a sigmoid head on a zero input with a zero bias sits."""
+    elem = (_relu(logits) - logits * labels
+            + torch.log1p(torch.exp(-_abs(logits))))
     return _masked_reduce(elem, mask)
 
 
@@ -99,11 +114,11 @@ def l2(labels, preds, mask=None):
 
 
 def l1(labels, preds, mask=None):
-    return _masked_reduce(torch.abs(preds - labels), mask)
+    return _masked_reduce(_abs(preds - labels), mask)
 
 
 def mae(labels, preds, mask=None):
-    return _masked_reduce(torch.abs(preds - labels), mask, mean_over_features=True)
+    return _masked_reduce(_abs(preds - labels), mask, mean_over_features=True)
 
 
 def _signs(labels):
@@ -138,13 +153,12 @@ def cosine_proximity(labels, preds, mask=None):
 
 
 def mape(labels, preds, mask=None):
-    elem = 100.0 * torch.abs((labels - preds) / torch.clamp(torch.abs(labels), min=_EPS))
+    elem = 100.0 * _abs((labels - preds) / torch.clamp(torch.abs(labels), min=_EPS))
     return _masked_reduce(elem, mask, mean_over_features=True)
 
 
 def msle(labels, preds, mask=None):
-    elem = (torch.log1p(torch.clamp(preds, min=0))
-            - torch.log1p(torch.clamp(labels, min=0))) ** 2
+    elem = (torch.log1p(_relu(preds)) - torch.log1p(_relu(labels))) ** 2
     return _masked_reduce(elem, mask, mean_over_features=True)
 
 

@@ -27,7 +27,12 @@ import torch
 
 class ISchedule:
     """value_at(iteration, epoch) -> float; value_tensor(iteration, epoch,
-    dtype) -> 0-dim tensor on the counters' device."""
+    dtype) -> 0-dim tensor on the counters' device.  ``STRONG``: the JAX
+    value is strongly typed in the default float (a Python float under an
+    int32 counter's power), so it promotes the f32 terms it meets, as a
+    weakly typed one does not."""
+
+    STRONG = False
 
     def value_at(self, iteration, epoch=0) -> float:
         raise NotImplementedError
@@ -95,6 +100,7 @@ class StepSchedule(ISchedule):
 @dataclasses.dataclass
 class ExponentialSchedule(ISchedule):
     """value * gamma ^ iter"""
+    STRONG = True
     initial_value: float
     gamma: float
     schedule_type: str = "ITERATION"

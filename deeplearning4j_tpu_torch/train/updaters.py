@@ -3,8 +3,8 @@
 The configs keep the JAX package's fields and JSON form, and the update
 math of all eleven (Sgd, NoOp, Nesterovs, Adam, AdamW, AMSGrad, Nadam,
 AdaMax, AdaGrad, RmsProp, AdaDelta) follows the JAX formulas line for line:
-epsilon where the JAX package puts it, the bias corrections taken in f32
-as it takes them, and the same state keys (the zip stores the state in
+epsilon where the JAX package puts it, the bias corrections taken in the
+dtype it takes them in, and the same state keys (the zip stores the state in
 key order).  ``apply_gradient_normalization`` is the JAX package's too.  An updater is a function
 over a tree of tensors (a vertex's ``{param key: tensor}``, nested dicts
 allowed): ``init_state(params)`` gives its state and
@@ -99,8 +99,8 @@ class IUpdater:
     def scalars(self, iteration, epoch=0, dtype=torch.float32) -> Dict[str, torch.Tensor]:
         """This step's scalars as 0-dim tensors on the counters' device:
         ``lr`` in `dtype` (the schedule's tensor form), and the updater's
-        own (``alpha``, the bias corrections) in f32, as the JAX package
-        takes them.  `iteration` and `epoch` are int32 tensors or ints."""
+        own (``alpha``, the bias corrections) in the dtype the JAX package
+        promotes them to.  `iteration` and `epoch` are int32 tensors or ints."""
         it, ep = _counter(iteration), _counter(epoch)
         return {"lr": resolve_schedule(self.learning_rate).value_tensor(it, ep, dtype)}
 
@@ -187,13 +187,20 @@ def _step_t(iteration) -> torch.Tensor:
     return _counter(iteration).to(torch.float32) + 1.0
 
 
+def _alpha_lr(u, lr: torch.Tensor) -> torch.Tensor:
+    """The learning rate as it meets the f32 bias terms of alpha.  The JAX
+    package's lr is weakly typed, so alpha stays f32, unless the schedule
+    gives a strongly typed value (``ISchedule.STRONG``: an f64 one under
+    x64), which promotes alpha to its dtype."""
+    return lr if resolve_schedule(u.learning_rate).STRONG else lr.to(torch.float32)
+
+
 def _adam_scalars(u, iteration, epoch, dtype) -> Dict[str, torch.Tensor]:
-    """lr, and alpha = lr * sqrt(1 - b2^t) / (1 - b1^t) in f32 (Adam,
-    AdamW, AMSGrad): the JAX package's weakly typed lr meets the f32 bias
-    terms, so alpha is f32 whatever the parameters' dtype."""
+    """lr, and alpha = lr * sqrt(1 - b2^t) / (1 - b1^t) (Adam, AdamW,
+    AMSGrad), in f32 unless the lr is strongly typed (``_alpha_lr``)."""
     s = IUpdater.scalars(u, iteration, epoch, dtype)
     t = _step_t(iteration)
-    s["alpha"] = (s["lr"].to(torch.float32) * torch.sqrt(1.0 - torch.pow(u.beta2, t))
+    s["alpha"] = (_alpha_lr(u, s["lr"]) * torch.sqrt(1.0 - torch.pow(u.beta2, t))
                   / (1.0 - torch.pow(u.beta1, t)))
     return s
 
@@ -208,8 +215,8 @@ def _moments(state, grads, b1, b2):
 @dataclasses.dataclass
 class Adam(IUpdater):
     """Adam with epsilon outside the sqrt: alpha_t = lr*sqrt(1-b2^t)/(1-b1^t);
-    update = alpha_t * m / (sqrt(v) + eps).  alpha_t is taken in f32, as
-    the JAX package computes it."""
+    update = alpha_t * m / (sqrt(v) + eps).  alpha_t is taken in the JAX
+    package's promoted dtype (``_alpha_lr``)."""
 
     learning_rate: Any = 1e-3
     beta1: float = 0.9
@@ -321,7 +328,7 @@ class AdaMax(IUpdater):
 
     def scalars(self, iteration, epoch=0, dtype=torch.float32):
         s = super().scalars(iteration, epoch, dtype)
-        s["alpha"] = s["lr"].to(torch.float32) / (
+        s["alpha"] = _alpha_lr(self, s["lr"]) / (
             1.0 - torch.pow(self.beta1, _step_t(iteration)))
         return s
 
@@ -374,18 +381,17 @@ class RmsProp(IUpdater):
 
 @dataclasses.dataclass
 class AdaDelta(IUpdater):
-    """No learning rate (the reference's AdaDelta has rho and epsilon
-    only); state ``{"msg", "msdx"}``."""
+    """No learning rate in the update (the reference's AdaDelta has rho and
+    epsilon only); state ``{"msg", "msdx"}``.  Its ``lr`` scalar (0 by
+    default) still scales the network's weight decay, as the JAX package's
+    ``lr_at`` does."""
 
-    learning_rate: Any = 0.0  # unused
+    learning_rate: Any = 0.0  # scales weight decay only
     rho: float = 0.95
     epsilon: float = 1e-6
 
     def init_state(self, params):
         return {"msg": _zeros_like_tree(params), "msdx": _zeros_like_tree(params)}
-
-    def scalars(self, iteration, epoch=0, dtype=torch.float32):
-        return {}
 
     def apply(self, state, grads, iteration, epoch=0, params=None, scalars=None):
         rho, eps = self.rho, self.epsilon

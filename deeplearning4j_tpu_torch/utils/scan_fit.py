@@ -75,17 +75,19 @@ def blocks_of(iterator, k: int):
 def check_steps_axes(named_arrays):
     """Validate that every non-None array shares one leading steps axis.
 
-    `named_arrays` is an iterable of (name, array-or-None); returns k.
-    Raising here names the offending array before any step runs."""
+    `named_arrays` is an iterable of (name, array, list of k per-step
+    arrays, or None); returns k.  Raising here names the offending array
+    before any step runs."""
     k, ref = None, None
     for name, a in named_arrays:
         if a is None:
             continue
+        n = len(a) if isinstance(a, (list, tuple)) else a.shape[0]
         if k is None:
-            k, ref = a.shape[0], name
-        elif a.shape[0] != k:
+            k, ref = n, name
+        elif n != k:
             raise ValueError(
-                f"steps axis mismatch: '{name}' has {a.shape[0]} steps but "
+                f"steps axis mismatch: '{name}' has {n} steps but "
                 f"'{ref}' has {k} — every array needs the same leading "
                 f"[k, batch, ...] steps axis")
     if k is None:

@@ -33,11 +33,14 @@ backward launches the flash-attention dQ and dK/dV kernels once per block
 and the LayerNorm backward kernel once per LayerNorm (12, 12 and 26 at
 base), beside the forward's 12 and 26.  ``fit_batch`` returns the loss
 as a device tensor without synchronising; ``score()`` reads it.
-``fit_steps`` runs k steps of a stacked ``[k, batch, ...]`` block in a
-Python loop, the same math as k ``fit_batch`` calls.  ``fit`` takes the
-JAX package's ``fused_steps`` argument but steps batch by batch: with no
-compiled multi-step body, grouping batches into blocks would change
-nothing but add host copies.
+``fit_steps`` runs k steps of a ``[k, batch, ...]`` block as one
+``utils/scan_fit.GraphStep``: k step bodies captured once into a CUDA
+graph (one per task and per-step shapes, as the JAX package keeps one
+``_scan_step`` per task) and replayed once a block, the same math as k
+``fit_batch`` calls.  The step body writes the parameters, the Adam state
+and the int32 iteration counter in place and reads no host value.
+``fit(iterator, fused_steps=k)`` stages blocks of k same-shape batches on
+the device and runs them through ``fit_steps``.
 
 ``save``/``load`` write and read the JAX package's zip: ``config.json``,
 ``params.npz`` and ``opt.npz`` (the Adam state) with leaves in
@@ -50,7 +53,7 @@ import dataclasses
 import io
 import json
 import zipfile
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -58,12 +61,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from deeplearning4j_tpu_torch.data.dataset import MultiDataSet
-from deeplearning4j_tpu_torch.nn.multilayer import torch_dtype
+from deeplearning4j_tpu_torch.nn.multilayer import block_tensor, torch_dtype
 from deeplearning4j_tpu_torch.ops.attention_kernels import fused_attention
 from deeplearning4j_tpu_torch.ops.norm_kernels import fused_layer_norm
 from deeplearning4j_tpu_torch.train.updaters import Adam, IUpdater, tree_leaves, tree_map
+from deeplearning4j_tpu_torch.utils.counters import advance, device_counters
 from deeplearning4j_tpu_torch.utils.devices import resolve_device
-from deeplearning4j_tpu_torch.utils.scan_fit import check_steps_axes
+from deeplearning4j_tpu_torch.utils.scan_fit import GraphStep, blocks_of, check_steps_axes
 
 
 @dataclasses.dataclass
@@ -149,6 +153,7 @@ class BertModel(nn.Module):
                     self._init_tensor(shape, kind, gen)))
         self.opt_state_ = self.updater.init_state(self.params_)
         self._score: Optional[torch.Tensor] = None
+        self._scan_steps: Dict[str, GraphStep] = {}
 
     def _init_tensor(self, shape, kind, gen):
         if kind == "n":
@@ -227,24 +232,27 @@ class BertModel(nn.Module):
         return -torch.mean(torch.sum(labels * torch.log_softmax(logits, dim=-1), dim=-1))
 
     def _batch(self, mds):
-        """(loss function, its tensors on the device) of one batch: masked LM
-        when the batch has label masks, else classification."""
+        """(task, its tensors on the device) of one batch: ``"mlm"`` with
+        ``[ids, input_mask, labels, labels_mask]`` when the batch has label
+        masks, else ``"cls"`` with ``[ids, input_mask, labels]``."""
         def dev(a):
             return torch.as_tensor(a, device=self.device)
 
-        ids, input_mask = (dev(f) for f in mds.features)
-        (labels,) = (dev(l) for l in mds.labels)
+        batch = [dev(f) for f in mds.features] + [dev(l) for l in mds.labels]
         if mds.labels_masks is not None:
-            return self._mlm_loss, (ids.long(), input_mask, labels, dev(mds.labels_masks[0]))
-        return self._cls_loss, (ids.long(), input_mask, labels)
+            return "mlm", batch + [dev(mds.labels_masks[0])]
+        return "cls", batch
 
-    def _loss_and_grads(self, loss_fn, batch):
+    def _loss_fn(self, kind):
+        return self._mlm_loss if kind == "mlm" else self._cls_loss
+
+    def _loss_and_grads(self, kind, batch):
         """The loss and d loss / d params as the JAX tree, zeros where a
         parameter does not reach the loss (the other task's head), as
         ``jax.grad`` gives."""
         params = self.params_
         leaves = list(tree_leaves(params))
-        loss = loss_fn(*batch)
+        loss = self._loss_fn(kind)(batch[0].long(), *batch[1:])
         got = torch.autograd.grad(loss, leaves, allow_unused=True)
         by_leaf = {id(p): torch.zeros_like(p) if g is None else g
                    for p, g in zip(leaves, got)}
@@ -255,16 +263,32 @@ class BertModel(nn.Module):
         JAX tree (no update)."""
         return self._loss_and_grads(*self._batch(mds))[1]
 
-    def _step(self, loss_fn, batch) -> torch.Tensor:
-        from deeplearning4j_tpu_torch.utils.counters import advance, device_counters
-        loss, grads = self._loss_and_grads(loss_fn, batch)
-        params = self.params_
-        it, epoch = device_counters(self)
-        with torch.no_grad():
-            upd, self.opt_state_ = self.updater.apply(
-                self.opt_state_, grads, it, epoch, params=params)
-            tree_map(lambda p, u: p.sub_(u), params, upd)
-            it.add_(1)
+    def _carry(self) -> List[torch.Tensor]:
+        """The tensors a step writes in place: the f32 master parameters,
+        the updater state and the iteration counter."""
+        return (list(tree_leaves(self.params_))
+                + [t for t in tree_leaves(self.opt_state_) if isinstance(t, torch.Tensor)]
+                + [device_counters(self)[0]])
+
+    def _tick(self, kind: str):
+        """One step body of task `kind` on its batch list (``_batch``'s):
+        the parameters, the updater state and the iteration counter are
+        written in place; returns the loss.  No host value is read, so a
+        CUDA graph replays it."""
+        def tick(carry, epoch, batch):
+            loss, grads = self._loss_and_grads(kind, batch)
+            params = self.params_
+            with torch.no_grad():
+                upd, _ = self.updater.apply(self.opt_state_, grads, self._iter_dev, epoch,
+                                            params=params)
+                tree_map(lambda p, u: p.sub_(u), params, upd)
+                self._iter_dev.add_(1)
+            return loss
+        return tick
+
+    def _step(self, kind, batch) -> torch.Tensor:
+        _, epoch = device_counters(self)
+        loss = self._tick(kind)(None, epoch, batch)
         advance(self)
         self._score = loss
         return loss
@@ -301,16 +325,37 @@ class BertModel(nn.Module):
 
     def fit(self, iterator, epochs: int = 1, fused_steps: int = 1) -> "BertModel":
         """Train over `iterator`'s MultiDataSets for `epochs` epochs (the task
-        is picked per batch), one `fit_batch` per batch.  `fused_steps` is
-        accepted for the JAX package's signature and changes nothing: its
-        k-step blocks would run the same k steps."""
+        is picked per batch).  `fused_steps=k` stages k consecutive
+        same-shape batches on the device and trains them as one
+        `fit_steps` block; tails and shape changes step one by one."""
         for _ in range(epochs):
             if hasattr(iterator, "reset"):
                 iterator.reset()
-            for mds in iterator:
-                self.fit_batch(mds)
+            if fused_steps > 1:
+                self._fit_epoch_fused(iterator, fused_steps)
+            else:
+                for mds in iterator:
+                    self.fit_batch(mds)
             self.epoch += 1
         return self
+
+    def _fit_epoch_fused(self, iterator, k: int) -> None:
+        """Blocks of k batches (``blocks_of``: one shape key, label masks
+        included, so masked and unmasked batches never share a block),
+        each batch staged on the device, through `fit_steps`' list form."""
+        from deeplearning4j_tpu_torch.data.pipeline import ready, stage
+        for block in blocks_of(iterator, k):
+            if len(block) == 1:
+                self.fit_batch(block[0])
+                continue
+            staged = [ready(stage(m, self.device)) for m in block]
+
+            def steps(field):
+                lists = [getattr(m, field) for m in staged]
+                return None if lists[0] is None else [list(e) for e in zip(*lists)]
+
+            self.fit_steps(MultiDataSet(features=steps("features"), labels=steps("labels"),
+                                        labels_masks=steps("labels_masks")))
 
     def fit_batch(self, mds) -> torch.Tensor:
         """One training step on a MultiDataSet: features ``[ids, input_mask]``,
@@ -319,18 +364,33 @@ class BertModel(nn.Module):
         return self._step(*self._batch(mds))
 
     def fit_steps(self, mds) -> torch.Tensor:
-        """k training steps: every array in `mds` carries a leading
-        ``[k, batch]`` steps axis.  The same math as k sequential
-        `fit_batch` calls; returns the k losses as a device tensor."""
-        lm = None if mds.labels_masks is None else mds.labels_masks[0]
-        k = check_steps_axes([("ids", mds.features[0]), ("input_mask", mds.features[1]),
-                              ("labels", mds.labels[0]), ("labels_mask", lm)])
-        losses = []
-        for i in range(k):
-            losses.append(self.fit_batch(MultiDataSet(
-                features=[f[i] for f in mds.features], labels=[l[i] for l in mds.labels],
-                labels_masks=None if lm is None else [m[i] for m in mds.labels_masks])))
-        return torch.stack(losses)
+        """k training steps as one block: one CUDA-graph replay on the card,
+        the same step body k times on the CPU; the same math as k
+        sequential `fit_batch` calls.  Every entry of `mds` is a stacked
+        ``[k, batch, ...]`` array (a stride-0 ``broadcast_to`` view
+        included) or a list of k per-step arrays.  One graph is captured
+        per task (masked LM when `mds` has ``labels_masks``, else
+        classification) and per-step shapes.  Returns the k losses as a
+        fresh device tensor; ``score()`` reads the last."""
+        kind = "mlm" if mds.labels_masks is not None else "cls"
+        entries = list(mds.features) + list(mds.labels)
+        if kind == "mlm":
+            entries.append(mds.labels_masks[0])
+        block = [self._block_entry(e) for e in entries]
+        k = check_steps_axes(zip(("ids", "input_mask", "labels", "labels_mask"), block))
+        step = self._scan_steps.get(kind)
+        if step is None:
+            step = self._scan_steps[kind] = GraphStep(self._tick(kind))
+        _, epoch = device_counters(self)
+        losses = step(self._carry(), epoch, block)
+        self._score = losses[-1]
+        advance(self, k)
+        return losses
+
+    def _block_entry(self, a):
+        if isinstance(a, (list, tuple)):
+            return [torch.as_tensor(e, device=self.device) for e in a]
+        return block_tensor(a, self.device)
 
     def score(self) -> float:
         """The last step's loss (synchronises); nan before the first step."""

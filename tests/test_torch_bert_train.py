@@ -26,8 +26,8 @@ classification.  Each JAX run is compiled once per module.  Tolerances:
   points; 1e-3 is a quarter of one bf16 ulp of relative precision.
 
 `fit_steps` equals sequential `fit_batch` bit for bit on the CPU, and
-`fit(iterator)` gives JAX's losses, with `fused_steps=2` (which the port
-takes and steps batch by batch) as without.  A zip the JAX package
+`fit(iterator)` gives JAX's losses, with `fused_steps=2` (blocks of 2
+through `fit_steps`) as without.  A zip the JAX package
 saved after 2 steps resumes in the port with JAX's third loss, and a port
 zip resumes in JAX.  With the dispatch forced to the kernel path and the
 launchers replaced by the plain versions, a step runs the autograd
@@ -222,8 +222,8 @@ def _sentences(n=27, seed=0):
 
 
 def test_fit_iterator_with_fused_steps_matches_jax():
-    """`fused_steps` is taken for the JAX package's signature: the port
-    steps batch by batch where JAX scans blocks of 2, to the same losses."""
+    """With `fused_steps=2` both packages train blocks of 2 (the port's
+    as `fit_steps` blocks, tails alone), to the same losses."""
     kw = dict(batch_size=8, max_length=16, seed=1, sparse_labels=True)
     jm = JaxBertModel(JaxBertConfig.tiny(), seed=3, updater=JaxAdam(1e-3))
     tm = _port(_np(jm.params_))
