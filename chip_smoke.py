@@ -415,13 +415,46 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    exactly one ``fused_dense`` launch a step (the relu Dense; the softmax
    head is plain).  Seconds of the CSV write, of one pass of the reader
    pipeline, and of the epoch.
+40. charlm — bench.py's LSTM char-LM block (``bench.py:404-417``):
+   ``TextGenLSTM(n_classes=77, input_shape=(64, 77))`` (two LSTM(256), a
+   77-way RnnOutputLayer, Adam(1e-3), seed 123), f32, TF32 off, batch 64
+   of ``RandomState(0)`` ids one-hot, labels the ids rolled by one step.
+   ``fit_steps`` on a stride-0 block of k = 5 (as ``_time_train`` builds
+   it): two blocks against an eager twin from the same initial
+   ``state_dict`` that runs ``fit`` 10 times (losses and parameters equal
+   bit for bit; the twin's losses within 1e-4 relative of a
+   ``reference``-mode twin's: no kernel runs on this path), one capture,
+   one ``replay()`` a block; then 3 timed blocks, one under
+   ``torch.profiler`` (busy time, idle share), and the kernel nodes of a
+   debug-mode capture of the block (its DOT dump).  A masked step at T =
+   40, features and labels masks cutting half the rows to 20 steps,
+   holds reference mode's loss within 1e-4.  Graph and eager ms a step,
+   tokens/s as bench.py counts them (batch * T a step), capture seconds,
+   peak memory.
+41. seq_attention — the attention layers' kernels on a sequence net: an
+   MLN of LSTM(256), ``SelfAttentionLayer(n_out=256, n_heads=4)`` (head
+   size 64), ``GlobalPoolingLayer(AVG)`` and ``OutputLayer(10)``, one-hot
+   inputs (vocab 77, T = 128, batch 64), a features mask that drops the
+   last 32 steps of half the rows, as f32 and as int32.  Two eager ``fit``
+   steps (one a mask dtype) with the counts set to 0 just before each:
+   exactly one flash forward, one dQ and one dK/dV launch a step (derived
+   from the configuration: one a projected attention layer) and no
+   ``fused_dense`` (the head's loss and the LSTM are plain); each loss
+   within 1e-4 relative of a ``reference``-mode twin's.  Then a
+   ``fit_steps`` block of 3 with the f32 mask: its losses equal an eager
+   twin's bit for bit and hold reference mode's, and a debug-mode capture
+   of the block holds 3 + 3 + 3 flash kernel nodes.  Also one forward of
+   ``LearnedSelfAttentionLayer(n_queries=4, n_heads=4)`` on the LSTM's
+   output (T = 4 queries over S = 128) with the int32 mask: one forward
+   launch, within 1e-4 * max|ref| of reference mode's.
 
 Then the kernels line (each entry with ``share_of_bound``; ``fused_dense``
 and the conv pair carry ``vgg16_train``, ``zoo_train``, ``fused_resnet50``
 and ``fused_lenet`` entries, the conv pair ``zoo_graphs`` and
 ``fused_dense`` ``records_train`` ones, and the attention and LayerNorm
 kernels ``fused_bert`` ones (their nodes in one replayed block at each
-shape); the last two count the launches of one
+shape), the flash kernels ``seq_attention`` ones (``fused_dense`` one of
+0: it is not on that path); the last two count the launches of one
 replayed block by the graph's kernel nodes, beside the profiler's counts
 of traced replays and the Python counts made at the warm-up and the
 capture), nvidia-smi's line, and the last line ``{"ok": true, "device": {...}}``.  Exits
@@ -602,6 +635,15 @@ ZOO_GRAPHS = {"SqueezeNet": (dict(n_classes=1000, input_shape=(224, 224, 3)), 32
                        (0, 18, 17))}
 #: the CSV of records_train: rows, feature columns, classes, batch
 RECORDS_CSV = (4096, 784, 10, 256)
+#: bench.py's LSTM char-LM block (``bench.py:404-417``): batch, T, vocab
+CHARLM = (64, 64, 77)
+CHARLM_K = 5
+CHARLM_TIMED_BLOCKS = 3
+#: the masked char-LM step: T, and the length half the rows are cut to
+CHARLM_MASKED = (40, 20)
+#: seq_attention: batch, T, vocab, LSTM units, heads, classes, the steps
+#: the mask drops from half the rows, the fused block's k
+SEQ_ATTN = (64, 128, 77, 256, 4, 10, 32, 3)
 
 
 def emit(phase, **kw):
@@ -4047,6 +4089,250 @@ def phase_records_train(matmul, dispatch, data, nn, Adam, dev, shape=RECORDS_CSV
     return {"launches": sum(main.launches), "steps": steps}
 
 
+def _charlm_data(dev, batch, t, vocab, seed=0):
+    """bench.py's char-LM batch: RandomState ids, one-hot x, y the ids
+    rolled by one step."""
+    idx = np.random.RandomState(seed).randint(0, vocab, (batch, t))
+    eye = np.eye(vocab, dtype=np.float32)
+    return (torch.as_tensor(eye[idx], device=dev),
+            torch.as_tensor(eye[np.roll(idx, -1, 1)], device=dev))
+
+
+def _eager_losses(net, x, y, steps, **masks):
+    """`steps` fit calls, each read back: (losses, host ms a step)."""
+    losses, ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        net.fit(x, y, **masks)
+        losses.append(net.score())
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, ms
+
+
+def _in_reference_mode(dispatch, fn):
+    prev = dispatch.set_dispatch_mode("reference")
+    try:
+        return fn()
+    finally:
+        dispatch.set_dispatch_mode(prev)
+
+
+def _twin(make, state):
+    """A net built by `make()` with `state` loaded."""
+    twin = make()
+    twin.load_state_dict(state)
+    return twin
+
+
+def phase_charlm(zoo, dispatch, dev, shape=CHARLM, k=CHARLM_K):
+    """bench.py's LSTM char-LM blocks as CUDA graphs (phase 40 of the
+    module docstring)."""
+    batch, t, vocab = shape
+    tag = "charlm"
+    steps = 2 * k
+
+    def make():
+        return zoo.TextGenLSTM(n_classes=vocab, input_shape=(t, vocab)).init_model(device=dev)
+
+    x, y = _charlm_data(dev, batch, t, vocab)
+    net = make()
+    state = {n: v.clone() for n, v in net.state_dict().items()}
+    # the eager twin and a reference-mode twin: 2k fit steps each
+    twin = _twin(make, state)
+    eager, eager_ms = _eager_losses(twin, x, y, steps)
+    want_params = [p.clone() for p in twin.parameters()]
+    del twin
+    ref, _ = _in_reference_mode(
+        dispatch, lambda: _eager_losses(_twin(make, state), x, y, steps))
+    ref_rel = _rel(eager, ref)
+    require(max(ref_rel) <= F32_RTOL,
+            f"{tag}: eager losses {eager} part from reference mode's {ref} by {max(ref_rel)}")
+
+    # the main path: stride-0 blocks of k, as bench.py's _time_train builds them
+    xs, ys = x.broadcast_to((k,) + x.shape), y.broadcast_to((k,) + y.shape)
+    torch.cuda.reset_peak_memory_stats()
+    first, first_ms = _synced(lambda: net.fit_steps(xs, ys))
+    step = net._scan_step
+    (rec,) = step._graphs.values()
+    replays = _counting_replays(rec.graph)
+    second, second_ms = _synced(lambda: net.fit_steps(xs, ys))
+    peak = torch.cuda.max_memory_allocated()
+    losses = first.tolist() + second.tolist()
+    differ = [i for i, (a, b) in enumerate(zip(net.parameters(), want_params))
+              if not torch.equal(a, b)]
+    require(losses == eager, f"{tag}: graph losses {losses} != eager {eager}")
+    require(not differ, f"{tag}: parameters {differ} differ from the eager twin's")
+    require(step.captures == 1 and replays["replays"] == 1 and net.iteration == steps,
+            f"{tag}: {step.captures} captures, {replays['replays']} replays for one block, "
+            f"iteration {net.iteration}")
+    block_ms = []
+    for _ in range(CHARLM_TIMED_BLOCKS):
+        block_ms.append(_synced(lambda: net.fit_steps(xs, ys))[1])
+    require(replays["replays"] == 1 + CHARLM_TIMED_BLOCKS and step.captures == 1,
+            f"{tag}: {replays['replays']} replays, {step.captures} captures")
+    window_ms, busy_ms, by_name, n_kernels = _trace(lambda: net.fit_steps(xs, ys))
+    require(busy_ms is not None, f"{tag}: the profiler saw no device activity")
+    dot = _kept_dot(net, "_scan_step", None, lambda: net.fit_steps(xs, ys))
+    nodes = dot.count("KERNEL")
+    require(nodes > 0, f"{tag}: the debug-mode capture holds no kernel node")
+    net._scan_step = None
+    torch.cuda.empty_cache()
+
+    # a masked step at T = 40: features and labels masks cut half the rows
+    mt, cut = CHARLM_MASKED
+    xm, ym = _charlm_data(dev, batch, mt, vocab, seed=1)
+    mask = torch.ones((batch, mt), device=dev)
+    mask[::2, cut:] = 0
+    masks = dict(features_mask=mask, labels_mask=mask)
+    masked, _ = _eager_losses(_twin(make, state), xm, ym, 1, **masks)
+    masked_ref, _ = _in_reference_mode(
+        dispatch, lambda: _eager_losses(_twin(make, state), xm, ym, 1, **masks))
+    masked_rel = _rel(masked, masked_ref)[0]
+    require(math.isfinite(masked[0]) and masked_rel <= F32_RTOL,
+            f"{tag}: masked loss {masked} against reference mode's {masked_ref}")
+    graph_ms = statistics.median(block_ms) / k
+    eager_step_ms = statistics.median(eager_ms[1:])
+    report = dict(
+        k=k, losses=losses, eager_losses=eager, reference_losses=ref,
+        max_rel_diff_to_reference=max(ref_rel), bitwise_equal=True,
+        captures=step.captures, replays=replays["replays"],
+        capture_s=step.capture_seconds[0], first_block_ms=first_ms,
+        block_ms_all=[second_ms] + block_ms, graph_step_ms=graph_ms,
+        eager_step_ms=eager_step_ms, eager_step_ms_all=eager_ms,
+        graph_tokens_per_sec=batch * t * 1e3 / graph_ms,
+        eager_tokens_per_sec=batch * t * 1e3 / eager_step_ms,
+        block_window_ms=window_ms, block_busy_ms=busy_ms,
+        block_idle_share=max(0.0, 1.0 - busy_ms / window_ms), block_kernels=n_kernels,
+        graph_kernel_nodes=nodes, max_memory_allocated_gb=peak / 1e9,
+        masked_step={"T": mt, "rows_cut_to": cut, "loss": masked[0],
+                     "reference_loss": masked_ref[0], "rel_diff": masked_rel},
+        top=_top(by_name, 8))
+    emit("charlm", model="TextGenLSTM", vocab=vocab, T=t, batch=batch, lstm_units=256,
+         updater="Adam(1e-3)", dtype="float32", tf32=False, **report)
+    del net
+    torch.cuda.empty_cache()
+    return report
+
+
+def _seq_attention_conf(nn, train, vocab, t, units, heads, classes):
+    return (nn.NeuralNetConfiguration.builder().seed(123).updater(train.Adam(1e-3))
+            .weight_init("XAVIER")
+            .list([nn.LSTM(n_out=units, activation="tanh"),
+                   nn.SelfAttentionLayer(n_out=units, n_heads=heads),
+                   nn.GlobalPoolingLayer(pooling_type="AVG"),
+                   nn.OutputLayer(n_out=classes, loss="mcxent", activation="softmax")])
+            .set_input_type(nn.InputType.recurrent(vocab, t)).build())
+
+
+def _attn_counts(attention):
+    return (attention.LAUNCHES.value, attention.DQ_LAUNCHES.value,
+            attention.DKV_LAUNCHES.value)
+
+
+def _reset_attn(attention):
+    for c in (attention.LAUNCHES, attention.DQ_LAUNCHES, attention.DKV_LAUNCHES):
+        c.reset()
+
+
+def phase_seq_attention(nn, train, dispatch, attention, matmul, dev, shape=SEQ_ATTN):
+    """The attention layers' kernels on a sequence net (phase 41 of the
+    module docstring)."""
+    batch, t, vocab, units, heads, classes, drop, k = shape
+    tag = "seq_attention"
+    conf = _seq_attention_conf(nn, train, vocab, t, units, heads, classes)
+    # the kernels a step launches, from the configuration: one flash forward,
+    # one dQ and one dK/dV for each projected attention layer
+    n_attn = sum(isinstance(l, nn.SelfAttentionLayer) and l.project_input
+                 for l in conf.layers)
+    per_step = (n_attn, n_attn, n_attn)
+    rng = np.random.RandomState(0)
+    x = torch.as_tensor(np.eye(vocab, dtype=np.float32)[rng.randint(0, vocab, (batch, t))],
+                        device=dev)
+    y = torch.as_tensor(np.eye(classes, dtype=np.float32)[rng.randint(0, classes, batch)],
+                        device=dev)
+    fmask = torch.ones((batch, t), device=dev)
+    fmask[::2, t - drop:] = 0
+    masks = {"float32": fmask, "int32": fmask.to(torch.int32)}
+
+    def make():
+        return nn.MultiLayerNetwork(
+            _seq_attention_conf(nn, train, vocab, t, units, heads, classes), device=dev).init()
+
+    net = make()
+    state = {n: v.clone() for n, v in net.state_dict().items()}
+    twin = _twin(make, state)           # auto mode, eager: the replay's twin
+    ref = _twin(make, state)            # reference mode
+    losses, ref_losses, counts, step_ms = [], [], [], []
+    for m in masks.values():
+        _reset_attn(attention)
+        matmul.LAUNCHES.reset()
+        (_, ms) = _synced(lambda: net.fit(x, y, features_mask=m))
+        counts.append(_attn_counts(attention) + (matmul.LAUNCHES.value,))
+        losses.append(net.score())
+        step_ms.append(ms)
+        twin.fit(x, y, features_mask=m)
+        require(twin.score() == losses[-1], f"{tag}: two auto-mode nets part at a step")
+        _reset_attn(attention)
+        _in_reference_mode(dispatch, lambda: ref.fit(x, y, features_mask=m))
+        require(_attn_counts(attention) == (0, 0, 0), f"{tag}: reference mode launched")
+        ref_losses.append(ref.score())
+    require(all(c == per_step + (0,) for c in counts),
+            f"{tag}: launches a step {counts}, want {per_step} and no fused_dense")
+    rel = _rel(losses, ref_losses)
+    require(max(rel) <= F32_RTOL, f"{tag}: losses {losses} against reference {ref_losses}")
+
+    # one fit_steps block of k with the float mask, against k eager steps
+    xs, ys = x.broadcast_to((k,) + x.shape), y.broadcast_to((k,) + y.shape)
+    fms = fmask.broadcast_to((k,) + fmask.shape)
+    _reset_attn(attention)
+    block = net.fit_steps(xs, ys, features_masks=fms).tolist()
+    at_capture = _attn_counts(attention)
+    eager = _eager_losses(twin, x, y, k, features_mask=fmask)[0]
+    ref_block = _in_reference_mode(
+        dispatch, lambda: _eager_losses(ref, x, y, k, features_mask=fmask)[0])
+    block_rel = _rel(block, ref_block)
+    require(block == eager, f"{tag}: graph losses {block} != eager {eager}")
+    require(max(block_rel) <= F32_RTOL, f"{tag}: block {block} against reference {ref_block}")
+    require(at_capture == tuple((k + 1) * n for n in per_step),
+            f"{tag}: counted {at_capture} at the warm-up and capture of a block of {k}")
+    dot = _kept_dot(net, "_scan_step", None,
+                    lambda: net.fit_steps(xs, ys, features_masks=fms))
+    nodes = {name: dot.count(kernel) for name, kernel in BERT_KERNEL_TAGS[:3]}
+    require(nodes == {name: k * n for (name, _), n in zip(BERT_KERNEL_TAGS, per_step)},
+            f"{tag}: a replayed block holds {nodes} kernel nodes")
+    net._scan_step = None
+
+    # LearnedSelfAttentionLayer on the LSTM's output: T = 4 queries over S = 128
+    h = net.feed_forward(x)[1]
+    learned = nn.LearnedSelfAttentionLayer(n_queries=4, n_heads=heads, weight_init="XAVIER")
+    p, _, _ = learned.initialize(torch.Generator(device=dev).manual_seed(1),
+                                 nn.InputType.recurrent(units, t), torch.float32, dev)
+    _reset_attn(attention)
+    with torch.no_grad():
+        got = learned.apply(p, {}, h, mask=masks["int32"])[0]
+        learned_launches = _attn_counts(attention)[0]
+        want = _in_reference_mode(dispatch, lambda: learned.apply(p, {}, h, mask=fmask)[0])
+    err = (got - want).abs().max().item()
+    rmax = want.abs().max().item()
+    require(learned_launches == 1 and err <= F32_RTOL * rmax,
+            f"{tag}: learned queries {learned_launches} launches, max|diff| {err} of {rmax}")
+    report = dict(
+        layers="LSTM(256) -> SelfAttentionLayer(256, 4 heads) -> GlobalPooling(AVG) -> "
+               "Output(10)", head_size=units // heads, mask_dtypes=list(masks),
+        losses=losses, reference_losses=ref_losses, max_rel_diff=max(rel),
+        launches_per_step=dict(zip(("flash_attn_fwd", "flash_attn_bwd_dq",
+                                    "flash_attn_bwd_dkv", "fused_dense"), counts[0])),
+        derived_per_step=per_step, step_ms=step_ms, k=k, block_losses=block,
+        block_eager_losses=eager, block_reference_losses=ref_block,
+        block_max_rel_diff=max(block_rel), block_counted_at_capture=at_capture,
+        replay_nodes=nodes, learned_queries={"T": 4, "S": t, "launches": learned_launches,
+                                             "max_abs_err": err, "ref_max": rmax})
+    emit(tag, batch=batch, T=t, vocab=vocab, **report)
+    del net, twin, ref
+    torch.cuda.empty_cache()
+    return report
+
+
 def _fused_entries(name, fused_r50, fused_lenet):
     """A kernel's launches in one replayed block of phases 34 and 35 (the
     profiler's kernel names), beside what the Python counter saw over the
@@ -4070,6 +4356,19 @@ def _fused_bert_entries(name, fused_bert):
                                "k": r["k"],
                                "profiled_replays": [tr[1][name] for tr in r["replay_traces"]]}
             for (b, t), r in fused_bert.items()}
+
+
+def _seq_attention_entry(name, seq_attn):
+    """A flash kernel's launches in phase 41: a step, a replayed block of k
+    (graph nodes), and the learned-query forward."""
+    entry = {"launches_per_step": seq_attn["launches_per_step"][name],
+             "launches_per_replayed_block": seq_attn["replay_nodes"][name],
+             "k": seq_attn["k"],
+             "shape": "q/k/v [64,4,128,64] f32 with a [64,128] keep-mask (float and int32)"}
+    if name == "flash_attn_fwd":
+        entry["learned_queries"] = {"launches": seq_attn["learned_queries"]["launches"],
+                                    "shape": "q [64,4,4,64], k/v [64,4,128,64] f32"}
+    return entry
 
 
 def main():
@@ -4163,6 +4462,8 @@ def main():
     phase_decode(dec, pa, dispatch, dev, DECODE_WIDE, "decode_wide")
     phase_decode_profile(dec, dev)
     paged_rows = phase_paged_times(pa, dev)
+    phase_charlm(zoo, dispatch, dev)
+    seq_attn = phase_seq_attention(nn, train, dispatch, attention, matmul, dev)
 
     emit("done", seconds=time.monotonic() - t_start)
     main_row = rows[("fc6", torch.float32)]
@@ -4187,6 +4488,9 @@ def main():
                           "shape": f"M={RECORDS_CSV[3]} K={RECORDS_CSV[1]} N=500 f32 relu; "
                                    f"launches over one epoch of {records_res['steps']} "
                                    "steps from the CSV"},
+        "seq_attention": {"launches_per_step": seq_attn["launches_per_step"]["fused_dense"],
+                          "shape": "not on this path: the softmax head's loss and the LSTM "
+                                   "are plain products"},
         **_fused_entries("fused_dense", fused_r50, fused_lenet)}]
     for name, (replaces, source) in CONV_KERNELS.items():
         row = conv_rows[(name, "s0", torch.float32)]
@@ -4221,6 +4525,8 @@ def main():
             **({"product": row["route"], "share_of_bound": row["share_of_bound"],
                 "simt_bound_ms": row["simt_bound_ms"]} if "route" in row else {}),
             "fused_bert": _fused_bert_entries(name, fused_bert),
+            **({"seq_attention": _seq_attention_entry(name, seq_attn)}
+               if name == "flash_attn_fwd" else {}),
             "shape": shape + "; launches in one f32 output_mlm at batch 64, T 128"})
     for name, (replaces, source), row, n_launched, shape in (
             ("flash_attn_bwd_dq", ATTN_BWD_KERNELS["flash_attn_bwd_dq"],
@@ -4239,6 +4545,8 @@ def main():
             **({"product": row["route"], "simt_bound_ms": row["simt_bound_ms"]}
                if "route" in row else {}),
             "fused_bert": _fused_bert_entries(name, fused_bert),
+            **({"seq_attention": _seq_attention_entry(name, seq_attn)}
+               if name.startswith("flash") else {}),
             "shape": shape + "; launches in one f32 MLM fit_batch step at batch 64, T 128"
                      + ("; plain and library compute dq, dk and dv together"
                         if name.startswith("flash") else "")})

@@ -74,10 +74,10 @@ def from_jax_layout(layer, key: str, arr) -> torch.Tensor:
 
 
 def params_to_jax(net) -> Tree:
-    """The port network's parameters as a JAX-layout tree of numpy arrays."""
+    """The port network's parameters as a JAX-layout tree of numpy arrays
+    (nested where the JAX tree is, as Bidirectional's ``fwd``/``bwd``)."""
     params = net.params_
-    return {name: {k: to_jax_layout(net.layer_by_name(name), k, v)
-                   for k, v in params[name].items()}
+    return {name: _numpy_tree(params[name], _layer_or_layout(net, name))
             for name in params}
 
 
@@ -89,29 +89,30 @@ def params_from_jax(net, tree: Tree) -> None:
     if set(tree) != set(params):
         raise ValueError(f"layer names differ: {sorted(tree)} vs {sorted(params)}")
     for name, sub in params.items():
-        if set(tree[name]) != set(sub):
-            raise ValueError(f"{name}: param keys differ: "
-                             f"{sorted(tree[name])} vs {sorted(sub)}")
-        for k, p in sub.items():
-            t = from_jax_layout(net.layer_by_name(name), k, tree[name][k])
-            if tuple(t.shape) != tuple(p.shape):
-                raise ValueError(f"{name}.{k}: shape {tuple(t.shape)} (port "
-                                 f"layout) != {tuple(p.shape)}")
-            p.copy_(t)
+        _load_tree(sub, tree[name], f"{name}.", _layer_or_layout(net, name))
+
+
+def _sorted_leaves(tree, path=()):
+    """(key path, leaf) of a nested dict in ``jax.tree_util.tree_leaves``
+    order: dict keys sorted as strings at every level."""
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _sorted_leaves(tree[k], path + (k,))
+        else:
+            yield path + (k,), tree[k]
 
 
 def jax_leaves(params) -> List[Tuple[str, str]]:
     """(name, key) of every parameter in ``jax.tree_util.tree_leaves``
     order: dict keys sorted as strings (``layer_10`` before ``layer_2``,
-    ``W`` before ``b``)."""
-    return [(name, k) for name in sorted(params) for k in sorted(params[name])]
+    ``W`` before ``b``); a nested key is dotted (``fwd.W``)."""
+    return [(path[0], ".".join(path[1:])) for path, _ in _sorted_leaves(params)]
 
 
 def flat_params(net) -> np.ndarray:
     """The network's parameters as one flat vector in the JAX package's
     order and layouts."""
-    tree = params_to_jax(net)
-    leaves = [tree[n][k].ravel() for n, k in jax_leaves(tree)]
+    leaves = [a.ravel() for _, a in _sorted_leaves(params_to_jax(net))]
     return np.concatenate(leaves) if leaves else np.zeros((0,), np.float32)
 
 
@@ -120,11 +121,12 @@ def set_flat_params(net, flat) -> None:
     flat = np.asarray(flat)
     tree = params_to_jax(net)
     off = 0
-    for n, k in jax_leaves(tree):
-        shape = tree[n][k].shape
-        size = int(np.prod(shape))
-        tree[n][k] = flat[off:off + size].reshape(shape)
-        off += size
+    for path, a in _sorted_leaves(tree):
+        sub = tree
+        for k in path[:-1]:
+            sub = sub[k]
+        sub[path[-1]] = flat[off:off + a.size].reshape(a.shape)
+        off += a.size
     if off != flat.size:
         raise ValueError(f"Param count mismatch: {flat.size} vs {off}")
     params_from_jax(net, tree)
@@ -133,10 +135,7 @@ def set_flat_params(net, flat) -> None:
 def state_to_jax(net) -> Tree:
     """The network's layer state as a tree of numpy arrays (bf16 widens to
     f32)."""
-    return {name: {k: (v.detach().float() if v.dtype == torch.bfloat16
-                       else v.detach()).cpu().numpy()
-                   for k, v in sub.items()}
-            for name, sub in net.state_.items()}
+    return {name: _numpy_tree(sub, _Layout) for name, sub in net.state_.items()}
 
 
 @torch.no_grad()
@@ -150,12 +149,7 @@ def state_from_jax(net, tree: Tree) -> None:
         if set(tree[name]) != set(sub):
             raise ValueError(f"{name}: state keys differ: "
                              f"{sorted(tree[name])} vs {sorted(sub)}")
-        for k, t in sub.items():
-            arr = np.asarray(tree[name][k])
-            if tuple(arr.shape) != tuple(t.shape):
-                raise ValueError(f"{name}.{k}: shape {tuple(arr.shape)} != "
-                                 f"{tuple(t.shape)}")
-            t.copy_(torch.from_numpy(np.array(arr)))
+        _load_tree(sub, tree[name], f"{name}.", _Layout)
 
 
 class _Layout:

@@ -48,9 +48,10 @@ from deeplearning4j_tpu_torch.monitor.instrument import TrainingInstruments
 from deeplearning4j_tpu_torch.monitor.spans import span
 from deeplearning4j_tpu_torch.nn.core import InputType, Layer
 from deeplearning4j_tpu_torch.nn.multilayer import (apply_updates, block_tensor,
-                                                    grads_of, reg_penalty,
+                                                    copy_into, grads_of, holder_of,
+                                                    reg_penalty, tree_of,
                                                     torch_dtype)
-from deeplearning4j_tpu_torch.train.updaters import IUpdater, Sgd, tree_leaves
+from deeplearning4j_tpu_torch.train.updaters import IUpdater, Sgd, tree_leaves, tree_map
 from deeplearning4j_tpu_torch.utils.counters import advance, device_counters
 from deeplearning4j_tpu_torch.utils.devices import resolve_device
 from deeplearning4j_tpu_torch.utils.scan_fit import GraphStep, check_steps_axes
@@ -516,12 +517,7 @@ class ComputationGraph(nn.Module):
                     layer.activation = self.conf.activation
             in_types = [types[s] for s in self.conf.vertex_inputs[name]]
             p, s, out_t = vertex.initialize(gen, in_types, dtype, self.device)
-            holder = nn.Module()
-            for k, v in p.items():
-                holder.register_parameter(k, nn.Parameter(v))
-            for k, v in s.items():
-                holder.register_buffer(k, v)
-            self.vertices[name] = holder
+            self.vertices[name] = holder_of(p, s)
             types[name] = out_t
         self._rng = torch.Generator(device=self.device).manual_seed(self.conf.seed)
         self.opt_state_ = {name: self._updater_for(name).init_state(self.params_[name])
@@ -534,7 +530,7 @@ class ComputationGraph(nn.Module):
         (vertices without parameters map to {})."""
         if self._rng is None:
             raise RuntimeError("call init() first")
-        return {name: dict(self.vertices[name]._parameters) for name in self._topo}
+        return {name: tree_of(self.vertices[name]) for name in self._topo}
 
     @property
     def state_(self) -> Params:
@@ -542,15 +538,11 @@ class ComputationGraph(nn.Module):
         mean and var (buffers), {} elsewhere."""
         if self._rng is None:
             raise RuntimeError("call init() first")
-        return {name: dict(self.vertices[name]._buffers) for name in self._topo}
+        return {name: tree_of(self.vertices[name], "_buffers") for name in self._topo}
 
     @torch.no_grad()
     def _set_state(self, new_state: Params) -> None:
-        for name, sub in new_state.items():
-            bufs = self.vertices[name]._buffers
-            for k, v in sub.items():
-                if v is not bufs[k]:
-                    bufs[k].copy_(v)
+        copy_into(self.state_, new_state)
 
     def _updater_for(self, name: str) -> IUpdater:
         layer = self._layer_of(name)
@@ -574,7 +566,7 @@ class ComputationGraph(nn.Module):
 
             def cast(a):
                 return a.to(dt) if a.is_floating_point() else a
-            params = {n: {k: cast(v) for k, v in p.items()} for n, p in params.items()}
+            params = tree_map(cast, params)
             inputs = {k: cast(v) for k, v in inputs.items()}
         acts: Dict[str, torch.Tensor] = dict(inputs)
         head_inputs: Dict[str, torch.Tensor] = {}
@@ -624,8 +616,7 @@ class ComputationGraph(nn.Module):
     def _carry(self) -> List[torch.Tensor]:
         """The tensors a step writes in place: parameters, layer state,
         updater state and the iteration counter."""
-        return ([p for sub in self.params_.values() for p in sub.values()]
-                + [t for sub in self.state_.values() for t in sub.values()]
+        return (list(tree_leaves(self.params_)) + list(tree_leaves(self.state_))
                 + [t for t in tree_leaves(self.opt_state_) if isinstance(t, torch.Tensor)]
                 + [device_counters(self)[0]])
 

@@ -120,16 +120,42 @@ def reg_penalty(conf, layers, params):
     return penalty
 
 
+def holder_of(params: Dict, state: Optional[Dict] = None) -> nn.Module:
+    """A module holding one layer's parameter tree as Parameters and, where
+    given, its state tree as buffers; a nested dict (Bidirectional's
+    ``fwd`` and ``bwd``) becomes a submodule of that name, so state_dict
+    keys follow the JAX tree (``layer_0.fwd.W``)."""
+    m = nn.Module()
+    state = state or {}
+    for k, v in params.items():
+        if isinstance(v, dict):
+            m.add_module(k, holder_of(v, state.get(k)))
+        else:
+            m.register_parameter(k, nn.Parameter(v))
+    for k, v in state.items():
+        if not isinstance(v, dict):     # a nested state sits with its params
+            m.register_buffer(k, v)
+    return m
+
+
+def tree_of(m: nn.Module, attr: str = "_parameters") -> Dict:
+    """The tree a `holder_of` module holds: its Parameters
+    (``"_parameters"``) or its buffers (``"_buffers"``), nested by
+    submodule."""
+    out = dict(getattr(m, attr))
+    for k, c in m._modules.items():
+        out[k] = tree_of(c, attr)
+    return out
+
+
 def grads_of(loss: torch.Tensor, params) -> Dict:
     """d loss / d params by autograd, as a tree of the params' shape, with
     zeros where a parameter does not reach the loss (as jax.grad gives)."""
-    leaves = [(n, k, p) for n in params for k, p in params[n].items()]
-    got = torch.autograd.grad(loss, [p for _, _, p in leaves],
-                              allow_unused=True) if leaves else ()
-    grads: Dict = {n: {} for n in params}
-    for (n, k, p), g in zip(leaves, got):
-        grads[n][k] = torch.zeros_like(p) if g is None else g
-    return grads
+    leaves = list(tree_leaves(params))
+    got = torch.autograd.grad(loss, leaves, allow_unused=True) if leaves else ()
+    by_id = {id(p): g for p, g in zip(leaves, got)}
+    return tree_map(lambda p: torch.zeros_like(p) if by_id[id(p)] is None
+                    else by_id[id(p)], params)
 
 
 def copy_into(dst, src) -> None:
@@ -395,11 +421,8 @@ class MultiLayerNetwork(nn.Module):
             if layer.activation is None and not hasattr(layer, "loss"):
                 layer.activation = self.conf.activation
             p, s, it = layer.initialize(gen, it, dtype, self.device)
-            holder = nn.Module()
-            for k, v in p.items():
-                holder.register_parameter(k, nn.Parameter(v))
             name = self.conf.layer_name(i)
-            self.add_module(name, holder)
+            self.add_module(name, holder_of(p))
             state[name] = s
             self._layer_types.append(it)
         self.state_ = state
@@ -409,11 +432,11 @@ class MultiLayerNetwork(nn.Module):
 
     @property
     def params_(self) -> Params:
-        """{layer name: {param key: Parameter}}, the JAX tree's shape."""
+        """{layer name: {param key: Parameter}}, the JAX tree's shape
+        (nested where the JAX tree is: Bidirectional's ``fwd``/``bwd``)."""
         if self.state_ is None:
             raise RuntimeError("call init() first")
-        return {self.conf.layer_name(i): dict(
-                    getattr(self, self.conf.layer_name(i))._parameters)
+        return {self.conf.layer_name(i): tree_of(getattr(self, self.conf.layer_name(i)))
                 for i in range(len(self.conf.layers))}
 
     def layer_by_name(self, name: str) -> Layer:
@@ -443,8 +466,7 @@ class MultiLayerNetwork(nn.Module):
         cd = self.conf.compute_dtype
         dt = torch_dtype(cd if cd is not None else self.conf.dtype)
         if cd is not None:
-            params = {n: {k: (v.to(dt) if v.is_floating_point() else v)
-                          for k, v in p.items()} for n, p in params.items()}
+            params = tree_map(lambda v: v.to(dt) if v.is_floating_point() else v, params)
         if x.is_floating_point():
             x = x.to(dt)
         return params, x
@@ -527,7 +549,7 @@ class MultiLayerNetwork(nn.Module):
     def _carry(self) -> List[torch.Tensor]:
         """The tensors a step writes in place: parameters, layer state,
         updater state and the iteration counter."""
-        return ([p for sub in self.params_.values() for p in sub.values()]
+        return (list(tree_leaves(self.params_))
                 + [t for t in tree_leaves(self.state_) if isinstance(t, torch.Tensor)]
                 + [t for t in tree_leaves(self.opt_state_) if isinstance(t, torch.Tensor)]
                 + [device_counters(self)[0]])

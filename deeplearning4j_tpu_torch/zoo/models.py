@@ -1,17 +1,17 @@
 """Sequential zoo models (the port of ``zoo/models.py``): LeNet, SimpleCNN,
-AlexNet, VGG16, VGG19 and Darknet19.  Image models are NHWC;
-`input_shape` is (H, W, C).  TextGenLSTM waits for the recurrent
-layers."""
+AlexNet, VGG16, VGG19, Darknet19 and the char-LM TextGenLSTM.  Image
+models are NHWC with `input_shape` (H, W, C); TextGenLSTM's is
+(timesteps, vocab)."""
 from __future__ import annotations
 
 import dataclasses
 from typing import List, Tuple
 
 from deeplearning4j_tpu_torch.nn import (
-    BatchNormalizationLayer, ConvolutionLayer, DenseLayer, DropoutLayer,
+    LSTM, BatchNormalizationLayer, ConvolutionLayer, DenseLayer, DropoutLayer,
     GlobalPoolingLayer, InputType, Layer, LocalResponseNormalizationLayer,
     MultiLayerConfiguration, MultiLayerNetwork, NeuralNetConfiguration,
-    OutputLayer, SubsamplingLayer)
+    OutputLayer, RnnOutputLayer, SubsamplingLayer)
 from deeplearning4j_tpu_torch.train.updaters import Nesterovs
 from deeplearning4j_tpu_torch.zoo.base import ZooModel, zoo_model
 
@@ -208,6 +208,35 @@ class Darknet19(ZooModel):
                 .weight_init("RELU")
                 .list(layers)
                 .set_input_type(InputType.convolutional(h, w, c))
+                .build())
+
+    def init_model(self, device=None) -> MultiLayerNetwork:
+        return self._net(MultiLayerNetwork, self.conf(), device)
+
+
+@zoo_model
+@dataclasses.dataclass
+class TextGenLSTM(ZooModel):
+    """Char-LM stacked LSTM: two LSTM(256) layers and an RnnOutputLayer
+    over the vocabulary (``BASELINE.json``'s 'Stacked-LSTM char-LM').
+    `output` takes windows of any length, the configured T included."""
+
+    n_classes: int = 77          # vocab size
+    input_shape: Tuple[int, ...] = (64, 77)   # (timesteps, vocab)
+    lstm_units: int = 256
+
+    def conf(self) -> MultiLayerConfiguration:
+        t, v = self.input_shape
+        return (NeuralNetConfiguration.builder()
+                .seed(self.seed).updater(self._updater())
+                .weight_init("XAVIER")
+                .list([
+                    LSTM(n_out=self.lstm_units, activation="tanh"),
+                    LSTM(n_out=self.lstm_units, activation="tanh"),
+                    RnnOutputLayer(n_out=self.n_classes, loss="mcxent",
+                                   activation="softmax"),
+                ])
+                .set_input_type(InputType.recurrent(v, t))
                 .build())
 
     def init_model(self, device=None) -> MultiLayerNetwork:
