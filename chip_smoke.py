@@ -447,6 +447,35 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    ``LearnedSelfAttentionLayer(n_queries=4, n_heads=4)`` on the LSTM's
    output (T = 4 queries over S = 128) with the int32 mask: one forward
    launch, within 1e-4 * max|ref| of reference mode's.
+42. sd_tf_bert — BASELINE config 3 as bench.py runs it
+   (``bench.py:294-400``): ``bert_graph_def`` writes the frozen GraphDef of
+   ``build_tf_bert_frozen`` at batch 32, T = 128, 12 layers, hidden 768, 12
+   heads, vocab 30,522 (1,027 nodes, weights from ``RandomState(0)`` in
+   bench.py's order) through the port's protobuf encoder, with no
+   TensorFlow; ``modelimport.import_graph_def(bytes, device="cuda")``
+   imports it.  The encoder output equals ``bert_plain_forward`` (the same
+   function written out in plain PyTorch on the same weights, f32, TF32
+   off) within 1e-4 * max|ref|.  bench.py's head (``head_w`` XAVIER,
+   ``matmul``, ``sparse_softmax_cross_entropy``, Adam(1e-4)): the first
+   step's loss within 1e-5 relative of an independent autograd-plus-Adam
+   step on the plain forward, ``head_w`` after it within 1e-5 *
+   max|head_w|.  Timed as bench.py times it: 2 warm-up and 5 timed ``fit``
+   steps synced by ``score()``: ms a step, tokens/s (B * T * steps / dt),
+   peak memory; one step under ``torch.profiler`` (busy, idle share, top
+   kernels).  Then ``fit_steps`` on a stride-0 block of 5: its losses and
+   ``head_w`` bit for bit those of 5 eager ``fit`` steps from the same
+   state, one capture, one ``replay()`` a block, graph ms a step.  The
+   path reaches none of the nine kernels (its LayerNorm is Mean /
+   SquaredDifference / Rsqrt, its attention BatchMatMulV2 / Softmax).
+43. sd_kernels — a SameDiff graph built through the API at BERT-base width
+   (2 pre-LN layers of ``sd.nn.layer_norm`` twice, the
+   ``multi_head_dot_product_attention`` op with 12 heads of 64 and a GELU
+   MLP; batch 32, T = 128, f32, Adam(1e-4), MSE): 3 ``fit`` steps, the
+   launch counts set to 0 just before each and read just after: exactly 2
+   flash forward, 2 dQ, 2 dK/dV, 4 LayerNorm forward and 4 LayerNorm
+   backward launches a step; a twin built alike (equal variables) in
+   ``reference`` mode launches none, and each loss agrees within 1e-4
+   relative.
 
 Then the kernels line (each entry with ``share_of_bound``; ``fused_dense``
 and the conv pair carry ``vgg16_train``, ``zoo_train``, ``fused_resnet50``
@@ -457,7 +486,8 @@ shape), the flash kernels ``seq_attention`` ones (``fused_dense`` one of
 0: it is not on that path); the last two count the launches of one
 replayed block by the graph's kernel nodes, beside the profiler's counts
 of traced replays and the Python counts made at the warm-up and the
-capture), nvidia-smi's line, and the last line ``{"ok": true, "device": {...}}``.  Exits
+capture; the attention and LayerNorm kernels also carry ``sd_kernels``
+entries, their launches a step in phase 43), nvidia-smi's line, and the last line ``{"ok": true, "device": {...}}``.  Exits
 non-zero, printing no result, without CUDA or outside a checkout of the
 repository.
 """
@@ -644,6 +674,12 @@ CHARLM_MASKED = (40, 20)
 #: seq_attention: batch, T, vocab, LSTM units, heads, classes, the steps
 #: the mask drops from half the rows, the fused block's k
 SEQ_ATTN = (64, 128, 77, 256, 4, 10, 32, 3)
+#: sd_tf_bert: bench.py's BERT-base TF-import fine-tune (batch, T, layers,
+#: hidden, heads, vocab) and the fused block's k
+SD_BERT = (32, 128, 12, 768, 12, 30522)
+SD_BERT_K = 5
+#: sd_kernels: batch, T, features, heads, encoder layers, Adam steps
+SD_KERNELS = (32, 128, 768, 12, 2, 3)
 
 
 def emit(phase, **kw):
@@ -4333,6 +4369,387 @@ def phase_seq_attention(nn, train, dispatch, attention, matmul, dev, shape=SEQ_A
     return report
 
 
+# ---------------------------------------------------------------------------
+# SameDiff: bench.py's TF-import fine-tune, and graphs that reach the kernels
+# ---------------------------------------------------------------------------
+
+def bert_graph_def(batch=32, t=128, layers=12, hidden=768, heads=12, vocab=30522):
+    """The frozen GraphDef of ``bench.py``'s ``build_tf_bert_frozen``, written
+    without TensorFlow through the port's protobuf encoder: the same ops (a
+    Placeholder, Consts, GatherV2, AddV2, Reshape, MatMul, Transpose,
+    BatchMatMulV2 with ``adj_y``, RealDiv, Softmax, Mean, Sub,
+    SquaredDifference, Rsqrt, Mul, Erf and a final Identity: 7 + 85 a layer
+    nodes), the same shapes and the weights drawn from
+    ``RandomState(0)`` in bench.py's order.  A one-valued Const (a LayerNorm
+    gain or bias) is written as one typed value that TF's fill rule
+    repeats, as TF's constant folding writes it.  Returns (the serialized
+    GraphDef, the weights by bench.py's names, the output node's name)."""
+    from deeplearning4j_tpu_torch.modelimport import tf_proto as tp
+
+    rs = np.random.RandomState(0)
+    H, NH, L, T, B = hidden, heads, layers, t, batch
+    w = {"tok_emb": rs.randn(vocab, H).astype(np.float32) * 0.02,
+         "pos_emb": rs.randn(T, H).astype(np.float32) * 0.02}
+    for l in range(L):
+        for k in ["wq", "wk", "wv", "wo"]:
+            w[f"{l}.{k}"] = rs.randn(H, H).astype(np.float32) * 0.02
+        w[f"{l}.w1"] = rs.randn(H, 4 * H).astype(np.float32) * 0.02
+        w[f"{l}.w2"] = rs.randn(4 * H, H).astype(np.float32) * 0.02
+        w[f"{l}.g1"] = np.ones(H, np.float32)
+        w[f"{l}.b1"] = np.zeros(H, np.float32)
+        w[f"{l}.g2"] = np.ones(H, np.float32)
+        w[f"{l}.b2"] = np.zeros(H, np.float32)
+
+    nodes, counts = [], {}
+    F32, I32 = tp.DT_FLOAT, tp.DT_INT32
+
+    def fresh(base):
+        n = counts.get(base, 0)
+        counts[base] = n + 1
+        return base if n == 0 else f"{base}_{n}"
+
+    def node(op, base, inputs, **attrs):
+        name = fresh(base)
+        nodes.append(tp.NodeDef(name=name, op=op, input=list(inputs), attr=attrs))
+        return name
+
+    def const(name, value):
+        a = np.asarray(value)
+        if a.dtype == np.float32 and a.size > 1 and (a == a.reshape(-1)[0]).all():
+            t_ = tp.TensorProto(dtype=tp.data_type(a.dtype), tensor_shape=tp.make_shape(a.shape))
+            t_.float_val = [float(a.reshape(-1)[0])]
+        else:
+            t_ = tp.make_tensor_proto(a)
+        nodes.append(tp.NodeDef(name=name, op="Const", input=[], attr={
+            "dtype": tp.AttrValue(type=tp.data_type(a.dtype)), "value": tp.AttrValue(tensor=t_)}))
+        return name
+
+    def T_(dt=F32):
+        return tp.AttrValue(type=dt)
+
+    def b_(v):
+        return tp.AttrValue(b=v)
+
+    def binary(op, base, a, b):
+        return node(op, base, [a, b], T=T_())
+
+    def reshape(x, shape):
+        name = fresh("Reshape")
+        counts["Reshape"] -= 1
+        s = const(f"{name}/shape", np.asarray(shape, np.int32))
+        return node("Reshape", "Reshape", [x, s], T=T_(), Tshape=T_(I32))
+
+    def matmul(x, wname):
+        name = fresh("MatMul")
+        counts["MatMul"] -= 1
+        wc = const(f"{name}/b", w[wname])
+        return node("MatMul", "MatMul", [x, wc], T=T_(), transpose_a=b_(False),
+                    transpose_b=b_(False))
+
+    def transpose(x):
+        name = fresh("transpose")
+        counts["transpose"] -= 1
+        p = const(f"{name}/perm", np.asarray([0, 2, 1, 3], np.int32))
+        return node("Transpose", "transpose", [x, p], T=T_(), Tperm=T_(I32))
+
+    def bmm(a, b, adj_y):
+        return node("BatchMatMulV2", "MatMul", [a, b], T=T_(), adj_x=b_(False),
+                    adj_y=b_(adj_y))
+
+    def with_const(op, base, x, value, const_first=False):
+        name = fresh(base)
+        counts[base] -= 1
+        c = const(f"{name}/{'x' if const_first else 'y'}", np.asarray(value, np.float32))
+        return binary(op, base, *((c, x) if const_first else (x, c)))
+
+    def mean(x):
+        name = fresh("Mean")
+        counts["Mean"] -= 1
+        ri = const(f"{name}/reduction_indices", np.int32(-1))
+        return node("Mean", "Mean", [x, ri], T=T_(), Tidx=T_(I32), keep_dims=b_(True))
+
+    def layer_norm(x, g, b):
+        mu = mean(x)
+        d = binary("Sub", "sub", x, mu)
+        var = mean(binary("SquaredDifference", "SquaredDifference", x, mu))
+        r = node("Rsqrt", "Rsqrt", [with_const("AddV2", "add", var, 1e-6)], T=T_())
+        y = with_const("Mul", "mul", binary("Mul", "mul", d, r), w[g])
+        return with_const("AddV2", "add", y, w[b])
+
+    ids = node("Placeholder", "ids", [], dtype=T_(I32),
+               shape=tp.AttrValue(shape=tp.make_shape((B, T))))
+    params = const("GatherV2/params", w["tok_emb"])
+    axis = const("GatherV2/axis", np.int32(0))
+    x = node("GatherV2", "GatherV2", [params, ids, axis], Taxis=T_(I32), Tindices=T_(I32),
+             Tparams=T_(), batch_dims=tp.AttrValue(i=0))
+    x = with_const("AddV2", "add", x, w["pos_emb"])
+    dh = H // NH
+    for l in range(L):
+        def heads_of(k):
+            y = reshape(matmul(reshape(x, [B * T, H]), f"{l}.{k}"), [B, T, NH, dh])
+            return transpose(y)
+        q, k_ = heads_of("wq"), heads_of("wk")
+        s = with_const("RealDiv", "truediv", bmm(q, k_, True), np.float32(np.sqrt(dh)))
+        p = node("Softmax", "Softmax", [s], T=T_())
+        ctx = bmm(p, heads_of("wv"), False)
+        ctx = reshape(transpose(ctx), [B, T, H])
+        a = reshape(matmul(reshape(ctx, [B * T, H]), f"{l}.wo"), [B, T, H])
+        x = layer_norm(binary("AddV2", "add", x, a), f"{l}.g1", f"{l}.b1")
+        h = matmul(reshape(x, [B * T, H]), f"{l}.w1")
+        half = with_const("Mul", "mul", h, 0.5, const_first=True)
+        e = node("Erf", "Erf", [with_const("RealDiv", "truediv", h,
+                                           np.sqrt(2.0).astype(np.float32))], T=T_())
+        h = binary("Mul", "mul", half, with_const("AddV2", "add", e, 1.0, const_first=True))
+        h = reshape(matmul(h, f"{l}.w2"), [B, T, H])
+        x = layer_norm(binary("AddV2", "add", x, h), f"{l}.g2", f"{l}.b2")
+    out = node("Identity", "Identity", [x], T=T_())
+    gd = tp.GraphDef(node=nodes, versions=tp.VersionDef(producer=1))
+    return gd.SerializeToString(), w, out
+
+
+def bert_plain_forward(w, ids, layers, heads):
+    """bench.py's BERT encoder written out in plain PyTorch on the weights
+    of `bert_graph_def` (a yardstick independent of the graph engine and
+    the importer)."""
+    dev = ids.device
+    t = {k: torch.as_tensor(v, device=dev) for k, v in w.items()}
+    B, T = ids.shape
+    H = t["tok_emb"].shape[1]
+    dh = H // heads
+
+    def ln(x, g, b):
+        mu = x.mean(-1, keepdim=True)
+        var = ((x - mu) ** 2).mean(-1, keepdim=True)
+        return (x - mu) * torch.rsqrt(var + 1e-6) * g + b
+
+    x = t["tok_emb"][ids.long()] + t["pos_emb"]
+    for l in range(layers):
+        def heads_of(k):
+            return (x.reshape(B * T, H) @ t[f"{l}.{k}"]).reshape(B, T, heads, dh).transpose(1, 2)
+        q, k, v = heads_of("wq"), heads_of("wk"), heads_of("wv")
+        p = torch.softmax(q @ k.transpose(-1, -2) / math.sqrt(dh), dim=-1)
+        ctx = (p @ v).transpose(1, 2).reshape(B * T, H)
+        x = ln(x + (ctx @ t[f"{l}.wo"]).reshape(B, T, H), t[f"{l}.g1"], t[f"{l}.b1"])
+        h = x.reshape(B * T, H) @ t[f"{l}.w1"]
+        h = 0.5 * h * (1.0 + torch.erf(h / math.sqrt(2.0)))
+        x = ln(x + (h @ t[f"{l}.w2"]).reshape(B, T, H), t[f"{l}.g2"], t[f"{l}.b2"])
+    return x
+
+
+def _sd_state(sd):
+    """The tensors a SameDiff step writes, cloned, with the iteration."""
+    from deeplearning4j_tpu_torch.train.updaters import tree_leaves
+    return ([v.clone() for v in sd.variables_.values()],
+            [l.clone() for l in tree_leaves(sd.opt_state_)], sd.iteration)
+
+
+def _sd_restore(sd, state):
+    """Write `state` back into the same tensors (their addresses stay)."""
+    from deeplearning4j_tpu_torch.train.updaters import tree_leaves
+    vs, opt, it = state
+    with torch.no_grad():
+        for dst, src in zip(list(sd.variables_.values()) + list(tree_leaves(sd.opt_state_)),
+                            vs + opt):
+            dst.copy_(src)
+    sd.iteration = it
+
+
+def phase_sd_tf_bert(autodiff, modelimport, Adam, dev, shape=SD_BERT, k=SD_BERT_K):
+    """BASELINE config 3 as bench.py runs it (phase 42 of the module
+    docstring)."""
+    tag = "sd_tf_bert"
+    B, T, L, H, NH, V = shape
+    t0 = time.perf_counter()
+    graph_bytes, w, enc = bert_graph_def(B, T, L, H, NH, V)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sd = modelimport.import_graph_def(graph_bytes, device=dev)
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    gd_nodes = len(modelimport.tf_proto.GraphDef.FromString(graph_bytes).node)
+    n_nodes = len(sd._nodes)
+    require(gd_nodes == 7 + 85 * L, f"{tag}: the GraphDef has {gd_nodes} nodes, "
+            f"want {7 + 85 * L}")
+    rs = np.random.RandomState(0)
+    ids = torch.as_tensor(rs.randint(0, V, (B, T)).astype(np.int32), device=dev)
+    lab = torch.as_tensor(rs.randint(0, V, (B, T)).astype(np.int32), device=dev)
+
+    # the imported encoder against the plain forward on the same weights
+    got = sd.output({"ids": ids}, enc)[enc]
+    ref = bert_plain_forward(w, ids, L, NH)
+    enc_err = (got - ref).abs().max().item()
+    enc_max = ref.abs().max().item()
+    require(got.shape == (B, T, H) and got.dtype == torch.float32
+            and bool(torch.isfinite(got).all()) and enc_err <= F32_RTOL * enc_max,
+            f"{tag}: encoder {tuple(got.shape)} {got.dtype} max|diff| {enc_err} against "
+            f"the plain forward's max {enc_max}")
+
+    # bench.py's head: XAVIER head_w, matmul, sparse softmax CE, Adam(1e-4)
+    w_head = sd.var("head_w", "XAVIER", H, V)
+    logits = sd.op("matmul", sd.get_variable(enc), w_head, name="logits")
+    labv = sd.placeholder("lab", (B, T))
+    sd.loss.sparse_softmax_cross_entropy(labv, logits, name="loss")
+    sd.set_loss_variables("loss")
+    sd.set_training_config(autodiff.TrainingConfig(
+        updater=Adam(1e-4), data_set_feature_mapping=["ids"],
+        data_set_label_mapping=["lab"]))
+    w0 = sd.variables_["head_w"].clone()
+    sd.fit(ids, lab)
+    loss1 = sd.score()
+    # an independent step: autograd through the plain forward, Adam by hand
+    wr = w0.clone().requires_grad_(True)
+    ref_loss = torch.nn.functional.cross_entropy((ref @ wr).reshape(-1, V), lab.reshape(-1).long())
+    (g,) = torch.autograd.grad(ref_loss, [wr])
+    m, v = 0.1 * g, 0.001 * g * g
+    alpha = 1e-4 * math.sqrt(1 - 0.999) / (1 - 0.9)
+    w1_ref = w0 - alpha * m / (torch.sqrt(v) + 1e-8)
+    w1 = sd.variables_["head_w"]
+    loss_rel = abs(loss1 - ref_loss.item()) / abs(ref_loss.item())
+    w_err = (w1 - w1_ref).abs().max().item()
+    upd_err = ((w1 - w0) - (w1_ref - w0)).abs().max().item()
+    upd_max = (w1_ref - w0).abs().max().item()
+    require(loss_rel <= 1e-5 and w_err <= 1e-5 * w1_ref.abs().max().item(),
+            f"{tag}: first step loss {loss1} against {ref_loss.item()} (rel {loss_rel}), "
+            f"head_w max|diff| {w_err}")
+    del wr, g, m, v, w1_ref, ref
+
+    # timed as bench.py times it: 2 warm-up and 5 timed steps, synced by score()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        sd.fit(ids, lab)
+    sd.score()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        sd.fit(ids, lab)
+    sd.score()
+    dt = time.perf_counter() - t0
+    step_ms = dt * 1e3 / 5
+    peak = torch.cuda.max_memory_allocated()
+    window_ms, busy_ms, by_name, n_kernels = _trace(lambda: sd.fit(ids, lab))
+    require(busy_ms is not None, f"{tag}: the profiler saw no device activity")
+
+    # fit_steps: one block of k as one replay, bitwise against k eager steps
+    start = _sd_state(sd)
+    eager = []
+    for _ in range(k):
+        sd.fit(ids, lab)
+        eager.append(sd.score())
+    want_w = sd.variables_["head_w"].clone()
+    _sd_restore(sd, start)
+    block = {"ids": ids.broadcast_to((k, B, T)), "lab": lab.broadcast_to((k, B, T))}
+    graph_losses = sd.fit_steps(block).tolist()
+    require(graph_losses == eager and torch.equal(sd.variables_["head_w"], want_w),
+            f"{tag}: replayed losses {graph_losses} != eager {eager}, or head_w differs")
+    step = sd._scan_step
+    (rec,) = step._graphs.values()
+    replays = _counting_replays(rec.graph)
+    _sd_restore(sd, start)
+    again = sd.fit_steps(block).tolist()
+    require(again == eager and step.captures == 1 and replays["replays"] == 1,
+            f"{tag}: second block {again}, {step.captures} captures, "
+            f"{replays['replays']} replays")
+    block_ms = [_synced(lambda: sd.fit_steps(block))[1] for _ in range(3)]
+    graph_step_ms = statistics.median(block_ms) / k
+    report = dict(
+        graph_def_nodes=gd_nodes, samediff_nodes=n_nodes, graph_bytes=len(graph_bytes), build_s=build_s,
+        import_s=import_s, encoder_max_abs_err=enc_err, encoder_max_abs_ref=enc_max,
+        first_loss=loss1, first_loss_reference=ref_loss.item(), first_loss_rel=loss_rel,
+        head_w_max_abs_err=w_err, head_update_max_abs_err=upd_err,
+        head_update_max_abs=upd_max, step_ms=step_ms, tokens_per_sec=B * T * 5 / dt,
+        max_memory_allocated_gb=peak / 1e9, step_window_ms=window_ms,
+        step_busy_ms=busy_ms, step_idle_share=max(0.0, 1.0 - busy_ms / window_ms),
+        step_kernels=n_kernels, top=_top(by_name, 10), k=k, eager_losses=eager,
+        graph_losses=graph_losses, bitwise_equal=True, captures=step.captures,
+        replays_a_block=1, capture_s=step.capture_seconds[0], block_ms_all=block_ms,
+        graph_step_ms=graph_step_ms, graph_tokens_per_sec=B * T * 1e3 / graph_step_ms)
+    emit(tag, model="BERT-base TF GraphDef (bench.py build_tf_bert_frozen)", batch=B, T=T,
+         layers=L, hidden=H, heads=NH, vocab=V, dtype="float32", tf32=False,
+         updater="Adam(1e-4)", tensorflow_installed=_has_module("tensorflow"), **report)
+    del sd, block
+    torch.cuda.empty_cache()
+    return report
+
+
+def _has_module(name):
+    import importlib.util
+    return importlib.util.find_spec(name) is not None
+
+
+def sd_kernels_graph(autodiff, Adam, dev, shape=SD_KERNELS):
+    """A SameDiff graph through the API that reaches the five kernels:
+    `layers` pre-LN encoder layers (``sd.nn.layer_norm`` twice, the
+    ``multi_head_dot_product_attention`` op, a GELU MLP) on [B, T, F]
+    inputs, a mean-squared-error loss, Adam(1e-4); weights drawn from the
+    graph's seeded generator, so two graphs built alike are equal."""
+    B, T, F, NH, layers, _ = shape
+    dh = F // NH
+    sd = autodiff.SameDiff.create(device=dev)
+    x = sd.placeholder("x", (B, T, F))
+    y = sd.placeholder("y", (B, T, F))
+    for l in range(layers):
+        g1, b1 = sd.one(f"{l}.g1", F), sd.zero(f"{l}.b1", F)
+        g2, b2 = sd.one(f"{l}.g2", F), sd.zero(f"{l}.b2", F)
+        wq, wk, wv = (sd.var(f"{l}.{n}", "XAVIER", NH, dh, F) for n in ("wq", "wk", "wv"))
+        wo = sd.var(f"{l}.wo", "XAVIER", F, NH, dh)
+        w1, w2 = sd.var(f"{l}.w1", "XAVIER", F, 4 * F), sd.var(f"{l}.w2", "XAVIER", 4 * F, F)
+        bb1, bb2 = sd.zero(f"{l}.bb1", 4 * F), sd.zero(f"{l}.bb2", F)
+        h = sd.nn.layer_norm(x, g1, b1)
+        x = x + sd.op("multi_head_dot_product_attention", h, h, h, wq, wk, wv, wo)
+        h = sd.nn.layer_norm(x, g2, b2)
+        x = x + sd.nn.linear(sd.nn.gelu(sd.nn.linear(h, w1, bb1)), w2, bb2)
+    sd.loss.mean_squared_error(y, x, name="loss")
+    sd.set_loss_variables("loss")
+    sd.set_training_config(autodiff.TrainingConfig(
+        updater=Adam(1e-4), data_set_feature_mapping=["x"], data_set_label_mapping=["y"]))
+    return sd
+
+
+def phase_sd_kernels(autodiff, Adam, dispatch, attention, layer_norm, dev, shape=SD_KERNELS):
+    """SameDiff reaching the kernels (phase 43 of the module docstring)."""
+    tag = "sd_kernels"
+    B, T, F, NH, layers, steps = shape
+    rs = np.random.RandomState(0)
+    x = torch.as_tensor(rs.randn(B, T, F).astype(np.float32), device=dev)
+    y = torch.as_tensor(rs.randn(B, T, F).astype(np.float32), device=dev)
+    counters = _train_counters(attention, layer_norm)
+    sd = sd_kernels_graph(autodiff, Adam, dev, shape)
+    twin = sd_kernels_graph(autodiff, Adam, dev, shape)
+    require(all(torch.equal(a, b) for a, b in zip(sd.variables_.values(),
+                                                  twin.variables_.values())),
+            f"{tag}: two graphs built alike start from different variables")
+    losses, ms, counts = _train_steps(sd, lambda: (sd.fit(x, y), sd._score)[1],
+                                      counters, steps)
+    ref, ref_ms, ref_counts = _in_reference_mode(
+        dispatch, lambda: _train_steps(twin, lambda: (twin.fit(x, y), twin._score)[1],
+                                       counters, steps))
+    want = (layers, layers, layers, 2 * layers, 2 * layers)
+    rel = _rel(losses, ref)
+    require(all(c == want for c in counts) and all(c == (0,) * 5 for c in ref_counts),
+            f"{tag}: launches a step {counts} (reference mode {ref_counts}), want {want}")
+    require(all(math.isfinite(v) for v in losses) and max(rel) <= F32_RTOL,
+            f"{tag}: losses {losses} against reference mode's {ref} (rel {rel})")
+    report = dict(steps=steps, losses=losses, reference_losses=ref, max_rel_diff=max(rel),
+                  launches_per_step=dict(zip(("flash_attn_fwd", "flash_attn_bwd_dq",
+                                              "flash_attn_bwd_dkv", "layer_norm_fwd",
+                                              "layer_norm_bwd"), want)),
+                  step_ms=statistics.median(ms[1:]), reference_step_ms=statistics.median(ref_ms[1:]),
+                  step_ms_all=ms, reference_step_ms_all=ref_ms)
+    emit(tag, batch=B, T=T, features=F, heads=NH, head_dim=F // NH, layers=layers,
+         dtype="float32", tf32=False, updater="Adam(1e-4)", **report)
+    del sd, twin
+    torch.cuda.empty_cache()
+    return report
+
+
+def _sd_kernels_entry(name, sd_kern):
+    """A kernel's launches in phase 43: a step, and over its steps."""
+    n = sd_kern["launches_per_step"][name]
+    b, t, f, nh, layers, steps = SD_KERNELS
+    return {"launches_per_step": n, "launches": n * steps, "steps": steps,
+            "shape": f"SameDiff graph, {layers} pre-LN layers, x [{b},{t},{f}] f32, "
+                     f"{nh} heads of {f // nh}"}
+
+
 def _fused_entries(name, fused_r50, fused_lenet):
     """A kernel's launches in one replayed block of phases 34 and 35 (the
     profiler's kernel names), beside what the Python counter saw over the
@@ -4385,7 +4802,7 @@ def main():
                                                       layer_norm, matmul)
     from deeplearning4j_tpu_torch.ops.kernels import paged_attention as pa
     from deeplearning4j_tpu_torch.serving import decode as dec
-    from deeplearning4j_tpu_torch import data, nn, train, zoo
+    from deeplearning4j_tpu_torch import autodiff, data, modelimport, nn, train, zoo
     from deeplearning4j_tpu_torch.data import MultiDataSet
     from deeplearning4j_tpu_torch.nlp import BertIterator, BertWordPieceTokenizer
     from deeplearning4j_tpu_torch.nn import ComputationGraph, MultiLayerNetwork
@@ -4464,6 +4881,8 @@ def main():
     paged_rows = phase_paged_times(pa, dev)
     phase_charlm(zoo, dispatch, dev)
     seq_attn = phase_seq_attention(nn, train, dispatch, attention, matmul, dev)
+    phase_sd_tf_bert(autodiff, modelimport, Adam, dev)
+    sd_kern = phase_sd_kernels(autodiff, Adam, dispatch, attention, layer_norm, dev)
 
     emit("done", seconds=time.monotonic() - t_start)
     main_row = rows[("fc6", torch.float32)]
@@ -4525,6 +4944,7 @@ def main():
             **({"product": row["route"], "share_of_bound": row["share_of_bound"],
                 "simt_bound_ms": row["simt_bound_ms"]} if "route" in row else {}),
             "fused_bert": _fused_bert_entries(name, fused_bert),
+            "sd_kernels": _sd_kernels_entry(name, sd_kern),
             **({"seq_attention": _seq_attention_entry(name, seq_attn)}
                if name == "flash_attn_fwd" else {}),
             "shape": shape + "; launches in one f32 output_mlm at batch 64, T 128"})
@@ -4545,6 +4965,7 @@ def main():
             **({"product": row["route"], "simt_bound_ms": row["simt_bound_ms"]}
                if "route" in row else {}),
             "fused_bert": _fused_bert_entries(name, fused_bert),
+            "sd_kernels": _sd_kernels_entry(name, sd_kern),
             **({"seq_attention": _seq_attention_entry(name, seq_attn)}
                if name.startswith("flash") else {}),
             "shape": shape + "; launches in one f32 MLM fit_batch step at batch 64, T 128"

@@ -36,9 +36,20 @@ permutation applies to ``q`` and ``scale`` alike and moves ``axis`` with
 them.  A ``TinyDecodeModel``'s tree (``decode_params_from_jax``/
 ``decode_params_to_jax``) is its flat dict of named arrays, every layout
 the same in both packages.
+
+A SameDiff graph (``samediff_from_jax``/``samediff_to_jax``) crosses whole:
+its nodes (the shared JSON form), variables, constants (a weakly typed
+JAX scalar as a Python scalar, so it promotes as in JAX), loss names,
+training configuration, counters and updater state (its leaves in
+``tree_leaves`` order, dict keys sorted).  ``samediff_from_jax`` reads the
+JAX graph's attributes (its arrays through ``np.asarray``), so it too
+needs nothing of the JAX package; ``samediff_to_jax`` returns plain
+numpy parts for the caller to assemble.  The user-facing path across the
+packages is the shared zip (``SameDiff.save``/``load``).
 """
 from __future__ import annotations
 
+import json
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -334,3 +345,88 @@ def decode_params_from_jax(model, tree: Dict) -> None:
     """Load the JAX package's TinyDecodeModel parameters (numpy arrays)
     into the port's model, in place; names and shapes must match."""
     _load_tree(model.params_, tree, "")
+
+
+# ---------------------------------------------------------------------------
+# SameDiff graphs
+# ---------------------------------------------------------------------------
+
+def _tree_leaves(tree) -> list:
+    """Leaves of a nested dict/tuple in ``jax.tree_util.tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _tree_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in _tree_leaves(v)]
+    return [tree]
+
+
+def _jax_constant(v):
+    """A JAX constant as the port keeps it: a weakly typed 0-dim array as
+    its Python scalar, anything else as numpy."""
+    a = np.asarray(v)
+    if getattr(v, "weak_type", False) and a.ndim == 0:
+        return a.item()
+    return a
+
+
+def samediff_from_jax(sd_jax, device="cuda"):
+    """A port ``SameDiff`` on `device` equal to the JAX package's graph
+    `sd_jax`: nodes, variables, constants, loss names, training
+    configuration, counters and updater state."""
+    import dataclasses
+
+    from deeplearning4j_tpu_torch.autodiff.samediff import (SameDiff, TrainingConfig,
+                                                            _json_default, _node_from_json)
+    from deeplearning4j_tpu_torch.train.updaters import tree_leaves
+    sd = SameDiff(device=device)
+    for node in sd_jax._nodes.values():
+        n = _node_from_json(json.loads(json.dumps(dataclasses.asdict(node),
+                                                  default=_json_default)))
+        sd._nodes[n.name] = n
+    sd.variables_ = {k: sd._array(np.asarray(v)) for k, v in sd_jax.variables_.items()}
+    sd._constants = {k: (c if isinstance(c, (bool, int, float)) else sd._array(c))
+                     for k, c in ((k, _jax_constant(v)) for k, v in sd_jax._constants.items())}
+    sd._loss_names = list(sd_jax._loss_names)
+    sd.iteration, sd.epoch = int(sd_jax.iteration), int(sd_jax.epoch)
+    if sd_jax.training_config is not None:
+        sd.training_config = TrainingConfig.from_json(sd_jax.training_config.to_json())
+        if sd_jax.opt_state_ is not None:
+            sd.opt_state_ = sd.training_config.updater.init_state(sd.variables_)
+            leaves = [l for l in tree_leaves(sd.opt_state_) if isinstance(l, torch.Tensor)]
+            src = _tree_leaves(sd_jax.opt_state_)
+            if len(src) != len(leaves):
+                raise ValueError(f"the JAX updater state has {len(src)} leaves, the port's "
+                                 f"{len(leaves)}")
+            with torch.no_grad():
+                for dst, a in zip(leaves, src):
+                    dst.copy_(torch.from_numpy(np.array(a)))
+    return sd
+
+
+def samediff_to_jax(sd) -> Dict:
+    """A port ``SameDiff`` as numpy parts the JAX package's graph is built
+    from: ``nodes`` (the JSON form), ``variables``, ``constants`` (weak
+    scalars as Python scalars), ``loss_variables``, ``training_config``
+    (JSON), ``iteration``, ``epoch`` and ``updater_leaves`` (None before the
+    first step)."""
+    import dataclasses
+
+    from deeplearning4j_tpu_torch.autodiff.samediff import _json_default
+    from deeplearning4j_tpu_torch.train.updaters import tree_leaves
+
+    def host(v):
+        if isinstance(v, torch.Tensor):
+            return v.detach().cpu().numpy()
+        return v
+    return {
+        "nodes": [json.loads(json.dumps(dataclasses.asdict(n), default=_json_default))
+                  for n in sd._nodes.values()],
+        "variables": {k: host(v) for k, v in sd.variables_.items()},
+        "constants": {k: host(v) for k, v in sd._constants.items()},
+        "loss_variables": list(sd._loss_names),
+        "training_config": (None if sd.training_config is None
+                            else sd.training_config.to_json()),
+        "iteration": sd.iteration, "epoch": sd.epoch,
+        "updater_leaves": (None if sd.opt_state_ is None else
+                           [host(l) for l in tree_leaves(sd.opt_state_)]),
+    }

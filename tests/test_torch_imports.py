@@ -1,8 +1,10 @@
-"""The PyTorch port stands alone: no jax, nothing of deeplearning4j_tpu.
+"""The PyTorch port stands alone: no jax, nothing of deeplearning4j_tpu,
+and no tensorflow (the card's machine has none; the TF importer reads
+GraphDefs with the port's own protobuf codec).
 
 An AST scan of every module of the port, chip_smoke.py,
-attn_variants.py and paged_variants.py finds no import of either; a fresh interpreter that
-imports the whole port has neither in `sys.modules` (nor the kernel build
+attn_variants.py and paged_variants.py finds no import of any; a fresh interpreter that
+imports the whole port has none in `sys.modules` (nor the kernel build
 module, loaded lazily); and the entry points refuse to run without CUDA
 unless asked for the CPU (the decode engine's model and KV cache too), and
 BERT training runs on the device the model was asked for.
@@ -17,7 +19,7 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "deeplearning4j_tpu_torch"
-FORBIDDEN = {"jax", "jaxlib", "deeplearning4j_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "deeplearning4j_tpu", "tensorflow"}
 
 
 def _imported_roots(path):
@@ -56,8 +58,10 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
         "import deeplearning4j_tpu_torch.serving.decode, deeplearning4j_tpu_torch.serving.resilience\n"
         "import deeplearning4j_tpu_torch.data.analysis, deeplearning4j_tpu_torch.monitor.instrument\n"
         "import deeplearning4j_tpu_torch.ops.kernels.paged_attention\n"
+        "import deeplearning4j_tpu_torch.autodiff, deeplearning4j_tpu_torch.modelimport\n"
+        "import deeplearning4j_tpu_torch.autodiff.validation\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'deeplearning4j_tpu')]\n"
+        "('jax', 'jaxlib', 'deeplearning4j_tpu', 'tensorflow')]\n"
         "assert not bad, bad\n"
         "assert 'deeplearning4j_tpu_torch.ops.kernels.build' not in sys.modules\n"
         "print('clean')\n")
