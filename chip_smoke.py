@@ -476,6 +476,39 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    backward launches a step; a twin built alike (equal variables) in
    ``reference`` mode launches none, and each loss agrees within 1e-4
    relative.
+44. dp_resnet50 — bench.py's ResNet-50 blocks data-parallel
+   (``BASELINE.json`` config 5's path): full width, bf16 compute on f32
+   masters, Nesterovs(0.1, 0.9), global batch 64, stride-0 blocks of 5,
+   through ``ParallelWrapper.builder(net).build().fit_steps(xs, ys)`` at
+   world = ``torch.cuda.device_count()`` over NCCL (one rank a card;
+   cuDNN deterministic for bitwise twins).  At world 1 the script's own
+   process is the rank (a one-rank NCCL group): two blocks, the launch and
+   collective counts set to 0 just before them and read just after (the
+   collectives at the warm-up and capture exactly (k + 1) x one all-reduce
+   a gradient bucket and one of the loss), give the losses, parameters,
+   BatchNorm statistics and updater state of a twin's plain
+   ``fit_steps`` bit for bit; a debug-mode capture of the block holds
+   exactly 80 + 80 conv nodes and the NCCL nodes the bucket count
+   predicts (none: NCCL enqueues nothing for an in-place sum over one
+   rank).  Above world 1, ``multihost.LocalLauncher`` starts one rank a
+   card (``chip_smoke.py --dp-rank resnet50``): the losses hold the
+   one-card run's on the same global batch (bf16 bound, or
+   ``DIVERGED_LOSS_RTOL`` once it rises), and the parameters are bitwise
+   equal over the ranks.  Step ms, samples/s (global and per card), NCCL
+   ms a step from the profiler, capture seconds, idle share, peak memory.
+   The line says that at world 1 multi-rank parity comes from the CPU
+   tests only.
+45. dp_checkpoint — ``save_model_sharded`` of phase 44's wrapped network
+   after its blocks, ``load_model_sharded`` into a fresh wrapped network:
+   one more block from each gives the same bits.  Save and load seconds,
+   bytes written.
+46. dp_zero1 — bench.py's ``bench_zero1`` A/B: MLP 256 -> 1024 -> 1024 ->
+   10, Adam(1e-3), batch 256, stride-0 blocks of 8, one warm-up block and
+   48 timed steps, replicated then with ``optimizer_sharding(True)``:
+   ``max_param_diff`` 0 at world <= 2, 16 ``fused_dense`` nodes a block
+   (the two relu Dense layers; the softmax head is plain), updater-state
+   bytes a rank on each side and their ratio, samples/s of each side.  At
+   world 1 the A/B is degenerate (the line says so).
 
 Then the kernels line (each entry with ``share_of_bound``; ``fused_dense``
 and the conv pair carry ``vgg16_train``, ``zoo_train``, ``fused_resnet50``
@@ -483,7 +516,8 @@ and ``fused_lenet`` entries, the conv pair ``zoo_graphs`` and
 ``fused_dense`` ``records_train`` ones, and the attention and LayerNorm
 kernels ``fused_bert`` ones (their nodes in one replayed block at each
 shape), the flash kernels ``seq_attention`` ones (``fused_dense`` one of
-0: it is not on that path); the last two count the launches of one
+0: it is not on that path; the conv pair ``dp_resnet50`` entries and
+``fused_dense`` a ``dp_zero1`` one); the last two count the launches of one
 replayed block by the graph's kernel nodes, beside the profiler's counts
 of traced replays and the Python counts made at the warm-up and the
 capture; the attention and LayerNorm kernels also carry ``sd_kernels``
@@ -636,6 +670,20 @@ FUSED_R50_TIMED_BLOCKS = 5
 #: twin (bf16 rounds each product to 8 bits; the twins differ only in
 #: accumulation order)
 BF16_LOSS_RTOL = 1e-3
+#: bench.py's data-parallel configurations through ParallelWrapper:
+#: ResNet-50's fused bf16 blocks (`bench_resnet50`) and the ZeRO-1 A/B
+#: (`bench_zero1`: MLP 256 -> 1024 -> 1024 -> 10, Adam(1e-3), batch 256,
+#: stride-0 blocks of 8, 48 steps after one warm-up block)
+DP_R50_K = 5
+DP_R50_TIMED_BLOCKS = 3
+#: above world 1 each rank's bf16 gradient is rounded before the ranks'
+#: are summed, so the run parts from the one-card run after its first
+#: update: at world 4 the second loss differed by 5.4e-3 relative and the
+#: diverging run (DIVERGED_LOSS_RTOL's note) by 0.14 at step 6 (my 4-card
+#: run of the path).  The first loss (the same parameters) is held to
+#: BF16_LOSS_RTOL, the second to this, the rest reported
+DP_BF16_STEP2_RTOL = 2e-2
+ZERO1 = dict(batch=256, steps=48, fused_steps=8, n_in=256, hidden=1024)
 FUSED_LENET_K = 10
 FUSED_LENET_BATCHES = 23
 #: StepSchedule(1e-3, 0.5, 4): the lr halves at steps 4 and 8 of the first
@@ -4788,6 +4836,364 @@ def _seq_attention_entry(name, seq_attn):
     return entry
 
 
+def _r50_batch(dev, batch, image, classes):
+    """bench.py's ResNet-50 batch: numpy seed 0, as phase 34 makes it."""
+    rng = np.random.RandomState(0)
+    x = torch.as_tensor(rng.rand(batch, image, image, 3).astype(np.float32), device=dev)
+    y = torch.as_tensor(np.eye(classes, dtype=np.float32)[
+        rng.randint(0, classes, batch)], device=dev)
+    return x, y
+
+
+def _nccl_ms(by_name):
+    return sum(ms for name, (ms, _) in by_name.items() if "nccl" in name.lower())
+
+
+def _params_sha256(net):
+    import hashlib
+    h = hashlib.sha256()
+    for t in list(net.state_dict().values()):
+        h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _bn_layers(net):
+    from deeplearning4j_tpu_torch.nn import BatchNormalizationLayer
+    return sum(isinstance(layer, BatchNormalizationLayer) for _, layer in net._named_layers())
+
+
+def _dp_collectives_per_step(net, world):
+    """The collectives of one data-parallel step, from the configuration:
+    one all-reduce a gradient bucket and one of the loss; with more than
+    one rank, two a BatchNorm layer (its statistics forward, its two
+    gradient sums backward)."""
+    return net._dp.last_buckets + 1 + (2 * _bn_layers(net) if world > 1 else 0)
+
+
+def _dp_resnet50_rank(parallel, conv3x3, matmul, ResNet50, Nesterovs, dev, world, k, batch,
+                      image, classes, ckpt_dir, state0=None):
+    """One rank's part of phases 44 and 45: bench.py's bf16 ResNet-50
+    through ``ParallelWrapper.fit_steps`` on stride-0 blocks of k of the
+    global batch; then a sharded checkpoint round trip.  Returns (report,
+    checkpoint report, net, wrapper, xs, ys, the net's state and updater
+    tensors right after the two main-path blocks)."""
+    x, y = _r50_batch(dev, batch, image, classes)
+    xs = torch.broadcast_to(x, (k,) + tuple(x.shape))
+    ys = torch.broadcast_to(y, (k,) + tuple(y.shape))
+    net = _resnet50(ResNet50, Nesterovs, dev, compute_dtype="bfloat16", image=image,
+                    classes=classes)
+    if state0 is not None:
+        net.load_state_dict(state0)
+    pw = parallel.ParallelWrapper.builder(net).build()
+    require(pw.degree == world, f"dp_resnet50: a mesh of {pw.degree} ranks, want {world}")
+    pw._place_model()
+    torch.cuda.reset_peak_memory_stats()
+    # the main path, the counts set to 0 just before it and read just after
+    _reset_counts(matmul, conv3x3)
+    net._dp.collectives = 0
+    first, first_ms = _synced(lambda: pw.fit_steps(xs, ys))
+    second, second_ms = _synced(lambda: pw.fit_steps(xs, ys))
+    counts = _step_counts(matmul, conv3x3)
+    collectives = net._dp.collectives
+    after_main = ({n: v.clone() for n, v in net.state_dict().items()},
+                  [t.clone() for t in _opt_leaves(net)])
+    per_step = _dp_collectives_per_step(net, world)
+    require(collectives == (k + 1) * per_step,
+            f"dp_resnet50: {collectives} collectives at the warm-up and capture, want "
+            f"{k + 1} x {per_step}")
+    require(counts[1] > 0 and counts[2] > 0, f"dp_resnet50: conv launches {counts}")
+    step = net._scan_step
+    require(step.captures == 1, f"dp_resnet50: {step.captures} captures for one shape")
+    block_ms = [second_ms]
+    for _ in range(DP_R50_TIMED_BLOCKS - 1):
+        block_ms.append(_synced(lambda: pw.fit_steps(xs, ys))[1])
+    want = {"fused_dense": 0, "conv3x3_wgrad": k * BODY_CONVS, "conv3x3_dgrad": k * BODY_CONVS}
+    (window_ms, busy_ms, by_name, n_kernels), traces = _traced_replays(
+        lambda: pw.fit_steps(xs, ys), want, "dp_resnet50")
+    step_ms = statistics.median(block_ms) / k
+    report = dict(
+        world=world, k=k, global_batch=batch, losses=first.tolist() + second.tolist(),
+        launches_counted_at_warmup_and_capture=dict(zip(
+            ("fused_dense", "conv3x3_wgrad", "conv3x3_dgrad"), counts)),
+        collectives_per_step=per_step, gradient_buckets=net._dp.last_buckets,
+        bn_layers=_bn_layers(net), captures=step.captures,
+        capture_s=(step.capture_seconds or [None])[0], first_block_ms=first_ms,
+        block_ms_all=block_ms, step_ms=step_ms,
+        samples_per_sec=batch * 1e3 / step_ms,
+        samples_per_sec_per_card=batch * 1e3 / step_ms / world,
+        collective_ms_per_step=_nccl_ms(by_name) / k, block_window_ms=window_ms,
+        block_busy_ms=busy_ms,
+        block_idle_share=None if busy_ms is None else max(0.0, 1.0 - busy_ms / window_ms),
+        block_kernels=n_kernels, replay_traces=traces,
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+        top=_top(by_name, 6))
+    ckpt = _dp_checkpoint(parallel, ResNet50, Nesterovs, net, pw, xs, ys, dev, image,
+                          classes, ckpt_dir)
+    return report, ckpt, net, pw, xs, ys, after_main
+
+
+def _dp_checkpoint(parallel, ResNet50, Nesterovs, net, pw, xs, ys, dev, image, classes,
+                   directory):
+    """Phase 45 on one rank: save the wrapped net sharded, load it into a
+    fresh wrapped net, and take one more block on both: bit for bit."""
+    import shutil
+    t0 = time.perf_counter()
+    parallel.save_model_sharded(net, directory)
+    save_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(directory, f)) for f in os.listdir(directory))
+    fresh = _resnet50(ResNet50, Nesterovs, dev, compute_dtype="bfloat16", image=image,
+                      classes=classes)
+    pf = parallel.ParallelWrapper.builder(fresh).build()
+    pf._place_model()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    parallel.load_model_sharded(fresh, directory)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    require(fresh.iteration == net.iteration, "dp_checkpoint: iteration not restored")
+    a = pw.fit_steps(xs, ys)
+    b = pf.fit_steps(xs, ys)
+    same_losses = torch.equal(a, b)
+    sa, sb = net.state_dict(), fresh.state_dict()
+    same_state = all(torch.equal(sa[n], sb[n]) for n in sa)
+    require(same_losses and same_state,
+            f"dp_checkpoint: the block after the load differs (losses {a.tolist()} vs "
+            f"{b.tolist()}, state equal {same_state})")
+    if getattr(pw.mesh, "rank", 0) == 0:
+        shutil.rmtree(directory, ignore_errors=True)
+    del fresh, pf
+    return dict(save_s=save_s, load_s=load_s, bytes_written=nbytes,
+                losses_after_load=b.tolist(), iteration=net.iteration)
+
+
+def phase_dp_resnet50(parallel, multihost, conv3x3, matmul, ResNet50, Nesterovs, dev,
+                      k=DP_R50_K, batch=64, image=224, classes=1000):
+    """Phases 44 and 45: bench.py's ResNet-50 blocks data-parallel at world
+    = device_count over NCCL, against the plain ``fit_steps`` of a twin
+    with the same initial state on the same global batch."""
+    import tempfile
+    world = torch.cuda.device_count()
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True   # bitwise twins (phase 34's note)
+    try:
+        x, y = _r50_batch(dev, batch, image, classes)
+        xs = torch.broadcast_to(x, (k,) + tuple(x.shape))
+        ys = torch.broadcast_to(y, (k,) + tuple(y.shape))
+        twin = _resnet50(ResNet50, Nesterovs, dev, compute_dtype="bfloat16", image=image,
+                         classes=classes)
+        state0 = {n: v.clone() for n, v in twin.state_dict().items()}
+        plain = twin.fit_steps(xs, ys).tolist() + twin.fit_steps(xs, ys).tolist()
+        plain_state = twin.state_dict()
+        plain_opt = _opt_leaves(twin)
+        del twin
+        torch.cuda.empty_cache()
+        ckpt_dir = tempfile.mkdtemp(prefix="dp_ckpt_")
+        if world == 1:
+            report, ckpt, net, pw, xs, ys, (state, opt) = _dp_resnet50_rank(
+                parallel, conv3x3, matmul, ResNet50, Nesterovs, dev, world, k, batch, image,
+                classes, ckpt_dir, state0)
+            require(report["losses"] == plain,
+                    f"dp_resnet50: losses {report['losses']} differ from the plain "
+                    f"fit_steps' {plain}")
+            require(all(torch.equal(plain_state[n], state[n]) for n in plain_state),
+                    "dp_resnet50: parameters or BatchNorm statistics differ from the plain "
+                    "twin's")
+            require(len(opt) == len(plain_opt)
+                    and all(torch.equal(a, b) for a, b in zip(plain_opt, opt)),
+                    "dp_resnet50: updater state differs from the plain twin's")
+            del state, opt, plain_state, plain_opt
+            txt = _kept_dot(net, "_scan_step", None, lambda: pw.fit_steps(xs, ys))
+            nodes = {"conv3x3_wgrad": txt.count("conv3x3_wgrad_kernel"),
+                     "conv3x3_dgrad": txt.count("conv3x3_dgrad_kernel"),
+                     "nccl": txt.lower().count("nccl")}
+            # NCCL enqueues nothing for an in-place sum over one rank, so at
+            # world 1 a collective adds no node (measured: my NCCL probe)
+            want = {"conv3x3_wgrad": k * BODY_CONVS, "conv3x3_dgrad": k * BODY_CONVS,
+                    "nccl": 0}
+            require(nodes == want, f"dp_resnet50: the kept graph has {nodes}, want {want}")
+            report.update(replay_nodes=nodes, graph_kernel_nodes=txt.count("KERNEL"),
+                          bitwise_equal_to_plain_fit_steps=True, plain_losses=plain,
+                          parity="world 1: the replayed block equals the plain fit_steps "
+                                 "bit for bit; multi-rank parity against the JAX package "
+                                 "comes from the CPU tests (2 gloo ranks) only")
+            del net, pw
+        else:
+            del plain_state, plain_opt
+            outs = multihost.LocalLauncher(world, platform="cuda").run(
+                os.path.abspath(__file__), ["--dp-rank", "resnet50", ckpt_dir, str(k),
+                                            str(batch), str(image), str(classes)],
+                timeout=420)
+            ranks = [_rank_report(o) for o in outs]
+            report, ckpt = ranks[0]["report"], ranks[0]["ckpt"]
+            hashes = {r["params_sha256"] for r in ranks}
+            require(len(hashes) == 1, f"dp_resnet50: parameters differ over the ranks {hashes}")
+            rel = _rel(report["losses"], plain)
+            require(all(math.isfinite(v) for v in report["losses"])
+                    and rel[0] <= BF16_LOSS_RTOL and rel[1] <= DP_BF16_STEP2_RTOL,
+                    f"dp_resnet50: losses {report['losses']} against the one-card run's "
+                    f"{plain} (rel {rel})")
+            report.update(plain_losses=plain, rel_loss_diff=rel,
+                          ranks_bitwise_equal=True,
+                          per_rank_step_ms=[r["report"]["step_ms"] for r in ranks])
+        emit("dp_resnet50", model="ResNet50", compute_dtype="bfloat16",
+             input=f"{image}x{image}x3", classes=classes, updater="Nesterovs(0.1, 0.9)",
+             backend="nccl", cudnn_deterministic=True, **report)
+        emit("dp_checkpoint", world=world, model="ResNet50", **ckpt)
+        return report
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def _opt_leaves(net):
+    from deeplearning4j_tpu_torch.train.updaters import tree_leaves
+    return [t for t in tree_leaves(net.opt_state_) if isinstance(t, torch.Tensor)]
+
+
+def _rank_report(out):
+    for line in out.splitlines():
+        if line.startswith("DP_RANK "):
+            return json.loads(line[len("DP_RANK "):])
+    raise RuntimeError(f"chip_smoke: a rank printed no report:\n{out[-2000:]}")
+
+
+def _zero1_side(parallel, nn, Adam, matmul, dev, sharded, cfg):
+    """One side of bench.py's `bench_zero1` A/B: (net, seconds of the timed
+    blocks, updater-state bytes a rank, fused_dense launches counted)."""
+    conf = (nn.NeuralNetConfiguration.builder().seed(0).updater(Adam(1e-3))
+            .list([nn.DenseLayer(n_out=cfg["hidden"], activation="relu"),
+                   nn.DenseLayer(n_out=cfg["hidden"], activation="relu"),
+                   nn.OutputLayer(n_out=10, loss="mcxent", activation="softmax")])
+            .set_input_type(nn.InputType.feed_forward(cfg["n_in"])).build())
+    net = nn.MultiLayerNetwork(conf, device=dev).init()
+    rng = np.random.RandomState(0)
+    x = torch.as_tensor(rng.randn(cfg["batch"], cfg["n_in"]).astype(np.float32), device=dev)
+    y = torch.as_tensor(np.eye(10, dtype=np.float32)[rng.randint(0, 10, cfg["batch"])],
+                        device=dev)
+    k = cfg["fused_steps"]
+    xs = torch.broadcast_to(x, (k,) + tuple(x.shape))
+    ys = torch.broadcast_to(y, (k,) + tuple(y.shape))
+    pw = parallel.ParallelWrapper.builder(net).optimizer_sharding(sharded).build()
+    pw._place_model()
+    matmul.LAUNCHES.reset()
+    pw.fit_steps(xs, ys)                      # bench.py's warm-up block
+    net.score()
+    blocks = max(cfg["steps"] // k, 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(blocks):
+        pw.fit_steps(xs, ys)
+    net.score()
+    dt = time.perf_counter() - t0
+    launches = matmul.LAUNCHES.value
+    return (net, pw, xs, ys, dt, parallel.opt_state_bytes_per_replica(net.opt_state_),
+            launches)
+
+
+def _zero1_ab(parallel, nn, Adam, matmul, dev, cfg):
+    net_a, _, _, _, t_repl, bytes_repl, launches_a = _zero1_side(
+        parallel, nn, Adam, matmul, dev, False, cfg)
+    net_b, pw_b, xs, ys, t_z1, bytes_z1, launches_b = _zero1_side(
+        parallel, nn, Adam, matmul, dev, True, cfg)
+    diff = max((a - b).abs().max().item() for a, b in zip(net_a.parameters(),
+                                                          net_b.parameters()))
+    k, blocks = cfg["fused_steps"], max(cfg["steps"] // cfg["fused_steps"], 1)
+    n = cfg["batch"] * k * blocks
+    out = dict(fused_steps=k, steps=k * blocks, global_batch=cfg["batch"],
+               replicated_wall_s=t_repl, zero1_wall_s=t_z1,
+               replicated_samples_per_sec=n / t_repl, zero1_samples_per_sec=n / t_z1,
+               opt_bytes_replicated=bytes_repl, opt_bytes_zero1=bytes_z1,
+               opt_bytes_ratio=bytes_repl / max(bytes_z1, 1), max_param_diff=diff,
+               fused_dense_counted=[launches_a, launches_b],
+               params_sha256=_params_sha256(net_b))
+    return out, net_b, pw_b, xs, ys
+
+
+def phase_dp_zero1(parallel, multihost, nn, Adam, matmul, dev, cfg=ZERO1):
+    """Phase 46: bench.py's ZeRO-1 A/B at world = device_count."""
+    world = torch.cuda.device_count()
+    dense = 2                               # the relu Dense layers; the softmax head is plain
+    if world == 1:
+        report, net, pw, xs, ys = _zero1_ab(parallel, nn, Adam, matmul, dev, cfg)
+        txt = _kept_dot(net, "_scan_step", None, lambda: pw.fit_steps(xs, ys))
+        nodes = txt.count("fused_dense_kernel")
+        want = dense * cfg["fused_steps"]
+        require(nodes == want, f"dp_zero1: {nodes} fused_dense nodes a block, want {want}")
+        report.update(fused_dense_nodes_per_block=nodes,
+                      graph_kernel_nodes=txt.count("KERNEL"),
+                      note="world 1: the A/B is degenerate (one shard holds every row, as "
+                           "bench.py's docstring says of a one-device run)")
+        del net, pw
+    else:
+        outs = multihost.LocalLauncher(world, platform="cuda").run(
+            os.path.abspath(__file__), ["--dp-rank", "zero1"], timeout=240)
+        ranks = [_rank_report(o) for o in outs]
+        report = ranks[0]
+        require(len({r["params_sha256"] for r in ranks}) == 1,
+                "dp_zero1: parameters differ over the ranks")
+    for side in report["fused_dense_counted"]:
+        require(side > 0, "dp_zero1: fused_dense never launched on the main path")
+    if world <= 2:
+        require(report["max_param_diff"] == 0.0,
+                f"dp_zero1: ZeRO-1 and replicated differ by {report['max_param_diff']}")
+    emit("dp_zero1", world=world, model="MLP 256-1024-1024-10", updater="Adam(1e-3)",
+         backend="nccl", **report)
+    return report
+
+
+def dp_rank_main(argv):
+    """One rank of phases 44 to 46 at world > 1 (``--dp-rank resnet50
+    <checkpoint dir> <k> <batch> <image> <classes>`` or ``--dp-rank
+    zero1``), started by ``multihost.LocalLauncher``: prints its report
+    as one ``DP_RANK`` line."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from deeplearning4j_tpu_torch import nn, parallel
+    from deeplearning4j_tpu_torch.ops.kernels import conv3x3, dispatch, matmul
+    from deeplearning4j_tpu_torch.parallel import multihost
+    from deeplearning4j_tpu_torch.train import Adam, Nesterovs
+    from deeplearning4j_tpu_torch.zoo import ResNet50
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    dispatch.set_dispatch_mode("auto")
+    dev = multihost.initialize(timeout_s=180)     # a stuck collective fails the rank
+    world = dist.get_world_size()
+    if argv[0] == "resnet50":
+        ckpt_dir, k, batch, image, classes = argv[1], *map(int, argv[2:6])
+        report, ckpt, net, *_ = _dp_resnet50_rank(
+            parallel, conv3x3, matmul, ResNet50, Nesterovs, dev, world, k, batch, image,
+            classes, ckpt_dir)
+        out = {"report": report, "ckpt": ckpt, "params_sha256": _params_sha256(net)}
+    else:
+        out, *_ = _zero1_ab(parallel, nn, Adam, matmul, dev, ZERO1)
+    print("DP_RANK " + json.dumps(out), flush=True)
+    # no teardown: destroying an NCCL group whose collectives live in
+    # captured graphs hung every rank of a 4-card run; the process ends here
+    os._exit(0)
+
+
+def _dp_resnet50_entry(name, r):
+    """A conv kernel's launches in phase 44: a replayed data-parallel block
+    (its graph's nodes at world 1, else the profiler's count), and the
+    Python count at the warm-up and the capture."""
+    entry = {"k": r["k"], "world": r["world"],
+             "profiled_replays": [t[1][name] for t in r["replay_traces"]],
+             "counted_at_warmup_and_capture":
+                 r["launches_counted_at_warmup_and_capture"][name]}
+    if "replay_nodes" in r:
+        entry["launches_per_replayed_block"] = r["replay_nodes"][name]
+    return entry
+
+
+def _dp_zero1_entry(r):
+    """fused_dense in phase 46: the Python count of each side (replicated,
+    ZeRO-1) over its warm-up block's warm-up and capture, and the nodes of
+    a replayed block."""
+    return {"counted_at_warmup_and_capture": r["fused_dense_counted"],
+            "launches_per_replayed_block": r.get("fused_dense_nodes_per_block"),
+            "k": r["fused_steps"], "shape": "M=256 K=256 N=1024 and K=N=1024 f32 relu"}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4802,7 +5208,8 @@ def main():
                                                       layer_norm, matmul)
     from deeplearning4j_tpu_torch.ops.kernels import paged_attention as pa
     from deeplearning4j_tpu_torch.serving import decode as dec
-    from deeplearning4j_tpu_torch import autodiff, data, modelimport, nn, train, zoo
+    from deeplearning4j_tpu_torch import autodiff, data, modelimport, nn, parallel, train, zoo
+    from deeplearning4j_tpu_torch.parallel import multihost
     from deeplearning4j_tpu_torch.data import MultiDataSet
     from deeplearning4j_tpu_torch.nlp import BertIterator, BertWordPieceTokenizer
     from deeplearning4j_tpu_torch.nn import ComputationGraph, MultiLayerNetwork
@@ -4883,6 +5290,17 @@ def main():
     seq_attn = phase_seq_attention(nn, train, dispatch, attention, matmul, dev)
     phase_sd_tf_bert(autodiff, modelimport, Adam, dev)
     sd_kern = phase_sd_kernels(autodiff, Adam, dispatch, attention, layer_norm, dev)
+    # data parallel: one rank a card over NCCL; at world 1 this process is it
+    import torch.distributed as dist
+    if torch.cuda.device_count() == 1:
+        multihost.initialize(f"127.0.0.1:{multihost.free_port()}", 1, 0, device=dev)
+    try:
+        dp_r50 = phase_dp_resnet50(parallel, multihost, conv3x3, matmul, ResNet50, Nesterovs,
+                                   dev)
+        dp_z1 = phase_dp_zero1(parallel, multihost, nn, Adam, matmul, dev)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
     emit("done", seconds=time.monotonic() - t_start)
     main_row = rows[("fc6", torch.float32)]
@@ -4910,7 +5328,8 @@ def main():
         "seq_attention": {"launches_per_step": seq_attn["launches_per_step"]["fused_dense"],
                           "shape": "not on this path: the softmax head's loss and the LSTM "
                                    "are plain products"},
-        **_fused_entries("fused_dense", fused_r50, fused_lenet)}]
+        **_fused_entries("fused_dense", fused_r50, fused_lenet),
+        "dp_zero1": _dp_zero1_entry(dp_z1)}]
     for name, (replaces, source) in CONV_KERNELS.items():
         row = conv_rows[(name, "s0", torch.float32)]
         kernels.append({
@@ -4930,7 +5349,8 @@ def main():
                           for m, r in zoo_res.items()},
             "zoo_graphs": {m: r["launches_per_step"][name] * ZOO_STEPS
                            for m, r in graphs_res.items()},
-            **_fused_entries(name, fused_r50, fused_lenet)})
+            **_fused_entries(name, fused_r50, fused_lenet),
+            "dp_resnet50": _dp_resnet50_entry(name, dp_r50)})
     for name, (replaces, source), row, n_launched, shape in (
             ("flash_attn_fwd", ATTN_KERNEL, attn_rows[("t128", torch.float32)],
              bert_launches[0], "BERT-base q/k/v [64,12,128,64] f32"),
@@ -5008,4 +5428,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-rank"]:
+        sys.exit(dp_rank_main(sys.argv[2:]))
     sys.exit(main())

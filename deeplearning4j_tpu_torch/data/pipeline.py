@@ -156,14 +156,19 @@ class _Stager:
     """Puts one array on `device`: a tensor already there passes through;
     a host array is copied into pinned memory and then, on the copy
     stream, to the device.  The copies' event is kept in `events` for the
-    consumer to wait on."""
+    consumer to wait on.  With a `placement` (``parallel.data_sharding``)
+    only this rank's row window of each array is staged."""
 
-    def __init__(self, device: torch.device, counted: Optional[Callable] = None):
+    def __init__(self, device: torch.device, counted: Optional[Callable] = None,
+                 placement=None):
         self.device = device
         self.counted = counted
+        self.placement = placement
         self.events = []
 
     def __call__(self, a):
+        if self.placement is not None:
+            a = self.placement.window(a)
         if isinstance(a, torch.Tensor) and a.device.type == self.device.type:
             return a
         host = a.contiguous() if isinstance(a, torch.Tensor) else torch.from_numpy(
@@ -202,12 +207,21 @@ def _tensors(ds):
                 yield t
 
 
-def stage(ds, device=None):
+def _stager(device, placement, counted=None) -> _Stager:
+    """A stager for `placement`'s device (and rows), else for `device`."""
+    if placement is not None:
+        return _Stager(placement.device, counted, placement)
+    return _Stager(resolve_device(device), counted)
+
+
+def stage(ds, device=None, placement=None):
     """Copy one DataSet/MultiDataSet's arrays onto `device` (``"cuda"`` by
     default): returns as soon as the copies are queued (arrays already on
-    the device pass through untouched).  Call :func:`ready` on the result
-    before a step reads it."""
-    return _stage_with(ds, _Stager(resolve_device(device)))
+    the device pass through untouched).  A `placement`
+    (``parallel.ParallelWrapper.sharded_placement()``) stages only this
+    rank's row window of the global batch, onto the rank's device.  Call
+    :func:`ready` on the result before a step reads it."""
+    return _stage_with(ds, _stager(device, placement))
 
 
 def _stage_with(ds, put: _Stager):
@@ -263,17 +277,20 @@ class DevicePrefetchIterator(DataSetIterator):
     to N times with exponential backoff: the underlying iterator is reset
     and replayed past the batches already delivered, so the consumer sees
     an uninterrupted batch sequence.  Retries assume a deterministic,
-    restartable underlying iterator.
+    restartable underlying iterator.  A `placement`
+    (``parallel.ParallelWrapper.sharded_placement()``) stages only this
+    rank's rows of each batch, onto the rank's device.
     """
 
     def __init__(self, underlying: DataSetIterator, depth: int = 2,
                  queue_size: Optional[int] = None, retries: int = 0,
-                 retry_backoff_s: float = 0.05, device=None):
+                 retry_backoff_s: float = 0.05, device=None, placement=None):
         if depth < 1:
             raise ValueError(f"depth must be >= 1, got {depth}")
         self.underlying = underlying
         self.depth = int(depth)
-        self.device = resolve_device(device)
+        self.placement = placement
+        self.device = placement.device if placement is not None else resolve_device(device)
         self.retries = int(retries)
         self.retry_backoff_s = float(retry_backoff_s)
         self._async = AsyncDataSetIterator(
@@ -340,7 +357,8 @@ class DevicePrefetchIterator(DataSetIterator):
                     break
                 state["delivered"] += 1
                 wait = time.perf_counter() - t0
-                buf.append(_stage_with(ds, _Stager(self.device, ins.h2d_bytes.inc)))
+                buf.append(_stage_with(ds, _stager(self.device, self.placement,
+                                                   ins.h2d_bytes.inc)))
                 ins.record_stage(wait, len(buf))
                 if len(buf) >= self.depth:
                     out = buf.popleft()
@@ -373,7 +391,7 @@ class DevicePrefetchIterator(DataSetIterator):
 # Device-staged fused blocks
 # ---------------------------------------------------------------------------
 
-def device_blocks(iterator, k: int, device=None):
+def device_blocks(iterator, k: int, device=None, placement=None):
     """Group an iterator's batches into fused blocks staged on `device`.
 
     Yields ``("block", (xs, ys, fms, lms))``, each a list of `k` staged
@@ -382,7 +400,8 @@ def device_blocks(iterator, k: int, device=None):
     through the per-step path).  The lists feed `fit_steps`' list form.
     Blocks mixing masked and unmasked batches are never fused: `blocks_of`
     keys on mask shapes, and this function checks again, so a mixed block
-    degrades to singles instead of dropping masks."""
+    degrades to singles instead of dropping masks.  A `placement` stages
+    each rank's rows only, as :func:`stage` does."""
     from deeplearning4j_tpu_torch.utils.scan_fit import blocks_of
     for block in blocks_of(iterator, k):
         if len(block) == 1:
@@ -395,7 +414,7 @@ def device_blocks(iterator, k: int, device=None):
             for ds in block:
                 yield "single", ds
             continue
-        staged = [ready(stage(ds, device)) for ds in block]
+        staged = [ready(stage(ds, device, placement)) for ds in block]
         yield "block", (
             [ds.features for ds in staged],
             [ds.labels for ds in staged],

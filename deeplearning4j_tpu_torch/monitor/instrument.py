@@ -1,6 +1,6 @@
 """Cached metric handles for the port's hot paths (the port of
 ``monitor/instrument.py``, in part: the training, input-pipeline,
-quantization and decode bundles).
+data-parallel, quantization and decode bundles).
 
 Each subsystem grabs its bundle once and records through plain attribute
 access; labeled children are created lazily and memoized.  The rest of the
@@ -22,6 +22,10 @@ the eager step compiles nothing.
   pipeline_h2d_bytes_total           bytes staged host -> device
   pipeline_batches_total             batches staged
   pipeline_producer_retries_total    producer restarts (retries=)
+  parallel_replicas                  data-parallel degree of a wrapper
+  parallel_dispatch_ms               host time of a wrapper's dispatch
+  parallel_replica_skew_ms           spread of the ranks' device waits
+  training_opt_state_bytes{sharded=} updater-state bytes a rank holds
   quant_calibration_batches_total    batches consumed by PTQ calibration
   quant_bytes_saved                  f32 minus quantized resident bytes
   quant_accuracy_delta               latest parity-check disagreement
@@ -133,6 +137,37 @@ class PipelineInstruments:
         self.producer_wait_ms.observe(wait_s * 1000.0)
         self.prefetch_depth.set(depth)
         self.batches.inc()
+
+
+class ParallelInstruments:
+    """Data-parallel wrapper handles (``parallel/wrapper.py``)."""
+
+    def __init__(self, registry_: Optional[MetricsRegistry] = None):
+        reg = registry_ if registry_ is not None else registry()
+        self.replicas = reg.gauge(
+            "parallel_replicas", help="mesh data-parallel degree")
+        self.dispatch_ms = reg.histogram(
+            "parallel_dispatch_ms",
+            help="data-parallel step host dispatch wall time (ms)")
+        self.replica_skew_ms = reg.gauge(
+            "parallel_replica_skew_ms",
+            help="latest measured per-rank completion skew (ms; blocking "
+            "diagnostic, see ParallelWrapper.measure_replica_skew)")
+        self._opt_state_bytes = {
+            flag: reg.gauge(
+                "training_opt_state_bytes",
+                help="optimizer-state bytes resident per rank (sharded=true: "
+                "ZeRO-1 sharded weight update; compare against sharded=false "
+                "for the saving)",
+                labels={"sharded": "true" if flag else "false"})
+            for flag in (True, False)}
+
+    def record_dispatch(self, dt_s: float) -> None:
+        self.dispatch_ms.observe(dt_s * 1000.0)
+
+    def record_opt_state_bytes(self, nbytes: int, sharded: bool) -> None:
+        """Per-rank optimizer-state footprint sampled at placement."""
+        self._opt_state_bytes[bool(sharded)].set(int(nbytes))
 
 
 class QuantInstruments:

@@ -49,10 +49,12 @@ from deeplearning4j_tpu_torch.monitor.spans import span
 from deeplearning4j_tpu_torch.nn.core import InputType, Layer
 from deeplearning4j_tpu_torch.nn.multilayer import (apply_updates, block_tensor,
                                                     copy_into, grads_of, holder_of,
-                                                    reg_penalty, tree_of,
-                                                    torch_dtype)
+                                                    reg_penalty, step_gradients,
+                                                    step_loss, tree_of, torch_dtype)
 from deeplearning4j_tpu_torch.train.updaters import IUpdater, Sgd, tree_leaves, tree_map
+from deeplearning4j_tpu_torch.utils import data_parallel
 from deeplearning4j_tpu_torch.utils.counters import advance, device_counters
+from deeplearning4j_tpu_torch.utils.data_parallel import penalty_share
 from deeplearning4j_tpu_torch.utils.devices import resolve_device
 from deeplearning4j_tpu_torch.utils.scan_fit import GraphStep, check_steps_axes
 
@@ -486,6 +488,8 @@ class ComputationGraph(nn.Module):
         self._instr: Optional[TrainingInstruments] = None
         self._device_norm: Dict[str, Any] = {}
         self._scan_step: Optional[GraphStep] = None
+        self._dp = None                  # parallel/wrapper.py
+        self._step_transform = None      # parallel/zero.py
 
     def _instruments(self) -> TrainingInstruments:
         if self._instr is None:
@@ -604,7 +608,7 @@ class ComputationGraph(nn.Module):
             loss = loss + layer.compute_loss(
                 params[name], state[name], head_inputs[name], labels[j],
                 train=train, rng=lrng, mask=lmask)
-        return loss + self._reg_penalty(params), new_state
+        return loss + penalty_share(self._reg_penalty(params)), new_state
 
     def _named_layers(self):
         return [(name, self._layer_of(name)) for name in self._topo]
@@ -638,15 +642,17 @@ class ComputationGraph(nn.Module):
         lm = batch[n_in + n_out:]
         lmasks = None if all(m is None for m in lm) else list(lm)
         params = self.params_
-        loss, new_state = self._loss(params, self.state_, inputs, labels,
-                                     self._rng, lmasks)
-        grads = grads_of(loss, params)
+        with data_parallel.active(self._dp):
+            loss, new_state = self._loss(params, self.state_, inputs, labels,
+                                         self._rng, lmasks)
+        grads = step_gradients(self, loss, params)
         apply_updates(self.conf, self._named_layers(), params, grads,
-                      self.opt_state_, self._updater_for, self._iter_dev, epoch)
+                      self.opt_state_, self._updater_for, self._iter_dev, epoch,
+                      self._step_transform)
         self._set_state(new_state)
         with torch.no_grad():
             self._iter_dev.add_(1)
-        return loss.detach()
+        return step_loss(self, loss)
 
     def _fit_batch(self, inputs: Dict[str, torch.Tensor],
                    labels: List[torch.Tensor], lmasks=None) -> None:

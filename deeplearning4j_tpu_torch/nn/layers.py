@@ -55,6 +55,7 @@ from deeplearning4j_tpu_torch.ops.losses import apply_loss, get_loss
 from deeplearning4j_tpu_torch.ops.norm_kernels import fused_layer_norm
 from deeplearning4j_tpu_torch.ops.pool_kernels import (max_pool2d, pad_nchw,
                                                         resolve_pad)
+from deeplearning4j_tpu_torch.utils.data_parallel import global_moments
 
 
 def _pair(v) -> Tuple[int, int]:
@@ -707,7 +708,10 @@ class BatchNormalizationLayer(Layer):
     """Batch normalization over the last (channel) axis.  Running stats
     follow the reference's `decay` convention: running = decay * running +
     (1 - decay) * batch.  Statistics are taken in at least f32 (bf16
-    compute keeps f32 statistics); running stats keep their dtype."""
+    compute keeps f32 statistics); running stats keep their dtype.  In a
+    data-parallel step of more than one rank the training statistics are
+    the global batch's (``utils/data_parallel.global_moments``), so the
+    running statistics stay equal on every rank."""
 
     decay: float = 0.9
     eps: float = 1e-5
@@ -734,9 +738,14 @@ class BatchNormalizationLayer(Layer):
             # f32 subtraction from cancelling on large-mean activations
             shift = state["mean"].to(xf.dtype)
             xs = xf - shift
-            m1 = torch.mean(xs, dim=dims)
+            moments = global_moments(xs, dims)
+            if moments is None:
+                m1, m2 = torch.mean(xs, dim=dims), torch.mean(xs * xs, dim=dims)
+            else:
+                # a data-parallel step: the global batch's moments
+                m1, m2 = moments
             mean = m1 + shift
-            var = torch.clamp(torch.mean(xs * xs, dim=dims) - m1 * m1, min=0.0)
+            var = torch.clamp(m2 - m1 * m1, min=0.0)
             new_state = {
                 "mean": (self.decay * state["mean"] + (1 - self.decay)
                          * mean.detach().to(state["mean"].dtype)),

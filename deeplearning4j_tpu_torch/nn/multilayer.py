@@ -42,6 +42,14 @@ only); a CUDA graph registers it, so each replay draws fresh masks.
 (``train/listeners.py``) hear of every step (once a fused block) and
 epoch.
 
+``parallel.ParallelWrapper`` trains a network data-parallel: it installs
+a data-parallel step (``utils/data_parallel.py``, ``_dp``) that makes the
+loss means and BatchNorm's statistics global and sums the gradients over
+the group between the backward and ``apply_updates``, and, with
+``optimizer_sharding``, the ZeRO-1 transform (``parallel/zero.py``,
+``_step_transform``) that ``apply_updates`` threads through each layer.
+Without a wrapper both are None and the step is unchanged.
+
 Not ported yet, and raising ``NotImplementedError``:
 ``set_gradient_sharing``, ``set_executable_cache`` and
 ``apply_schedule``.
@@ -64,7 +72,9 @@ from deeplearning4j_tpu_torch.nn.core import InputType, Layer
 from deeplearning4j_tpu_torch.train.updaters import (
     IUpdater, Sgd, StepScalars, apply_gradient_normalization, scalar_dtype,
     tree_leaves, tree_map)
+from deeplearning4j_tpu_torch.utils import data_parallel
 from deeplearning4j_tpu_torch.utils.counters import advance, device_counters
+from deeplearning4j_tpu_torch.utils.data_parallel import DataParallelStep, penalty_share
 from deeplearning4j_tpu_torch.utils.devices import resolve_device
 from deeplearning4j_tpu_torch.utils.scan_fit import GraphStep, check_steps_axes
 
@@ -158,6 +168,22 @@ def grads_of(loss: torch.Tensor, params) -> Dict:
                     else by_id[id(p)], params)
 
 
+def step_gradients(net, loss: torch.Tensor, params) -> Dict:
+    """A training step's gradients: `grads_of`, then, in a data-parallel
+    step (``net._dp``), summed over the group (the leaves ZeRO-1
+    reduce-scatters itself are left to it)."""
+    grads = grads_of(loss, params)
+    if net._dp is None:
+        return grads
+    zt = net._step_transform
+    return net._dp.reduce_gradients(grads, skip=zt.scattered if zt is not None else ())
+
+
+def step_loss(net, loss: torch.Tensor) -> torch.Tensor:
+    """The loss a step reports: the global mean in a data-parallel step."""
+    return loss.detach() if net._dp is None else net._dp.global_loss(loss)
+
+
 def copy_into(dst, src) -> None:
     """Write each tensor of tree `src` into the tensor of tree `dst` at
     the same place, in place, so carried state keeps its addresses."""
@@ -170,7 +196,7 @@ def copy_into(dst, src) -> None:
 
 @torch.no_grad()
 def apply_updates(conf, layers, params, grads, opt_state, updater_for,
-                  iteration, epoch) -> None:
+                  iteration, epoch, zero=None) -> None:
     """One optimizer step over every layer, in place: the JAX step's
     per-layer loop.  `layers` yields (name, layer or None: a graph vertex
     without one); a frozen layer, or one without parameters, is left as
@@ -181,7 +207,11 @@ def apply_updates(conf, layers, params, grads, opt_state, updater_for,
     parameters, and is subtracted from the parameters.  The updater
     writes its state in place.  `iteration` and `epoch` are the step's
     int32 counter tensors (``utils/counters.py``); each distinct updater's
-    scalars are computed from them once."""
+    scalars are computed from them once.  `zero` is the ZeRO-1 transform
+    (``parallel/zero.py``) where the weight update is sharded: after the
+    gradient normalization it scatters the gradient, the updater and the
+    weight decay run on this rank's shard, and the new shards are gathered
+    into the parameters."""
     scalars = StepScalars(iteration, epoch, scalar_dtype(params))
     for name, layer in layers:
         if not params[name] or (layer is not None and layer.frozen):
@@ -193,17 +223,23 @@ def apply_updates(conf, layers, params, grads, opt_state, updater_for,
             thr = (layer.gradient_normalization_threshold if own
                    else conf.gradient_normalization_threshold)
             g = apply_gradient_normalization(g, gn, thr)
+        view = params[name]
+        if zero is not None:
+            g = zero.scatter(name, g)
+            view = zero.update_view(name, view)
         upd_cfg = updater_for(name)
         s = scalars.of(upd_cfg)
         upd, _ = upd_cfg.apply(opt_state[name], g, iteration, epoch,
-                               params=params[name], scalars=s)
+                               params=view, scalars=s)
         wd = (layer.weight_decay if layer is not None and layer.weight_decay
               is not None else conf.weight_decay)
         if wd and layer is not None:
-            upd = _add_scaled_where(upd, params[name],
-                                    layer.regularizable_mask(params[name]),
+            upd = _add_scaled_where(upd, view, layer.regularizable_mask(view),
                                     s["lr"] * wd)
-        tree_map(lambda p, u: p.sub_(u), params[name], upd)
+        if zero is None:
+            tree_map(lambda p, u: p.sub_(u), params[name], upd)
+        else:
+            zero.restore(name, params[name], view, upd)
 
 
 def block_tensor(a, device) -> Optional[torch.Tensor]:
@@ -402,6 +438,8 @@ class MultiLayerNetwork(nn.Module):
         self._layer_types: List[InputType] = []
         self._device_norm = None
         self._scan_step: Optional[GraphStep] = None
+        self._dp: Optional[DataParallelStep] = None      # parallel/wrapper.py
+        self._step_transform = None                      # parallel/zero.py
 
     def _instruments(self) -> TrainingInstruments:
         if self._instr is None:
@@ -537,7 +575,7 @@ class MultiLayerNetwork(nn.Module):
         loss = head.compute_loss(hp[name], state[name], h, y, train=train,
                                  rng=rng if head.STOCHASTIC else None,
                                  mask=labels_mask)
-        return loss + self._reg_penalty(params), new_state
+        return loss + penalty_share(self._reg_penalty(params)), new_state
 
     def _reg_penalty(self, params: Params):
         return reg_penalty(self.conf, self._named_layers(), params)
@@ -563,15 +601,17 @@ class MultiLayerNetwork(nn.Module):
             x = self._device_norm.apply_features(x)
             y = self._device_norm.apply_labels(y)
         params = self.params_
-        loss, new_state = self._loss(params, self.state_, x, y, self._rng,
-                                     fmask, lmask)
-        grads = grads_of(loss, params)
+        with data_parallel.active(self._dp):
+            loss, new_state = self._loss(params, self.state_, x, y, self._rng,
+                                         fmask, lmask)
+        grads = step_gradients(self, loss, params)
         apply_updates(self.conf, self._named_layers(), params, grads,
-                      self.opt_state_, self._updater_for, self._iter_dev, epoch)
+                      self.opt_state_, self._updater_for, self._iter_dev, epoch,
+                      self._step_transform)
         with torch.no_grad():
             copy_into(self.state_, new_state)
             self._iter_dev.add_(1)
-        return loss.detach()
+        return step_loss(self, loss)
 
     def _fit_batch(self, x, y, fmask=None, lmask=None) -> None:
         t0 = time.perf_counter()

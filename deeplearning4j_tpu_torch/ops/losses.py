@@ -3,7 +3,10 @@
 Each loss is ``loss(labels, preactivations_or_probs, mask) -> scalar mean
 score``, with the JAX package's names, formulas and score convention:
 per-example losses are summed over the output dimension, then averaged
-over the (unmasked) examples.  Gradients come from autograd.  Losses in
+over the (unmasked) examples.  Gradients come from autograd.  Under a
+data-parallel step (``utils/data_parallel.py``) each mean is this rank's
+share of the global batch's: an unmasked mean over the group size, a
+masked one over the global mask sum.  Losses in
 ``LOGIT_LOSSES`` take raw pre-activations (the numerically stable fused
 path); ``apply_loss`` applies the configured activation for the others.
 """
@@ -13,6 +16,8 @@ from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+
+from deeplearning4j_tpu_torch.utils.data_parallel import global_count, mean_share
 
 LossFn = Callable[..., torch.Tensor]
 
@@ -24,8 +29,9 @@ def _reduce(per_example: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Te
     batch, honouring an optional per-example (or broadcastable) mask."""
     if mask is not None:
         mask = mask.reshape(per_example.shape).to(per_example.dtype)
-        return torch.sum(per_example * mask) / torch.clamp(torch.sum(mask), min=1.0)
-    return torch.mean(per_example)
+        return torch.sum(per_example * mask) / torch.clamp(global_count(torch.sum(mask)),
+                                                           min=1.0)
+    return mean_share(torch.mean(per_example))
 
 
 def _masked_reduce(elem: torch.Tensor, mask: Optional[torch.Tensor],
@@ -41,13 +47,13 @@ def _masked_reduce(elem: torch.Tensor, mask: Optional[torch.Tensor],
             for s in elem.shape[1:]:
                 n *= s
             per = per / max(n, 1)
-        return torch.mean(per)
+        return mean_share(torch.mean(per))
     feat = 1
     for s in elem.shape[mask.ndim:]:
         feat *= s
     m = mask.reshape(tuple(mask.shape) + (1,) * (elem.ndim - mask.ndim)).to(elem.dtype)
     total = torch.sum(elem * m)
-    denom = torch.clamp(torch.sum(m), min=1.0)
+    denom = torch.clamp(global_count(torch.sum(m)), min=1.0)
     if mean_over_features:
         denom = denom * max(feat, 1)
     return total / denom
@@ -59,7 +65,7 @@ def _per_step(per: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
     if per.ndim > 1:
         if mask is not None and tuple(mask.shape) == tuple(per.shape):
             m = mask.to(per.dtype)
-            return torch.sum(per * m) / torch.clamp(torch.sum(m), min=1.0)
+            return torch.sum(per * m) / torch.clamp(global_count(torch.sum(m)), min=1.0)
         per = torch.sum(per, dim=tuple(range(1, per.ndim)))
     return _reduce(per, mask)
 

@@ -1,0 +1,25 @@
+"""Data-parallel training and inference over ``torch.distributed`` (the
+port of ``parallel/``, in part).
+
+One process a rank (NCCL with one card a rank on the card, gloo on the
+CPU): `multihost.initialize` joins the group, `make_mesh` names its axes,
+`ParallelWrapper` trains a MultiLayerNetwork or ComputationGraph
+data-parallel (the single-device step on the global batch), optionally
+with the ZeRO-1 sharded weight update (`zero`), `ParallelInference` serves
+it, and `checkpoint` saves and restores it sharded in the JAX package's
+format.  Not ported yet: tensor parallelism (`sharding`, `composed`),
+pipeline parallelism, ring attention, hierarchical and compressed gradient
+sharing (`hierarchical`, `compression`, `transport`, `native_ops`) and the
+elastic runner.
+"""
+from deeplearning4j_tpu_torch.parallel.checkpoint import (  # noqa: F401
+    ChecksumError, load_model_sharded, load_sharded, read_metadata,
+    save_model_sharded, save_sharded, verify_checkpoint)
+from deeplearning4j_tpu_torch.parallel.mesh import (  # noqa: F401
+    Mesh, MeshSpec, data_sharding, make_mesh, replicated)
+from deeplearning4j_tpu_torch.parallel.multihost import LocalLauncher  # noqa: F401
+from deeplearning4j_tpu_torch.parallel.wrapper import (  # noqa: F401
+    DynamicBatchingInference, ParallelInference, ParallelWrapper)
+from deeplearning4j_tpu_torch.parallel.zero import (  # noqa: F401
+    LeafPlan, Zero1Transform, build_plans, disable_zero1, enable_zero1,
+    opt_state_bytes_per_replica)

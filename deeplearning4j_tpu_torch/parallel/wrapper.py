@@ -1,0 +1,557 @@
+"""ParallelWrapper / ParallelInference: data-parallel training and
+inference (the port of ``parallel/wrapper.py``).
+
+The JAX wrapper runs one SPMD program over a mesh: the batch is split over
+the ``data`` axis, the parameters are replicated, and XLA inserts the
+gradient all-reduce.  Its data-parallel step is the single-device step on
+the global batch, exactly.  The port runs one process per rank
+(``torch.distributed``: NCCL with one card a rank, gloo on the CPU).  Every
+rank builds the same network, wraps it and calls the wrapper with the same
+global batch; the wrapper hands the model this rank's rows of it and
+installs a data-parallel step on the model (``utils/data_parallel.py``),
+which makes every reduction over the batch global: the loss means, the
+gradients (summed over the group in a few flat buckets, between the
+backward and the update) and BatchNormalization's statistics.  So each
+rank takes the single-device step on the global batch, and the parameters
+stay equal on every rank.  ``fit_steps`` is one CUDA-graph replay a block
+on the card with the collectives captured in it.
+
+The reference's sync modes (averaging, gradient sharing) both run as the
+synchronous gradient all-reduce of every step; ``averaging_frequency`` and
+``prefetch_buffer`` are accepted and do nothing.  Listeners, the checkpoint
+listener among them, hear of each step on rank 0 only, as the JAX single
+controller's do.  Tensor parallelism (``sharding_rules``) and hierarchical
+gradient sharing (``gradient_sharing``) are not ported: they raise.
+"""
+from __future__ import annotations
+
+import contextlib
+import time
+import warnings
+from typing import Any, List, Optional
+
+import numpy as np
+import torch
+
+from deeplearning4j_tpu_torch.monitor.instrument import ParallelInstruments
+from deeplearning4j_tpu_torch.parallel import zero
+from deeplearning4j_tpu_torch.parallel.mesh import Mesh, data_sharding, make_mesh
+from deeplearning4j_tpu_torch.utils.data_parallel import (BUCKET_BYTES, DataParallelStep,
+                                                         bucketed)
+
+
+def _map_arrays(fn, x):
+    """fn over the arrays of a batch: one array, a list/tuple or a dict."""
+    if x is None:
+        return None
+    if isinstance(x, (list, tuple)):
+        return type(x)(_map_arrays(fn, e) for e in x)
+    if isinstance(x, dict):
+        return {k: _map_arrays(fn, v) for k, v in x.items()}
+    return fn(x)
+
+
+def _pad_tail(a, pad: int, mode: str) -> np.ndarray:
+    """Append `pad` rows: repeats of the last row (features and labels) or
+    zeros (masks: padded rows add nothing to the masked loss mean)."""
+    a = np.asarray(a)
+    tail = (np.repeat(a[-1:], pad, axis=0) if mode == "repeat"
+            else np.zeros((pad,) + a.shape[1:], a.dtype))
+    return np.concatenate([a, tail], axis=0)
+
+
+def _pad_partial_lists(feats, labels, lmasks, pad: int):
+    """Pad a partial batch up to a size the data-parallel degree divides so
+    that the step stays exact: features and labels repeat their last row,
+    labels masks get zero rows (losses reduce as sum(per * mask) /
+    max(sum(mask), 1), so zero-mask rows change neither the loss nor a
+    gradient).  Labels without a mask get a ``[ones(b); zeros(pad)]``
+    vector mask where they are 2-D; for higher-rank unmasked labels no mask
+    shape is right for every loss, so this returns None and the caller
+    drops the batch with a one-time warning.  The repeated rows still pass
+    through the forward, so BatchNorm's batch statistics see them."""
+    new_lms = []
+    for i, l in enumerate(labels):
+        m = lmasks[i] if lmasks is not None else None
+        if m is not None:
+            new_lms.append(_pad_tail(m, pad, "zero"))
+        elif np.ndim(l) == 2:
+            b = int(np.shape(l)[0])
+            new_lms.append(np.concatenate([np.ones(b, np.float32),
+                                           np.zeros(pad, np.float32)]))
+        else:
+            return None
+    feats = [_pad_tail(f, pad, "repeat") for f in feats]
+    labels = [_pad_tail(l, pad, "repeat") for l in labels]
+    return feats, labels, new_lms
+
+
+def _host(a):
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def _check_model_device(model, mesh: Mesh) -> None:
+    dev = model.device
+    if dev.type != mesh.device.type:
+        raise ValueError(
+            f"the model lives on {dev} but the mesh computes on {mesh.device}: a "
+            "CUDA model needs an NCCL group, a CPU model a gloo group or none")
+    if dev.type == "cuda" and (dev.index if dev.index is not None
+                               else torch.cuda.current_device()) != mesh.device.index:
+        raise ValueError(f"the model lives on {dev}, this rank's card is {mesh.device}")
+
+
+class ParallelWrapper:
+    """Data-parallel trainer wrapping a MultiLayerNetwork or
+    ComputationGraph, with the reference builder's API::
+
+        pw = (ParallelWrapper.builder(net)
+              .workers(2)                      # default: every rank
+              .optimizer_sharding(True)        # ZeRO-1 (parallel/zero.py)
+              .build())
+        pw.fit(iterator, epochs=2)
+        pw.fit_steps(xs, ys)                   # [k, global batch, ...]
+    """
+
+    def __init__(self, model, mesh: Optional[Mesh] = None, data_axis: str = "data",
+                 sharding_rules=None, training_mode: str = "SHARED_GRADIENTS",
+                 optimizer_sharding: bool = False, gradient_sharing=None):
+        if sharding_rules is not None:
+            raise NotImplementedError("sharding_rules (tensor parallelism) is not ported")
+        if gradient_sharing:
+            raise NotImplementedError(
+                "gradient_sharing (hierarchical compressed gradient sharing) is not ported")
+        self.model = model
+        self.mesh = mesh if mesh is not None else make_mesh(device=model.device)
+        self.data_axis = data_axis
+        self.training_mode = training_mode
+        self._zero1 = bool(optimizer_sharding)
+        self._placed = False
+        self._warned_drop = False
+        self._instr: Optional[ParallelInstruments] = None
+        _check_model_device(model, self.mesh)
+
+    def _instruments(self) -> ParallelInstruments:
+        if self._instr is None:
+            self._instr = ParallelInstruments()
+        return self._instr
+
+    # ---- builder (reference ParallelWrapper.Builder) ----
+    class Builder:
+        def __init__(self, model):
+            self._model = model
+            self._workers: Optional[int] = None
+            self._mesh: Optional[Mesh] = None
+            self._mode = "SHARED_GRADIENTS"
+            self._zero1 = False
+
+        def workers(self, n: int):
+            self._workers = int(n); return self
+
+        def mesh(self, m: Mesh):
+            self._mesh = m; return self
+
+        def training_mode(self, mode: str):
+            # AVERAGING | SHARED_GRADIENTS | CUSTOM: all the synchronous all-reduce
+            self._mode = mode; return self
+
+        def sharding_rules(self, rules):
+            raise NotImplementedError("sharding_rules (tensor parallelism) is not ported")
+
+        def optimizer_sharding(self, on: bool = True):
+            """ZeRO-1 sharded weight update (``parallel/zero.py``)."""
+            self._zero1 = bool(on); return self
+
+        def gradient_sharing(self, cfg=True):
+            raise NotImplementedError(
+                "gradient_sharing (hierarchical compressed gradient sharing) is not ported")
+
+        def averaging_frequency(self, n: int):
+            return self  # no-op: the synchronous all-reduce has no averaging lag
+
+        def prefetch_buffer(self, n: int):
+            return self  # no-op: prefetch is the data pipeline's (fit_prefetched)
+
+        def build(self) -> "ParallelWrapper":
+            mesh = self._mesh
+            if mesh is None:
+                mesh = make_mesh(device=self._model.device)
+                if self._workers is not None and self._workers != mesh.size:
+                    if self._workers > mesh.size:
+                        raise ValueError(
+                            f"workers({self._workers}) exceeds the world of {mesh.size} "
+                            "rank(s): start one process a worker (multihost.LocalLauncher)")
+                    raise NotImplementedError(
+                        f"workers({self._workers}) below the world of {mesh.size}: a "
+                        "mesh over part of the ranks is not ported")
+            return ParallelWrapper(self._model, mesh, training_mode=self._mode,
+                                   optimizer_sharding=self._zero1)
+
+    @staticmethod
+    def builder(model) -> "ParallelWrapper.Builder":
+        return ParallelWrapper.Builder(model)
+
+    # ---- placement ----
+    @property
+    def degree(self) -> int:
+        return self.mesh.shape[self.data_axis]
+
+    def optimizer_sharding(self, on: bool = True) -> "ParallelWrapper":
+        """Turn the ZeRO-1 sharded weight update on or off; it takes effect
+        at the next fit call (every rank calls this)."""
+        on = bool(on)
+        if on != self._zero1:
+            self._zero1 = on
+            if not on:
+                zero.disable_zero1(self.model)
+            self._placed = False
+        return self
+
+    def _place_model(self) -> None:
+        """Once: make the parameters, layer state and updater state equal on
+        every rank (rank 0's, broadcast in buckets), run a first collective
+        (so an NCCL communicator exists before any capture), seed each
+        rank's dropout generator apart, shard the updater state under
+        ZeRO-1 and install the data-parallel step.  Captured steps are
+        dropped."""
+        if self._placed:
+            return
+        m = self.model
+        if getattr(m, "opt_state_", None) is None:
+            raise ValueError("call init() on the model before wrapping it")
+        mesh = self.mesh
+        if mesh.distributed:
+            import torch.distributed as dist
+            dist.all_reduce(torch.zeros(1, device=mesh.device))
+            if mesh.size > 1:
+                zero.disable_zero1(m)
+                _broadcast_tensors(_model_tensors(m))
+                coord = mesh.coordinate(self.data_axis)
+                if coord and m._dp is None and getattr(m, "_rng", None) is not None:
+                    m._rng.manual_seed(m.conf.seed * 1_000_003 + coord)
+        if self._zero1:
+            zero.enable_zero1(m, mesh, self.data_axis)
+        else:
+            zero.disable_zero1(m)
+        m._dp = DataParallelStep(self.degree, distributed=mesh.distributed)
+        m._scan_step = None
+        self._placed = True
+        ins = self._instruments()
+        ins.replicas.set(self.degree)
+        ins.record_opt_state_bytes(zero.opt_state_bytes_per_replica(m.opt_state_),
+                                   self._zero1)
+
+    @contextlib.contextmanager
+    def _listening(self):
+        """Listeners hear of steps on rank 0 only."""
+        m = self.model
+        if self.mesh.rank == 0:
+            yield
+            return
+        kept, m.listeners = m.listeners, []
+        try:
+            yield
+        finally:
+            m.listeners = kept
+
+    def _local(self, x, batch_dim: int = 0):
+        """This rank's rows of every array of a global batch."""
+        place = data_sharding(self.mesh, self.data_axis, batch_dim)
+        return _map_arrays(place.window, x)
+
+    # ---- training ----
+    def _warn_drop(self, b: int, n: int) -> None:
+        if not self._warned_drop:
+            warnings.warn(
+                f"dropping final partial batch of {b} rows: not divisible by the "
+                f"data-parallel degree {n} and the labels take no mask (rank > 2 "
+                "without an explicit labels_mask), so mask-padding cannot express "
+                "it exactly; pass a labels mask or size batches to a multiple of "
+                "the mesh", stacklevel=3)
+            self._warned_drop = True
+
+    def _fit_ds(self, ds) -> None:
+        """One DataSet/MultiDataSet: this rank's rows of its arrays through
+        the model's step.  A final partial batch is padded exactly
+        (`_pad_partial_lists`) or dropped with a one-time warning."""
+        m = self.model
+        n = self.degree
+        if hasattr(ds, "features_masks"):                     # MultiDataSet
+            if ds.features_masks is not None and any(
+                    mk is not None for mk in ds.features_masks):
+                raise NotImplementedError(
+                    "ComputationGraph training does not consume feature masks")
+            feats, labels = list(ds.features), list(ds.labels)
+            lms = list(ds.labels_masks) if ds.labels_masks is not None else None
+            b = int(np.shape(feats[0])[0])
+            pad = (-b) % n
+            if pad:
+                padded = _pad_partial_lists([_host(f) for f in feats],
+                                            [_host(l) for l in labels],
+                                            None if lms is None else
+                                            [None if mk is None else _host(mk) for mk in lms],
+                                            pad)
+                if padded is None:
+                    self._warn_drop(b, n)
+                    return
+                feats, labels, lms = padded
+            t0 = time.perf_counter()
+            m._fit_batch(m._as_input_dict(self._local(feats)), m._as_list(self._local(labels)),
+                         m._masks(self._local(lms)))
+            self._instruments().record_dispatch(time.perf_counter() - t0)
+            return
+        fm = getattr(ds, "features_mask", None)
+        lm = getattr(ds, "labels_mask", None)
+        feats, labels = ds.features, ds.labels
+        b = int(np.shape(feats)[0])
+        pad = (-b) % n
+        if pad:
+            padded = _pad_partial_lists([_host(feats)], [_host(labels)],
+                                        None if lm is None else [_host(lm)], pad)
+            if padded is None:
+                self._warn_drop(b, n)
+                return
+            (feats,), (labels,), (lm,) = padded
+            if fm is not None:
+                fm = _pad_tail(_host(fm), pad, "repeat")
+        t0 = time.perf_counter()
+        if hasattr(m, "_as_input_dict"):                      # a CG fed a DataSet
+            if fm is not None:
+                raise NotImplementedError(
+                    "ComputationGraph training does not consume feature masks")
+            m._fit_batch(m._as_input_dict(self._local(feats)),
+                         m._as_list(self._local(labels)),
+                         None if lm is None else m._masks([self._local(lm)]))
+        else:
+            m.fit(self._local(feats), self._local(labels),
+                  features_mask=self._local(fm), labels_mask=self._local(lm))
+        self._instruments().record_dispatch(time.perf_counter() - t0)
+
+    def fit(self, data, labels=None, *, epochs: int = 1) -> "ParallelWrapper":
+        """fit(x, y) on a global batch, fit(DataSet/MultiDataSet), or
+        fit(iterator, epochs=N): each rank trains on its rows of every batch
+        array (features, labels, masks)."""
+        self._place_model()
+        m = self.model
+        with self._listening():
+            if labels is not None:
+                x, y = self._local(data), self._local(labels)
+                for _ in range(epochs):
+                    m.fit(x, y)
+                    if epochs > 1:
+                        m.epoch += 1
+                return self
+            if hasattr(data, "features"):
+                for _ in range(epochs):
+                    self._fit_ds(data)
+                    m.epoch += 1
+                return self
+            for _ in range(epochs):
+                if hasattr(data, "reset"):
+                    data.reset()
+                for ds in data:
+                    self._fit_ds(ds)
+                m.epoch += 1
+        return self
+
+    def sharded_placement(self, batch_dim: int = 0):
+        """Placement for ``data.pipeline`` (``stage``,
+        ``DevicePrefetchIterator``, ``device_blocks``): each array staged as
+        this rank's rows only, onto this rank's device."""
+        return data_sharding(self.mesh, self.data_axis, batch_dim)
+
+    def fit_prefetched(self, iterator, *, epochs: int = 1,
+                       fused_steps: Optional[int] = None,
+                       prefetch_depth: Optional[int] = None,
+                       zero1: Optional[bool] = None) -> "ParallelWrapper":
+        """Training from a host iterator through the device pipeline: each
+        batch's rows for this rank staged `prefetch_depth` (2) batches
+        ahead (`sharded_placement`), then the model's `fit(...,
+        fused_steps=k)` (1: step by step)."""
+        from deeplearning4j_tpu_torch.data.pipeline import DevicePrefetchIterator
+        if zero1 is not None:
+            self.optimizer_sharding(zero1)
+        self._place_model()
+        pf = DevicePrefetchIterator(iterator, depth=prefetch_depth or 2,
+                                    placement=self.sharded_placement())
+        try:
+            with self._listening():
+                self.model.fit(pf, epochs=epochs, fused_steps=fused_steps or 1)
+        finally:
+            pf.close()
+        return self
+
+    def fit_steps(self, xs, ys, *, zero1: Optional[bool] = None) -> torch.Tensor:
+        """k data-parallel steps as one block: `[k, global batch, ...]`
+        arrays (a stride-0 ``broadcast_to`` view included), this rank's rows
+        of axis 1 through the model's `fit_steps` (one CUDA-graph replay on
+        the card, the collectives captured in it).  Returns the k global
+        losses."""
+        if zero1 is not None:
+            self.optimizer_sharding(zero1)
+        self._place_model()
+        xs, ys = self._local(xs, batch_dim=1), self._local(ys, batch_dim=1)
+        t0 = time.perf_counter()
+        with self._listening():
+            out = self.model.fit_steps(xs, ys)
+        self._instruments().record_dispatch(time.perf_counter() - t0)
+        return out
+
+    def fit_host_local(self, features, labels) -> "ParallelWrapper":
+        """Each rank passes its own rows of the global batch (all ranks as
+        many); the same data-parallel step."""
+        from deeplearning4j_tpu_torch.parallel.multihost import shard_host_local_batch
+        self._place_model()
+        x = shard_host_local_batch(self.mesh, features, self.data_axis)
+        y = shard_host_local_batch(self.mesh, labels, self.data_axis)
+        with self._listening():
+            self.model.fit(x, y)
+        return self
+
+    def fit_steps_host_local(self, xs, ys) -> torch.Tensor:
+        """Each rank passes its own rows of a `[k, global batch, ...]` block
+        (`[k, local batch, ...]`); one block as in `fit_steps`."""
+        from deeplearning4j_tpu_torch.parallel.multihost import shard_host_local_batch
+        self._place_model()
+        xs = shard_host_local_batch(self.mesh, xs, self.data_axis, batch_dim=1)
+        ys = shard_host_local_batch(self.mesh, ys, self.data_axis, batch_dim=1)
+        with self._listening():
+            return self.model.fit_steps(xs, ys)
+
+    def measure_replica_skew(self) -> float:
+        """Blocking diagnostic: each rank waits for its device's queued work
+        and the spread of those waits over the ranks (max - min, ms) is
+        recorded in the ``parallel_replica_skew_ms`` gauge.  Host waits,
+        not device timestamps: an imbalance signal, not a profiler; never
+        call it inside the hot loop."""
+        t0 = time.perf_counter()
+        if self.mesh.device.type == "cuda":
+            torch.cuda.synchronize(self.mesh.device)
+        waits = [(time.perf_counter() - t0) * 1000.0]
+        if self.mesh.distributed and self.mesh.size > 1:
+            import torch.distributed as dist
+            mine = torch.tensor(waits, dtype=torch.float64, device=self.mesh.device)
+            got = [torch.empty_like(mine) for _ in range(self.mesh.size)]
+            dist.all_gather(got, mine)
+            waits = [float(t) for t in got]
+        skew = max(waits) - min(waits)
+        self._instruments().replica_skew_ms.set(skew)
+        return skew
+
+    def average_updaters(self):
+        return self  # no-op: one logical updater state
+
+    def shutdown(self):
+        return self  # no-op: no trainer threads to stop
+
+
+def _model_tensors(m) -> List[torch.Tensor]:
+    from deeplearning4j_tpu_torch.train.updaters import tree_leaves
+    return ([p.data for p in tree_leaves(m.params_)]
+            + [t for t in tree_leaves(m.state_) if isinstance(t, torch.Tensor)]
+            + [t for t in tree_leaves(m.opt_state_) if isinstance(t, torch.Tensor)])
+
+
+@torch.no_grad()
+def _broadcast_tensors(tensors: List[torch.Tensor]) -> None:
+    """Rank 0's values into `tensors` on every rank: one broadcast a flat
+    bucket of one dtype."""
+    import torch.distributed as dist
+    for bucket in bucketed(list(enumerate(tensors)), BUCKET_BYTES):
+        flat = torch.cat([t.reshape(-1) for _, t in bucket])
+        dist.broadcast(flat, 0)
+        off = 0
+        for _, t in bucket:
+            t.copy_(flat[off:off + t.numel()].view(t.shape))
+            off += t.numel()
+
+
+class ParallelInference:
+    """Data-parallel batched inference: each rank runs the forward on its
+    rows of the (padded) global batch and the outputs are all-gathered, so
+    every rank returns the whole answer.  A list of requests is
+    concatenated, run once and split back."""
+
+    def __init__(self, model, mesh: Optional[Mesh] = None, data_axis: str = "data"):
+        self.model = model
+        self.mesh = mesh if mesh is not None else make_mesh(device=model.device)
+        self.data_axis = data_axis
+        _check_model_device(model, self.mesh)
+
+    def output(self, x):
+        """Single-request or list-of-requests inference (numpy out)."""
+        if isinstance(x, (list, tuple)):
+            return self._output_batched(list(x))
+        return self._run(np.asarray(x))
+
+    def _run(self, x: np.ndarray) -> np.ndarray:
+        n = self.mesh.shape[self.data_axis]
+        if x.shape[0] == 0:
+            padded = np.zeros((n,) + x.shape[1:], x.dtype)
+        else:
+            pad = (-x.shape[0]) % n
+            padded = np.concatenate([x, np.repeat(x[-1:], pad, 0)]) if pad else x
+        local = data_sharding(self.mesh, self.data_axis).window(padded)
+        out = self.model.output(local)
+        if isinstance(out, (list, tuple)):    # ComputationGraph
+            out = out[0]
+        out = out.contiguous()
+        if self.mesh.distributed and self.mesh.size > 1:
+            import torch.distributed as dist
+            full = out.new_empty((padded.shape[0],) + tuple(out.shape[1:]))
+            dist.all_gather_into_tensor(full, out)
+            out = full
+        return out[: x.shape[0]].cpu().numpy()
+
+    def _output_batched(self, requests: List[np.ndarray]) -> List[np.ndarray]:
+        if not requests:
+            return []
+        requests = [np.asarray(r) for r in requests]
+        trailing = requests[0].shape[1:]
+        for i, r in enumerate(requests[1:], 1):
+            if r.shape[1:] != trailing:
+                raise ValueError(
+                    f"heterogeneous request shapes: request 0 has trailing dims "
+                    f"{trailing} but request {i} has {r.shape[1:]}; ParallelInference "
+                    "batches same-shape requests only (serving.ModelServer routes "
+                    "mixed shapes to per-shape buckets)")
+        sizes = [r.shape[0] for r in requests]
+        out = self._run(np.concatenate(requests, axis=0))
+        res, off = [], 0
+        for s in sizes:
+            res.append(out[off: off + s])
+            off += s
+        return res
+
+
+class DynamicBatchingInference:
+    """Deprecated: use ``serving.ModelServer``.  A thin wrapper over the
+    serving runtime's ``ContinuousBatcher``: `submit(x)` returns a
+    ``concurrent.futures.Future``, `output(x)` waits for it; requests are
+    grouped by trailing dims and dtype.  Each dispatch is collective over
+    the mesh, so on more than one rank every rank must submit the same
+    requests in the same order."""
+
+    def __init__(self, inference: ParallelInference, max_batch: int = 32,
+                 timeout_ms: float = 10.0):
+        warnings.warn(
+            "DynamicBatchingInference is deprecated; use "
+            "deeplearning4j_tpu_torch.serving.ModelServer (shape buckets, deadlines, "
+            "backpressure, SLO metrics)", DeprecationWarning, stacklevel=2)
+        from deeplearning4j_tpu_torch.serving.batcher import ContinuousBatcher
+        self.inference = inference
+        self.max_batch = int(max_batch)
+        self._batcher = ContinuousBatcher(
+            lambda group, xs: inference._output_batched(xs),
+            max_batch=max_batch, batch_timeout_ms=timeout_ms)
+
+    def submit(self, x: Any):
+        x = np.asarray(x)
+        return self._batcher.submit(x, group=(tuple(x.shape[1:]), str(x.dtype)))
+
+    def output(self, x: Any) -> np.ndarray:
+        return self.submit(x).result()
+
+    def shutdown(self):
+        """Graceful and idempotent: drains queued requests, then stops."""
+        self._batcher.shutdown(drain=True, timeout=10.0)

@@ -51,6 +51,49 @@ def tree_leaves(tree: Tree):
         yield tree
 
 
+def tree_map_like_params(fn: Callable[[Tree, Tree], Tree], state: Tree, params: Tree,
+                         fallback: Callable[[Tree], Tree],
+                         shape_of: Callable[[Any], Tuple[int, ...]] = None) -> Tree:
+    """Map over the parts of an updater-state tree that mirror the
+    parameters' tree (the JAX package's ``tree_map_like_params``).
+
+    Every ``init_state`` builds its state from parameter-shaped moment
+    trees, nested in different ways: per-layer states ``{"m": layer_params,
+    "v": ...}``, a network's ``{layer: state}``, and Sgd/NoOp's ``()``.  This
+    walks `state` from the top and, at every subtree whose dict structure
+    and per-leaf shapes (``shape_of(param_leaf)``, the leaf's own shape by
+    default) match `params`, calls ``fn(state_sub, param_sub)``; dict levels
+    that do not match recurse (descending `params` by key where it has
+    the key), and anything else gets ``fallback(sub)`` (step counts,
+    scalars, empty states)."""
+    if shape_of is None:
+        def shape_of(p):
+            return tuple(p.shape)
+
+    def structure(t):
+        if isinstance(t, dict):
+            return tuple((k, structure(t[k])) for k in sorted(t))
+        return None
+
+    def matches(sub, psub):
+        if not isinstance(sub, dict) or structure(sub) != structure(psub):
+            return False
+        s_leaves, p_leaves = list(tree_leaves(sub)), list(tree_leaves(psub))
+        return bool(s_leaves) and all(
+            isinstance(a, torch.Tensor) and tuple(a.shape) == tuple(shape_of(b))
+            for a, b in zip(s_leaves, p_leaves))
+
+    def walk(sub, psub):
+        if matches(sub, psub):
+            return fn(sub, psub)
+        if isinstance(sub, dict):
+            return {k: walk(v, psub[k] if isinstance(psub, dict) and k in psub else psub)
+                    for k, v in sub.items()}
+        return fallback(sub)
+
+    return walk(state, params)
+
+
 def _zeros_like_tree(params: Tree) -> Tree:
     return tree_map(lambda p: torch.zeros_like(p, requires_grad=False), params)
 

@@ -60,6 +60,7 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
         "import deeplearning4j_tpu_torch.ops.kernels.paged_attention\n"
         "import deeplearning4j_tpu_torch.autodiff, deeplearning4j_tpu_torch.modelimport\n"
         "import deeplearning4j_tpu_torch.autodiff.validation\n"
+        "import deeplearning4j_tpu_torch.parallel, deeplearning4j_tpu_torch.parallel.multihost\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'deeplearning4j_tpu', 'tensorflow')]\n"
         "assert not bad, bad\n"
