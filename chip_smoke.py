@@ -509,6 +509,39 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    (the two relu Dense layers; the softmax head is plain), updater-state
    bytes a rank on each side and their ratio, samples/s of each side.  At
    world 1 the A/B is degenerate (the line says so).
+47. gs_resnet50 — BASELINE config 5's GradientSharing ResNet-50: bench.py's
+   bf16 ResNet-50 (global batch 64, Nesterovs(0.1, 0.9), 224 px, 1000
+   classes, cuDNN deterministic), split steps with the host exchange
+   between them (``parallel/hierarchical.py``), run eagerly step by step.
+   (a) This process, no process group:
+   ``ParallelWrapper.builder(net).gradient_sharing(
+   HierarchicalGradientSharing(compressed=False, world=1)).build()
+   .fit_steps`` on a stride-0 block of ``GS_R50_K``: the launch counts set
+   to 0 just before it and read just after (exactly 16 + 16 conv launches
+   a step, no ``fused_dense``), its losses, parameters and BatchNorm
+   statistics bit for bit those of an eager plain ``fit`` twin from the
+   same state; then the same with ``compressed=True`` (the default
+   threshold): finite losses, a compression ratio above 1 and the four
+   ``comms_*`` series moved by exactly k exchanges.  Each mode: ms a step
+   (a timed block), the exchange's pieces (D2H, encode, TCP, decode, H2D;
+   a block timed piece by piece with a synchronize around each),
+   ``comms_exchange_ms`` as recorded, wire bytes a step, the compression
+   ratio, peak memory and the idle share of one traced step.  (b) A gang
+   of 2 processes (``multihost.LocalLauncher(2, platform="cuda",
+   gang=True)`` running ``chip_smoke.py --gs-rank resnet50``: no process
+   group, one card each where there are two, else both on card 0), each
+   with its 32 rows of the same global batch, a fresh network a mode: k
+   steps dense over the TCP mesh, then k steps compressed over a second
+   mesh; the ranks' parameters bitwise equal after each mode (their
+   BatchNorm statistics are their own rows'), the same numbers a rank.
+48. gs_comms — bench.py's ``bench_comms`` A/B (``bench.py:829-886``,
+   ``tests/mh_worker_comms.py``) on the card: 2 gang processes
+   (``--gs-rank comms``), MLP 16-32-3 (tanh, softmax, mcxent), Sgd(0.1),
+   threshold 5e-3, 150 ``fit`` steps of 32 rows a rank from one global
+   stream (seed 0), dense then compressed.  Gates as ``bench.py:915``: at
+   least 5x fewer bytes on the wire and the final loss within 1%, else the
+   script fails; the ranks' first-layer W bitwise equal in each mode;
+   ``fused_dense`` launches a step.
 
 Then the kernels line (each entry with ``share_of_bound``; ``fused_dense``
 and the conv pair carry ``vgg16_train``, ``zoo_train``, ``fused_resnet50``
@@ -517,7 +550,9 @@ and ``fused_lenet`` entries, the conv pair ``zoo_graphs`` and
 kernels ``fused_bert`` ones (their nodes in one replayed block at each
 shape), the flash kernels ``seq_attention`` ones (``fused_dense`` one of
 0: it is not on that path; the conv pair ``dp_resnet50`` entries and
-``fused_dense`` a ``dp_zero1`` one); the last two count the launches of one
+``fused_dense`` a ``dp_zero1`` one, the conv pair ``gs_resnet50`` entries
+and ``fused_dense`` ``gs_comms`` and ``gs_resnet50`` ones); ``dp_resnet50``
+and ``dp_zero1`` count the launches of one
 replayed block by the graph's kernel nodes, beside the profiler's counts
 of traced replays and the Python counts made at the warm-up and the
 capture; the attention and LayerNorm kernels also carry ``sd_kernels``
@@ -525,6 +560,7 @@ entries, their launches a step in phase 43), nvidia-smi's line, and the last lin
 non-zero, printing no result, without CUDA or outside a checkout of the
 repository.
 """
+import contextlib
 import json
 import math
 import os
@@ -684,6 +720,15 @@ DP_R50_TIMED_BLOCKS = 3
 #: BF16_LOSS_RTOL, the second to this, the rest reported
 DP_BF16_STEP2_RTOL = 2e-2
 ZERO1 = dict(batch=256, steps=48, fused_steps=8, n_in=256, hidden=1024)
+#: gradient sharing: BASELINE config 5's GradientSharing ResNet-50 (bench.py's
+#: bf16 ResNet-50, global batch 64) in blocks of GS_R50_K steps a mode, and
+#: bench.py's `bench_comms` A/B (`bench.py:829-886`, `tests/mh_worker_comms.py`:
+#: 2 processes, MLP 16-32-3 tanh/softmax/mcxent, Sgd(0.1), threshold 5e-3,
+#: 150 steps of 32 rows a rank) with its gates (`bench.py:915`)
+GS_R50_K = 3
+GS_COMMS = dict(steps=150, rows=32, n_in=16, hidden=32, threshold=5e-3)
+GS_MIN_BYTES_X = 5.0
+GS_MAX_LOSS_REL = 0.01
 FUSED_LENET_K = 10
 FUSED_LENET_BATCHES = 23
 #: StepSchedule(1e-3, 0.5, 4): the lr halves at steps 4 and 8 of the first
@@ -5049,10 +5094,10 @@ def _opt_leaves(net):
     return [t for t in tree_leaves(net.opt_state_) if isinstance(t, torch.Tensor)]
 
 
-def _rank_report(out):
+def _rank_report(out, tag="DP_RANK"):
     for line in out.splitlines():
-        if line.startswith("DP_RANK "):
-            return json.loads(line[len("DP_RANK "):])
+        if line.startswith(tag + " "):
+            return json.loads(line[len(tag) + 1:])
     raise RuntimeError(f"chip_smoke: a rank printed no report:\n{out[-2000:]}")
 
 
@@ -5170,6 +5215,379 @@ def dp_rank_main(argv):
     # no teardown: destroying an NCCL group whose collectives live in
     # captured graphs hung every rank of a 4-card run; the process ends here
     os._exit(0)
+
+
+# ---------------------------------------------------------------------------
+# gradient sharing (phases 47 and 48)
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _exchange_clock():
+    """While open, the pieces of each split step's exchange are timed,
+    each between two synchronizes: D2H (``hierarchical._host_f32``: the
+    f32 cast, the concatenation and the copy), encode, the mesh's
+    all-gather (TCP), decode, the runtime's whole ``exchange`` (those and
+    the sum) and ``multilayer.exchange_gradients`` (that and the H2D with
+    the layouts back).  Yields {piece: [ms, ...]}."""
+    from deeplearning4j_tpu_torch.nn import multilayer
+    from deeplearning4j_tpu_torch.parallel import compression, hierarchical, transport
+    times = {}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            times.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+    spots = [(hierarchical, "_host_f32", "d2h"),
+             (compression.CompressedGradientExchange, "encode", "encode"),
+             (compression.CompressedGradientExchange, "decode", "decode"),
+             (transport.TcpGradientMesh, "allgather", "tcp"),
+             (hierarchical.HierarchicalAllReduce, "exchange", "exchange"),
+             (multilayer, "exchange_gradients", "exchange_and_h2d")]
+    saved = [getattr(owner, attr) for owner, attr, _ in spots]
+    for (owner, attr, name), fn in zip(spots, saved):
+        setattr(owner, attr, timed(name, fn))
+    try:
+        yield times
+    finally:
+        for (owner, attr, _), fn in zip(spots, saved):
+            setattr(owner, attr, fn)
+
+
+def _exchange_ms(times, steps):
+    """Per step: each piece's ms; h2d is the split step's exchange less the
+    runtime's (the copy back and the layouts)."""
+    per = {k: sum(v) / steps for k, v in times.items()}
+    per["h2d"] = per.get("exchange_and_h2d", 0.0) - per.get("exchange", 0.0)
+    for k in ("encode", "decode", "tcp"):
+        per.setdefault(k, 0.0)
+    return per
+
+
+def _comms_series(codec):
+    from deeplearning4j_tpu_torch.monitor.registry import registry
+    reg = registry()
+    h = reg.get("comms_exchange_ms")
+    return {"exchanges": getattr(reg.get("comms_exchanges_total", {"codec": codec}),
+                                 "value", 0),
+            "bytes": getattr(reg.get("comms_bytes_on_wire_total", {"codec": codec}),
+                             "value", 0),
+            "ratio": getattr(reg.get("comms_compression_ratio"), "value", None),
+            "ms_count": h.count if h is not None else 0,
+            "ms_sum": h.sum if h is not None else 0.0}
+
+
+def _weights_sha256(net):
+    import hashlib
+    h = hashlib.sha256()
+    for _, p in sorted(net.named_parameters()):
+        h.update(p.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _gs_mode(pw, net, matmul, conv3x3, xs, ys, k, label, timed_block=True):
+    """One sharing mode of phase 47 on one gang member: a block of k steps
+    through ``pw.fit_steps`` (the main path: the launch counts set to 0
+    just before it and read just after; it runs step by step), a timed
+    block (without `timed_block`, ms a step comes from the next block), a
+    block with the exchange's pieces timed, one traced step and the
+    ``comms_*`` series' movement over the k main-path steps.  The
+    report's ``state_after_main`` holds clones of the network's state
+    right after the main-path block."""
+    pw._place_model()
+    rt = net.gradient_sharing
+    codec = "threshold" if rt.config.compressed else "dense"
+    before = _comms_series(codec)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(matmul, conv3x3)
+    losses, first_ms = _synced(lambda: pw.fit_steps(xs, ys))
+    counts = _step_counts(matmul, conv3x3)
+    after = _comms_series(codec)
+    stats = rt.stats()
+    state_after_main = {n: v.clone() for n, v in net.state_dict().items()}
+    require(counts[1] == k * BODY_CONVS and counts[2] == k * BODY_CONVS and counts[0] == 0,
+            f"gs_resnet50 {label}: launches {counts} over {k} steps, want 0, "
+            f"{k * BODY_CONVS}, {k * BODY_CONVS}")
+    require(after["exchanges"] - before["exchanges"] == k and after["bytes"] > before["bytes"]
+            and after["ms_count"] - before["ms_count"] == k,
+            f"gs_resnet50 {label}: the comms series did not move by {k} exchanges "
+            f"({before} -> {after})")
+    if timed_block:
+        _, block_ms = _synced(lambda: pw.fit_steps(xs, ys))
+    with _exchange_clock() as times:
+        _, clocked_ms = _synced(lambda: pw.fit_steps(xs, ys))
+    if not timed_block:
+        block_ms = clocked_ms
+    window_ms, busy_ms, by_name, n_kernels = _trace(lambda: pw.fit_steps(xs[:1], ys[:1]))
+    return dict(
+        losses=[float(v) for v in losses.tolist()], first_block_ms=first_ms,
+        step_ms=block_ms / k, exchange=_exchange_ms(times, k),
+        exchange_ms_recorded=(after["ms_sum"] - before["ms_sum"]) / k,
+        wire_bytes_per_step=stats["last_wire_bytes"],
+        compression_ratio=stats["last_compression_ratio"],
+        wire_bytes_main_path=after["bytes"] - before["bytes"],
+        launches_per_step=dict(zip(("fused_dense", "conv3x3_wgrad", "conv3x3_dgrad"),
+                                   (c / k for c in counts))),
+        launches_counted=dict(zip(("fused_dense", "conv3x3_wgrad", "conv3x3_dgrad"),
+                                  counts)),
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+        traced_step_window_ms=window_ms, traced_step_busy_ms=busy_ms,
+        traced_step_idle_share=None if busy_ms is None
+        else max(0.0, 1.0 - busy_ms / window_ms),
+        traced_step_kernels=n_kernels, top=_top(by_name, 6), stats=stats,
+        state_after_main=state_after_main)
+
+
+def _gs_resnet50_rank(parallel, conv3x3, matmul, ResNet50, Nesterovs, dev, rank, world, k,
+                      port, port2, batch=64, image=224, classes=1000):
+    """One gang member of phase 47(b): its rows of the global batch through
+    ``ParallelWrapper(...).gradient_sharing(...)``, a fresh network (the
+    same seed on every rank) a mode: dense over the mesh on `port`, then
+    threshold-compressed (the default threshold) over a new mesh on
+    `port2`; the parameters' hash after each mode."""
+    HGS = parallel.HierarchicalGradientSharing
+    x, y = _r50_batch(dev, batch, image, classes)
+    rows = slice(rank * batch // world, (rank + 1) * batch // world)
+    xs = torch.broadcast_to(x[rows], (k,) + tuple(x[rows].shape))
+    ys = torch.broadcast_to(y[rows], (k,) + tuple(y[rows].shape))
+    out = {}
+    for mode, cfg in (("dense", HGS(compressed=False, rank=rank, world=world, port=port)),
+                      ("compressed", HGS(rank=rank, world=world, port=port2))):
+        net = _resnet50(ResNet50, Nesterovs, dev, compute_dtype="bfloat16", image=image,
+                        classes=classes)
+        pw = parallel.ParallelWrapper.builder(net).gradient_sharing(cfg).build()
+        try:
+            # a gang step is seconds of host exchange: the clocked block's
+            # synchronizes do not move it, so it gives ms a step too
+            out[mode] = _gs_mode(pw, net, matmul, conv3x3, xs, ys, k, f"gang {mode}",
+                                 timed_block=False)
+            out[mode]["params_sha256"] = _weights_sha256(net)
+            out[mode]["state_sha256"] = _params_sha256(net)
+            del out[mode]["state_after_main"]
+        finally:
+            pw.gradient_sharing(None)            # closes the mesh's sockets
+        del net, pw
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_gs_resnet50(parallel, multihost, conv3x3, matmul, ResNet50, Nesterovs, dev,
+                      k=GS_R50_K, batch=64, image=224, classes=1000, gang=None):
+    """Phase 47: BASELINE config 5's GradientSharing ResNet-50.  (a) One
+    process, ``ParallelWrapper.builder(net).gradient_sharing(
+    HierarchicalGradientSharing(compressed=False, world=1)).build()
+    .fit_steps``: bit for bit an eager plain ``fit`` twin's losses,
+    parameters and BatchNorm statistics; then ``compressed=True``.  (b) A
+    gang of 2 processes (``--gs-rank resnet50``), 32 rows each, dense then
+    compressed: the ranks' parameters bitwise equal after each mode."""
+    HGS = parallel.HierarchicalGradientSharing
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True   # bitwise twins (phase 34's note)
+    try:
+        x, y = _r50_batch(dev, batch, image, classes)
+        xs = torch.broadcast_to(x, (k,) + tuple(x.shape))
+        ys = torch.broadcast_to(y, (k,) + tuple(y.shape))
+        twin = _resnet50(ResNet50, Nesterovs, dev, compute_dtype="bfloat16", image=image,
+                         classes=classes)
+        state0 = {n: v.clone() for n, v in twin.state_dict().items()}
+        plain = []
+        for _ in range(k):
+            twin.fit(x, y)
+            plain.append(twin.score())
+        plain_state = {n: v.clone() for n, v in twin.state_dict().items()}
+        del twin
+        torch.cuda.empty_cache()
+        report = {}
+        for compressed in (False, True):
+            net = _resnet50(ResNet50, Nesterovs, dev, compute_dtype="bfloat16", image=image,
+                            classes=classes)
+            net.load_state_dict(state0)
+            pw = parallel.ParallelWrapper.builder(net).gradient_sharing(
+                HGS(compressed=compressed, world=1)).build()
+            label = "compressed" if compressed else "dense"
+            side = _gs_mode(pw, net, matmul, conv3x3, xs, ys, k, f"world 1 {label}")
+            if compressed:
+                require(all(math.isfinite(v) for v in side["losses"])
+                        and side["compression_ratio"] > 1.0,
+                        f"gs_resnet50: compressed losses {side['losses']}, ratio "
+                        f"{side['compression_ratio']}")
+            else:
+                state = side["state_after_main"]
+                same = (side["losses"] == plain
+                        and all(torch.equal(plain_state[n], state[n]) for n in plain_state))
+                require(same, f"gs_resnet50: dense world-1 sharing {side['losses']} is not "
+                              f"bit for bit the eager fit twin's {plain}")
+                side.update(bitwise_equal_to_eager_fit=True, eager_losses=plain)
+            del side["state_after_main"]
+            report[label] = side
+            pw.gradient_sharing(None)
+            del net, pw, side
+            torch.cuda.empty_cache()
+        from deeplearning4j_tpu_torch import native_ops
+        emit("gs_resnet50", model="ResNet50", compute_dtype="bfloat16",
+             input=f"{image}x{image}x3", classes=classes, updater="Nesterovs(0.1, 0.9)",
+             global_batch=batch, k=k, world=1, cudnn_deterministic=True,
+             host_codec_build=dict(native_ops.last_build), **report)
+        if gang is None:
+            cards = torch.cuda.device_count()
+            outs = multihost.LocalLauncher(2, platform="cuda", gang=True).run(
+                os.path.abspath(__file__), ["--gs-rank", "resnet50", str(k),
+                                            str(multihost.free_port())],
+                timeout=400, gradient_port=multihost.free_port())
+            ranks = [_rank_report(o, "GS_RANK") for o in outs]
+        else:
+            cards, ranks = 0, gang()
+        for mode in ("dense", "compressed"):
+            hashes = {r[mode]["params_sha256"] for r in ranks}
+            require(len(hashes) == 1,
+                    f"gs_resnet50 gang: {mode} parameters differ over the ranks {hashes}")
+            for r in ranks:
+                require(all(math.isfinite(v) for v in r[mode]["losses"]),
+                        f"gs_resnet50 gang: {mode} losses {r[mode]['losses']}")
+        emit("gs_resnet50_gang", model="ResNet50", compute_dtype="bfloat16", world=2,
+             rows_per_rank=batch // 2, k=k, cards_used=min(cards, 2) or None,
+             shared_card=cards < 2, ranks_params_bitwise_equal=True,
+             bn_statistics_per_rank_differ=len({r["dense"]["state_sha256"]
+                                                for r in ranks}) > 1,
+             rank0=ranks[0], rank1_step_ms={m: ranks[1][m]["step_ms"]
+                                             for m in ("dense", "compressed")})
+        return report, ranks
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def _comms_mlp(nn, Sgd, dev, cfg):
+    conf = (nn.NeuralNetConfiguration.builder().seed(7).updater(Sgd(0.1))
+            .list([nn.DenseLayer(n_out=cfg["hidden"], activation="tanh"),
+                   nn.OutputLayer(n_out=3, loss="mcxent", activation="softmax")])
+            .set_input_type(nn.InputType.feed_forward(cfg["n_in"])).build())
+    return nn.MultiLayerNetwork(conf, device=dev).init()
+
+
+def _gs_comms_rank(nn, parallel, matmul, Sgd, dev, rank, world, port, port2, cfg=GS_COMMS):
+    """One rank of phase 48: `tests/mh_worker_comms.py`'s loop, dense over
+    the mesh on `port`, then compressed over a new one on `port2`: the
+    losses, the first layer's W hash, the exchange's stats, fused_dense
+    launches and wall seconds of each mode."""
+    HGS = parallel.HierarchicalGradientSharing
+    out = {}
+    for mode, cfg_s in (("dense", HGS(compressed=False, threshold=cfg["threshold"],
+                                      rank=rank, world=world, port=port)),
+                        ("compressed", HGS(threshold=cfg["threshold"], rank=rank,
+                                           world=world, port=port2))):
+        net = _comms_mlp(nn, Sgd, dev, cfg).set_gradient_sharing(cfg_s)
+        rng = np.random.RandomState(0)
+        losses, step_ms = [], []
+        matmul.LAUNCHES.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(cfg["steps"]):
+            t1 = time.perf_counter()
+            xg = rng.randn(world * cfg["rows"], cfg["n_in"]).astype(np.float32)
+            labels = (xg[:, 0] > 0).astype(int) + (xg[:, 1] > 0).astype(int)
+            yg = np.eye(3, dtype=np.float32)[labels]
+            net.fit(xg[rank::world], yg[rank::world])
+            losses.append(net.score())           # reads the loss: synchronizes
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+        dt = time.perf_counter() - t0
+        launches = matmul.LAUNCHES.value
+        stats = net.gradient_sharing.stats()
+        net.set_gradient_sharing(None)
+        import hashlib
+        w0 = net.params_["layer_0"]["W"].detach().cpu().numpy()
+        out[mode] = dict(losses=losses, wall_s=dt, steps_per_sec=cfg["steps"] / dt,
+                         first_step_ms=step_ms[0], median_step_ms=statistics.median(step_ms),
+                         stats=stats, fused_dense_launches=launches,
+                         w0_sha256=hashlib.sha256(w0.tobytes()).hexdigest())
+    return out
+
+
+def phase_gs_comms(multihost, dev, cfg=GS_COMMS, ranks=None):
+    """Phase 48: bench.py's ``bench_comms`` A/B on the card, 2 processes
+    (``--gs-rank comms``), each on its own card where there are two, else
+    both on card 0.  Gates as ``bench.py:915``: at least 5x fewer bytes on
+    the wire and the final loss within 1%; the ranks' first-layer W
+    bitwise equal in each mode."""
+    if ranks is None:
+        cards = torch.cuda.device_count()
+        outs = multihost.LocalLauncher(2, platform="cuda", gang=True).run(
+            os.path.abspath(__file__), ["--gs-rank", "comms", "0",
+                                        str(multihost.free_port())],
+            timeout=300, gradient_port=multihost.free_port())
+        ranks = [_rank_report(o, "GS_RANK") for o in outs]
+    else:
+        cards = 0
+    res = {}
+    for mode in ("dense", "compressed"):
+        require(len({r[mode]["w0_sha256"] for r in ranks}) == 1,
+                f"gs_comms: the ranks' first-layer W differ ({mode})")
+        curves = np.mean([r[mode]["losses"] for r in ranks], axis=0)
+        res[mode] = dict(
+            wire_bytes=sum(r[mode]["stats"]["bytes_sent_total"]
+                           + r[mode]["stats"]["bytes_received_total"] for r in ranks),
+            final_loss=float(curves[-1]),
+            compression_ratio_last=max(r[mode]["stats"]["last_compression_ratio"]
+                                       for r in ranks),
+            wall_s=max(r[mode]["wall_s"] for r in ranks),
+            steps_per_sec=min(r[mode]["steps_per_sec"] for r in ranks),
+            first_step_ms=max(r[mode]["first_step_ms"] for r in ranks),
+            median_step_ms=max(r[mode]["median_step_ms"] for r in ranks),
+            fused_dense_launches_per_step=ranks[0][mode]["fused_dense_launches"]
+            / cfg["steps"],
+            loss_curve_every_10=[round(float(v), 5) for v in curves[::10]])
+    reduction = res["dense"]["wire_bytes"] / max(res["compressed"]["wire_bytes"], 1)
+    parity = (abs(res["compressed"]["final_loss"] - res["dense"]["final_loss"])
+              / max(abs(res["dense"]["final_loss"]), 1e-9))
+    for mode in ("dense", "compressed"):
+        require(res[mode]["fused_dense_launches_per_step"] > 0,
+                f"gs_comms: fused_dense never launched on the {mode} path")
+    report = dict(procs=2, model="MLP 16-32-3 tanh/softmax mcxent", updater="Sgd(0.1)",
+                  threshold=cfg["threshold"], steps=cfg["steps"], rows_per_rank=cfg["rows"],
+                  shared_card=cards < 2, bytes_reduction_x=reduction,
+                  loss_parity_rel=parity, gates={"bytes_reduction_x": GS_MIN_BYTES_X,
+                                                 "loss_parity_rel": GS_MAX_LOSS_REL},
+                  w0_bitwise_equal_over_ranks=True, **res)
+    emit("gs_comms", **report)
+    require(reduction >= GS_MIN_BYTES_X and parity <= GS_MAX_LOSS_REL,
+            f"gs_comms: bytes reduction {reduction:.2f}x (want >= {GS_MIN_BYTES_X}), loss "
+            f"parity {parity:.5f} (want <= {GS_MAX_LOSS_REL})")
+    return report
+
+
+def gs_rank_main(argv):
+    """One gang member of phases 47 and 48 (``--gs-rank resnet50 <k> <port
+    of the second mesh>`` or ``--gs-rank comms 0 <port>``), started by
+    ``multihost.LocalLauncher(2, platform="cuda", gang=True)``: no process
+    group; the first mesh's port comes from ``DL4J_TPU_GRADIENT_PORT``.
+    Prints its report as one ``GS_RANK`` line."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from deeplearning4j_tpu_torch import nn, parallel
+    from deeplearning4j_tpu_torch.ops.kernels import conv3x3, dispatch, matmul
+    from deeplearning4j_tpu_torch.parallel import multihost
+    from deeplearning4j_tpu_torch.train import Nesterovs, Sgd
+    from deeplearning4j_tpu_torch.zoo import ResNet50
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    dispatch.set_dispatch_mode("auto")
+    dev = torch.device("cuda", int(os.environ[multihost.ENV_LOCAL]))
+    torch.cuda.set_device(dev)
+    rank, world = int(os.environ[multihost.ENV_PID]), int(os.environ[multihost.ENV_NPROC])
+    port = int(os.environ[multihost.ENV_GRAD_PORT])
+    if argv[0] == "resnet50":
+        out = _gs_resnet50_rank(parallel, conv3x3, matmul, ResNet50, Nesterovs, dev, rank,
+                                world, int(argv[1]), port, int(argv[2]))
+    else:
+        out = _gs_comms_rank(nn, parallel, matmul, Sgd, dev, rank, world, port, int(argv[2]))
+    print("GS_RANK " + json.dumps(out), flush=True)
+    return 0
 
 
 def _dp_resnet50_entry(name, r):
@@ -5301,6 +5719,10 @@ def main():
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
+    # gradient sharing: a gang of processes joined by the TCP mesh only
+    gs_r50, gs_r50_ranks = phase_gs_resnet50(parallel, multihost, conv3x3, matmul, ResNet50,
+                                             Nesterovs, dev)
+    gs_comms = phase_gs_comms(multihost, dev)
 
     emit("done", seconds=time.monotonic() - t_start)
     main_row = rows[("fc6", torch.float32)]
@@ -5329,7 +5751,15 @@ def main():
                           "shape": "not on this path: the softmax head's loss and the LSTM "
                                    "are plain products"},
         **_fused_entries("fused_dense", fused_r50, fused_lenet),
-        "dp_zero1": _dp_zero1_entry(dp_z1)}]
+        "dp_zero1": _dp_zero1_entry(dp_z1),
+        "gs_comms": {"launches_per_step": gs_comms["dense"]["fused_dense_launches_per_step"],
+                     "launches_per_step_compressed":
+                         gs_comms["compressed"]["fused_dense_launches_per_step"],
+                     "shape": f"M={GS_COMMS['rows']} K={GS_COMMS['n_in']} "
+                              f"N={GS_COMMS['hidden']} f32 tanh; rank 0 over "
+                              f"{GS_COMMS['steps']} steps a mode"},
+        "gs_resnet50": {"launches_per_step": gs_r50["dense"]["launches_per_step"]["fused_dense"],
+                        "shape": "not on this path: ResNet-50's head is a plain product"}}]
     for name, (replaces, source) in CONV_KERNELS.items():
         row = conv_rows[(name, "s0", torch.float32)]
         kernels.append({
@@ -5350,7 +5780,12 @@ def main():
             "zoo_graphs": {m: r["launches_per_step"][name] * ZOO_STEPS
                            for m, r in graphs_res.items()},
             **_fused_entries(name, fused_r50, fused_lenet),
-            "dp_resnet50": _dp_resnet50_entry(name, dp_r50)})
+            "dp_resnet50": _dp_resnet50_entry(name, dp_r50),
+            "gs_resnet50": {"launches_per_step_world1": {
+                m: gs_r50[m]["launches_per_step"][name] for m in ("dense", "compressed")},
+                "launches_per_step_gang_rank0": {
+                m: gs_r50_ranks[0][m]["launches_per_step"][name]
+                for m in ("dense", "compressed")}, "k": GS_R50_K}})
     for name, (replaces, source), row, n_launched, shape in (
             ("flash_attn_fwd", ATTN_KERNEL, attn_rows[("t128", torch.float32)],
              bert_launches[0], "BERT-base q/k/v [64,12,128,64] f32"),
@@ -5430,4 +5865,6 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-rank"]:
         sys.exit(dp_rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--gs-rank"]:
+        sys.exit(gs_rank_main(sys.argv[2:]))
     sys.exit(main())

@@ -23,7 +23,8 @@ The table holds the core ops, the TF-import support ops and every op that
 the namespaces of ``samediff.py`` and the mappers of
 ``modelimport/tf_import.py`` emit.  The JAX table's other families
 (random, bitwise, segment, scatter, image, the rest of linalg, updater
-ops, TensorList, compression) and its ONNX-layout ops are not ported yet;
+ops, TensorList) and its ONNX-layout ops are not ported yet; of its
+compression family ``encode_threshold`` and ``decode_threshold`` are;
 ``register_op`` adds ops.
 """
 from __future__ import annotations
@@ -763,6 +764,33 @@ register_op("einsum", _einsum)
 register_op("unstack", lambda a, axis=0: tuple(torch.unbind(a, dim=axis)))
 register_op("reverse", lambda x, axes: torch.flip(
     x, dims=tuple(axes) if isinstance(axes, (list, tuple)) else (int(axes),)))
+
+# gradient compression: the encode_threshold / decode_threshold declarable
+# ops, on the host codec's wire format (int32 sign-in-index codes +-(i + 1),
+# 0 as padding); the residual carry is native_ops.ThresholdCodec's, not theirs
+
+
+@register_op("encode_threshold")
+def _encode_threshold(grad, threshold=1e-3, max_elements=None):
+    """The flattened gradient's first `max_elements` entries (in index
+    order) with |g| >= threshold as +-(i + 1), padded with 0."""
+    v = _t(grad).reshape(-1)
+    n = v.shape[0]
+    cap = n if max_elements is None else min(int(max_elements), n)
+    idx = torch.nonzero(torch.ge(*_pair(torch.abs(v), threshold))).reshape(-1)[:cap]
+    out = torch.zeros(cap, dtype=torch.int32, device=v.device)
+    out[:idx.numel()] = torch.sign(v[idx]).to(torch.int32) * (idx.to(torch.int32) + 1)
+    return out
+
+
+@register_op("decode_threshold")
+def _decode_threshold(encoded, size, threshold=1e-3):
+    """The inverse: +-threshold added at |code| - 1; 0 codes are padding."""
+    e = _t(encoded).to(torch.int32)
+    idx = torch.clamp(torch.abs(e) - 1, 0, size - 1).to(torch.int64)
+    val = torch.mul(*_pair(torch.sign(e).to(torch.float32), threshold))
+    return torch.zeros(size, dtype=torch.float32, device=e.device).index_add_(0, idx, val)
+
 
 # dropout's generator: the graph feeds one generator a step; a missing one
 # (inference) stays missing, which makes dropout the identity

@@ -1,11 +1,10 @@
 """Cached metric handles for the port's hot paths (the port of
 ``monitor/instrument.py``, in part: the training, input-pipeline,
-data-parallel, quantization and decode bundles).
+data-parallel, gradient-sharing, quantization and decode bundles).
 
 Each subsystem grabs its bundle once and records through plain attribute
 access; labeled children are created lazily and memoized.  The rest of the
-JAX module (resilience, fleet and ops bundles) and its process-wide
-telemetry switch are not ported yet.  A "compile" of the training bundle
+JAX module (resilience, fleet and ops bundles) is not ported yet.  A "compile" of the training bundle
 is a CUDA-graph capture of a fused k-step block (``utils/scan_fit.py``);
 the eager step compiles nothing.
 
@@ -26,6 +25,14 @@ the eager step compiles nothing.
   parallel_dispatch_ms               host time of a wrapper's dispatch
   parallel_replica_skew_ms           spread of the ranks' device waits
   training_opt_state_bytes{sharded=} updater-state bytes a rank holds
+  comms_bytes_on_wire_total{codec=}  gradient-sharing bytes sent and
+                                     received (TCP frames with their
+                                     length prefixes; codec threshold|dense)
+  comms_exchanges_total{codec=}      gang gradient exchanges completed
+  comms_compression_ratio            dense / wire bytes of the latest
+                                     exchange (1.0 dense)
+  comms_exchange_ms                  one exchange: D2H, encode, all-gather,
+                                     decode and sum
   quant_calibration_batches_total    batches consumed by PTQ calibration
   quant_bytes_saved                  f32 minus quantized resident bytes
   quant_accuracy_delta               latest parity-check disagreement
@@ -41,7 +48,7 @@ from __future__ import annotations
 
 from typing import Optional
 
-from deeplearning4j_tpu_torch.monitor.registry import MetricsRegistry, registry
+from deeplearning4j_tpu_torch.monitor.registry import MetricsRegistry, enabled, registry
 
 
 class TrainingInstruments:
@@ -170,6 +177,45 @@ class ParallelInstruments:
         self._opt_state_bytes[bool(sharded)].set(int(nbytes))
 
 
+class CommsInstruments:
+    """Gang gradient-exchange handles (``parallel/hierarchical.py``),
+    labeled by codec so the threshold path and the dense A/B baseline stay
+    apart in one registry.  ``record_exchange`` consults the registry's
+    ``enabled()`` switch."""
+
+    def __init__(self, registry_: Optional[MetricsRegistry] = None):
+        reg = registry_ if registry_ is not None else registry()
+        self._bytes = {
+            codec: reg.counter(
+                "comms_bytes_on_wire_total",
+                help="gradient payload bytes sent+received over the DCN/host hop "
+                "(TCP frames incl. length prefixes)", labels={"codec": codec})
+            for codec in ("threshold", "dense")}
+        self._exchanges = {
+            codec: reg.counter(
+                "comms_exchanges_total", help="cross-host gradient exchanges completed",
+                labels={"codec": codec})
+            for codec in ("threshold", "dense")}
+        self.compression_ratio = reg.gauge(
+            "comms_compression_ratio",
+            help="dense-bytes / wire-bytes of the most recent compressed exchange "
+            "(1.0 on the dense path)")
+        self.exchange_ms = reg.histogram(
+            "comms_exchange_ms",
+            help="wall time of one cross-host gradient exchange: D2H + encode + TCP "
+            "all-gather + decode + sum (ms)")
+
+    def record_exchange(self, dt_s: float, wire_bytes: int, ratio: float,
+                        compressed: bool) -> None:
+        if not enabled():
+            return
+        codec = "threshold" if compressed else "dense"
+        self._bytes[codec].inc(int(wire_bytes))
+        self._exchanges[codec].inc()
+        self.compression_ratio.set(float(ratio))
+        self.exchange_ms.observe(dt_s * 1000.0)
+
+
 class QuantInstruments:
     """Quantized-inference handles (``quant.calibrate`` / ``quant.ptq``)."""
 
@@ -285,6 +331,7 @@ class DecodeInstruments:
 
 
 _pipeline: Optional[PipelineInstruments] = None
+_comms: Optional[CommsInstruments] = None
 _quant: Optional[QuantInstruments] = None
 _decode: Optional[DecodeInstruments] = None
 
@@ -295,6 +342,14 @@ def pipeline_instruments() -> PipelineInstruments:
     if _pipeline is None:
         _pipeline = PipelineInstruments()
     return _pipeline
+
+
+def comms_instruments() -> CommsInstruments:
+    """Process-wide gradient-sharing handle bundle (lazy singleton)."""
+    global _comms
+    if _comms is None:
+        _comms = CommsInstruments()
+    return _comms
 
 
 def quant_instruments() -> QuantInstruments:

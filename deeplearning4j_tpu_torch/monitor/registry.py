@@ -6,6 +6,10 @@ with its own lock; labeled series, where get-or-create returns the same
 child for the same (name, labels) so two servers differ by label, not by
 store; and bounded histograms (a ring buffer of the last ``maxlen``
 observations plus lifetime count/sum/max).  Stdlib only.
+
+``set_enabled``/``enabled`` is the JAX package's process-wide telemetry
+switch; here the bundles that record on a per-step host path consult it
+(``CommsInstruments.record_exchange``), the primitives do not.
 """
 from __future__ import annotations
 
@@ -14,6 +18,19 @@ from collections import deque
 from typing import Dict, Iterable, List, Optional, Tuple
 
 Labels = Tuple[Tuple[str, str], ...]
+
+_ENABLED = True
+
+
+def set_enabled(on: bool) -> None:
+    """Process-wide telemetry switch: off, the recording calls that
+    consult it return after the flag check."""
+    global _ENABLED
+    _ENABLED = bool(on)
+
+
+def enabled() -> bool:
+    return _ENABLED
 
 
 def _freeze_labels(labels: Optional[Dict[str, str]]) -> Labels:
@@ -192,6 +209,14 @@ class MetricsRegistry:
                   labels: Optional[Dict[str, str]] = None,
                   maxlen: int = 2048) -> Histogram:
         return self._child("histogram", name, help, labels, maxlen=maxlen)
+
+    def get(self, name: str, labels: Optional[Dict[str, str]] = None):
+        """The live child, or None (never creates)."""
+        with self._lock:
+            fam = self._families.get(name)
+            if fam is None:
+                return None
+            return fam.children.get(_freeze_labels(labels))
 
 
 _default = MetricsRegistry()

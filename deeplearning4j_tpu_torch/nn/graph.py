@@ -28,8 +28,12 @@ and ``score_for``.  Listeners hear of each step (once a fused block) and
 epoch.  ``save``/``load`` write and read the ModelSerializer zip
 (``utils/serialization.py``).
 
-Not ported yet: gradient sharing, ZeRO, the executable cache, compile
-schedules and gradient checkpointing (``remat``).  ``evaluate`` takes
+``set_gradient_sharing`` splits the step around a host exchange across a
+gang of processes, as ``MultiLayerNetwork``'s does (``nn.multilayer.
+shared_step``); the blocks of ``fit_steps`` then run step by step.
+
+Not ported yet: the executable cache, compile schedules and gradient
+checkpointing (``remat``).  ``evaluate`` takes
 single-output graphs, as in the JAX package.
 """
 from __future__ import annotations
@@ -49,14 +53,15 @@ from deeplearning4j_tpu_torch.monitor.spans import span
 from deeplearning4j_tpu_torch.nn.core import InputType, Layer
 from deeplearning4j_tpu_torch.nn.multilayer import (apply_updates, block_tensor,
                                                     copy_into, grads_of, holder_of,
-                                                    reg_penalty, step_gradients,
-                                                    step_loss, tree_of, torch_dtype)
+                                                    reg_penalty, shared_step,
+                                                    step_gradients, step_loss, tree_of,
+                                                    torch_dtype)
 from deeplearning4j_tpu_torch.train.updaters import IUpdater, Sgd, tree_leaves, tree_map
 from deeplearning4j_tpu_torch.utils import data_parallel
 from deeplearning4j_tpu_torch.utils.counters import advance, device_counters
 from deeplearning4j_tpu_torch.utils.data_parallel import penalty_share
 from deeplearning4j_tpu_torch.utils.devices import resolve_device
-from deeplearning4j_tpu_torch.utils.scan_fit import GraphStep, check_steps_axes
+from deeplearning4j_tpu_torch.utils.scan_fit import GraphStep, _at, check_steps_axes
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 
@@ -490,6 +495,7 @@ class ComputationGraph(nn.Module):
         self._scan_step: Optional[GraphStep] = None
         self._dp = None                  # parallel/wrapper.py
         self._step_transform = None      # parallel/zero.py
+        self._grad_sharing = None        # parallel/hierarchical.py
 
     def _instruments(self) -> TrainingInstruments:
         if self._instr is None:
@@ -632,10 +638,10 @@ class ComputationGraph(nn.Module):
         return ([inputs[n] for n in self.conf.network_inputs] + list(labels)
                 + (list(lmasks) if lmasks else [None] * n_out))
 
-    def _train_tick(self, carry, epoch, batch) -> torch.Tensor:
-        """One step body on `_batch`'s list; every result is written into
-        the tensor it replaces, the iteration counter included; returns
-        the loss."""
+    def _grads(self, batch):
+        """The grad half on `_batch`'s list: forward and backward, the
+        gradients summed over a data-parallel group; (gradients, loss, new
+        layer state), nothing written."""
         n_in, n_out = len(self.conf.network_inputs), len(self.conf.network_outputs)
         inputs = self._apply_device_norm(dict(zip(self.conf.network_inputs, batch[:n_in])))
         labels = list(batch[n_in:n_in + n_out])
@@ -645,7 +651,14 @@ class ComputationGraph(nn.Module):
         with data_parallel.active(self._dp):
             loss, new_state = self._loss(params, self.state_, inputs, labels,
                                          self._rng, lmasks)
-        grads = step_gradients(self, loss, params)
+        return step_gradients(self, loss, params), loss, new_state
+
+    def _train_tick(self, carry, epoch, batch) -> torch.Tensor:
+        """One step body on `_batch`'s list; every result is written into
+        the tensor it replaces, the iteration counter included; returns
+        the loss."""
+        params = self.params_
+        grads, loss, new_state = self._grads(batch)
         apply_updates(self.conf, self._named_layers(), params, grads,
                       self.opt_state_, self._updater_for, self._iter_dev, epoch,
                       self._step_transform)
@@ -658,7 +671,11 @@ class ComputationGraph(nn.Module):
                    labels: List[torch.Tensor], lmasks=None) -> None:
         t0 = time.perf_counter()
         _, epoch = device_counters(self)
-        loss = self._train_tick(None, epoch, self._batch(inputs, labels, lmasks))
+        batch = self._batch(inputs, labels, lmasks)
+        if self._grad_sharing is not None:
+            loss = shared_step(self, batch)
+        else:
+            loss = self._train_tick(None, epoch, batch)
         self._instruments().record_dispatch(time.perf_counter() - t0)
         self._score = loss
         self._last_batch_size = int(next(iter(inputs.values())).shape[0])
@@ -703,7 +720,20 @@ class ComputationGraph(nn.Module):
         """One block of k steps through the graph step; `block` is
         `_batch`'s list with, per entry, None, a stacked `[k, ...]` tensor
         or a list of k per-step tensors (copied straight into the graph's
-        input buffers)."""
+        input buffers).  With gradient sharing on, the k steps run one by
+        one through the split step."""
+        if self._grad_sharing is not None:
+            n_in = len(self.conf.network_inputs)
+            n_out = len(self.conf.network_outputs)
+            losses = []
+            for i in range(k):
+                b = [_at(e, i) for e in block]
+                lm = b[n_in + n_out:]
+                self._fit_batch(dict(zip(self.conf.network_inputs, b[:n_in])),
+                                b[n_in:n_in + n_out],
+                                None if all(m is None for m in lm) else lm)
+                losses.append(self._score)
+            return torch.stack(losses)
         step = self._get_scan_step()
         _, epoch = device_counters(self)
         t0 = time.perf_counter()
@@ -803,6 +833,18 @@ class ComputationGraph(nn.Module):
                             [None if masks[0][i] is None else [m[i] for m in masks]
                              for i in range(len(masks[0]))]),
                 len(feats), int(next(iter(feats[0].values())).shape[0]))
+
+    def set_gradient_sharing(self, sharing) -> "ComputationGraph":
+        """Gang gradient sharing on or off, as
+        ``MultiLayerNetwork.set_gradient_sharing``."""
+        from deeplearning4j_tpu_torch.parallel.hierarchical import as_runtime
+        self._grad_sharing = as_runtime(sharing, self._grad_sharing)
+        return self
+
+    @property
+    def gradient_sharing(self):
+        """The installed ``HierarchicalAllReduce``, or None."""
+        return self._grad_sharing
 
     def score(self) -> float:
         """The most recent minibatch loss (blocks until it is computed)."""

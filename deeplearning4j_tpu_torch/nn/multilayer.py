@@ -50,9 +50,21 @@ the group between the backward and ``apply_updates``, and, with
 ``_step_transform``) that ``apply_updates`` threads through each layer.
 Without a wrapper both are None and the step is unchanged.
 
+``set_gradient_sharing`` (``parallel/hierarchical.py``) splits the step in
+two around a host-side exchange across a gang of processes: the grad half
+(``_grads``: forward, backward, the data-parallel sum; under ZeRO-1 the
+reduce-scatter, ``Zero1Transform.reduce_scatter``), then
+``exchange_gradients`` (the tree in the JAX layouts to the host, combined
+over the gang, back in the port's layouts), then the apply half
+(``apply_updates`` on the combined gradient: normalization sees the whole
+gradient, as JAX's apply half does).  That path runs eagerly, step by
+step: a host exchange cannot sit inside a CUDA-graph capture, so
+``fit_steps`` and ``fit(iterator, fused_steps=k)`` run their k steps one
+by one while sharing is on (listeners then hear of every step).  Without
+sharing the step, its bits and its graph are unchanged.
+
 Not ported yet, and raising ``NotImplementedError``:
-``set_gradient_sharing``, ``set_executable_cache`` and
-``apply_schedule``.
+``set_executable_cache`` and ``apply_schedule``.
 """
 from __future__ import annotations
 
@@ -76,7 +88,7 @@ from deeplearning4j_tpu_torch.utils import data_parallel
 from deeplearning4j_tpu_torch.utils.counters import advance, device_counters
 from deeplearning4j_tpu_torch.utils.data_parallel import DataParallelStep, penalty_share
 from deeplearning4j_tpu_torch.utils.devices import resolve_device
-from deeplearning4j_tpu_torch.utils.scan_fit import GraphStep, check_steps_axes
+from deeplearning4j_tpu_torch.utils.scan_fit import GraphStep, _at, check_steps_axes
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 
@@ -196,7 +208,7 @@ def copy_into(dst, src) -> None:
 
 @torch.no_grad()
 def apply_updates(conf, layers, params, grads, opt_state, updater_for,
-                  iteration, epoch, zero=None) -> None:
+                  iteration, epoch, zero=None, prescattered: bool = False) -> None:
     """One optimizer step over every layer, in place: the JAX step's
     per-layer loop.  `layers` yields (name, layer or None: a graph vertex
     without one); a frozen layer, or one without parameters, is left as
@@ -211,7 +223,8 @@ def apply_updates(conf, layers, params, grads, opt_state, updater_for,
     (``parallel/zero.py``) where the weight update is sharded: after the
     gradient normalization it scatters the gradient, the updater and the
     weight decay run on this rank's shard, and the new shards are gathered
-    into the parameters."""
+    into the parameters; with `prescattered` (a split step's apply half)
+    the leaves ZeRO-1 reduce-scatters arrive as their shards already."""
     scalars = StepScalars(iteration, epoch, scalar_dtype(params))
     for name, layer in layers:
         if not params[name] or (layer is not None and layer.frozen):
@@ -225,7 +238,7 @@ def apply_updates(conf, layers, params, grads, opt_state, updater_for,
             g = apply_gradient_normalization(g, gn, thr)
         view = params[name]
         if zero is not None:
-            g = zero.scatter(name, g)
+            g = zero.scatter(name, g, reduced=prescattered)
             view = zero.update_view(name, view)
         upd_cfg = updater_for(name)
         s = scalars.of(upd_cfg)
@@ -252,6 +265,60 @@ def block_tensor(a, device) -> Optional[torch.Tensor]:
     if a.ndim and a.shape[0] > 1 and a.strides[0] == 0:
         return torch.as_tensor(a[0].copy(), device=device).expand(a.shape)
     return torch.as_tensor(a, device=device)
+
+
+def exchange_gradients(net, grads) -> Dict:
+    """The host exchange of a split step: `grads` (the grad half's tree)
+    viewed in the JAX package's layouts, combined over the gang by
+    ``net._grad_sharing.exchange`` and put back on the device in the
+    port's layouts and the gradients' dtypes, each leaf contiguous.
+    Under ZeRO-1 a reduce-scattered leaf is its shard, which is in the JAX
+    layout already."""
+    zt = net._step_transform
+    skip = zt.scattered if zt is not None else frozenset()
+
+    def views(tree, name, layout, path=()):
+        if isinstance(tree, dict):
+            return {k: views(v, name, layout, path + (k,)) for k, v in tree.items()}
+        if (name, ".".join(path)) in skip:
+            return tree
+        return convert.jax_view(layout, path[-1], tree)
+
+    def back(tree, got, name, layout, path=()):
+        if isinstance(tree, dict):
+            return {k: back(v, got[k], name, layout, path + (k,)) for k, v in tree.items()}
+        t = torch.as_tensor(np.asarray(got, np.float32)).to(tree.device, tree.dtype)
+        perm = None if (name, ".".join(path)) in skip else layout.TORCH_LAYOUT.get(path[-1])
+        return t if perm is None else t.permute(*perm).contiguous()
+
+    layouts = {name: convert._layer_or_layout(net, name) for name in grads}
+    combined = net._grad_sharing.exchange(
+        {name: views(g, name, layouts[name]) for name, g in grads.items()})
+    return {name: back(g, combined[name], name, layouts[name]) for name, g in grads.items()}
+
+
+def shared_step(net, batch) -> torch.Tensor:
+    """One training step of a MultiLayerNetwork or ComputationGraph with
+    gradient sharing on: the grad half (``net._grads``; under ZeRO-1 the
+    reduce-scatter of the leaves it shards), the layer state written, the
+    exchange, then the apply half and the counter.  Returns the step's
+    loss (the global mean in a data-parallel step)."""
+    from deeplearning4j_tpu_torch.parallel.hierarchical import check_composable
+    check_composable(net._dp.size if net._dp is not None else 1, net._grad_sharing)
+    grads, loss, new_state = net._grads(batch)
+    zt = net._step_transform
+    if zt is not None:
+        grads = {name: zt.reduce_scatter(name, g) for name, g in grads.items()}
+    with torch.no_grad():
+        copy_into(net.state_, new_state)
+    loss = step_loss(net, loss)
+    combined = exchange_gradients(net, grads)
+    _, epoch = device_counters(net)
+    apply_updates(net.conf, net._named_layers(), net.params_, combined, net.opt_state_,
+                  net._updater_for, net._iter_dev, epoch, zt, prescattered=True)
+    with torch.no_grad():
+        net._iter_dev.add_(1)
+    return loss
 
 
 def _not_ported(what: str):
@@ -440,6 +507,7 @@ class MultiLayerNetwork(nn.Module):
         self._scan_step: Optional[GraphStep] = None
         self._dp: Optional[DataParallelStep] = None      # parallel/wrapper.py
         self._step_transform = None                      # parallel/zero.py
+        self._grad_sharing = None                        # parallel/hierarchical.py
 
     def _instruments(self) -> TrainingInstruments:
         if self._instr is None:
@@ -592,10 +660,10 @@ class MultiLayerNetwork(nn.Module):
                 + [t for t in tree_leaves(self.opt_state_) if isinstance(t, torch.Tensor)]
                 + [device_counters(self)[0]])
 
-    def _train_tick(self, carry, epoch, batch) -> torch.Tensor:
-        """One step body on batch [x, y, features mask, labels mask]:
-        every result is written into the tensor it replaces (``carry``),
-        the iteration counter included; returns the loss."""
+    def _grads(self, batch):
+        """The grad half on batch [x, y, features mask, labels mask]:
+        forward and backward, the gradients summed over a data-parallel
+        group; (gradients, loss, new layer state), nothing written."""
         x, y, fmask, lmask = batch
         if self._device_norm is not None:
             x = self._device_norm.apply_features(x)
@@ -604,7 +672,14 @@ class MultiLayerNetwork(nn.Module):
         with data_parallel.active(self._dp):
             loss, new_state = self._loss(params, self.state_, x, y, self._rng,
                                          fmask, lmask)
-        grads = step_gradients(self, loss, params)
+        return step_gradients(self, loss, params), loss, new_state
+
+    def _train_tick(self, carry, epoch, batch) -> torch.Tensor:
+        """One step body on batch [x, y, features mask, labels mask]:
+        every result is written into the tensor it replaces (``carry``),
+        the iteration counter included; returns the loss."""
+        params = self.params_
+        grads, loss, new_state = self._grads(batch)
         apply_updates(self.conf, self._named_layers(), params, grads,
                       self.opt_state_, self._updater_for, self._iter_dev, epoch,
                       self._step_transform)
@@ -616,7 +691,10 @@ class MultiLayerNetwork(nn.Module):
     def _fit_batch(self, x, y, fmask=None, lmask=None) -> None:
         t0 = time.perf_counter()
         _, epoch = device_counters(self)
-        loss = self._train_tick(None, epoch, [x, y, fmask, lmask])
+        if self._grad_sharing is not None:
+            loss = shared_step(self, [x, y, fmask, lmask])
+        else:
+            loss = self._train_tick(None, epoch, [x, y, fmask, lmask])
         self._instruments().record_dispatch(time.perf_counter() - t0)
         self._score = loss
         self._last_batch_size = int(x.shape[0])
@@ -638,7 +716,9 @@ class MultiLayerNetwork(nn.Module):
         `k` per-step `[batch, ...]` arrays (the staged prefetch path),
         copied into the graph's input buffers on the device.  The same
         math as `k` sequential `fit(x, y)` calls; listeners fire once per
-        block.  Returns the k losses as a fresh device tensor."""
+        block.  Returns the k losses as a fresh device tensor.  With
+        gradient sharing on, the k steps run one by one through the split
+        step (listeners fire each step)."""
         if isinstance(xs, (list, tuple)):
             k = len(xs)
             if not (isinstance(ys, (list, tuple)) and len(ys) == k):
@@ -664,6 +744,12 @@ class MultiLayerNetwork(nn.Module):
             check_steps_axes(zip(("xs", "ys", "features_masks", "labels_masks"), block))
             k = int(block[0].shape[0])
             batch_n = int(block[0].shape[1])
+        if self._grad_sharing is not None:
+            losses = []
+            for i in range(k):
+                self._fit_batch(*[_at(e, i) for e in block])
+                losses.append(self._score)
+            return torch.stack(losses)
         step = self._get_scan_step()
         _, epoch = device_counters(self)
         t0 = time.perf_counter()
@@ -749,8 +835,20 @@ class MultiLayerNetwork(nn.Module):
         return (self._device_norm.apply_features(x),
                 self._device_norm.apply_labels(y))
 
-    def set_gradient_sharing(self, sharing):
-        _not_ported("set_gradient_sharing (hierarchical gradient sharing)")
+    def set_gradient_sharing(self, sharing) -> "MultiLayerNetwork":
+        """Turn gang gradient sharing on or off: a
+        ``HierarchicalGradientSharing`` config (the runtime is built here),
+        a prebuilt ``HierarchicalAllReduce``, or None to clear (the
+        replaced runtime's sockets are closed).  While on, every training
+        step is the split step (``shared_step``)."""
+        from deeplearning4j_tpu_torch.parallel.hierarchical import as_runtime
+        self._grad_sharing = as_runtime(sharing, self._grad_sharing)
+        return self
+
+    @property
+    def gradient_sharing(self):
+        """The installed ``HierarchicalAllReduce``, or None."""
+        return self._grad_sharing
 
     def set_executable_cache(self, cache):
         _not_ported("set_executable_cache (the compiled-step cache)")

@@ -7,14 +7,17 @@ CPU): `multihost.initialize` joins the group, `make_mesh` names its axes,
 data-parallel (the single-device step on the global batch), optionally
 with the ZeRO-1 sharded weight update (`zero`), `ParallelInference` serves
 it, and `checkpoint` saves and restores it sharded in the JAX package's
-format.  Not ported yet: tensor parallelism (`sharding`, `composed`),
-pipeline parallelism, ring attention, hierarchical and compressed gradient
-sharing (`hierarchical`, `compression`, `transport`, `native_ops`) and the
-elastic runner.
+format.  `hierarchical` (with `compression`, `transport` and the host
+codec in `native_ops`) combines a model's gradient across a gang of
+processes over TCP, dense or threshold-compressed.  Not ported yet:
+tensor parallelism (`sharding`, `composed`), pipeline parallelism, ring
+attention and the elastic runner and mesh.
 """
 from deeplearning4j_tpu_torch.parallel.checkpoint import (  # noqa: F401
     ChecksumError, load_model_sharded, load_sharded, read_metadata,
     save_model_sharded, save_sharded, verify_checkpoint)
+from deeplearning4j_tpu_torch.parallel.hierarchical import (  # noqa: F401
+    HierarchicalAllReduce, HierarchicalGradientSharing)
 from deeplearning4j_tpu_torch.parallel.mesh import (  # noqa: F401
     Mesh, MeshSpec, data_sharding, make_mesh, replicated)
 from deeplearning4j_tpu_torch.parallel.multihost import LocalLauncher  # noqa: F401

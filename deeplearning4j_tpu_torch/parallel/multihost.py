@@ -9,8 +9,15 @@ data-parallel step: NCCL with one card a process on the card, gloo on the
 CPU.  :func:`initialize` joins the group from the ``DL4J_TPU_*``
 environment that :class:`LocalLauncher` sets for each process it starts.
 
+A gradient-sharing gang (``parallel/hierarchical.py``) is a set of
+processes coupled only by the TCP gradient mesh: ``LocalLauncher(n,
+gang=True)`` starts one, each rank told the mesh's port by
+``run(..., gradient_port=)`` (``DL4J_TPU_GRADIENT_PORT``; the host is
+``DL4J_TPU_GRADIENT_HOST``, 127.0.0.1 by default).  A gang forms no NCCL
+group, so its ranks may share a card.
+
 Not ported yet: ``ElasticLocalRunner`` and ``MultiHostParallelInference``
-(the elastic runner), and the hierarchical gradient-sharing port.
+(the elastic runner).
 """
 from __future__ import annotations
 
@@ -34,6 +41,10 @@ ENV_NPROC = "DL4J_TPU_NUM_PROCESSES"
 ENV_PID = "DL4J_TPU_PROCESS_ID"
 ENV_LOCAL = "DL4J_TPU_LOCAL_RANK"
 ENV_PLATFORM = "DL4J_TPU_PLATFORM"
+# the TCP gradient mesh of hierarchical gradient sharing (read by
+# parallel/hierarchical.py; a gang needs no process group)
+ENV_GRAD_PORT = "DL4J_TPU_GRADIENT_PORT"
+ENV_GRAD_HOST = "DL4J_TPU_GRADIENT_HOST"
 
 
 def initialize(coordinator_address: Optional[str] = None,
@@ -153,11 +164,11 @@ def free_port(max_tries: int = 16) -> int:
 
 
 def child_env(coordinator: str, num_processes: int, process_id: int,
-              platform: str = "cpu") -> Dict[str, str]:
+              platform: str = "cpu", local_rank: Optional[int] = None) -> Dict[str, str]:
     """Environment of one spawned rank: the repository first on
     ``PYTHONPATH``, the rendezvous (coordinator, world size, rank), the
-    platform (``"cuda"``: one card a rank, card = rank; ``"cpu"``: gloo) and
-    one CPU thread a rank on the CPU."""
+    platform (``"cuda"``: one card a rank, card = `local_rank`, the rank by
+    default; ``"cpu"``: gloo) and one CPU thread a rank on the CPU."""
     env = dict(os.environ)
     repo_root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     inherited = [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]
@@ -165,7 +176,7 @@ def child_env(coordinator: str, num_processes: int, process_id: int,
     env[ENV_COORD] = coordinator
     env[ENV_NPROC] = str(num_processes)
     env[ENV_PID] = str(process_id)
-    env[ENV_LOCAL] = str(process_id)
+    env[ENV_LOCAL] = str(process_id if local_rank is None else local_rank)
     env[ENV_PLATFORM] = platform
     if platform == "cpu":
         env.setdefault("OMP_NUM_THREADS", "1")
@@ -177,27 +188,38 @@ class LocalLauncher:
     stdout and stderr are captured; a rank that fails (or outlives
     `timeout`) makes `run` stop the others and raise with its output's
     tail.  ``platform="cuda"`` gives each rank its own card (rank r on
-    card r); ``"cpu"`` runs gloo ranks."""
+    card r); ``"cpu"`` runs gloo ranks.  ``gang=True`` starts the ranks of
+    a gradient-sharing gang, which form no NCCL group: on the card they may
+    outnumber the cards (rank r on card r % cards)."""
 
-    def __init__(self, num_processes: int, platform: str = "cpu"):
+    def __init__(self, num_processes: int, platform: str = "cpu", gang: bool = False):
         if platform not in ("cpu", "cuda"):
             raise ValueError(f"platform {platform!r}: want 'cpu' or 'cuda'")
-        if platform == "cuda" and num_processes > torch.cuda.device_count():
+        if platform == "cuda" and not gang and num_processes > torch.cuda.device_count():
             raise ValueError(f"{num_processes} ranks need {num_processes} cards, "
                              f"this machine has {torch.cuda.device_count()}")
         self.num_processes = int(num_processes)
         self.platform = platform
+        self.gang = bool(gang)
 
     def run(self, script: str, args: Sequence[str] = (), timeout: float = 300.0,
-            extra_env: Optional[Dict[str, str]] = None) -> List[str]:
+            extra_env: Optional[Dict[str, str]] = None,
+            gradient_port: Optional[int] = None) -> List[str]:
         """Each rank's output, in rank order.  The ranks are polled
         together: the first to fail, or the deadline, stops them all (a
-        rank left waiting in a collective would otherwise hang)."""
+        rank left waiting in a collective would otherwise hang).
+        `gradient_port` exports ``DL4J_TPU_GRADIENT_PORT`` so the ranks
+        form their TCP gradient mesh on a known port (``free_port()`` for a
+        fresh one a launch)."""
         coordinator = f"127.0.0.1:{free_port()}"
+        cards = torch.cuda.device_count() if self.platform == "cuda" else 0
         procs, logs = [], []
         try:
             for rank in range(self.num_processes):
-                env = child_env(coordinator, self.num_processes, rank, self.platform)
+                env = child_env(coordinator, self.num_processes, rank, self.platform,
+                                rank % cards if self.gang and cards else None)
+                if gradient_port is not None:
+                    env[ENV_GRAD_PORT] = str(gradient_port)
                 if extra_env:
                     env.update(extra_env)
                 log = tempfile.TemporaryFile(mode="w+")

@@ -20,8 +20,16 @@ The reference's sync modes (averaging, gradient sharing) both run as the
 synchronous gradient all-reduce of every step; ``averaging_frequency`` and
 ``prefetch_buffer`` are accepted and do nothing.  Listeners, the checkpoint
 listener among them, hear of each step on rank 0 only, as the JAX single
-controller's do.  Tensor parallelism (``sharding_rules``) and hierarchical
-gradient sharing (``gradient_sharing``) are not ported: they raise.
+controller's do.
+
+``gradient_sharing`` (a ``HierarchicalGradientSharing`` config) installs
+hierarchical gradient sharing on the model at placement
+(``parallel/hierarchical.py``): the wrapper's group is the host's
+data-parallel group (the JAX "ICI" role) and the gang of processes
+coupled by the TCP gradient mesh the "DCN" role.  A group of more than one
+rank under a gang of more than one process raises
+``NotImplementedError`` (host subgroups are not ported).  Tensor
+parallelism (``sharding_rules``) is not ported: it raises.
 """
 from __future__ import annotations
 
@@ -118,14 +126,12 @@ class ParallelWrapper:
                  optimizer_sharding: bool = False, gradient_sharing=None):
         if sharding_rules is not None:
             raise NotImplementedError("sharding_rules (tensor parallelism) is not ported")
-        if gradient_sharing:
-            raise NotImplementedError(
-                "gradient_sharing (hierarchical compressed gradient sharing) is not ported")
         self.model = model
         self.mesh = mesh if mesh is not None else make_mesh(device=model.device)
         self.data_axis = data_axis
         self.training_mode = training_mode
         self._zero1 = bool(optimizer_sharding)
+        self._sharing_cfg = gradient_sharing  # HierarchicalGradientSharing
         self._placed = False
         self._warned_drop = False
         self._instr: Optional[ParallelInstruments] = None
@@ -144,6 +150,7 @@ class ParallelWrapper:
             self._mesh: Optional[Mesh] = None
             self._mode = "SHARED_GRADIENTS"
             self._zero1 = False
+            self._sharing = None
 
         def workers(self, n: int):
             self._workers = int(n); return self
@@ -163,8 +170,11 @@ class ParallelWrapper:
             self._zero1 = bool(on); return self
 
         def gradient_sharing(self, cfg=True):
-            raise NotImplementedError(
-                "gradient_sharing (hierarchical compressed gradient sharing) is not ported")
+            """Hierarchical gradient sharing across a gang of processes
+            (``parallel/hierarchical.py``): a ``HierarchicalGradientSharing``
+            config, True for the environment's defaults, or None/False for
+            none."""
+            self._sharing = _sharing_config(cfg); return self
 
         def averaging_frequency(self, n: int):
             return self  # no-op: the synchronous all-reduce has no averaging lag
@@ -185,7 +195,8 @@ class ParallelWrapper:
                         f"workers({self._workers}) below the world of {mesh.size}: a "
                         "mesh over part of the ranks is not ported")
             return ParallelWrapper(self._model, mesh, training_mode=self._mode,
-                                   optimizer_sharding=self._zero1)
+                                   optimizer_sharding=self._zero1,
+                                   gradient_sharing=self._sharing)
 
     @staticmethod
     def builder(model) -> "ParallelWrapper.Builder":
@@ -207,18 +218,34 @@ class ParallelWrapper:
             self._placed = False
         return self
 
+    def gradient_sharing(self, cfg) -> "ParallelWrapper":
+        """Turn hierarchical gradient sharing on (a
+        ``HierarchicalGradientSharing`` config, or True for the
+        environment's defaults) or off (None/False) at run time; installed
+        on the model now if it is placed, else at placement."""
+        self._sharing_cfg = _sharing_config(cfg)
+        if self._placed:
+            self.model.set_gradient_sharing(self._sharing_cfg)
+        return self
+
     def _place_model(self) -> None:
         """Once: make the parameters, layer state and updater state equal on
         every rank (rank 0's, broadcast in buckets), run a first collective
         (so an NCCL communicator exists before any capture), seed each
         rank's dropout generator apart, shard the updater state under
-        ZeRO-1 and install the data-parallel step.  Captured steps are
-        dropped."""
+        ZeRO-1, install the data-parallel step and the gradient sharing
+        (or remove a model's own).  Captured steps are dropped."""
         if self._placed:
             return
         m = self.model
         if getattr(m, "opt_state_", None) is None:
             raise ValueError("call init() on the model before wrapping it")
+        if self._sharing_cfg is not None:
+            from deeplearning4j_tpu_torch.parallel.hierarchical import check_composable
+            m.set_gradient_sharing(self._sharing_cfg)
+            check_composable(self.degree, m.gradient_sharing)
+        elif getattr(m, "_grad_sharing", None) is not None:
+            m.set_gradient_sharing(None)
         mesh = self.mesh
         if mesh.distributed:
             import torch.distributed as dist
@@ -443,6 +470,17 @@ class ParallelWrapper:
 
     def shutdown(self):
         return self  # no-op: no trainer threads to stop
+
+
+def _sharing_config(cfg):
+    """The argument of `Builder.gradient_sharing` or of the run-time
+    toggle: True is the environment's defaults, False or None is off, a
+    config is itself."""
+    if cfg is True:
+        from deeplearning4j_tpu_torch.parallel.hierarchical import (
+            HierarchicalGradientSharing)
+        return HierarchicalGradientSharing()
+    return None if cfg is False else cfg
 
 
 def _model_tensors(m) -> List[torch.Tensor]:

@@ -155,20 +155,33 @@ class Zero1Transform:
             j = torch.cat([j, j.new_zeros((pl.pad,) + tuple(j.shape[1:]))])
         return j.contiguous()
 
-    def scatter(self, name: str, grads: Tree) -> Tree:
+    def scatter(self, name: str, grads: Tree, reduced: bool = False) -> Tree:
         """This rank's update-layout gradient of layer `name`: the rows of
         the summed padded gradient for sharded leaves, the (all-reduced)
-        gradient for replicated ones."""
+        gradient for replicated ones.  With `reduced`, the leaves the step
+        reduce-scatters arrive as their shards already
+        (:meth:`reduce_scatter`) and pass through."""
         def one(path, pl, g):
             if pl.kind != "shard":
                 return g
-            full = self._padded(pl, g)
-            if (name, ".".join(path)) not in self.scattered:
-                return self._rows(pl, full)
-            out = full.new_empty((pl.rows,) + tuple(full.shape[1:]))
-            self._reduce_scatter(out, full)
-            return out
+            if (name, ".".join(path)) in self.scattered:
+                return g if reduced else self._shard_of(pl, g)
+            return self._rows(pl, self._padded(pl, g))
         return _map_paths(one, self.plans[name], grads)
+
+    def reduce_scatter(self, name: str, grads: Tree) -> Tree:
+        """Layer `name`'s gradient with each leaf the step reduce-scatters
+        replaced by this rank's shard of its sum (the grad half of a split
+        step ships these); every other leaf as it is."""
+        return _map_paths(lambda path, pl, g: self._shard_of(pl, g)
+                          if (name, ".".join(path)) in self.scattered else g,
+                          self.plans[name], grads)
+
+    def _shard_of(self, pl: LeafPlan, g: torch.Tensor) -> torch.Tensor:
+        full = self._padded(pl, g)
+        out = full.new_empty((pl.rows,) + tuple(full.shape[1:]))
+        self._reduce_scatter(out, full)
+        return out
 
     def update_view(self, name: str, params: Tree) -> Tree:
         """Layer `name`'s parameters as the updater sees them: this rank's

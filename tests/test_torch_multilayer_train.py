@@ -431,12 +431,13 @@ def test_left_out_entry_points_raise_not_implemented():
     net = MultiLayerNetwork(MultiLayerConfiguration.from_json(
         _small_conf(jupd.Adam()).to_json()), device="cpu").init()
     x, y = _batches((5,), 3, 1, seed=16)[0]
-    calls = [lambda: net.set_gradient_sharing(None),
-             lambda: net.set_executable_cache(None),
+    calls = [lambda: net.set_executable_cache(None),
              lambda: net.apply_schedule(None)]
     for call in calls:
         with pytest.raises(NotImplementedError, match="not ported yet"):
             call()
+    # gradient sharing is ported (tests/test_torch_comms.py): None clears it
+    assert net.set_gradient_sharing(None) is net and net.gradient_sharing is None
     assert net.iteration == 0
 
 
