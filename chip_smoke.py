@@ -542,6 +542,42 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    least 5x fewer bytes on the wire and the final loss within 1%, else the
    script fails; the ranks' first-layer W bitwise equal in each mode;
    ``fused_dense`` launches a step.
+49. tp_vgg16 — tensor parallelism (``parallel/sharding.py``): zoo VGG16 at
+   224x224x3, 1000 classes, f32, Adam(1e-3), global batch 32, through
+   ``ParallelWrapper(mesh={data: w/m, model: m}, sharding_rules=
+   ShardingRules())`` (m = 2 where w >= 2, else 1) at world w =
+   ``device_count``, 3 steps, the launch counts set to 0 just before them
+   and read just after (2 ``fused_dense`` + 13 wgrad + 12 dgrad a step,
+   each ``fused_dense`` launch's (M, K, N)).  Rank 0 trains the plain
+   one-rank ``fit`` twin: bitwise at m = 1; above it the losses within
+   vgg16_train's f32 bound (1e-4, 1e-1 once the loss rises; dropout off,
+   since each data rank would draw its own masks).  Then 8 timed steps
+   (ms a step is their median) and 3 profiled ones (the idle share).  A
+   second pair, wrapped and twin, takes 3 Sgd(1e-2) steps: each leaf
+   within 1e-5 of its layer's largest parameter (bitwise at m = 1).  Each
+   rank's resident parameter bytes (fc6's W whole is 411,041,792), peak
+   memory; ``fused_dense`` at fc6's column-parallel shard (32, 25088,
+   2048) against its plain version, with its bound and the library call.
+50. ring_flash — ``ring_attention_flash`` over {seq: w} on q, k, v [4, 12,
+   2048, 64] (BERT-base heads at bench.py's long T) split on T, f32 and
+   bf16, causal and not: w ``flash_attn_fwd`` launches a call; the output
+   against the plain ``ring_attention`` on the same ranks, and on rank 0
+   the gathered output and its gradients (the plain ring's backward)
+   against the full attention in f32, within the attention bounds; ms a
+   call beside the plain ring's.
+51. composed — ``ComposedParallel`` at BERT-base widths (D 768, 12 heads,
+   F 3072, T 2048; weights at BERT's initializer std 0.02) on {data: 1,
+   model: 1, pipe: 1} at w = 1 and {data: 1, model: 2, pipe: w/2} above,
+   S = pipe stages, M = S microbatches, batch 4 S: 3 SGD steps (the lr the
+   first of ``COMPOSED["lrs"]`` at which the oracle's loss falls) against
+   ``composed_oracle`` on rank 0 (losses 1e-4, parameters 1e-3 of each
+   leaf's max); the dense world-1 sharing facade and
+   ``composed_train_steps(k=3)`` bitwise against the plain steps; ms a
+   step and peak memory a rank.
+   Phases 49 to 51 run inside the data-parallel block: at world 1 on its
+   one-rank NCCL group, above it one rank a card through
+   ``multihost.LocalLauncher`` (``chip_smoke.py --mp-rank <phase>``, an
+   ``MP_RANK`` line a rank).
 
 Then the kernels line (each entry with ``share_of_bound``; ``fused_dense``
 and the conv pair carry ``vgg16_train``, ``zoo_train``, ``fused_resnet50``
@@ -551,7 +587,9 @@ kernels ``fused_bert`` ones (their nodes in one replayed block at each
 shape), the flash kernels ``seq_attention`` ones (``fused_dense`` one of
 0: it is not on that path; the conv pair ``dp_resnet50`` entries and
 ``fused_dense`` a ``dp_zero1`` one, the conv pair ``gs_resnet50`` entries
-and ``fused_dense`` ``gs_comms`` and ``gs_resnet50`` ones); ``dp_resnet50``
+and ``fused_dense`` ``gs_comms`` and ``gs_resnet50`` ones; ``fused_dense``
+and the conv pair ``tp_vgg16`` entries, ``flash_attn_fwd`` a ``ring_flash``
+one); ``dp_resnet50``
 and ``dp_zero1`` count the launches of one
 replayed block by the graph's kernel nodes, beside the profiler's counts
 of traced replays and the Python counts made at the warm-up and the
@@ -691,6 +729,33 @@ VGG_TIMED_STEPS, VGG_WARMUP = 10, 2
 #: conv3x3_dgrad (12: the first conv's input is the data, which needs no
 #: gradient)
 VGG_STEP_LAUNCHES = (2, 13, 12)
+#: phase 49: VGG16 steps under the wrapper's sharding rules; fc6's
+#: column-parallel shard (M, K, N) at which fused_dense is held
+TP_VGG_STEPS = 3
+TP_SHARD = (32, 25088, 2048)
+#: phase 49: steps timed after the held ones (the first steps of a run
+#: pay for the communicators and the kernels' first launches), and a
+#: profiled block of steps after those
+TP_VGG_TIMED, TP_VGG_TRACED = 8, 3
+#: phase 49's Sgd twin pair: lr, and each leaf's max|diff| after
+#: TP_VGG_STEPS steps relative to the largest parameter of its layer
+#: (an Sgd step moves a leaf by lr times its gradient, so a
+#: rounding-sized gradient difference stays rounding-sized; Adam's
+#: lr * m / sqrt(v) does not)
+TP_SGD_LR, TP_SGD_COS, TP_SGD_SCALE = 1e-2, 0.999, 0.02
+#: phase 50: q, k, v [B, H, T, D] (BERT-base heads at bench.py's long T)
+RING_SHAPE = (4, 12, 2048, 64)
+#: phase 51: ComposedParallel at BERT-base widths; the weight matrices
+#: init_stage_params draws (std 0.2, sized for the JAX package's 8-wide
+#: test model) scaled to BERT's initializer range, std 0.02: at width 768
+#: std 0.2 saturates the softmax (losses ~2,700) and leaves the f32
+#: gradients of the biases mostly rounding; the lrs tried, in order, for
+#: one at which composed_oracle's loss falls each step
+COMPOSED = dict(d_model=768, heads=12, d_ff=3072, t=2048, steps=3, k=3, init_scale=0.1,
+                lrs=(0.1, 1e-2, 1e-3, 1e-4))
+#: composed parameters after 3 steps against the oracle's, relative to
+#: each leaf's max (the JAX package's own test: 1e-3)
+COMPOSED_PARAM_RTOL = 1e-3
 #: the zoo_train models, (input, classes, per-step launches as above):
 #: SimpleCNN's relu Dense and six 3x3 convs; AlexNet's two relu Dense and
 #: three 3x3 convs, the first fed by a pool; Darknet19's twelve 3x3 convs
@@ -5590,6 +5655,506 @@ def gs_rank_main(argv):
     return 0
 
 
+# ---------------------------------------------------------------------------
+# model parallelism over the mesh's model, seq and pipe axes (phases 49-51)
+# ---------------------------------------------------------------------------
+
+def _mp_axes(world, kind):
+    """The mesh of each phase at `world` ranks: tp_vgg16 {data: w/m,
+    model: m} with m = 2 where w >= 2; ring_flash {seq: w}; composed
+    {data: 1, model: 2, pipe: w/2} where w >= 2, else every axis 1."""
+    m = 2 if world >= 2 and world % 2 == 0 else 1
+    if kind == "tp":
+        return {"data": world // m, "model": m}
+    if kind == "ring":
+        return {"seq": world}
+    return {"data": 1, "model": m, "pipe": world // m}
+
+
+def _record_dense_shapes(matmul):
+    """Wrap ``matmul._launch`` so each fused_dense launch records its (M,
+    K, N); returns (the list, a function that puts the launcher back)."""
+    shapes, orig = [], matmul._launch
+
+    def rec(x, w, bias, activation):
+        shapes.append((int(x.numel() // x.shape[-1]), int(w.shape[0]), int(w.shape[1])))
+        return orig(x, w, bias, activation)
+    matmul._launch = rec
+    return shapes, lambda: setattr(matmul, "_launch", orig)
+
+
+def _tp_dense_row(matmul, dev, M=TP_SHARD[0], K=TP_SHARD[1], N=TP_SHARD[2]):
+    """fused_dense at fc6's column-parallel shard (32, 25088, 2048), f32
+    relu: the kernel against its plain version, and their times beside the
+    bound and the library call (``addmm`` + relu)."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    xa = torch.randn(M, K, generator=gen, device=dev)
+    wa = torch.randn(K, N, generator=gen, device=dev) / math.sqrt(K)
+    ba = torch.randn(N, generator=gen, device=dev)
+    got = matmul.fused_dense(xa, wa, ba, "relu")
+    want = matmul.fused_dense_reference(xa, wa, ba, "relu")
+    err = (got - want).abs().max().item()
+    require(err <= tolerance(torch.float32, want.abs().max().item()),
+            f"tp_vgg16: fused_dense at {(M, K, N)} differs from its plain version by {err}")
+    bound_ms, bound_by = bound(M, K, N, torch.float32)
+    ms = time_ms(lambda: matmul.fused_dense(xa, wa, ba, "relu"), dev)
+    return dict(shape=f"M={M} K={K} N={N} f32 relu", ms=ms,
+                plain_ms=time_ms(lambda: matmul.fused_dense_reference(xa, wa, ba, "relu"), dev),
+                library_ms=time_ms(lambda: torch.relu(torch.addmm(ba, xa, wa)), dev),
+                bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms,
+                max_abs_err=err)
+
+
+def _tp_vgg16_rank(parallel, matmul, conv3x3, VGG16, Adam, MultiLayerNetwork, dev, world,
+                   image=224, classes=1000, batch=VGG_BATCH, steps=TP_VGG_STEPS):
+    """One rank of phase 49: VGG16 through ``ParallelWrapper(mesh, sharding_
+    rules=ShardingRules())``; rank 0 also trains the plain twin."""
+    import torch.distributed as dist
+    from deeplearning4j_tpu_torch.nn import DenseLayer, MultiLayerConfiguration
+    axes = _mp_axes(world, "tp")
+    from deeplearning4j_tpu_torch.train import Sgd
+    rank = dist.get_rank()
+    shape = (image, image, 3)
+    (xn, yn), = _image_batches(1, batch, shape, classes)
+    x, y = torch.as_tensor(xn, device=dev), torch.as_tensor(yn, device=dev)
+    mesh = parallel.make_mesh(axes, device=dev)
+
+    def build(updater, rules=True, with_twin=True):
+        """The wrapped network (under the default sharding rules, or none)
+        and, on rank 0, its plain twin."""
+        conf = VGG16(n_classes=classes, input_shape=shape, seed=123, updater=updater).conf()
+        if axes["data"] > 1:
+            # each data rank draws its own dropout masks; the twin could not follow
+            for layer in conf.layers:
+                if isinstance(layer, DenseLayer):
+                    layer.dropout = None
+        net = MultiLayerNetwork(MultiLayerConfiguration.from_json(conf.to_json()),
+                                device=dev).init()
+        twin = None
+        if rank == 0 and with_twin:
+            twin = MultiLayerNetwork(MultiLayerConfiguration.from_json(conf.to_json()),
+                                     device=dev).init()
+            twin.load_state_dict(net.state_dict())
+        return net, twin, parallel.ParallelWrapper(
+            net, mesh, sharding_rules=parallel.ShardingRules() if rules else None)
+
+    net, twin, pw = build(Adam(1e-3))
+    pw._place_model()
+    fc6 = net.params_["layer_18"]["W"]
+    resident = sum(p.numel() * p.element_size() for p in net.parameters())
+    opt_bytes = parallel.opt_state_bytes_per_replica(net.opt_state_)
+    torch.cuda.reset_peak_memory_stats()
+    shapes, restore = _record_dense_shapes(matmul)
+    try:
+        # the main path, the counts set to 0 just before it and read just after
+        _reset_counts(matmul, conv3x3)
+        losses, step_ms = [], []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pw.fit(x, y)
+            losses.append(net.score())
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        counts = _step_counts(matmul, conv3x3)
+    finally:
+        restore()
+    peak = torch.cuda.max_memory_allocated()
+    require(counts[0] == steps * 2 and counts[1] == steps * 13 and counts[2] == steps * 12,
+            f"tp_vgg16: launches {counts} over {steps} steps, want 2 + 13 + 12 a step")
+    state = net.state_dict()               # whole leaves (collective: every rank)
+    report = dict(world=world, mesh=axes, steps=steps, global_batch=batch,
+                  rows_per_rank=batch // axes["data"],
+                  dropout="on" if axes["data"] == 1 else "off (each data rank would draw "
+                                                         "its own masks)",
+                  losses=losses, step_ms_held=step_ms,
+                  resident_param_bytes=resident, fc6_W_shape=list(fc6.shape),
+                  fc6_W_bytes=fc6.numel() * fc6.element_size(), fc6_W_whole_bytes=411041792,
+                  opt_state_bytes=opt_bytes,
+                  launches_per_step=dict(zip(("fused_dense", "conv3x3_wgrad", "conv3x3_dgrad"),
+                                             (c // steps for c in counts))),
+                  fused_dense_shapes_per_step=[list(s) for s in shapes[:len(shapes) // steps]],
+                  max_memory_allocated_gb=peak / 1e9)
+    if rank == 0:
+        twin_losses = []
+        for _ in range(steps):
+            twin.fit(x, y)
+            twin_losses.append(twin.score())
+        tstate = twin.state_dict()
+        if axes["model"] == 1:
+            require(losses == twin_losses and all(torch.equal(state[n], tstate[n])
+                                                  for n in tstate),
+                    f"tp_vgg16: at model 1 the wrapper's losses {losses} or parameters differ "
+                    f"from the plain twin's {twin_losses}")
+            report["bitwise_equal_to_plain_fit"] = True
+        rel = _hold_losses(losses, twin_losses, None, "tp_vgg16")
+        diffs = {n: ((state[n] - tstate[n]).abs().max()
+                     / tstate[n].abs().max().clamp_min(1e-30)).item() for n in tstate}
+        worst = max(diffs, key=diffs.get)
+        l2 = math.sqrt(sum(((state[n] - tstate[n]).double() ** 2).sum().item() for n in tstate)
+                       / sum((tstate[n].double() ** 2).sum().item() for n in tstate))
+        report.update(twin_losses=twin_losses, rel_loss_diff=rel,
+                      max_rel_param_diff=diffs[worst], max_rel_param_diff_leaf=worst,
+                      param_l2_rel_diff=l2)
+        del twin, tstate
+    del state
+
+    def step():
+        pw.fit(x, y)
+        net.score()
+
+    timed = []
+    for _ in range(TP_VGG_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        timed.append((time.perf_counter() - t0) * 1e3)
+    report.update(step_ms_timed=timed, step_ms=statistics.median(timed))
+
+    def block():
+        for _ in range(TP_VGG_TRACED):
+            step()
+
+    window_ms, busy_ms, by_name, n = _trace(block)
+    report["profile"] = ({"steps": TP_VGG_TRACED, "window_ms": window_ms,
+                          "device_busy_ms": "not measured",
+                          "idle_share": "not measured"} if busy_ms is None else
+                         {"steps": TP_VGG_TRACED, "window_ms": window_ms,
+                          "device_busy_ms": busy_ms,
+                          "idle_share": max(0.0, 1.0 - busy_ms / window_ms), "kernels": n,
+                          "nccl_ms": _nccl_ms(by_name),
+                          "fused_dense_ms": _share(by_name, "fused_dense_kernel"),
+                          "top": _top(by_name, 8)})
+    del pw, net
+    torch.cuda.empty_cache()
+    report["sgd_twin"] = _tp_vgg16_sgd(lambda *a: build(Sgd(TP_SGD_LR), *a), x, y, axes, steps)
+    torch.cuda.empty_cache()
+    if rank == 0:
+        report["fused_dense_at_shard"] = _tp_dense_row(matmul, dev)
+    return report
+
+
+def _update_rows(state, tstate, start):
+    """Each leaf's Sgd update (whole after the steps, less the start)
+    against the twin's: cosine, least-squares scale, and max|diff| over the
+    twin's max|update|."""
+    rows = {}
+    for n, t in tstate.items():
+        u = (state[n] - start[n]).double().reshape(-1)
+        ut = (t - start[n]).double().reshape(-1)
+        den = (ut * ut).sum().item()
+        rows[n] = dict(cos=((u * ut).sum() / (u.norm() * ut.norm()).clamp_min(1e-300)).item(),
+                       scale=(u * ut).sum().item() / den if den else 1.0,
+                       of_update=(u - ut).abs().max().item() / max(ut.abs().max().item(),
+                                                                  1e-30))
+    return rows
+
+
+def _tp_vgg16_sgd(build, x, y, axes, steps):
+    """Phase 49's Sgd pair: the wrapped VGG16 (`build(True, True)`) and,
+    on rank 0, its plain twin take `steps` Sgd steps; above model 1 a
+    data-parallel control (`build(False, False)`: the same mesh, no
+    sharding rules) takes them too.  Bitwise at model 1; above it each leaf's update is held to the
+    twin's by its cosine and least-squares scale, and its max|diff| over
+    the twin's max|update| is reported beside the control's."""
+    net, twin, pw = build(True, True)
+    runs = {"tp": (net, pw)}
+    start = {n: t.clone() for n, t in twin.state_dict().items()} if twin is not None else None
+    if axes["model"] > 1:
+        dnet, _, dpw = build(False, False)
+        if start is not None:
+            dnet.load_state_dict(start)    # rank 0's, broadcast at placement
+        runs["dp"] = (dnet, dpw)
+    states, losses = {}, {}
+    for tag, (net, pw) in runs.items():
+        losses[tag] = []
+        for _ in range(steps):
+            pw.fit(x, y)
+            losses[tag].append(net.score())
+        states[tag] = net.state_dict()     # whole leaves (collective: every rank)
+    out = dict(updater=f"Sgd({TP_SGD_LR})", steps=steps, losses=losses["tp"],
+               bound=f"every leaf's update against the twin's: cosine >= {TP_SGD_COS}, "
+                     f"least-squares scale within {TP_SGD_SCALE} of 1")
+    if twin is not None:
+        twin_losses = []
+        for _ in range(steps):
+            twin.fit(x, y)
+            twin_losses.append(twin.score())
+        tstate = twin.state_dict()
+        require(all(math.isfinite(v) for v in losses["tp"] + twin_losses),
+                f"tp_vgg16 sgd: non-finite loss {losses['tp']} {twin_losses}")
+        if axes["model"] == 1:
+            require(losses["tp"] == twin_losses and all(torch.equal(states["tp"][n], tstate[n])
+                                                        for n in tstate),
+                    f"tp_vgg16 sgd: at model 1 the wrapper's losses {losses['tp']} or "
+                    f"parameters differ from the plain twin's {twin_losses}")
+        rows = _update_rows(states["tp"], tstate, start)
+        bad = {n: r for n, r in rows.items()
+               if not (r["cos"] >= TP_SGD_COS and abs(r["scale"] - 1) <= TP_SGD_SCALE)}
+        require(not bad, f"tp_vgg16 sgd: updates unlike the plain twin's: {bad}")
+        worst = max(rows, key=lambda n: rows[n]["of_update"])
+        out.update(twin_losses=twin_losses,
+                   rel_loss_diff=[abs(a - b) / abs(b) for a, b in zip(losses["tp"],
+                                                                      twin_losses)],
+                   bitwise_equal_to_plain_fit=axes["model"] == 1,
+                   min_cos=min(r["cos"] for r in rows.values()),
+                   max_scale_off=max(abs(r["scale"] - 1) for r in rows.values()),
+                   worst_leaf=worst, worst=rows[worst],
+                   leaves={n: rows[n] for n in sorted(rows, key=lambda n: -rows[n]["of_update"])
+                           [:6]})
+        if "dp" in states:
+            dp = _update_rows(states["dp"], tstate, start)
+            out["dp_control"] = dict(
+                losses=losses["dp"], worst_leaf=max(dp, key=lambda n: dp[n]["of_update"]),
+                worst_of_update=max(r["of_update"] for r in dp.values()),
+                min_cos=min(r["cos"] for r in dp.values()),
+                max_scale_off=max(abs(r["scale"] - 1) for r in dp.values()),
+                leaves={n: dp[n] for n in out["leaves"]},
+                tp_vs_dp_of_update=max(
+                    (states["tp"][n] - states["dp"][n]).abs().max().item()
+                    / max((states["dp"][n] - start[n]).abs().max().item(), 1e-30)
+                    for n in tstate))
+        del twin, tstate, start
+    del states, runs, net, pw
+    return out
+
+
+def _ring_flash_rank(parallel, attention, dev, world, shape=RING_SHAPE):
+    """One rank of phase 50: ``ring_attention_flash`` over {seq: w} on this
+    rank's T chunk of q, k, v [4, 12, 2048, 64], f32 and bf16, causal and
+    not: against the plain ring on the same ranks, and on rank 0 the whole
+    outputs and gradients against the full attention's."""
+    import torch.distributed as dist
+    from deeplearning4j_tpu_torch.ops import attention_kernels as ak
+    from deeplearning4j_tpu_torch.parallel.collectives import _gather
+    B, H, T, D = shape
+    mesh = parallel.make_mesh(_mp_axes(world, "ring"), device=dev)
+    rank, r = dist.get_rank(), mesh.coordinate("seq")
+    per = T // world
+    cut = slice(r * per, (r + 1) * per)
+    rng = np.random.RandomState(0)
+    q, k, v, g = (torch.as_tensor(rng.randn(B, H, T, D).astype(np.float32), device=dev)
+                  for _ in range(4))
+
+    def whole(t):
+        return _gather(t.contiguous(), mesh, "seq", 2) if world > 1 else t
+
+    cases = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for causal in (False, True):
+            tag = f"{str(dt)[6:]} causal={causal}"
+            ql, kl, vl = (t[:, :, cut].to(dt).contiguous().requires_grad_(True)
+                          for t in (q, k, v))
+            gl = g[:, :, cut].to(dt).contiguous()
+            torch.cuda.synchronize()
+            before = attention.LAUNCHES.value
+            out = parallel.ring_attention_flash(ql, kl, vl, "seq", causal=causal, mesh=mesh)
+            torch.cuda.synchronize()
+            launches = attention.LAUNCHES.value - before
+            require(launches == world, f"ring_flash {tag}: {launches} flash_attn_fwd launches "
+                                       f"a call, want {world}")
+            grads = torch.autograd.grad(out, (ql, kl, vl), gl)
+            with torch.no_grad():
+                plain = parallel.ring_attention(ql, kl, vl, "seq", causal=causal, mesh=mesh)
+            err = (out.float() - plain.float()).abs().max().item()
+            pmax = plain.float().abs().max().item()
+            require(err <= tolerance(dt, pmax),
+                    f"ring_flash {tag}: against the plain ring max|diff| {err}")
+            case = {"launches": launches, "rel_err_vs_plain_ring": err / pmax}
+            outs = [whole(out.detach())] + [whole(d) for d in grads]
+            if rank == 0:
+                qf, kf, vf = (t.to(dt).float().requires_grad_(True) for t in (q, k, v))
+                ref = ak.mha_reference(qf, kf, vf, causal=causal)
+                ref_g = torch.autograd.grad(ref, (qf, kf, vf), g.to(dt).float())
+                for name, a, b in zip(("out", "dq", "dk", "dv"), outs, (ref.detach(),) + ref_g):
+                    e = (a.float() - b).abs().max().item()
+                    rmax = b.abs().max().item()
+                    require(torch.isfinite(a).all().item() and e <= tolerance(dt, rmax),
+                            f"ring_flash {tag} {name}: against the full attention max|diff| "
+                            f"{e} > {tolerance(dt, rmax)}")
+                    case[f"rel_err_{name}_vs_full"] = e / rmax
+                del qf, kf, vf, ref, ref_g
+            fl = lambda: parallel.ring_attention_flash(   # noqa: E731
+                ql.detach(), kl.detach(), vl.detach(), "seq", causal=causal, mesh=mesh)
+            pl = lambda: parallel.ring_attention(         # noqa: E731
+                ql.detach(), kl.detach(), vl.detach(), "seq", causal=causal, mesh=mesh)
+            with torch.no_grad():
+                case["ms"] = time_ms(fl, dev, n=5)
+                case["plain_ring_ms"] = time_ms(pl, dev, n=5)
+            cases[tag] = case
+            del out, grads, plain, outs
+    torch.cuda.empty_cache()
+    return dict(world=world, shape=list(shape), t_per_rank=per, cases=cases)
+
+
+def _composed_rank(parallel, dev, world, cfg=COMPOSED):
+    """One rank of phase 51: ComposedParallel at BERT-base widths, 3 SGD
+    steps held on rank 0 to ``composed_oracle``; the dense world-1
+    gradient-sharing facade and ``composed_train_steps(k)`` against the
+    plain steps."""
+    import torch.distributed as dist
+    from deeplearning4j_tpu_torch.parallel import composed as C
+    axes = _mp_axes(world, "composed")
+    rank = dist.get_rank()
+    S, D, H, F, T = axes["pipe"], cfg["d_model"], cfg["heads"], cfg["d_ff"], cfg["t"]
+    B = 4 * S * axes["data"]
+    mesh = parallel.make_mesh(axes, device=dev)
+    full = {k: v * cfg["init_scale"] if v.ndim == 3 else v for k, v in
+            C.init_stage_params(np.random.RandomState(7), S, D, H, F, device=dev).items()}
+    rng = np.random.RandomState(0)
+    x = torch.as_tensor((rng.randn(B, T, D) * 0.5).astype(np.float32), device=dev)
+    y = torch.as_tensor((rng.randn(B, T, D) * 0.5).astype(np.float32), device=dev)
+
+    def oracle_steps(lr, steps):
+        p, out = {k: v.clone() for k, v in full.items()}, []
+        for _ in range(steps):
+            pp = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+            loss = torch.mean((C.composed_oracle(pp, x, H) - y) ** 2)
+            grads = torch.autograd.grad(loss, list(pp.values()))
+            p = {k: pp[k].detach() - lr * g for k, g in zip(pp, grads)}
+            out.append(loss.item())
+        return out, p
+
+    # the lr: the first of the list at which the oracle's loss falls each step
+    pick = torch.zeros(1, device=dev)
+    if rank == 0:
+        for i, lr in enumerate(cfg["lrs"]):
+            ls, _ = oracle_steps(lr, cfg["steps"])
+            if all(b < a for a, b in zip(ls, ls[1:])):
+                pick.fill_(i)
+                break
+        else:
+            pick.fill_(-1)
+    dist.broadcast(pick, 0)
+    require(pick.item() >= 0, f"composed: no lr of {cfg['lrs']} makes the oracle's loss fall")
+    lr = cfg["lrs"][int(pick.item())]
+    local = C.shard_stage_params(full, mesh)
+    step = C.composed_train_step(mesh, H, lr=lr)
+    step(local, x, y)[1].item()          # warm-up: first use of each group's communicators
+    torch.cuda.reset_peak_memory_stats()
+    p, losses, step_ms = local, [], []
+    for _ in range(cfg["steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, loss = step(p, x, y)
+        losses.append(loss.item())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    gathered = C.gather_stage_params(p, mesh)
+    report = dict(world=world, mesh=axes, stages=S, microbatches=S, global_batch=B,
+                  d_model=D, heads=H, d_ff=F, t=T, lr=lr,
+                  init_std=round(0.2 * cfg["init_scale"], 6), losses=losses,
+                  step_ms_all=step_ms, step_ms=statistics.median(step_ms),
+                  max_memory_allocated_gb=peak / 1e9,
+                  local_param_shapes={k: list(v.shape) for k, v in local.items()})
+    if rank == 0:
+        o_losses, o_params = oracle_steps(lr, cfg["steps"])
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, o_losses)]
+        prel = max(((gathered[k] - o_params[k]).abs().max()
+                    / o_params[k].abs().max()).item() for k in o_params)
+        require(all(r <= F32_RTOL for r in rel) and prel <= COMPOSED_PARAM_RTOL,
+                f"composed: losses {losses} against the oracle's {o_losses} (rel {rel}), "
+                f"params rel {prel}")
+        require(all(b < a for a, b in zip(losses, losses[1:])), f"composed: losses {losses}")
+        report.update(oracle_losses=o_losses, rel_loss_diff=rel, max_rel_param_diff=prel)
+    del gathered
+    plain = parallel.ComposedParallel(mesh, n_heads=H, lr=lr)
+    shared = parallel.ComposedParallel(mesh, n_heads=H, lr=lr, gradient_sharing=
+                                       parallel.HierarchicalGradientSharing(compressed=False,
+                                                                            world=1))
+    pa, la = plain.fit_batch(local, x, y)
+    pb, lb = shared.fit_batch(local, x, y)
+    require(torch.equal(la, lb) and all(torch.equal(pa[k], pb[k]) for k in pa),
+            "composed: the dense world-1 sharing facade differs from the plain step")
+    shared.close()
+    k = cfg["k"]
+    xs, ys = torch.broadcast_to(x, (k,) + tuple(x.shape)), torch.broadcast_to(y, (k,) +
+                                                                             tuple(y.shape))
+    p_f, fused = C.composed_train_steps(mesh, H, lr=lr)(local, xs, ys)
+    p_s = local
+    for _ in range(k):
+        p_s, _ = step(p_s, x, y)
+    require(fused.tolist() == losses[:k] and all(torch.equal(p_f[n], p_s[n]) for n in p_s),
+            f"composed: composed_train_steps(k={k}) losses {fused.tolist()} differ from "
+            f"{k} single steps' {losses[:k]}")
+    report.update(sharing_facade_bitwise=True, fused_steps_bitwise=True)
+    return report
+
+
+def _mp_phase(kind, world, fn, multihost, timeout):
+    """Phases 49-51 at `world`: in this process on its one-rank group at
+    world 1, else one rank a card through ``chip_smoke.py --mp-rank``;
+    returns rank 0's report and every rank's."""
+    if world == 1:
+        rep = fn()
+        return rep, [rep]
+    outs = multihost.LocalLauncher(world, platform="cuda").run(
+        os.path.abspath(__file__), ["--mp-rank", kind], timeout=timeout)
+    ranks = [_rank_report(o, "MP_RANK") for o in outs]
+    return ranks[0], ranks
+
+
+def phase_tp_vgg16(parallel, multihost, matmul, conv3x3, VGG16, Adam, MultiLayerNetwork, dev):
+    world = torch.cuda.device_count()
+    report, ranks = _mp_phase("tp_vgg16", world, lambda: _tp_vgg16_rank(
+        parallel, matmul, conv3x3, VGG16, Adam, MultiLayerNetwork, dev, world),
+        multihost, 600)
+    report["resident_param_bytes_per_rank"] = [r["resident_param_bytes"] for r in ranks]
+    report["fc6_W_bytes_per_rank"] = [r["fc6_W_bytes"] for r in ranks]
+    report["step_ms_timed_per_rank"] = [r["step_ms_timed"] for r in ranks]
+    emit("tp_vgg16", model="VGG16", input="224x224x3 f32", classes=1000, updater="Adam(1e-3)",
+         rules="ShardingRules() (Megatron default)", backend="nccl", **report)
+    return report
+
+
+def phase_ring_flash(parallel, multihost, attention, dev):
+    world = torch.cuda.device_count()
+    report, ranks = _mp_phase("ring_flash", world, lambda: _ring_flash_rank(
+        parallel, attention, dev, world), multihost, 400)
+    emit("ring_flash", backend="nccl", bounds="tolerance(dtype, max|ref|): f32 1e-4 "
+         "relative, bf16 2 ulp of the max", **report)
+    return report
+
+
+def phase_composed(parallel, multihost, dev):
+    world = torch.cuda.device_count()
+    report, ranks = _mp_phase("composed", world, lambda: _composed_rank(parallel, dev, world),
+                              multihost, 400)
+    report["step_ms_all_per_rank"] = [r["step_ms_all"] for r in ranks]
+    report["max_memory_allocated_gb_per_rank"] = [r["max_memory_allocated_gb"] for r in ranks]
+    emit("composed", dtype="float32", backend="nccl",
+         bounds=f"losses {F32_RTOL} relative, parameters {COMPOSED_PARAM_RTOL} of the max",
+         **report)
+    return report
+
+
+def mp_rank_main(argv):
+    """One rank of phases 49-51 at world > 1 (``--mp-rank tp_vgg16 |
+    ring_flash | composed``), started by ``multihost.LocalLauncher``:
+    prints its report as one ``MP_RANK`` line."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from deeplearning4j_tpu_torch import parallel
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops.kernels import attention, conv3x3, dispatch, matmul
+    from deeplearning4j_tpu_torch.parallel import multihost
+    from deeplearning4j_tpu_torch.train import Adam
+    from deeplearning4j_tpu_torch.zoo import VGG16
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dispatch.set_dispatch_mode("auto")
+    dev = multihost.initialize(timeout_s=300)
+    world = dist.get_world_size()
+    if argv[0] == "tp_vgg16":
+        out = _tp_vgg16_rank(parallel, matmul, conv3x3, VGG16, Adam, MultiLayerNetwork, dev,
+                             world)
+    elif argv[0] == "ring_flash":
+        out = _ring_flash_rank(parallel, attention, dev, world)
+    else:
+        out = _composed_rank(parallel, dev, world)
+    print("MP_RANK " + json.dumps(out), flush=True)
+    os._exit(0)
+
+
 def _dp_resnet50_entry(name, r):
     """A conv kernel's launches in phase 44: a replayed data-parallel block
     (its graph's nodes at world 1, else the profiler's count), and the
@@ -5716,6 +6281,10 @@ def main():
         dp_r50 = phase_dp_resnet50(parallel, multihost, conv3x3, matmul, ResNet50, Nesterovs,
                                    dev)
         dp_z1 = phase_dp_zero1(parallel, multihost, nn, Adam, matmul, dev)
+        tp_vgg = phase_tp_vgg16(parallel, multihost, matmul, conv3x3, VGG16, Adam,
+                                MultiLayerNetwork, dev)
+        ring = phase_ring_flash(parallel, multihost, attention, dev)
+        phase_composed(parallel, multihost, dev)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -5759,7 +6328,13 @@ def main():
                               f"N={GS_COMMS['hidden']} f32 tanh; rank 0 over "
                               f"{GS_COMMS['steps']} steps a mode"},
         "gs_resnet50": {"launches_per_step": gs_r50["dense"]["launches_per_step"]["fused_dense"],
-                        "shape": "not on this path: ResNet-50's head is a plain product"}}]
+                        "shape": "not on this path: ResNet-50's head is a plain product"},
+        "tp_vgg16": {"launches": tp_vgg["launches_per_step"]["fused_dense"] * TP_VGG_STEPS,
+                     "launch_shapes_per_step": tp_vgg["fused_dense_shapes_per_step"],
+                     "world": tp_vgg["world"], "mesh": tp_vgg["mesh"],
+                     **tp_vgg["fused_dense_at_shard"],
+                     "shape": tp_vgg["fused_dense_at_shard"]["shape"] + "; launches on rank "
+                              f"0 over {TP_VGG_STEPS} tensor-parallel VGG16 steps"}}]
     for name, (replaces, source) in CONV_KERNELS.items():
         row = conv_rows[(name, "s0", torch.float32)]
         kernels.append({
@@ -5781,6 +6356,10 @@ def main():
                            for m, r in graphs_res.items()},
             **_fused_entries(name, fused_r50, fused_lenet),
             "dp_resnet50": _dp_resnet50_entry(name, dp_r50),
+            "tp_vgg16": {"launches": tp_vgg["launches_per_step"][name] * TP_VGG_STEPS,
+                         "world": tp_vgg["world"], "mesh": tp_vgg["mesh"],
+                         "shape": f"rank 0 over {TP_VGG_STEPS} tensor-parallel VGG16 steps "
+                                  "(the conv filters gathered at use)"},
             "gs_resnet50": {"launches_per_step_world1": {
                 m: gs_r50[m]["launches_per_step"][name] for m in ("dense", "compressed")},
                 "launches_per_step_gang_rank0": {
@@ -5800,7 +6379,15 @@ def main():
                 "simt_bound_ms": row["simt_bound_ms"]} if "route" in row else {}),
             "fused_bert": _fused_bert_entries(name, fused_bert),
             "sd_kernels": _sd_kernels_entry(name, sd_kern),
-            **({"seq_attention": _seq_attention_entry(name, seq_attn)}
+            **({"seq_attention": _seq_attention_entry(name, seq_attn),
+                "ring_flash": {"launches_per_call": {c: r["launches"]
+                                                     for c, r in ring["cases"].items()},
+                               "world": ring["world"], "t_per_rank": ring["t_per_rank"],
+                               "ms": {c: r["ms"] for c, r in ring["cases"].items()},
+                               "plain_ring_ms": {c: r["plain_ring_ms"]
+                                                 for c, r in ring["cases"].items()},
+                               "shape": f"q/k/v {ring['shape']} split on T over the seq "
+                                        "axis; rank 0's launches a ring call"}}
                if name == "flash_attn_fwd" else {}),
             "shape": shape + "; launches in one f32 output_mlm at batch 64, T 128"})
     for name, (replaces, source), row, n_launched, shape in (
@@ -5867,4 +6454,6 @@ if __name__ == "__main__":
         sys.exit(dp_rank_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--gs-rank"]:
         sys.exit(gs_rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--mp-rank"]:
+        sys.exit(mp_rank_main(sys.argv[2:]))
     sys.exit(main())

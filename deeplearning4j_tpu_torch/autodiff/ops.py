@@ -35,6 +35,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from deeplearning4j_tpu_torch.ops.activations import relu6 as _relu6
+
 OP_TABLE: Dict[str, Callable] = {}
 
 _SCALARS = (bool, int, float)
@@ -243,7 +245,8 @@ register_op("rsub", lambda a, b: OP_TABLE["sub"](b, a))
 register_op("rdiv", lambda a, b: _jax_div(b, a))
 register_op("pow", _jax_pow)
 register_op("neg", unary(torch.neg))
-register_op("abs", unary(torch.abs))
+register_op("abs", unary(lambda a: a if a.dtype == torch.bool
+                         else torch.where(a >= 0, a, -a)))  # jnp.abs: gradient 1 at 0
 register_op("exp", lambda a: torch.exp(_float(a)))
 register_op("log", lambda a: torch.log(_float(a)))
 register_op("log1p", lambda a: torch.log1p(_float(a)))
@@ -417,8 +420,9 @@ def _gelu(a, approximate=True):
 
 
 register_op("relu", unary(torch.relu))
-register_op("relu6", lambda a: torch.minimum(torch.relu(_t(a)),
-                                             as_tensor(6.0, _t(a).device, _t(a).dtype)))
+register_op("relu6", lambda a: (_relu6(_t(a)) if _t(a).is_floating_point() else
+                               torch.minimum(torch.relu(_t(a)),
+                                             as_tensor(6, _t(a).device, _t(a).dtype))))
 register_op("leaky_relu", lambda a, alpha=0.01: torch.where(_t(a) >= 0, _t(a), alpha * _t(a)))
 register_op("elu", lambda a: F.elu(_float(a)))
 register_op("selu", lambda a: F.selu(_float(a)))
@@ -582,12 +586,15 @@ def _ssce(labels, logits):
 
 @register_op("sigmoid_cross_entropy")
 def _sigce(labels, logits):
-    return torch.mean(torch.clamp_min(logits, 0) - logits * labels
-                      + torch.log1p(torch.exp(-torch.abs(logits))))
+    """max(x, 0) and |x| with jnp's gradients at 0 (a tie split in half,
+    and 1)."""
+    return torch.mean(torch.maximum(logits, torch.zeros_like(logits)) - logits * labels
+                      + torch.log1p(torch.exp(-torch.where(logits >= 0, logits, -logits))))
 
 
 register_op("mean_squared_error", lambda labels, preds: torch.mean((labels - preds) ** 2))
-register_op("absolute_difference", lambda labels, preds: torch.mean(torch.abs(labels - preds)))
+register_op("absolute_difference", lambda labels, preds: torch.mean(
+    torch.where(labels - preds >= 0, labels - preds, preds - labels)))
 register_op("l2_loss", lambda a: 0.5 * torch.sum(a * a))
 
 
@@ -661,8 +668,18 @@ register_op("rint", unary(torch.round))
 @register_op("top_k")
 def _top_k(a, k=1):
     """lax.top_k: the k largest along the last axis, descending, ties to
-    the lower index; int32 indices."""
+    the lower index, +0.0 above -0.0; int32 indices.  A first stable sort
+    puts every -0.0 after the rest, so the stable descending sort, which
+    ranks the two zeros equal, keeps +0.0 first."""
+    a = _t(a)
+    first = None
+    if a.is_floating_point():
+        neg_zero = (a == 0) & torch.signbit(a)
+        first = torch.sort(neg_zero.to(torch.int8), dim=-1, stable=True)[1]
+        a = torch.gather(a, -1, first)
     vals, idx = torch.sort(a, dim=-1, descending=True, stable=True)
+    if first is not None:
+        idx = torch.gather(first, -1, idx)
     return vals[..., :k], idx[..., :k].to(torch.int32)
 
 

@@ -87,20 +87,24 @@ def from_jax_layout(layer, key: str, arr) -> torch.Tensor:
 def params_to_jax(net) -> Tree:
     """The port network's parameters as a JAX-layout tree of numpy arrays
     (nested where the JAX tree is, as Bidirectional's ``fwd``/``bwd``)."""
-    params = net.params_
-    return {name: _numpy_tree(params[name], _layer_or_layout(net, name))
-            for name in params}
+    from deeplearning4j_tpu_torch.parallel.sharding import whole
+    with whole(net):
+        params = net.params_
+        return {name: _numpy_tree(params[name], _layer_or_layout(net, name))
+                for name in params}
 
 
 @torch.no_grad()
 def params_from_jax(net, tree: Tree) -> None:
     """Load a JAX-layout tree of numpy arrays into the port network, in
     place; every layer's keys and shapes must match."""
-    params = net.params_
-    if set(tree) != set(params):
-        raise ValueError(f"layer names differ: {sorted(tree)} vs {sorted(params)}")
-    for name, sub in params.items():
-        _load_tree(sub, tree[name], f"{name}.", _layer_or_layout(net, name))
+    from deeplearning4j_tpu_torch.parallel.sharding import whole
+    with whole(net):
+        params = net.params_
+        if set(tree) != set(params):
+            raise ValueError(f"layer names differ: {sorted(tree)} vs {sorted(params)}")
+        for name, sub in params.items():
+            _load_tree(sub, tree[name], f"{name}.", _layer_or_layout(net, name))
 
 
 def _sorted_leaves(tree, path=()):
@@ -218,19 +222,23 @@ def opt_state_to_jax(net) -> Dict:
     """A MultiLayerNetwork's or ComputationGraph's updater state as the
     JAX package's ``opt_state_`` of numpy arrays, each moment in the JAX
     layout of its parameter (bf16 widens to f32)."""
-    return {name: _numpy_tree(sub, _layer_or_layout(net, name))
-            for name, sub in net.opt_state_.items()}
+    from deeplearning4j_tpu_torch.parallel.sharding import whole
+    with whole(net):
+        return {name: _numpy_tree(sub, _layer_or_layout(net, name))
+                for name, sub in net.opt_state_.items()}
 
 
 def opt_state_from_jax(net, tree: Dict) -> None:
     """Load the JAX package's ``opt_state_`` (numpy arrays, JAX layouts)
     into a MultiLayerNetwork's or ComputationGraph's updater state, in
     place; names, keys and shapes must match."""
-    state = net.opt_state_
-    if set(tree) != set(state):
-        raise ValueError(f"layer names differ: {sorted(tree)} vs {sorted(state)}")
-    for name, sub in state.items():
-        _load_tree(sub, tree[name], f"{name}.", _layer_or_layout(net, name))
+    from deeplearning4j_tpu_torch.parallel.sharding import whole
+    with whole(net):
+        state = net.opt_state_
+        if set(tree) != set(state):
+            raise ValueError(f"layer names differ: {sorted(tree)} vs {sorted(state)}")
+        for name, sub in state.items():
+            _load_tree(sub, tree[name], f"{name}.", _layer_or_layout(net, name))
 
 
 def layout_leaves(net, tree) -> List[Tuple[torch.Tensor, Optional[Tuple[int, ...]]]]:
@@ -350,6 +358,7 @@ def decode_params_from_jax(model, tree: Dict) -> None:
 # ---------------------------------------------------------------------------
 # SameDiff graphs
 # ---------------------------------------------------------------------------
+
 
 def _tree_leaves(tree) -> list:
     """Leaves of a nested dict/tuple in ``jax.tree_util.tree_leaves`` order."""

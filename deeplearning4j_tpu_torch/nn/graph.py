@@ -51,6 +51,7 @@ from deeplearning4j_tpu_torch import convert
 from deeplearning4j_tpu_torch.monitor.instrument import TrainingInstruments
 from deeplearning4j_tpu_torch.monitor.spans import span
 from deeplearning4j_tpu_torch.nn.core import InputType, Layer
+from deeplearning4j_tpu_torch.parallel.sharding import whole
 from deeplearning4j_tpu_torch.nn.multilayer import (apply_updates, block_tensor,
                                                     copy_into, grads_of, holder_of,
                                                     reg_penalty, shared_step,
@@ -495,6 +496,7 @@ class ComputationGraph(nn.Module):
         self._scan_step: Optional[GraphStep] = None
         self._dp = None                  # parallel/wrapper.py
         self._step_transform = None      # parallel/zero.py
+        self._tp = None                  # parallel/sharding.py
         self._grad_sharing = None        # parallel/hierarchical.py
 
     def _instruments(self) -> TrainingInstruments:
@@ -592,8 +594,12 @@ class ComputationGraph(nn.Module):
                 head_inputs[name] = xs[0]
                 if name not in self._consumed:
                     continue
-            acts[name], new_state[name] = vertex.apply(
-                params[name], state[name], xs, train=train, rng=vrng)
+            if self._tp is not None and layer is not None:
+                acts[name], new_state[name] = self._tp.apply(
+                    name, layer, params[name], state[name], xs[0], train=train, rng=vrng)
+            else:
+                acts[name], new_state[name] = vertex.apply(
+                    params[name], state[name], xs, train=train, rng=vrng)
         if want_head_inputs:
             return acts, new_state, head_inputs
         return acts, new_state
@@ -611,16 +617,21 @@ class ComputationGraph(nn.Module):
                 raise ValueError(f"Output vertex '{name}' is not a loss head")
             lmask = labels_masks[j] if labels_masks else None
             lrng = rng if layer.STOCHASTIC else None
-            loss = loss + layer.compute_loss(
-                params[name], state[name], head_inputs[name], labels[j],
-                train=train, rng=lrng, mask=lmask)
+            kw = dict(train=train, rng=lrng, mask=lmask)
+            if self._tp is not None:
+                loss = loss + self._tp.compute_loss(name, layer, params[name], state[name],
+                                                    head_inputs[name], labels[j], **kw)
+            else:
+                loss = loss + layer.compute_loss(params[name], state[name],
+                                                 head_inputs[name], labels[j], **kw)
         return loss + penalty_share(self._reg_penalty(params)), new_state
 
     def _named_layers(self):
         return [(name, self._layer_of(name)) for name in self._topo]
 
     def _reg_penalty(self, params: Params):
-        return reg_penalty(self.conf, self._named_layers(), params)
+        return reg_penalty(self.conf, self._named_layers(), params,
+                           None if self._tp is None else self._tp.penalty_reduce(params))
 
     # ---- one training step ----
     def _carry(self) -> List[torch.Tensor]:
@@ -661,7 +672,7 @@ class ComputationGraph(nn.Module):
         grads, loss, new_state = self._grads(batch)
         apply_updates(self.conf, self._named_layers(), params, grads,
                       self.opt_state_, self._updater_for, self._iter_dev, epoch,
-                      self._step_transform)
+                      self._step_transform, tp=self._tp)
         self._set_state(new_state)
         with torch.no_grad():
             self._iter_dev.add_(1)
@@ -922,8 +933,9 @@ class ComputationGraph(nn.Module):
             features = features[0]
         else:
             features = list(features)
-        acts, _ = self._forward(self.params_, self.state_,
-                                self._as_input_dict(features), train=train, rng=None)
+        with whole(self):
+            acts, _ = self._forward(self.params_, self.state_,
+                                    self._as_input_dict(features), train=train, rng=None)
         return acts
 
     def evaluate(self, iterator, evaluation=None):
@@ -948,14 +960,22 @@ class ComputationGraph(nn.Module):
         """Analytic gradients {vertex: {key: tensor}} in the port's layouts,
         in eval mode (running BN statistics, no dropout), as the JAX
         package's `gradient_for`."""
-        params = self.params_
-        loss, _ = self._loss(params, self.state_, self._as_input_dict(features),
-                             self._as_list(labels), None, train=False)
-        return grads_of(loss, params)
+        with whole(self):
+            params = self.params_
+            loss, _ = self._loss(params, self.state_, self._as_input_dict(features),
+                                 self._as_list(labels), None, train=False)
+            return grads_of(loss, params)
 
     # ---- flat-param view (JAX tree_leaves order) ----
     def num_params(self) -> int:
-        return sum(p.numel() for p in self.parameters())
+        with whole(self):
+            return sum(p.numel() for p in self.parameters())
+
+    def state_dict(self, *args, **kwargs):
+        """``nn.Module.state_dict`` with whole leaves under tensor
+        parallelism (collective there: every rank calls it)."""
+        with whole(self):
+            return super().state_dict(*args, **kwargs)
 
     def params(self) -> np.ndarray:
         return convert.flat_params(self)
@@ -966,7 +986,8 @@ class ComputationGraph(nn.Module):
     # ---- persistence (the ModelSerializer zip) ----
     def save(self, path: str, save_updater: bool = True) -> None:
         from deeplearning4j_tpu_torch.utils.serialization import write_model
-        write_model(self, path, save_updater=save_updater)
+        with whole(self):
+            write_model(self, path, save_updater=save_updater)
 
     @staticmethod
     def load(path: str, load_updater: bool = True,

@@ -89,21 +89,34 @@ class DenseLayer(Layer):
                     else InputType.feed_forward(self.n_out))
         return params, {}, out_type
 
-    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+    def prepare(self, x, train=False, rng=None):
+        """Input dropout, then a flatten of inputs other than [batch, time,
+        features]."""
         x = self.maybe_input_dropout(x, train, rng)
         if x.ndim > 2 and x.ndim != 3:
             x = x.reshape(x.shape[0], -1)
-        w = params["W"]
-        b = params.get("b") if self.has_bias else None
+        return x
+
+    def epilogue(self) -> Optional[str]:
+        """The activation where ``fused_dense`` applies it in its epilogue
+        (an elementwise one), else None."""
         act = self.activation if self.activation is not None else "identity"
-        if isinstance(act, str) and act in EPILOGUE_ACTIVATIONS:
+        return act if isinstance(act, str) and act in EPILOGUE_ACTIVATIONS else None
+
+    def pre_activation(self, params, x):
+        """x @ W + b on a prepared input, the plain product."""
+        y = x @ params["W"]
+        return y + params["b"] if self.has_bias else y
+
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        x = self.prepare(x, train, rng)
+        act = self.epilogue()
+        if act is not None:
             # every such layer goes to the wrapper: its dispatch runs CPU
             # tensors plainly and raises for CUDA inputs the kernel refuses
-            return fused_dense(x.contiguous(), w, bias=b, activation=act), state
-        y = x @ w
-        if b is not None:
-            y = y + b
-        return self.act_fn()(y), state
+            b = params["b"] if self.has_bias else None
+            return fused_dense(x.contiguous(), params["W"], bias=b, activation=act), state
+        return self.act_fn()(self.pre_activation(params, x)), state
 
 
 @dataclasses.dataclass(kw_only=True)
@@ -122,11 +135,8 @@ class OutputLayer(DenseLayer):
         self.loss_fn()
         return super().initialize(gen, input_type, dtype, device)
 
-    def compute_loss(self, params, state, x, labels, *, train=True, rng=None,
-                     mask=None):
-        x = self.maybe_input_dropout(x, train, rng)
-        if x.ndim > 2 and x.ndim != 3:
-            x = x.reshape(x.shape[0], -1)
+    def logits(self, params, x):
+        """The loss's input from a prepared input: x @ W + b."""
         # the head gets the f32 master W and, under bf16 compute, a bf16
         # input: the product is taken in the promoted type, as jnp does
         acc = torch.promote_types(x.dtype, params["W"].dtype)
@@ -135,8 +145,12 @@ class OutputLayer(DenseLayer):
             pre = pre + params["b"]
         # loss math (softmax/log) in >= f32: upcasts bf16 logits, leaves
         # f64 untouched
-        pre = pre.to(torch.promote_types(pre.dtype, torch.float32))
-        return apply_loss(self.loss, self.act_fn(), pre, labels, mask)
+        return pre.to(torch.promote_types(pre.dtype, torch.float32))
+
+    def compute_loss(self, params, state, x, labels, *, train=True, rng=None,
+                     mask=None):
+        return apply_loss(self.loss, self.act_fn(),
+                          self.logits(params, self.prepare(x, train, rng)), labels, mask)
 
 
 @dataclasses.dataclass(kw_only=True)

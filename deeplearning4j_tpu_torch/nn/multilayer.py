@@ -81,6 +81,7 @@ from deeplearning4j_tpu_torch import convert
 from deeplearning4j_tpu_torch.monitor.instrument import TrainingInstruments
 from deeplearning4j_tpu_torch.monitor.spans import span
 from deeplearning4j_tpu_torch.nn.core import InputType, Layer
+from deeplearning4j_tpu_torch.parallel.sharding import whole
 from deeplearning4j_tpu_torch.train.updaters import (
     IUpdater, Sgd, StepScalars, apply_gradient_normalization, scalar_dtype,
     tree_leaves, tree_map)
@@ -122,10 +123,12 @@ def _add_scaled_where(upd, params, mask, scale):
     return upd
 
 
-def reg_penalty(conf, layers, params):
+def reg_penalty(conf, layers, params, reduce=None):
     """The l1/l2 penalty the score includes: l1 * sum|w| + 0.5 * l2 * sum
     w^2 over each layer's regularizable parameters (a layer's own l1/l2
-    over the configuration's).  `layers` yields (name, layer or None)."""
+    over the configuration's).  `layers` yields (name, layer or None).
+    `reduce(w, term)` (tensor parallelism) sums a leaf's terms over the
+    ranks that hold its blocks."""
     penalty = 0.0
     for name, layer in layers:
         if layer is None:
@@ -136,9 +139,11 @@ def reg_penalty(conf, layers, params):
             continue
         for w in _masked_leaves(params[name], layer.regularizable_mask(params[name])):
             if l1:
-                penalty = penalty + l1 * torch.sum(torch.abs(w))
+                term = l1 * torch.sum(torch.abs(w))
+                penalty = penalty + (term if reduce is None else reduce(w, term))
             if l2:
-                penalty = penalty + 0.5 * l2 * torch.sum(w * w)
+                term = 0.5 * l2 * torch.sum(w * w)
+                penalty = penalty + (term if reduce is None else reduce(w, term))
     return penalty
 
 
@@ -208,7 +213,8 @@ def copy_into(dst, src) -> None:
 
 @torch.no_grad()
 def apply_updates(conf, layers, params, grads, opt_state, updater_for,
-                  iteration, epoch, zero=None, prescattered: bool = False) -> None:
+                  iteration, epoch, zero=None, prescattered: bool = False,
+                  tp=None) -> None:
     """One optimizer step over every layer, in place: the JAX step's
     per-layer loop.  `layers` yields (name, layer or None: a graph vertex
     without one); a frozen layer, or one without parameters, is left as
@@ -224,7 +230,9 @@ def apply_updates(conf, layers, params, grads, opt_state, updater_for,
     gradient normalization it scatters the gradient, the updater and the
     weight decay run on this rank's shard, and the new shards are gathered
     into the parameters; with `prescattered` (a split step's apply half)
-    the leaves ZeRO-1 reduce-scatters arrive as their shards already."""
+    the leaves ZeRO-1 reduce-scatters arrive as their shards already.
+    `tp`, the tensor-parallel transform (``parallel/sharding.py``),
+    normalizes a layer with split leaves over its whole gradient."""
     scalars = StepScalars(iteration, epoch, scalar_dtype(params))
     for name, layer in layers:
         if not params[name] or (layer is not None and layer.frozen):
@@ -235,7 +243,8 @@ def apply_updates(conf, layers, params, grads, opt_state, updater_for,
         if gn:
             thr = (layer.gradient_normalization_threshold if own
                    else conf.gradient_normalization_threshold)
-            g = apply_gradient_normalization(g, gn, thr)
+            g = (apply_gradient_normalization(g, gn, thr) if tp is None
+                 else tp.normalized(name, g, gn, thr))
         view = params[name]
         if zero is not None:
             g = zero.scatter(name, g, reduced=prescattered)
@@ -315,7 +324,8 @@ def shared_step(net, batch) -> torch.Tensor:
     combined = exchange_gradients(net, grads)
     _, epoch = device_counters(net)
     apply_updates(net.conf, net._named_layers(), net.params_, combined, net.opt_state_,
-                  net._updater_for, net._iter_dev, epoch, zt, prescattered=True)
+                  net._updater_for, net._iter_dev, epoch, zt, prescattered=True,
+                  tp=net._tp)
     with torch.no_grad():
         net._iter_dev.add_(1)
     return loss
@@ -508,6 +518,7 @@ class MultiLayerNetwork(nn.Module):
         self._dp: Optional[DataParallelStep] = None      # parallel/wrapper.py
         self._step_transform = None                      # parallel/zero.py
         self._grad_sharing = None                        # parallel/hierarchical.py
+        self._tp = None                                  # parallel/sharding.py
 
     def _instruments(self) -> TrainingInstruments:
         if self._instr is None:
@@ -594,10 +605,10 @@ class MultiLayerNetwork(nn.Module):
             lrng = rng if (rng is not None and layer.STOCHASTIC) else None
             if self.conf.remat and train:
                 x, new_state[name] = self._checkpointed(
-                    layer, params[name], state[name], x, lrng, mask)
+                    name, layer, params[name], state[name], x, lrng, mask)
             else:
-                x, new_state[name] = layer.apply(params[name], state[name], x,
-                                                 train=train, rng=lrng, mask=mask)
+                x, new_state[name] = self._apply_layer(name, layer, params[name], state[name],
+                                                       x, train=train, rng=lrng, mask=mask)
             if mask is not None and self._layer_types:
                 t_in, t_out = self._layer_types[i], self._layer_types[i + 1]
                 if (t_out.kind != "recurrent"
@@ -606,7 +617,14 @@ class MultiLayerNetwork(nn.Module):
                     mask = None
         return x, new_state
 
-    def _checkpointed(self, layer, p, s, x, rng, mask):
+    def _apply_layer(self, name, layer, p, s, x, **kw):
+        """Layer `name`'s forward, through the tensor-parallel transform
+        where the network has one."""
+        if self._tp is not None:
+            return self._tp.apply(name, layer, p, s, x, **kw)
+        return layer.apply(p, s, x, **kw)
+
+    def _checkpointed(self, name, layer, p, s, x, rng, mask):
         """One layer under `torch.utils.checkpoint`: its activations are
         recomputed in the backward.  Dropout draws from a copy of `rng`
         made before the layer, so the recomputation draws the same mask;
@@ -621,7 +639,7 @@ class MultiLayerNetwork(nn.Module):
                 g = torch.Generator(device=self.device)
                 g.set_state(start)
             used.append(g)
-            return layer.apply(p_, s_, x_, train=True, rng=g, mask=m_)
+            return self._apply_layer(name, layer, p_, s_, x_, train=True, rng=g, mask=m_)
 
         out = checkpoint(run, p, s, x, mask, use_reentrant=False)
         if rng is not None:
@@ -640,13 +658,16 @@ class MultiLayerNetwork(nn.Module):
                                      mask=features_mask, upto=out_idx)
         name = self.conf.layer_name(out_idx)
         hp, h = self._cast_compute({name: params[name]}, h)   # bf16 head too
-        loss = head.compute_loss(hp[name], state[name], h, y, train=train,
-                                 rng=rng if head.STOCHASTIC else None,
-                                 mask=labels_mask)
+        kw = dict(train=train, rng=rng if head.STOCHASTIC else None, mask=labels_mask)
+        if self._tp is not None:
+            loss = self._tp.compute_loss(name, head, hp[name], state[name], h, y, **kw)
+        else:
+            loss = head.compute_loss(hp[name], state[name], h, y, **kw)
         return loss + penalty_share(self._reg_penalty(params)), new_state
 
     def _reg_penalty(self, params: Params):
-        return reg_penalty(self.conf, self._named_layers(), params)
+        return reg_penalty(self.conf, self._named_layers(), params,
+                           None if self._tp is None else self._tp.penalty_reduce(params))
 
     def _tensor(self, a) -> Optional[torch.Tensor]:
         return None if a is None else torch.as_tensor(a, device=self.device)
@@ -682,7 +703,7 @@ class MultiLayerNetwork(nn.Module):
         grads, loss, new_state = self._grads(batch)
         apply_updates(self.conf, self._named_layers(), params, grads,
                       self.opt_state_, self._updater_for, self._iter_dev, epoch,
-                      self._step_transform)
+                      self._step_transform, tp=self._tp)
         with torch.no_grad():
             copy_into(self.state_, new_state)
             self._iter_dev.add_(1)
@@ -899,6 +920,10 @@ class MultiLayerNetwork(nn.Module):
     def feed_forward(self, x, train: bool = False) -> List[torch.Tensor]:
         """Every layer's activation, the input first, on the master
         parameters (no compute-dtype cast) and without dropout."""
+        with whole(self):
+            return self._feed_forward(x, train)
+
+    def _feed_forward(self, x, train: bool) -> List[torch.Tensor]:
         acts = [self._tensor(x)]
         h = acts[0]
         if h.is_floating_point():
@@ -912,6 +937,10 @@ class MultiLayerNetwork(nn.Module):
     def gradient_for(self, x, y, features_mask=None, labels_mask=None) -> Params:
         """Analytic gradients {layer: {key: tensor}} of the score, in the
         port's layouts, in eval mode (consistent with `score_for`)."""
+        with whole(self):
+            return self._gradient_for(x, y, features_mask, labels_mask)
+
+    def _gradient_for(self, x, y, features_mask, labels_mask) -> Params:
         params = self.params_
         x, y = self._normalized(self._tensor(x), self._tensor(y))
         loss, _ = self._loss(params, self.state_, x, y, None,
@@ -935,7 +964,14 @@ class MultiLayerNetwork(nn.Module):
         return convert.jax_leaves(self.params_)
 
     def num_params(self) -> int:
-        return sum(p.numel() for p in self.parameters())
+        with whole(self):
+            return sum(p.numel() for p in self.parameters())
+
+    def state_dict(self, *args, **kwargs):
+        """``nn.Module.state_dict`` with whole leaves under tensor
+        parallelism (collective there: every rank calls it)."""
+        with whole(self):
+            return super().state_dict(*args, **kwargs)
 
     def params(self) -> np.ndarray:
         """Single flat parameter vector in the JAX package's order and
@@ -948,7 +984,8 @@ class MultiLayerNetwork(nn.Module):
     # ---- persistence (the ModelSerializer zip) ----
     def save(self, path: str, save_updater: bool = True) -> None:
         from deeplearning4j_tpu_torch.utils.serialization import write_model
-        write_model(self, path, save_updater=save_updater)
+        with whole(self):
+            write_model(self, path, save_updater=save_updater)
 
     @staticmethod
     def load(path: str, load_updater: bool = True,

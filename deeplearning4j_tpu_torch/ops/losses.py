@@ -85,6 +85,13 @@ def _relu(x):
     return torch.maximum(x, torch.zeros_like(x))
 
 
+def _clip(x, lo, hi=None):
+    """``jnp.clip(x, lo, hi)`` with its gradient at a bound: half of it
+    (``torch.clamp`` passes all of it)."""
+    y = torch.maximum(x, torch.full_like(x, lo))
+    return y if hi is None else torch.minimum(y, torch.full_like(x, hi))
+
+
 def _abs(x):
     """|x| with the JAX package's gradient at x == 0: all of it, as
     ``jnp.abs`` gives (``torch.abs`` gives none)."""
@@ -98,7 +105,7 @@ def mcxent(labels, logits, mask=None):
 
 
 def negativeloglikelihood(labels, probs, mask=None):
-    per = -torch.sum(labels * torch.log(torch.clamp(probs, _EPS, 1.0)), dim=-1)
+    per = -torch.sum(labels * torch.log(_clip(probs, _EPS, 1.0)), dim=-1)
     return _per_step(per, mask)
 
 
@@ -133,22 +140,21 @@ def _signs(labels):
 
 def hinge(labels, preds, mask=None):
     """labels in {-1, +1} or {0, 1} (converted)."""
-    return _masked_reduce(torch.clamp(1.0 - _signs(labels) * preds, min=0.0), mask)
+    return _masked_reduce(_relu(1.0 - _signs(labels) * preds), mask)
 
 
 def squared_hinge(labels, preds, mask=None):
-    return _masked_reduce(torch.clamp(1.0 - _signs(labels) * preds, min=0.0) ** 2,
-                          mask)
+    return _masked_reduce(_relu(1.0 - _signs(labels) * preds) ** 2, mask)
 
 
 def kl_divergence(labels, probs, mask=None):
-    elem = labels * (torch.log(torch.clamp(labels, _EPS, 1.0))
-                     - torch.log(torch.clamp(probs, _EPS, 1.0)))
+    elem = labels * (torch.log(_clip(labels, _EPS, 1.0))
+                     - torch.log(_clip(probs, _EPS, 1.0)))
     return _masked_reduce(elem, mask)
 
 
 def poisson(labels, preds, mask=None):
-    return _masked_reduce(preds - labels * torch.log(torch.clamp(preds, min=_EPS)),
+    return _masked_reduce(preds - labels * torch.log(_clip(preds, _EPS)),
                           mask)
 
 

@@ -9,9 +9,12 @@ with the ZeRO-1 sharded weight update (`zero`), `ParallelInference` serves
 it, and `checkpoint` saves and restores it sharded in the JAX package's
 format.  `hierarchical` (with `compression`, `transport` and the host
 codec in `native_ops`) combines a model's gradient across a gang of
-processes over TCP, dense or threshold-compressed.  Not ported yet:
-tensor parallelism (`sharding`, `composed`), pipeline parallelism, ring
-attention and the elastic runner and mesh.
+processes over TCP, dense or threshold-compressed.  The mesh's other axes:
+`sharding` (tensor parallelism over ``model``, through the wrapper's
+``sharding_rules``), `ring_attention` (sequence parallelism over
+``seq``), `pipeline` (GPipe stages over ``pipe``) and `composed` (dp x tp
+x pp in one step), over the collectives of `collectives`.  Not ported
+yet: the elastic runner and mesh, and a mesh over part of the ranks.
 """
 from deeplearning4j_tpu_torch.parallel.checkpoint import (  # noqa: F401
     ChecksumError, load_model_sharded, load_sharded, read_metadata,
@@ -26,3 +29,11 @@ from deeplearning4j_tpu_torch.parallel.wrapper import (  # noqa: F401
 from deeplearning4j_tpu_torch.parallel.zero import (  # noqa: F401
     LeafPlan, Zero1Transform, build_plans, disable_zero1, enable_zero1,
     opt_state_bytes_per_replica)
+from deeplearning4j_tpu_torch.parallel.sharding import (  # noqa: F401
+    PartitionSpec, ShardingRules, shard_model_params)
+from deeplearning4j_tpu_torch.parallel.pipeline import (  # noqa: F401
+    pipeline_apply, sequential_apply, stack_stage_params)
+from deeplearning4j_tpu_torch.parallel.ring_attention import (  # noqa: F401
+    ring_attention, ring_attention_flash)
+from deeplearning4j_tpu_torch.parallel.composed import (  # noqa: F401
+    ComposedParallel)

@@ -345,6 +345,9 @@ def _opt_tree(net, template: bool):
     zt = getattr(net, "_step_transform", None)
     if zt is None:
         return convert.opt_state_to_jax(net)
+    if getattr(net, "_tp", None) is not None:
+        raise NotImplementedError("a sharded checkpoint of a tensor-parallel network "
+                                  "under ZeRO-1 is not ported")
 
     def leaf(t, pl):
         if pl is None:

@@ -6,9 +6,20 @@ program drives.  The port runs one process per rank (``torch.distributed``:
 NCCL with one card a rank, gloo on the CPU), so a :class:`Mesh` names axes
 over the ranks of the default process group; this process is one of them
 and owns one device.  Axis convention as in the JAX package: ``data``
-(data parallelism), ``model``, ``pipe``, ``seq``.  Only ``data`` may be
-wider than 1 here: tensor, pipeline and sequence parallelism are not
-ported.
+(data parallelism), ``model`` (tensor parallelism), ``pipe`` (pipeline
+stages), ``seq`` (sequence/context parallelism).  Ranks sit on the mesh in
+row-major order over the axes, as JAX's ``np.array(devices).reshape``
+places devices, so :meth:`Mesh.coordinate` is JAX's ``axis_index``.
+
+An axis wider than 1 gets its process subgroups when the mesh is made: one
+``dist.new_group`` for each line of the mesh along that axis, built in the
+same order on every rank (so every rank calls :func:`make_mesh` with the
+same axes, in the same order, as every rank joins a JAX mesh).
+:meth:`Mesh.group` is this rank's line along an axis: the group the
+shard_map collectives of ``parallel/collectives.py`` run over.  A ``data``
+axis that spans the whole world is the default group itself.  ``with mesh:``
+makes it the :func:`current_mesh` that ``ring_attention`` and the pipeline
+read when no mesh is passed, as JAX's ``with mesh:`` does.
 
 With no process group, :func:`make_mesh` is the one-rank mesh of this
 process's device (``jax.devices()`` in one process); the device rule of
@@ -22,6 +33,7 @@ device.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -51,17 +63,38 @@ class Mesh:
     ``device`` the device this process computes on."""
 
     def __init__(self, axes: Dict[str, int], ranks: Sequence[int], rank: int,
-                 device: torch.device, distributed: bool):
+                 device: torch.device, distributed: bool, groups=None):
         self.shape: Dict[str, int] = dict(axes)
         self.axis_names: Tuple[str, ...] = tuple(axes)
         self.ranks: Tuple[int, ...] = tuple(ranks)
         self.rank = int(rank)
         self.device = device
         self.distributed = bool(distributed)
+        self._groups = dict(groups or {})
 
     @property
     def size(self) -> int:
         return len(self.ranks)
+
+    def group(self, axis: str):
+        """This rank's process subgroup along `axis` (None: the default
+        group, for a ``data`` axis over the whole world).  Raises for an
+        axis of size 1, which needs no collective."""
+        if self.shape[axis] == 1:
+            raise ValueError(f"mesh axis {axis!r} has size 1: it has no group")
+        return self._groups.get(axis)
+
+    def line(self, axis: str) -> Tuple[int, ...]:
+        """The global ranks of this rank's line along `axis`, in axis
+        order."""
+        return _line(self.shape, self.rank, axis)
+
+    def __enter__(self) -> "Mesh":
+        _current.stack = getattr(_current, "stack", []) + [self]
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _current.stack.pop()
 
     def coordinate(self, axis: str) -> int:
         """This rank's index along `axis` (row-major over the axes)."""
@@ -74,6 +107,53 @@ class Mesh:
     def __repr__(self) -> str:
         return (f"Mesh({self.shape}, rank {self.rank} of {self.size}, "
                 f"device {self.device})")
+
+
+_current = threading.local()
+
+
+def current_mesh() -> Optional[Mesh]:
+    """The innermost mesh entered with ``with mesh:`` on this thread."""
+    stack = getattr(_current, "stack", [])
+    return stack[-1] if stack else None
+
+
+def resolve_mesh(mesh: Optional[Mesh]) -> Mesh:
+    """`mesh`, else the current one; raises where there is neither."""
+    mesh = mesh if mesh is not None else current_mesh()
+    if mesh is None:
+        raise ValueError("no mesh: pass mesh= or call inside `with mesh:`")
+    return mesh
+
+
+def _line(shape: Dict[str, int], rank: int, axis: str) -> Tuple[int, ...]:
+    grid = np.arange(int(np.prod(list(shape.values())))).reshape(tuple(shape.values()))
+    at = np.unravel_index(rank, grid.shape)
+    i = list(shape).index(axis)
+    idx = tuple(slice(None) if j == i else at[j] for j in range(len(at)))
+    return tuple(int(r) for r in grid[idx])
+
+
+def _axis_groups(shape: Dict[str, int], rank: int, world: int) -> Dict[str, object]:
+    """One ``dist.new_group`` for each line of the mesh along each axis
+    wider than 1, in axis order then line order (the same calls on every
+    rank); returns this rank's group for each such axis.  A ``data`` axis
+    over the whole world is the default group (None)."""
+    import torch.distributed as dist
+    grid = np.arange(world).reshape(tuple(shape.values()))
+    out = {}
+    for i, (axis, n) in enumerate(shape.items()):
+        if n == 1:
+            continue
+        if n == world and axis == "data":
+            out[axis] = None
+            continue
+        lines = np.moveaxis(grid, i, -1).reshape(-1, n)
+        for line in lines:
+            g = dist.new_group([int(r) for r in line])
+            if rank in line:
+                out[axis] = g
+    return out
 
 
 def _group_device(backend: str, device) -> torch.device:
@@ -98,7 +178,8 @@ def make_mesh(axes: Optional[Dict[str, int]] = None,
     """A Mesh over the ranks `devices` (default: every rank of the default
     process group).  With no axes given, a pure data-parallel mesh over
     them.  With no process group, the one-rank mesh of `device` (``"cuda"``
-    by default; ``"cpu"`` where the caller asks)."""
+    by default; ``"cpu"`` where the caller asks).  Every rank calls it with
+    the same axes: an axis wider than 1 builds its subgroups here."""
     import torch.distributed as dist
     distributed = dist.is_available() and dist.is_initialized()
     world = dist.get_world_size() if distributed else 1
@@ -109,18 +190,14 @@ def make_mesh(axes: Optional[Dict[str, int]] = None,
     if spec.total() != len(ranks):
         raise ValueError(f"Mesh axes {axes} require {spec.total()} ranks, "
                          f"have {len(ranks)}")
-    wide = {a: n for a, n in axes.items() if a != "data" and n > 1}
-    if wide:
-        raise NotImplementedError(
-            f"mesh axes {wide}: only the data axis is ported (tensor, pipeline "
-            "and sequence parallelism are not)")
     if ranks != list(range(world)):
         raise NotImplementedError(
             f"a mesh over ranks {ranks} of a world of {world}: only a mesh over "
             "every rank of the default process group is ported")
     if distributed:
         dev = _group_device(dist.get_backend(), device)
-        return Mesh(axes, ranks, dist.get_rank(), dev, True)
+        rank = dist.get_rank()
+        return Mesh(axes, ranks, rank, dev, True, _axis_groups(dict(axes), rank, world))
     return Mesh(axes, ranks, 0, resolve_device(device), False)
 
 

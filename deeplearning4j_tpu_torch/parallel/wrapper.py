@@ -20,7 +20,17 @@ The reference's sync modes (averaging, gradient sharing) both run as the
 synchronous gradient all-reduce of every step; ``averaging_frequency`` and
 ``prefetch_buffer`` are accepted and do nothing.  Listeners, the checkpoint
 listener among them, hear of each step on rank 0 only, as the JAX single
-controller's do.
+controller's do (under ``sharding_rules`` on whole leaves: every rank
+gathers them for each notification).
+
+``sharding_rules`` (``parallel/sharding.py``) adds tensor parallelism over
+the mesh's ``model`` axis: a mesh ``{data: d, model: m}`` trains exactly
+as plain data parallelism does.  At placement every rank keeps its block
+of each leaf the rules split and of that leaf's updater state, and the
+network computes with them (``sharding.TensorParallel``); the data-parallel
+reductions run over the ``data`` subgroup only.  With
+``optimizer_sharding`` the rules win per leaf: a split leaf keeps its
+``model`` blocks, the rest are ZeRO-1's.
 
 ``gradient_sharing`` (a ``HierarchicalGradientSharing`` config) installs
 hierarchical gradient sharing on the model at placement
@@ -28,8 +38,7 @@ hierarchical gradient sharing on the model at placement
 data-parallel group (the JAX "ICI" role) and the gang of processes
 coupled by the TCP gradient mesh the "DCN" role.  A group of more than one
 rank under a gang of more than one process raises
-``NotImplementedError`` (host subgroups are not ported).  Tensor
-parallelism (``sharding_rules``) is not ported: it raises.
+``NotImplementedError`` (host subgroups are not ported).
 """
 from __future__ import annotations
 
@@ -98,6 +107,35 @@ def _host(a):
     return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
+def _any_rank_has(listeners, mesh: Mesh) -> bool:
+    """Whether any rank of the mesh holds listeners (collective)."""
+    import torch.distributed as dist
+    n = torch.tensor([len(listeners)], device=mesh.device)
+    dist.all_reduce(n, op=dist.ReduceOp.MAX)
+    return bool(n.item())
+
+
+class _HeardWhole:
+    """Every rank's one listener under tensor parallelism: each
+    notification runs inside ``TensorParallel.gathered`` (an all-gather of
+    the split leaves and their moments, and a cut back after), and the
+    listeners it holds (rank 0's; none on the other ranks) hear it there."""
+
+    def __init__(self, tp, listeners):
+        self.tp, self.listeners = tp, list(listeners)
+
+    def iteration_done(self, model, iteration, epoch):
+        with self.tp.gathered(model):
+            for lst in self.listeners:
+                lst.iteration_done(model, iteration, epoch)
+
+    def on_epoch_end(self, model):
+        with self.tp.gathered(model):
+            for lst in self.listeners:
+                if hasattr(lst, "on_epoch_end"):
+                    lst.on_epoch_end(model)
+
+
 def _check_model_device(model, mesh: Mesh) -> None:
     dev = model.device
     if dev.type != mesh.device.type:
@@ -124,9 +162,8 @@ class ParallelWrapper:
     def __init__(self, model, mesh: Optional[Mesh] = None, data_axis: str = "data",
                  sharding_rules=None, training_mode: str = "SHARED_GRADIENTS",
                  optimizer_sharding: bool = False, gradient_sharing=None):
-        if sharding_rules is not None:
-            raise NotImplementedError("sharding_rules (tensor parallelism) is not ported")
         self.model = model
+        self._rules = sharding_rules
         self.mesh = mesh if mesh is not None else make_mesh(device=model.device)
         self.data_axis = data_axis
         self.training_mode = training_mode
@@ -151,6 +188,7 @@ class ParallelWrapper:
             self._mode = "SHARED_GRADIENTS"
             self._zero1 = False
             self._sharing = None
+            self._rules = None
 
         def workers(self, n: int):
             self._workers = int(n); return self
@@ -163,7 +201,9 @@ class ParallelWrapper:
             self._mode = mode; return self
 
         def sharding_rules(self, rules):
-            raise NotImplementedError("sharding_rules (tensor parallelism) is not ported")
+            """Tensor parallelism over the mesh's ``model`` axis
+            (``parallel/sharding.py``)."""
+            self._rules = rules; return self
 
         def optimizer_sharding(self, on: bool = True):
             """ZeRO-1 sharded weight update (``parallel/zero.py``)."""
@@ -195,6 +235,7 @@ class ParallelWrapper:
                         f"workers({self._workers}) below the world of {mesh.size}: a "
                         "mesh over part of the ranks is not ported")
             return ParallelWrapper(self._model, mesh, training_mode=self._mode,
+                                   sharding_rules=self._rules,
                                    optimizer_sharding=self._zero1,
                                    gradient_sharing=self._sharing)
 
@@ -247,6 +288,10 @@ class ParallelWrapper:
         elif getattr(m, "_grad_sharing", None) is not None:
             m.set_gradient_sharing(None)
         mesh = self.mesh
+        if m._tp is not None:
+            zero.disable_zero1(m)
+            m._tp.unshard_(m)
+            m._tp = None
         if mesh.distributed:
             import torch.distributed as dist
             dist.all_reduce(torch.zeros(1, device=mesh.device))
@@ -256,11 +301,22 @@ class ParallelWrapper:
                 coord = mesh.coordinate(self.data_axis)
                 if coord and m._dp is None and getattr(m, "_rng", None) is not None:
                     m._rng.manual_seed(m.conf.seed * 1_000_003 + coord)
+        tp_leaves = frozenset()
+        if self._rules is not None:
+            from deeplearning4j_tpu_torch.parallel.sharding import TensorParallel, plan_shards
+            zero.disable_zero1(m)
+            plans = plan_shards(m, mesh, self._rules)
+            if plans:
+                m._tp = TensorParallel(mesh, plans)
+                m._tp.shard_(m)
+                tp_leaves = m._tp.leaf_keys()
         if self._zero1:
-            zero.enable_zero1(m, mesh, self.data_axis)
+            zero.enable_zero1(m, mesh, self.data_axis, exclude=tp_leaves)
         else:
             zero.disable_zero1(m)
-        m._dp = DataParallelStep(self.degree, distributed=mesh.distributed)
+        n = self.degree
+        m._dp = DataParallelStep(n, distributed=mesh.distributed and (n > 1 or mesh.size == 1),
+                                 group=mesh.group(self.data_axis) if n > 1 else None)
         m._scan_step = None
         self._placed = True
         ins = self._instruments()
@@ -270,12 +326,18 @@ class ParallelWrapper:
 
     @contextlib.contextmanager
     def _listening(self):
-        """Listeners hear of steps on rank 0 only."""
+        """Listeners hear of steps on rank 0 only.  Under tensor
+        parallelism what a listener calls (``save``, ``params``,
+        ``output``, ``evaluate``) is collective, so where any rank has
+        listeners every rank hears each notification through
+        :class:`_HeardWhole`: the network holds whole leaves for it, and
+        rank 0's listeners run on them without a collective."""
         m = self.model
-        if self.mesh.rank == 0:
-            yield
-            return
-        kept, m.listeners = m.listeners, []
+        kept = m.listeners
+        heard = kept if self.mesh.rank == 0 else []
+        if m._tp is not None and _any_rank_has(kept, self.mesh):
+            heard = [_HeardWhole(m._tp, heard)]
+        m.listeners = heard
         try:
             yield
         finally:
@@ -515,6 +577,11 @@ class ParallelInference:
         self.mesh = mesh if mesh is not None else make_mesh(device=model.device)
         self.data_axis = data_axis
         _check_model_device(model, self.mesh)
+        wide = {a: n for a, n in self.mesh.shape.items() if a != data_axis and n > 1}
+        if wide or getattr(model, "_tp", None) is not None:
+            raise NotImplementedError(
+                f"ParallelInference over mesh axes {wide or self.mesh.shape} or a "
+                "tensor-parallel model: inference under sharding rules is not ported")
 
     def output(self, x):
         """Single-request or list-of-requests inference (numpy out)."""

@@ -20,13 +20,17 @@ are the JAX package's on the same mesh:
   rows [r * s, (r + 1) * s) of the padded leaf.  Zero pads are a fixed
   point of every elementwise updater (zero gradient, zero moment, zero
   update), so they never leak into values;
-* tiny leaves (a bias narrower than the axis) stay replicated.
+* tiny leaves (a bias narrower than the axis) stay replicated;
+* a leaf that tensor-parallel sharding rules split (``parallel/
+  sharding.py``) keeps its ``model`` blocks, and their moments follow it:
+  the rules win per leaf, as in the JAX package.
 
 In the step (``nn/multilayer.apply_updates``), after each layer's gradient
 normalization: :meth:`Zero1Transform.scatter` (``reduce_scatter_tensor`` of
-the padded dim-0 gradient; a layer with gradient normalization needs its
-whole gradient, so its leaves are all-reduced with the rest and scatter
-takes this rank's rows), the updater and the decoupled weight decay on the
+the padded dim-0 gradient over the data axis's subgroup; a layer with
+gradient normalization needs its whole gradient, so its leaves are
+all-reduced with the rest and scatter takes this rank's rows), the
+updater and the decoupled weight decay on the
 shard (:meth:`update_view`), then :meth:`restore`
 (``all_gather_into_tensor`` into the padded leaf, unpadded and written into
 the parameter in place).  With no process group (a one-rank mesh) the
@@ -95,30 +99,33 @@ class LeafPlan:
         return t if self.perm is None else t.permute(*self.perm)
 
 
-def build_plans(params: Tree, mesh, axis: str = "data", layout_of=None) -> Tree:
+def build_plans(params: Tree, mesh, axis: str = "data", layout_of=None,
+                exclude=frozenset()) -> Tree:
     """A `LeafPlan` for every parameter leaf (the tree of `params`, plans
     as leaves).  `layout_of(name)` gives layer `name`'s ``TORCH_LAYOUT``
     (``{key: permutation from the JAX layout}``); without it every layout
-    is the JAX one."""
+    is the JAX one.  Leaves whose (layer, dotted key) is in `exclude`
+    (tensor-parallel blocks) stay replicated over the axis."""
     n = mesh.shape[axis]
 
-    def plans(sub, layout):
+    def plans(sub, layout, name, path=()):
         out = {}
         for k, v in sub.items():
             if isinstance(v, dict):
-                out[k] = plans(v, layout)
+                out[k] = plans(v, layout, name, path + (k,))
                 continue
             perm = layout.get(k)
             shape = tuple(v.shape) if perm is None else tuple(
                 v.shape[i] for i in _inverse(perm))
-            if len(shape) >= 1 and shape[0] >= n:
+            if (name, ".".join(path + (k,))) not in exclude and len(shape) >= 1 \
+                    and shape[0] >= n:
                 out[k] = LeafPlan("shard", shape, (-shape[0]) % n, n,
                                   None if perm is None else tuple(perm))
             else:
                 out[k] = LeafPlan("repl", shape, 0, n, None if perm is None else tuple(perm))
         return out
 
-    return {name: plans(sub, (layout_of(name) if layout_of is not None else {}) or {})
+    return {name: plans(sub, (layout_of(name) if layout_of is not None else {}) or {}, name)
             for name, sub in params.items()}
 
 
@@ -229,19 +236,22 @@ class Zero1Transform:
         return tree_map_like_params(whole, opt_state, self.plans[name], lambda s: s,
                                     shape_of=lambda pl: pl.stored_shape)
 
+    def _group(self):
+        return self.mesh.group(self.axis) if self.mesh.shape[self.axis] > 1 else None
+
     def _reduce_scatter(self, out: torch.Tensor, full: torch.Tensor) -> None:
-        if not self.mesh.distributed:
+        if not self.mesh.distributed or (self.mesh.shape[self.axis] == 1 < self.mesh.size):
             out.copy_(full)
             return
         import torch.distributed as dist
-        dist.reduce_scatter_tensor(out, full)
+        dist.reduce_scatter_tensor(out, full, group=self._group())
 
     def _all_gather(self, full: torch.Tensor, shard: torch.Tensor) -> None:
-        if not self.mesh.distributed:
+        if not self.mesh.distributed or (self.mesh.shape[self.axis] == 1 < self.mesh.size):
             full.copy_(shard)
             return
         import torch.distributed as dist
-        dist.all_gather_into_tensor(full, shard)
+        dist.all_gather_into_tensor(full, shard, group=self._group())
 
 
 def _map_paths(fn, plans: Tree, tree: Tree, *rest: Tree, prefix=()) -> Tree:
@@ -271,11 +281,12 @@ def _normalized_layers(model):
     return out
 
 
-def enable_zero1(model, mesh, axis: str = "data") -> Zero1Transform:
+def enable_zero1(model, mesh, axis: str = "data", exclude=frozenset()) -> Zero1Transform:
     """Turn on the sharded weight update for a MultiLayerNetwork or
     ComputationGraph: per-leaf plans, the moments cut to this rank's
     shards, the transform installed and the captured steps dropped.
-    Idempotent for an unchanged (mesh, axis).  Every rank calls it."""
+    Idempotent for an unchanged (mesh, axis).  Every rank calls it.
+    `exclude`: the (layer, dotted key) of tensor-parallel leaves."""
     existing = getattr(model, "_step_transform", None)
     if existing is not None and existing.mesh is mesh and existing.axis == axis:
         return existing
@@ -286,7 +297,8 @@ def enable_zero1(model, mesh, axis: str = "data") -> Zero1Transform:
     from deeplearning4j_tpu_torch import convert
     params = model.params_
     plans = build_plans(params, mesh, axis,
-                        lambda name: convert._layer_or_layout(model, name).TORCH_LAYOUT)
+                        lambda name: convert._layer_or_layout(model, name).TORCH_LAYOUT,
+                        exclude)
     normalized = _normalized_layers(model)
     scattered = {(name, ".".join(path)) for name in plans if name not in normalized
                  for path, pl in _leaves_with_keys(plans[name]) if pl.kind == "shard"}

@@ -133,13 +133,15 @@ class _GlobalMoments(torch.autograd.Function):
 
 
 class DataParallelStep:
-    """One rank's part of a data-parallel training step over the default
-    process group of `size` ranks.  Without a process group (`distributed`
-    False: a one-rank mesh) the collectives are the identity."""
+    """One rank's part of a data-parallel training step over `group` (the
+    default process group where None) of `size` ranks.  Without a process
+    group (`distributed` False: a one-rank mesh, or a data axis of size 1
+    on a wider mesh) the collectives are the identity."""
 
-    def __init__(self, size: int, distributed: bool = True):
+    def __init__(self, size: int, distributed: bool = True, group=None):
         self.size = int(size)
         self.distributed = bool(distributed)
+        self.group = group
         self.collectives = 0
         self.last_buckets = 0
 
@@ -148,7 +150,7 @@ class DataParallelStep:
         if self.distributed:
             import torch.distributed as dist
             self.collectives += 1
-            dist.all_reduce(t)
+            dist.all_reduce(t, group=self.group)
         return t
 
     def global_loss(self, loss: torch.Tensor) -> torch.Tensor:

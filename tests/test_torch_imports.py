@@ -61,6 +61,9 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
         "import deeplearning4j_tpu_torch.autodiff, deeplearning4j_tpu_torch.modelimport\n"
         "import deeplearning4j_tpu_torch.autodiff.validation\n"
         "import deeplearning4j_tpu_torch.parallel, deeplearning4j_tpu_torch.parallel.multihost\n"
+        "import deeplearning4j_tpu_torch.parallel.sharding, deeplearning4j_tpu_torch.parallel.collectives\n"
+        "import deeplearning4j_tpu_torch.parallel.ring_attention\n"
+        "import deeplearning4j_tpu_torch.parallel.pipeline, deeplearning4j_tpu_torch.parallel.composed\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'deeplearning4j_tpu', 'tensorflow')]\n"
         "assert not bad, bad\n"
@@ -91,6 +94,12 @@ def test_entry_points_refuse_to_run_without_cuda():
         ResNet50().init_model()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         BertModel(BertConfig.tiny())
+    import numpy as np
+    from deeplearning4j_tpu_torch.parallel.composed import init_stage_params
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_stage_params(np.random.RandomState(0), 2, 8, 2, 16)
+    assert init_stage_params(np.random.RandomState(0), 2, 8, 2, 16,
+                             device="cpu")["w1"].device.type == "cpu"
     # asking for the CPU works
     srv = ModelServer(device="cpu")
     srv.shutdown()

@@ -286,6 +286,7 @@ def _task_mesh():
     errors = {}
     for name, fn in (("three", lambda: mk({"data": 3})),
                      ("model", lambda: mk({"data": 1, "model": 2})),
+                     ("part", lambda: mk({"data": 1}, devices=[0])),
                      ("cuda", lambda: mk(device="cuda"))):
         try:
             fn()
@@ -428,7 +429,8 @@ def test_mesh_construction_and_its_errors(pool):
         assert out["device"] == "cpu" and out["workers2"] == 2
         e = out["errors"]
         assert e["three"].startswith("ValueError") and "require" in e["three"]
-        assert e["model"].startswith("NotImplementedError")
+        assert e["model"] is None       # the model axis is ported; a mesh over part
+        assert e["part"].startswith("NotImplementedError")  # of the ranks is not
         assert e["cuda"] is not None
         assert e["workers3"].startswith("ValueError") and "exceeds" in e["workers3"]
         assert e["workers1"].startswith("NotImplementedError")

@@ -153,3 +153,106 @@ def test_keep_mask_draws_from_the_generator():
     a = keep_mask(torch.Generator().manual_seed(1), 0.7, x)
     b = keep_mask(torch.Generator().manual_seed(1), 0.7, x)
     assert torch.equal(a, b) and 0.6 < a.float().mean().item() < 0.8
+
+
+# ---------------------------------------------------------------------------
+# gradients at kinks against jax.grad
+# ---------------------------------------------------------------------------
+
+#: ops of the JAX table whose gradient the probe holds at kink inputs even
+#: where their spec case checks no gradient (the losses SameDiff's
+#: ``sd.loss`` reaches)
+KINK_EXTRA = {"abs": (0,), "relu6": (0,), "sigmoid_cross_entropy": (1,),
+              "absolute_difference": (1,)}
+KINK_RTOL = 1e-10
+
+
+def _kink_cases():
+    seen = set()
+    for c in CASES:
+        grad = c.grad or KINK_EXTRA.get(c.op, ())
+        if not grad or c.custom is not None or c.id in seen:
+            continue
+        if any(isinstance(c.args[i], np.ndarray) and c.args[i].dtype.name == "bfloat16"
+               for i in grad):
+            continue
+        seen.add(c.id)
+        yield c, grad
+
+
+def _kink_args(args, variant):
+    """Float arrays in f64, rounded to integers (ties at max/min/clip
+    bounds, abs and relu6 kinks, equal labels and preds) or all zeros."""
+    out = []
+    for a in args:
+        if isinstance(a, np.ndarray) and a.dtype.kind == "f":
+            a = a.astype(np.float64)
+            a = np.round(a) if variant == "round" else np.zeros_like(a)
+        out.append(a)
+    return out
+
+
+def _weights(out, rs):
+    return [rs.uniform(0.5, 1.5, np.shape(o)) for o in out]
+
+
+def _jax_grad(op, args, grad, kwargs, w):
+    import jax
+    import jax.numpy as jnp
+
+    def total(*diff):
+        full = [jnp.asarray(a) if isinstance(a, np.ndarray) else a for a in args]
+        for i, d in zip(grad, diff):
+            full[i] = d
+        out = [o for o in _leaves(JAX_TABLE[op](*full, **kwargs))
+               if jnp.issubdtype(jnp.asarray(o).dtype, jnp.floating)]
+        return sum(jnp.sum(o * wi) for o, wi in zip(out, w))
+    got = jax.jit(jax.grad(total, argnums=tuple(range(len(grad)))))(
+        *[jnp.asarray(args[i]) for i in grad])
+    return [np.asarray(g) for g in got]
+
+
+def test_gradients_at_kinks_match_jax():
+    """Every differentiable op case (the spec's gradient arguments, plus
+    abs, relu6, sigmoid_cross_entropy and absolute_difference) with its
+    float inputs in f64 rounded to integers (and, for those four, set to
+    zeros): autograd
+    through the port's op against jax.grad of the JAX op, max|diff| <=
+    1e-10 * max(max|ref|, 1), on a weighted sum of the outputs.  Where JAX
+    gives NaN (an undefined derivative, ROADMAP Queue C's NaN points) the
+    element is not compared.  Then lax.top_k's order of signed zeros."""
+    bad = []
+    n = 0
+    for c, grad in _kink_cases():
+        for variant in ("round", "zeros") if c.op in KINK_EXTRA else ("round",):
+            args = _kink_args(c.args, variant)
+            targs = torch_args(args)
+            with torch.no_grad():
+                probe = [o for o in _leaves(OP_TABLE[c.op](*targs, **c.kwargs))
+                         if torch.is_tensor(o) and o.is_floating_point()]
+            w = _weights(probe, np.random.RandomState(len(c.id)))
+            fn = (lambda *a, _c=c: OP_TABLE[_c.op](*a, **_c.kwargs))
+            targs = torch_args(args)
+            for i in grad:
+                targs[i] = targs[i].clone().requires_grad_(True)
+            out = [o for o in _leaves(fn(*targs)) if torch.is_tensor(o)
+                   and o.is_floating_point()]
+            total = sum(torch.sum(o * torch.as_tensor(wi, dtype=o.dtype))
+                        for o, wi in zip(out, w))
+            got = torch.autograd.grad(total, [targs[i] for i in grad], allow_unused=True)
+            got = [np.zeros(np.shape(args[i])) if g is None else g.detach().numpy()
+                   for i, g in zip(grad, got)]
+            want = _jax_grad(c.op, args, grad, c.kwargs, w)
+            n += 1
+            for i, g, r in zip(grad, got, want):
+                keep = np.isfinite(r)
+                scale = max(float(np.abs(r[keep]).max()) if keep.any() else 0.0, 1.0)
+                err = float(np.abs(g[keep] - r[keep]).max()) if keep.any() else 0.0
+                if g.shape != r.shape or err > KINK_RTOL * scale:
+                    bad.append(f"{c.id} [{variant}] arg {i}: max|diff| {err}")
+    assert n > 110, n
+    assert not bad, "\n".join(bad)
+    vals, idx = OP_TABLE["top_k"](torch.tensor([[0.0, -0.0, 1.0, -0.0, 0.0]],
+                                                dtype=torch.float64), k=4)
+    assert idx.tolist() == [[2, 0, 4, 1]]
+    assert torch.signbit(vals).tolist() == [[False, False, False, True]]
