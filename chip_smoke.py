@@ -578,6 +578,65 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    one-rank NCCL group, above it one rank a card through
    ``multihost.LocalLauncher`` (``chip_smoke.py --mp-rank <phase>``, an
    ``MP_RANK`` line a rank).
+52. ft_resnet50 — ``FaultTolerantTrainer`` around bench.py's bf16
+   ResNet-50 (batch 64, 224 px, 1000 classes, Nesterovs(0.1, 0.9), cuDNN
+   deterministic) through ``fit(iterator, fused_steps=5)`` with
+   ``CheckpointManager(async_save=True, save_every_steps=5)``, over 15
+   batches of one seeded stream: U uninterrupted; K stopped by
+   ``KillSwitch(7, "exception")``, then a fresh network and trainer on the
+   same directory resume and finish; P stopped by ``"sigterm"``
+   (``Preempted``), then resumed.  K's and P's parameters, BatchNorm
+   statistics and moments are U's bit for bit.  The launch counts set to
+   0 just before U and read just after: 96 + 96 conv launches (the
+   warm-up step and the capture), and a debug-mode capture of a block
+   holds 80 + 80.  A restore into U's live network keeps every carried
+   tensor's address and its captured graph, and the block it replays
+   equals a fresh network restored from the same checkpoint, bit for
+   bit.  ms a step with and without a manager saving every block, the
+   snapshot's ms on the step path, the background write's ms and the
+   checkpoint's bytes (the ``resilience_*`` series), restore seconds,
+   peak memory.
+53. resilience_ab — bench.py's ``--resilience`` A/B (``bench.py:643-700``)
+   in a fresh process (``chip_smoke.py --resilience-ab``, a ``RES_AB``
+   line), as bench.py runs it: the MLP 784-512-256-10 over 256 batches of 64 staged by
+   ``DevicePrefetchIterator`` through ``_fit_dataset``, with an async
+   manager saving every 128 steps (keep 3; its ``wait()`` timed) and
+   without, bench.py's epoch (a warm-up epoch a side).  Gate: the
+   overhead under 5%, else the script fails, held on the median over 16
+   pairs of whole epochs (the order alternating a pair) of each pair's
+   overhead, as the host moves an epoch by more than the gate; 4 pairs
+   without saves give its noise floor (``aa``), and bench.py's minimum of
+   3 epochs a side is printed beside it.  Then
+   ``EarlyStoppingTrainer`` on LeNet (4 batches of 64 a training epoch, 2
+   validation batches, at most 3 epochs): ``fused_dense`` launches one a
+   training step and one a validation batch, and the scores, best epoch
+   and termination those of a ``reference``-mode twin (1e-4).
+54. elastic_ab — bench.py's ``--elastic`` A/B (``bench.py:927-1040``):
+   ``ElasticLocalRunner(3).run_elastic`` runs ``chip_smoke.py
+   --elastic-rank mlp`` (the MLP 16-32-3 of
+   ``tests/mh_worker_elastic_gang.py``, threshold 5e-3, 24 steps, rank 2
+   killed at step 8; the members share the cards).  B: a clean world-2
+   gang from A's resume checkpoint; C: a clean gang of 3.  bench.py's
+   gates: detection within the failure deadline + 2 s, A's final loss B's
+   within 1e-9 relative, the reformation within 15 s.  Then a
+   ``"block"`` run with ``relaunch=True`` ends at world 3 after the
+   replacement joins.  One ``fused_dense`` launch a step on every rank.
+55. elastic_resnet50 — BASELINE config 5's GradientSharing ResNet-50 under
+   ``ElasticTrainer`` (bf16, 224 px, 1000 classes, Nesterovs(0.1, 0.9),
+   ``HierarchicalGradientSharing(elastic=True)`` at the default
+   threshold): a gang of 3 (``--elastic-rank resnet50``), a global batch
+   of 48 from one seeded stream, each member its live rank's strided
+   rows.  C, a clean gang of 3 for 4 steps, gives the step time, and the
+   failure deadline is max(5 s, 3 x its slowest median step) (a live
+   member that ships no data for the deadline is reformed out as a
+   straggler, so a clean run must show none).  A: 10 steps, rank 2
+   killed at step 4 by ``PeerKiller``: exactly one ``crash`` reformation
+   to world 2, and rank 0's parameters, BatchNorm statistics and moments
+   those of B, a clean world-2 gang from A's resume checkpoint, bit for
+   bit; B re-forms never; 16 + 16 conv launches every step of every rank.
+   Detection and resume ms, ms a step before and after the reform, the
+   coordinator's checkpoint ms a step, wire bytes a step, peak memory a
+   rank.
 
 Then the kernels line (each entry with ``share_of_bound``; ``fused_dense``
 and the conv pair carry ``vgg16_train``, ``zoo_train``, ``fused_resnet50``
@@ -589,7 +648,9 @@ shape), the flash kernels ``seq_attention`` ones (``fused_dense`` one of
 ``fused_dense`` a ``dp_zero1`` one, the conv pair ``gs_resnet50`` entries
 and ``fused_dense`` ``gs_comms`` and ``gs_resnet50`` ones; ``fused_dense``
 and the conv pair ``tp_vgg16`` entries, ``flash_attn_fwd`` a ``ring_flash``
-one); ``dp_resnet50``
+one; the conv pair ``ft_resnet50`` and ``elastic_resnet50`` entries,
+``fused_dense`` ``resilience_ab``, ``early_stopping`` and ``elastic_ab``
+ones); ``dp_resnet50``
 and ``dp_zero1`` count the launches of one
 replayed block by the graph's kernel nodes, beside the profiler's counts
 of traced replays and the Python counts made at the warm-up and the
@@ -840,8 +901,13 @@ SD_BERT_K = 5
 SD_KERNELS = (32, 128, 768, 12, 2, 3)
 
 
+_T0 = time.monotonic()
+
+
 def emit(phase, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One phase's JSON line; `t_s` is the script's seconds so far."""
+    print(json.dumps({"phase": phase, **kw, "t_s": round(time.monotonic() - _T0, 1)}),
+          flush=True)
 
 
 def require(cond, msg):
@@ -6155,6 +6221,859 @@ def mp_rank_main(argv):
     os._exit(0)
 
 
+# ---------------------------------------------------------------------------
+# fault-tolerant and elastic training (phases 52-55)
+# ---------------------------------------------------------------------------
+
+FT_R50 = dict(batch=64, image=224, classes=1000, k=5, steps=15, save_every=5, kill_at=7,
+              timed_blocks=3)
+# bench.py's --resilience fixture and epoch; `pairs` of whole epochs for the
+# gate and `aa_pairs` without saves for its noise floor (see phase_resilience_ab)
+RES_AB = dict(n_batches=256, batch=64, n_in=784, save_every=128, keep_last=3, depth=2,
+              repeats=3, pairs=16, aa_pairs=4)
+RES_MAX_OVERHEAD_PCT = 5.0           # bench.py's --resilience gate
+ES_LENET = dict(batch=64, train_batches=4, val_batches=2, max_epochs=3)
+ELASTIC_AB = dict(steps=24, kill_step=8, heartbeat_s=0.1, failure_deadline_s=2.0)
+ELASTIC_DETECT_SLACK_MS = 2000.0     # bench.py:1024-1030's gates
+ELASTIC_LOSS_RTOL = 1e-9
+ELASTIC_BUDGET_MS = 15000.0
+EL_R50 = dict(procs=3, global_batch=48, steps=10, kill_step=4, image=224, classes=1000,
+              clean_steps=4, heartbeat_s=0.25, deadline_floor_s=5.0, deadline_steps=3.0)
+
+
+def _ft_state(net):
+    """Clones of the parameters, layer state (BatchNorm statistics) and
+    updater moments, in a fixed order."""
+    return ([v.detach().clone() for _, v in sorted(net.state_dict().items())]
+            + [t.detach().clone() for t in _opt_leaves(net)])
+
+
+def _same_state(a, b):
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _resilience_series():
+    from deeplearning4j_tpu_torch.monitor.registry import registry
+    reg = registry()
+    h = reg.get("resilience_checkpoint_save_ms")
+    return {"saves": getattr(reg.get("resilience_checkpoints_total"), "value", 0),
+            "write_ms_sum": h.sum if h is not None else 0.0,
+            "write_count": h.count if h is not None else 0,
+            "bytes": getattr(reg.get("resilience_checkpoint_bytes"), "value", None),
+            "restores": getattr(reg.get("resilience_restores_total"), "value", 0)}
+
+
+def _ft_fit(train, data, ResNet50, Nesterovs, dev, ckpt, batches, cfg, hooks=()):
+    """One ``FaultTolerantTrainer`` fit of bf16 ResNet-50 over `batches` in
+    fused blocks of k, with an async manager on `ckpt` saving every
+    `save_every` steps; returns (net, trainer, manager, the exception it
+    stopped on or None, seconds)."""
+    from deeplearning4j_tpu_torch.utils.chaos import ChaosError
+    res = train.resilience
+    net = _resnet50(ResNet50, Nesterovs, dev, compute_dtype="bfloat16", image=cfg["image"],
+                    classes=cfg["classes"])
+    mgr = res.CheckpointManager(ckpt, keep_last=cfg["steps"] // cfg["save_every"] + 2,
+                                save_every_steps=cfg["save_every"], async_save=True)
+    tr = res.FaultTolerantTrainer(net, mgr, hooks=hooks)
+    err = None
+    t0 = time.perf_counter()
+    try:
+        tr.fit(data.ListDataSetIterator(batches), epochs=1, fused_steps=cfg["k"])
+    except (res.Preempted, ChaosError) as e:
+        err = e
+    torch.cuda.synchronize()
+    return net, tr, mgr, err, time.perf_counter() - t0
+
+
+def phase_ft_resnet50(train, data, conv3x3, matmul, ResNet50, Nesterovs, dev, cfg=FT_R50):
+    """Phase 52: ``FaultTolerantTrainer`` around bench.py's bf16 ResNet-50
+    at full width: U uninterrupted, K killed in process
+    (``KillSwitch(kill_at, "exception")``) then resumed by a fresh network
+    and trainer on the same directory, P preempted (``"sigterm"`` ->
+    ``Preempted``) then resumed: K's and P's parameters, BatchNorm
+    statistics and moments are U's bit for bit.  Then a restore in place
+    into U's live network (its captured graph kept) replays one more block
+    bitwise against a fresh network restored from the same checkpoint."""
+    import shutil
+    import tempfile
+    from deeplearning4j_tpu_torch.utils import chaos
+    k, steps = cfg["k"], cfg["steps"]
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True   # bitwise twins (phase 34's note)
+    root = tempfile.mkdtemp(prefix="ft_resnet50_")
+    try:
+        raw = _image_batches(steps, cfg["batch"], (cfg["image"], cfg["image"], 3),
+                             cfg["classes"])
+        batches = [data.DataSet(x, y) for x, y in raw]
+        series0 = _resilience_series()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts(matmul, conv3x3)
+        net, tr, mgr, err, u_s = _ft_fit(train, data, ResNet50, Nesterovs, dev,
+                                         os.path.join(root, "u"), batches, cfg)
+        counts = _step_counts(matmul, conv3x3)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        series1 = _resilience_series()
+        require(err is None and net.iteration == steps
+                and mgr.steps() == list(range(0, steps + 1, cfg["save_every"])),
+                f"ft_resnet50 U: stopped on {err!r} at {net.iteration}, saves {mgr.steps()}")
+        want = (k + 1) * BODY_CONVS          # the warm-up step and the capture
+        require(counts == (0, want, want),
+                f"ft_resnet50 U: launches {counts} at the warm-up and capture, want 0, "
+                f"{want}, {want}")
+        u_state = _ft_state(net)
+        saves = series1["saves"] - series0["saves"]
+        write_ms = ((series1["write_ms_sum"] - series0["write_ms_sum"])
+                    / max(series1["write_count"] - series0["write_count"], 1))
+
+        # restore in place into the live network: its graph replays on
+        step = net._scan_step
+        captures0 = step.captures
+        ptrs = [t.data_ptr() for t in net._carry()]
+        t0 = time.perf_counter()
+        meta = mgr.restore(net, step=steps - k)
+        restore_s = time.perf_counter() - t0
+        require(meta["step"] == steps - k and net.iteration == steps - k
+                and [t.data_ptr() for t in net._carry()] == ptrs,
+                f"ft_resnet50: the restore at {meta['step']} rebound a carried tensor")
+        xs = torch.as_tensor(np.stack([x for x, _ in raw[steps - k:]]), device=dev)
+        ys = torch.as_tensor(np.stack([y for _, y in raw[steps - k:]]), device=dev)
+        net.fit_steps(xs, ys)
+        torch.cuda.synchronize()
+        require(step.captures == captures0,
+                "ft_resnet50: the block after the restore was captured anew")
+        live = _ft_state(net)
+        fresh = _resnet50(ResNet50, Nesterovs, dev, compute_dtype="bfloat16",
+                          image=cfg["image"], classes=cfg["classes"])
+        mgr.restore(fresh, step=steps - k)
+        fresh.fit_steps(xs, ys)
+        torch.cuda.synchronize()
+        in_place_bitwise = _same_state(live, _ft_state(fresh))
+        require(in_place_bitwise and _same_state(live, u_state),
+                "ft_resnet50: the block replayed after an in-place restore is not the "
+                "fresh restore's (or U's last block) bit for bit")
+        del fresh
+        torch.cuda.empty_cache()
+        replay, graph_kernels = _kept_launches(
+            net, lambda: net.fit_steps(xs, ys),
+            {"fused_dense": 0, "conv3x3_wgrad": k * BODY_CONVS,
+             "conv3x3_dgrad": k * BODY_CONVS}, "ft_resnet50")
+
+        # ms a step with and without the manager (the saves' stall and the
+        # in-flight write charged, as bench.py's --resilience does)
+        def blocks(manager):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(cfg["timed_blocks"]):
+                net.fit_steps(xs, ys)
+                if manager is not None:
+                    manager.maybe_save(net)
+            if manager is not None:
+                manager.wait()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / (cfg["timed_blocks"] * k)
+        timed = train.resilience.CheckpointManager(os.path.join(root, "t"), keep_last=2,
+                                                   save_every_steps=k, async_save=True)
+        timed._last_save_step = net.iteration
+        bare_ms = [blocks(None)]
+        ckpt_ms = [blocks(timed)]
+        snapshot_ms = [s * 1e3 for s in timed.snapshot_s]
+        del net, step, tr, mgr, timed
+        shutil.rmtree(os.path.join(root, "u"), ignore_errors=True)
+        shutil.rmtree(os.path.join(root, "t"), ignore_errors=True)
+        torch.cuda.empty_cache()
+
+        runs = {}
+        for label, mode, exc in (("K", "exception", chaos.ChaosError),
+                                 ("P", "sigterm", train.resilience.Preempted)):
+            d = os.path.join(root, label)
+            ks = chaos.KillSwitch(cfg["kill_at"], mode)
+            net, tr, mgr, err, first_s = _ft_fit(train, data, ResNet50, Nesterovs, dev, d,
+                                                 batches, cfg, hooks=(ks,))
+            stopped_at = net.iteration
+            require(isinstance(err, exc) and stopped_at == 2 * k,
+                    f"ft_resnet50 {label}: stopped on {err!r} at {stopped_at}")
+            del net, tr, mgr
+            torch.cuda.empty_cache()
+            net, tr, mgr, err, second_s = _ft_fit(train, data, ResNet50, Nesterovs, dev, d,
+                                                  batches, cfg)
+            resumed = tr.resumed_from["step"]
+            same = err is None and net.iteration == steps and _same_state(_ft_state(net),
+                                                                          u_state)
+            runs[label] = dict(mode=mode, stopped_at=stopped_at, resumed_from_step=resumed,
+                               first_s=first_s, resumed_s=second_s, bitwise_u=same)
+            require(same, f"ft_resnet50 {label}: resumed from {resumed}, not U's state bit "
+                          "for bit")
+            del net, tr, mgr
+            shutil.rmtree(d, ignore_errors=True)
+            torch.cuda.empty_cache()
+        require(runs["K"]["resumed_from_step"] == k and runs["P"]["resumed_from_step"] == 2 * k,
+                f"ft_resnet50: resume points {runs}")
+        report = dict(
+            model="ResNet50", compute_dtype="bfloat16",
+            input=f"{cfg['image']}x{cfg['image']}x3", classes=cfg["classes"],
+            batch=cfg["batch"], updater="Nesterovs(0.1, 0.9)", cudnn_deterministic=True,
+            fused_steps=k, steps=steps, save_every_steps=cfg["save_every"], async_save=True,
+            u_seconds=u_s, u_saves=saves, kill_at=cfg["kill_at"], runs=runs,
+            k_and_p_bitwise_u=True, in_place_restore_bitwise=in_place_bitwise,
+            restore_s=restore_s, restore_kept_the_graph=True,
+            launches_counted_at_warmup_and_capture=dict(
+                zip(("fused_dense", "conv3x3_wgrad", "conv3x3_dgrad"), counts)),
+            launches_per_replayed_block=replay, graph_kernel_nodes=graph_kernels,
+            step_ms_without_manager=min(bare_ms), step_ms_with_manager=min(ckpt_ms),
+            step_ms_all={"bare": bare_ms, "ckpt": ckpt_ms},
+            overhead_pct=(min(ckpt_ms) - min(bare_ms)) / min(bare_ms) * 100.0,
+            snapshot_ms_on_step_path=snapshot_ms,
+            background_write_ms=write_ms, checkpoint_bytes=series1["bytes"],
+            max_memory_allocated_gb=peak_gb)
+        emit("ft_resnet50", **report)
+        return report
+    finally:
+        torch.backends.cudnn.deterministic = prev
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _etl_fixture(data, nn, dev, n_batches, batch, n_in):
+    """bench.py's ``_pipeline_fixture``: an iterator that builds each batch
+    from raw f64 rows on demand, the MLP 784-512-256-10 (seed 0, default
+    updater) and a normalizer fitted on the stream."""
+
+    class EtlIterator(data.DataSetIterator):
+        def __init__(self, raw_x, raw_y, batch):
+            self.raw_x, self.raw_y, self._batch = raw_x, raw_y, batch
+
+        def __iter__(self):
+            for i in range(0, len(self.raw_x), self._batch):
+                x = (self.raw_x[i:i + self._batch] * 0.5 + 1.0).astype(np.float32)
+                y = np.eye(10, dtype=np.float32)[self.raw_y[i:i + self._batch]]
+                yield data.DataSet(x, y)
+
+        def reset(self):
+            pass
+
+        def batch_size(self):
+            return self._batch
+
+        def __len__(self):
+            return (len(self.raw_x) + self._batch - 1) // self._batch
+
+    def make_net():
+        conf = (nn.NeuralNetConfiguration.builder().seed(0)
+                .list([nn.DenseLayer(n_out=512, activation="relu"),
+                       nn.DenseLayer(n_out=256, activation="relu"),
+                       nn.OutputLayer(n_out=10, loss="mcxent", activation="softmax")])
+                .set_input_type(nn.InputType.feed_forward(n_in)).build())
+        return nn.MultiLayerNetwork(conf, device=dev).init()
+
+    rng = np.random.RandomState(0)
+    raw_x = rng.rand(n_batches * batch, n_in) * 100.0
+    raw_y = rng.randint(0, 10, n_batches * batch)
+    nz = data.NormalizerStandardize().fit(EtlIterator(raw_x, raw_y, batch))
+    return (lambda: EtlIterator(raw_x, raw_y, batch)), make_net, nz
+
+
+def _resilience_ab_run(train, data, nn, matmul, LeNet, dev, cfg=RES_AB, es=ES_LENET):
+    """Phase 53's measurements (run in a fresh process, as bench.py runs
+    its ``--resilience`` mode): the A/B, its launch counts, and the early
+    stopping run beside its ``reference``-mode twin (cuDNN deterministic).
+    Returns {"ab": ..., "early_stopping": ...}; the holds are the
+    caller's."""
+    import shutil
+    import tempfile
+    from deeplearning4j_tpu_torch.ops.kernels import dispatch
+    from deeplearning4j_tpu_torch.train import earlystopping as es_mod
+    res = train.resilience
+    make_it, make_net, nz = _etl_fixture(data, nn, dev, cfg["n_batches"], cfg["batch"],
+                                         cfg["n_in"])
+    root = tempfile.mkdtemp(prefix="resilience_ab_")
+    series0 = _resilience_series()
+
+    def side(with_ckpt):
+        net = make_net()
+        net.set_normalizer(nz)
+        mgr = res.CheckpointManager(os.path.join(root, "ck"), keep_last=cfg["keep_last"],
+                                    save_every_steps=cfg["save_every"],
+                                    async_save=True) if with_ckpt else None
+        return net, mgr
+
+    def epoch(net, mgr):
+        pf = data.DevicePrefetchIterator(make_it(), depth=cfg["depth"], device=dev)
+        t0 = time.perf_counter()
+        for ds in pf:
+            net._fit_dataset(ds)
+            if mgr is not None:
+                mgr.maybe_save(net)
+        if mgr is not None:
+            mgr.wait()
+        float(net.score())
+        return time.perf_counter() - t0
+
+    def pairs(n, manager):
+        """`n` pairs of whole epochs, (checkpointing, bare) seconds each,
+        the order alternating a pair (ABBA), so drift within a pair hits
+        both sides alike; `manager` None: no saves (the A/A)."""
+        runs = []
+        for i in range(n):
+            if i % 2 == 0:
+                c = epoch(net_ck, manager)
+                runs.append((c, epoch(net_bare, None)))
+            else:
+                b = epoch(net_bare, None)
+                runs.append((epoch(net_ck, manager), b))
+        return runs
+
+    net_ck, mgr = side(True)
+    net_bare, _ = side(False)
+    try:
+        matmul.LAUNCHES.reset()
+        epoch(net_ck, mgr)
+        epoch(net_bare, None)
+        warm_launches = matmul.LAUNCHES.value
+        ab_runs = pairs(cfg["pairs"], mgr)
+        aa_runs = pairs(cfg["aa_pairs"], None)
+    finally:
+        mgr.wait()
+        shutil.rmtree(root, ignore_errors=True)
+    series1 = _resilience_series()
+    n = cfg["n_batches"] * cfg["batch"]
+
+    def paired(runs):
+        pct = [(c - b) / b * 100.0 for c, b in runs]
+        ck, bare = float(np.median([c for c, _ in runs])), float(np.median([b for _, b in runs]))
+        return dict(overhead_pct=float(np.median(pct)), pair_pct=pct,
+                    ckpt_s=[c for c, _ in runs], bare_s=[b for _, b in runs],
+                    median_ckpt_s=ck, median_bare_s=bare,
+                    ckpt_samples_per_sec=n / ck, bare_samples_per_sec=n / bare)
+    first = ab_runs[:cfg["repeats"]]
+    best_ck, best_bare = min(c for c, _ in first), min(b for _, b in first)
+    gated = paired(ab_runs)
+    ab = dict(overhead_pct=gated["overhead_pct"], ab=gated, aa=paired(aa_runs),
+              bench_min_of_first=dict(epochs=cfg["repeats"], wall_ckpt_s=best_ck,
+                                      wall_bare_s=best_bare,
+                                      overhead_pct=(best_ck - best_bare) / best_bare * 100.0),
+              checkpoints_committed=series1["saves"] - series0["saves"],
+              checkpoint_bytes=series1["bytes"],
+              background_write_ms=(series1["write_ms_sum"] - series0["write_ms_sum"])
+              / max(series1["write_count"] - series0["write_count"], 1),
+              snapshot_ms_on_step_path=[s * 1e3 for s in mgr.snapshot_s],
+              fused_dense_launches_warmup_epochs=warm_launches,
+              gate_pct=RES_MAX_OVERHEAD_PCT, **cfg)
+    # early stopping on LeNet, against a reference-mode twin
+    def es_run():
+        raw = _image_batches(es["train_batches"] + es["val_batches"], es["batch"],
+                             (28, 28, 1), 10, seed=5)
+        tr_it = data.ListDataSetIterator([data.DataSet(x, y)
+                                          for x, y in raw[:es["train_batches"]]])
+        va_it = data.ListDataSetIterator([data.DataSet(x, y)
+                                          for x, y in raw[es["train_batches"]:]])
+        net = LeNet(n_classes=10, input_shape=(28, 28, 1)).init_model(device=dev)
+        conf = es_mod.EarlyStoppingConfiguration(
+            score_calculator=es_mod.DataSetLossCalculator(va_it),
+            epoch_termination_conditions=[
+                es_mod.MaxEpochsTerminationCondition(es["max_epochs"]),
+                es_mod.ScoreImprovementEpochTerminationCondition(patience=2)],
+            iteration_termination_conditions=[
+                es_mod.MaxScoreIterationTerminationCondition(1e4)])
+        return es_mod.EarlyStoppingTrainer(conf, net, tr_it).fit()
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True     # a bitwise-repeatable twin
+    try:
+        matmul.LAUNCHES.reset()
+        t0 = time.perf_counter()
+        result = es_run()
+        es_s = time.perf_counter() - t0
+        es_launches = matmul.LAUNCHES.value
+        prev = dispatch.set_dispatch_mode("reference")
+        try:
+            matmul.LAUNCHES.reset()
+            ref = es_run()
+            ref_launches = matmul.LAUNCHES.value
+        finally:
+            dispatch.set_dispatch_mode(prev)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    rel = [abs(result.score_vs_epoch[e] - ref.score_vs_epoch[e])
+           / abs(ref.score_vs_epoch[e]) for e in ref.score_vs_epoch]
+    early = dict(model="LeNet", batch=es["batch"], train_batches=es["train_batches"],
+                 val_batches=es["val_batches"], total_epochs=result.total_epochs,
+                 termination=result.termination_details, best_epoch=result.best_model_epoch,
+                 scores=result.score_vs_epoch, reference_scores=ref.score_vs_epoch,
+                 score_rel_diff=rel, seconds=es_s, fused_dense_launches=es_launches,
+                 fused_dense_launches_reference_mode=ref_launches,
+                 termination_reason=result.termination_reason,
+                 reference_termination_reason=ref.termination_reason,
+                 reference_best_epoch=ref.best_model_epoch)
+    return dict(ab=ab, early_stopping=early)
+
+
+def phase_resilience_ab(dev, cfg=RES_AB, report=None, timeout=600):
+    """Phase 53: bench.py's ``--resilience`` A/B (``bench.py:643-700``) on
+    the card, in a fresh process as bench.py runs it (``chip_smoke.py
+    --resilience-ab``; `report` stands in for it in a rehearsal): the same
+    loop over ``DevicePrefetchIterator``-staged batches through
+    ``_fit_dataset``, with an async ``CheckpointManager`` saving every
+    `save_every` steps and without.  bench.py's epoch, unchanged: the
+    manager's final ``wait()`` inside it, so every write is charged to
+    the checkpointing side, and one warm-up epoch a side.  bench.py takes
+    the minimum of 3 epochs a side; on the card's host an epoch of this
+    loop moves by 10% and more from one to the next, more than the gate,
+    so the gate (overhead under 5%) is held on the median over `pairs`
+    pairs of whole epochs, the order alternating a pair (ABBA), of each
+    pair's overhead.  `aa_pairs` pairs with no saves on either side give
+    the same statistic's noise floor (``aa``); bench.py's own reading,
+    the minimum of the first `repeats` epochs a side, is printed beside
+    it.  Then ``EarlyStoppingTrainer`` on LeNet (``fused_dense`` launches
+    counted), held to a ``reference``-mode twin's scores."""
+    if report is None:
+        out = subprocess.run([sys.executable, "-u", os.path.abspath(__file__),
+                              "--resilience-ab"], capture_output=True, text=True,
+                             timeout=timeout)
+        require(out.returncode == 0, f"resilience_ab: the process failed "
+                                     f"(rc={out.returncode}):\n{out.stdout[-2000:]}"
+                                     f"{out.stderr[-2000:]}")
+        report = _rank_report(out.stdout, "RES_AB")
+    ab, early = report["ab"], report["early_stopping"]
+    emit("resilience_ab", **ab, early_stopping=early)
+    require(ab["fused_dense_launches_warmup_epochs"] == 2 * 2 * cfg["n_batches"],
+            f"resilience_ab: fused_dense launched {ab['fused_dense_launches_warmup_epochs']} "
+            f"times over the two warm-up epochs, want {4 * cfg['n_batches']} (two relu "
+            "Dense layers a step)")
+    want = early["total_epochs"] * (early["train_batches"] + early["val_batches"])
+    require(early["fused_dense_launches"] == want
+            and early["fused_dense_launches_reference_mode"] == 0,
+            f"early stopping: fused_dense launched {early['fused_dense_launches']} times "
+            f"(want {want}: one a training step and one a validation batch), "
+            f"{early['fused_dense_launches_reference_mode']} in reference mode")
+    require(early["termination_reason"] == early["reference_termination_reason"]
+            == "EpochTerminationCondition"
+            and early["best_epoch"] == early["reference_best_epoch"]
+            and sorted(early["scores"]) == sorted(early["reference_scores"])
+            and max(early["score_rel_diff"]) <= F32_RTOL,
+            f"early stopping: {early} against reference mode")
+    require(ab["overhead_pct"] < RES_MAX_OVERHEAD_PCT and ab["checkpoints_committed"] > 0,
+            f"resilience_ab: checkpoint overhead {ab['overhead_pct']:.3f}% (the median of "
+            f"{cfg['pairs']} pairs; gate {RES_MAX_OVERHEAD_PCT}%; the A/A's "
+            f"{ab['aa']['overhead_pct']:.3f}%), {ab['checkpoints_committed']} saves")
+    return report
+
+
+def resilience_ab_main(argv):
+    """Phase 53's process (``--resilience-ab``): prints its report as one
+    ``RES_AB`` line."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from deeplearning4j_tpu_torch import data, nn, train
+    from deeplearning4j_tpu_torch.ops.kernels import dispatch, matmul
+    from deeplearning4j_tpu_torch.zoo import LeNet
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dispatch.set_dispatch_mode("auto")
+    dev = torch.device("cuda", 0)
+    report = _resilience_ab_run(train, data, nn, matmul, LeNet, dev)
+    print("RES_AB " + json.dumps(report), flush=True)
+    return 0
+
+
+# ---- the elastic gang's members (``chip_smoke.py --elastic-rank``) ----
+
+class _GangShards:
+    """One seeded global batch a step, keyed by (epoch, step) only; each
+    member takes its LIVE gang rank's strided rows, so a reformed gang
+    re-shards the same stream (``tests/mh_worker_elastic_gang.py``'s
+    iterator).  `make(seed)` returns the global (x, y)."""
+
+    def __init__(self, model, steps, make):
+        self.model, self.steps, self.make = model, int(steps), make
+
+    def reset(self):
+        pass
+
+    def __len__(self):
+        return self.steps
+
+    def __iter__(self):
+        from deeplearning4j_tpu_torch.data import DataSet
+        for i in range(self.steps):
+            xg, yg = self.make(1000 + int(self.model.epoch) * self.steps + i)
+            sharing = self.model.gradient_sharing
+            r, w = sharing.rank, sharing.world
+            yield DataSet(xg[r::w], yg[r::w])
+
+
+class _StepLog:
+    """An ElasticTrainer hook that marks each step's end, and (installed on
+    the trainer) each reformation: the launches and host time of every
+    window between two marks, so a step's counts exclude the grad half a
+    reformation cut short.  `stats` is the sharing's at the last step's end
+    (after it, members that finished leave the gang)."""
+
+    def __init__(self, counters):
+        self.counters = counters
+        self.marks = []
+        self.stats = None
+
+    def mark(self, kind):
+        self.marks.append((kind, time.perf_counter(), [c.value for c in self.counters]))
+
+    def __call__(self, trainer):
+        self.mark("step")
+        self.stats = trainer.model.gradient_sharing.stats()
+
+    def steps(self):
+        out = []
+        for (_, t0, c0), (kind, t1, c1) in zip(self.marks, self.marks[1:]):
+            if kind == "step":
+                out.append(dict(ms=(t1 - t0) * 1e3, launches=[b - a for a, b in zip(c0, c1)]))
+        return out
+
+
+def _elastic_member(kind, out_dir, steps, kill_rank, kill_step, dev, shape=None):
+    """One member of an elastic gang (phases 54, 55): the MLP 16-32-3 of
+    ``tests/mh_worker_elastic_gang.py`` (threshold 5e-3) or bench.py's bf16
+    ResNet-50 (the default threshold; global batch 48), under
+    ``ElasticTrainer`` with ``HierarchicalGradientSharing(elastic=True)``
+    (heartbeat, deadline and join from the supervisor's environment); the
+    coordinator writes a checkpoint every step.  `shape` (image, classes,
+    global batch) narrows ResNet-50 for a rehearsal on the CPU.  Writes its
+    final state and report into `out_dir`."""
+    from deeplearning4j_tpu_torch import nn, parallel
+    from deeplearning4j_tpu_torch.monitor.registry import registry
+    from deeplearning4j_tpu_torch.ops.kernels import conv3x3, matmul
+    from deeplearning4j_tpu_torch.parallel import multihost
+    from deeplearning4j_tpu_torch.parallel.transport import GangEvictedError, PeerUnreachableError
+    from deeplearning4j_tpu_torch.train import Nesterovs, Sgd
+    from deeplearning4j_tpu_torch.train.resilience import CheckpointManager, ElasticTrainer
+    from deeplearning4j_tpu_torch.utils.chaos import PeerKiller
+    from deeplearning4j_tpu_torch.zoo import ResNet50
+    rank = int(os.environ.get(multihost.ENV_PID, "0"))
+    policy = os.environ.get("DL4J_TPU_ELASTIC_POLICY", "shrink")
+    if kind == "mlp":
+        conf = (nn.NeuralNetConfiguration.builder().seed(7).updater(Sgd(0.1))
+                .list([nn.DenseLayer(n_out=32, activation="tanh"),
+                       nn.OutputLayer(n_out=3, loss="mcxent", activation="softmax")])
+                .set_input_type(nn.InputType.feed_forward(16)).build())
+        net = nn.MultiLayerNetwork(conf, device=dev).init()
+        sharing = parallel.HierarchicalGradientSharing(threshold=5e-3, elastic=True)
+
+        def make(seed):
+            rng = np.random.RandomState(seed)
+            xg = rng.randn(12, 16).astype(np.float32)
+            labels = (xg[:, 0] > 0).astype(int) + (xg[:, 1] > 0).astype(int)
+            return xg, np.eye(3, dtype=np.float32)[labels]
+    else:
+        image, classes, gb = shape or (EL_R50["image"], EL_R50["classes"],
+                                       EL_R50["global_batch"])
+        net = _resnet50(ResNet50, Nesterovs, dev, compute_dtype="bfloat16", image=image,
+                        classes=classes)
+        sharing = parallel.HierarchicalGradientSharing(elastic=True)
+
+        def make(seed):
+            rng = np.random.RandomState(seed)
+            x = rng.rand(gb, image, image, 3).astype(np.float32)
+            y = np.eye(classes, dtype=np.float32)[rng.randint(0, classes, gb)]
+            return x, y
+    net.set_gradient_sharing(sharing)
+    manager = CheckpointManager(os.environ[multihost.ENV_CKPT], keep_last=200,
+                                save_every_steps=1 if rank == 0 else None,
+                                async_save=kind == "resnet50")
+    log = _StepLog([matmul.LAUNCHES, conv3x3.WGRAD_LAUNCHES, conv3x3.DGRAD_LAUNCHES])
+    hooks = [log]
+    if kill_rank >= 0:
+        hooks.append(PeerKiller(kill_rank, kill_step, mode="kill", duration_s=6.0,
+                                marker=os.path.join(out_dir, "killed_once")))
+    trainer = ElasticTrainer(net, manager, policy=policy, rejoin_wait_s=60.0, hooks=hooks,
+                             save_initial=rank == 0)
+    on_reform = trainer._on_reform
+
+    def marked(e):
+        log.mark("reform")
+        return on_reform(e)
+    trainer._on_reform = marked
+    for cnt in log.counters:
+        cnt.reset()
+    log.mark("start")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    try:
+        trainer.fit(_GangShards(net, steps, make), epochs=1)
+    except (GangEvictedError, PeerUnreachableError) as e:
+        print(f"rank {rank}: left the gang: {e}", flush=True)
+        net.set_gradient_sharing(None)
+        return 7
+    wall = time.perf_counter() - t0
+    stats = log.stats
+    reg = registry()
+    h = reg.get("resilience_checkpoint_save_ms")
+    report = dict(
+        rank=rank, stats=stats, reformations=trainer.reformations, wall_s=wall,
+        steps=log.steps(), iteration=net.iteration, score=float(net.score()),
+        checkpoint_snapshot_ms=[s * 1e3 for s in manager.snapshot_s],
+        checkpoint_write_ms_mean=(h.sum / h.count) if h is not None and h.count else None,
+        checkpoint_bytes=getattr(reg.get("resilience_checkpoint_bytes"), "value", None),
+        max_memory_allocated_gb=(torch.cuda.max_memory_allocated(dev) / 1e9
+                                 if dev.type == "cuda" else None),
+        state_sha256=_params_sha256(net), opt_sha256=_opt_sha256(net))
+    with open(os.path.join(out_dir, f"elastic_{rank}.json"), "w") as f:
+        json.dump(report, f)
+    net.set_gradient_sharing(None)            # close the gang's sockets
+    print(f"rank {rank}: done at iteration {net.iteration} (world={stats['world']}, "
+          f"generation={stats['generation']})", flush=True)
+    return 0
+
+
+def _opt_sha256(net):
+    import hashlib
+    h = hashlib.sha256()
+    for t in _opt_leaves(net):
+        h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def elastic_rank_main(argv):
+    """One elastic gang member of phases 54 and 55 (``--elastic-rank
+    mlp|resnet50 <out dir> <steps> <kill rank> <kill step> [<image> <classes>
+    <global batch>]``), started by
+    ``multihost.ElasticLocalRunner.run_elastic``: its card is
+    ``DL4J_TPU_LOCAL_RANK`` (members share the cards: a gang forms no NCCL
+    group); ``DL4J_TPU_PLATFORM=cpu`` runs it on the CPU."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from deeplearning4j_tpu_torch.ops.kernels import dispatch
+    from deeplearning4j_tpu_torch.parallel import multihost
+    if os.environ.get(multihost.ENV_PLATFORM) == "cpu":
+        dev = torch.device("cpu")
+    else:
+        if not torch.cuda.is_available():
+            print("chip_smoke: CUDA is not available", file=sys.stderr)
+            return 2
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        dispatch.set_dispatch_mode("auto")
+        dev = torch.device("cuda", int(os.environ.get(multihost.ENV_LOCAL, "0")))
+        torch.cuda.set_device(dev)
+    kind, out_dir, steps, kill_rank, kill_step = argv[:5]
+    shape = tuple(int(v) for v in argv[5:8]) or None
+    return _elastic_member(kind, out_dir, int(steps), int(kill_rank), int(kill_step), dev,
+                           shape)
+
+
+def _elastic_gang(multihost, kind, td, tag, procs, steps, kill_rank, kill_step, ckpt,
+                  heartbeat_s, deadline_s, policy="shrink", relaunch=False, platform="cuda",
+                  timeout=600.0, extra=()):
+    """One run of an elastic gang of `procs` members (``--elastic-rank
+    kind``): (wall seconds, {rank: report}, the runner's results)."""
+    out = os.path.join(td, f"out_{tag}")
+    os.makedirs(out)
+    t0 = time.time()
+    runner = multihost.ElasticLocalRunner(procs, platform=platform, backoff_base_s=0.2)
+    res = runner.run_elastic(os.path.abspath(__file__),
+                             ["--elastic-rank", kind, out, str(steps), str(kill_rank),
+                              str(kill_step), *map(str, extra)],
+                             timeout=timeout, checkpoint_dir=ckpt, policy=policy,
+                             heartbeat_s=heartbeat_s, failure_deadline_s=deadline_s,
+                             relaunch=relaunch)
+    wall = time.time() - t0
+    require(res["r0"][0] == 0, f"elastic {tag}: rank 0 failed:\n{res['r0'][1][-2000:]}")
+    reports = {}
+    for name in os.listdir(out):
+        if name.startswith("elastic_") and name.endswith(".json"):
+            with open(os.path.join(out, name)) as f:
+                r = json.load(f)
+            reports[r["rank"]] = r
+    return wall, reports, res
+
+
+def _copy_up_to(src, dst, step):
+    """A copy of a checkpoint directory without the checkpoints above
+    `step` (the clean comparator starts from the resume point)."""
+    import shutil
+    from deeplearning4j_tpu_torch.train.resilience import CheckpointManager
+    shutil.copytree(src, dst)
+    for name in os.listdir(dst):
+        p = os.path.join(dst, name)
+        if os.path.isdir(p) and name.startswith(CheckpointManager.PREFIX) \
+                and int(name[len(CheckpointManager.PREFIX):]) > step:
+            shutil.rmtree(p)
+
+
+def _launches_per_step(report, index):
+    return [s["launches"][index] for s in report["steps"]]
+
+
+def phase_elastic_ab(multihost, dev, cfg=ELASTIC_AB, platform="cuda"):
+    """Phase 54: bench.py's ``--elastic`` A/B (``bench.py:927-1040``) on the
+    card.  A: a gang of 3 (``--elastic-rank mlp``) loses rank 2 at
+    `kill_step` and shrinks; B: a clean world-2 gang from A's resume
+    checkpoint; C: a clean gang of 3.  bench.py's gates: detection within
+    the failure deadline + 2 s, A's final loss B's (1e-9 relative), the
+    reformation (detection + resume) within 15 s.  Then a ``"block"`` run
+    with ``relaunch=True`` ends at world 3 after the replacement joins."""
+    import shutil
+    import tempfile
+    td = tempfile.mkdtemp(prefix="elastic_ab_")
+    try:
+        kw = dict(heartbeat_s=cfg["heartbeat_s"], deadline_s=cfg["failure_deadline_s"],
+                  platform=platform)
+        ck_a = os.path.join(td, "ck_a")
+        wall_a, rep_a, res_a = _elastic_gang(multihost, "mlp", td, "a", 3, cfg["steps"], 2,
+                                             cfg["kill_step"], ck_a, **kw)
+        r0 = rep_a[0]
+        require(len(r0["reformations"]) == 1, f"elastic_ab A: reformations "
+                                              f"{r0['reformations']}, want 1")
+        rf = r0["reformations"][0]
+        require(rf["cause"] == "crash" and rf["world"] == 2 and res_a["r2"][0] == 9,
+                f"elastic_ab A: {rf}, rank 2 rc {res_a['r2'][0]}")
+        ck_b = os.path.join(td, "ck_b")
+        _copy_up_to(ck_a, ck_b, rf["resume_step"])
+        _, rep_b, _ = _elastic_gang(multihost, "mlp", td, "b", 2, cfg["steps"], -1, 0, ck_b,
+                                    **kw)
+        wall_c, rep_c, _ = _elastic_gang(multihost, "mlp", td, "c", 3, cfg["steps"], -1, 0,
+                                         os.path.join(td, "ck_c"), **kw)
+        require(rep_b[0]["reformations"] == [] and rep_c[0]["reformations"] == [],
+                "elastic_ab: a clean run re-formed")
+        loss_a, loss_b = rep_a[0]["score"], rep_b[0]["score"]
+        delta = abs(loss_a - loss_b) / max(abs(loss_b), 1e-12)
+        detect_ok = rf["detection_ms"] <= cfg["failure_deadline_s"] * 1e3 \
+            + ELASTIC_DETECT_SLACK_MS
+        reform_ms = rf["detection_ms"] + rf["resume_ms"]
+        launches = {r: statistics.median(_launches_per_step(rep, 0))
+                    for r, rep in rep_a.items()}
+        # block policy: the replacement joins, the gang ends at world 3
+        wall_d, rep_d, res_d = _elastic_gang(multihost, "mlp", td, "d", 3, cfg["steps"], 2,
+                                             cfg["kill_step"], os.path.join(td, "ck_d"),
+                                             policy="block", relaunch=True, **kw)
+        causes = [r["cause"] for r in rep_d[0]["reformations"]]
+        joined = [label for label in res_d if "+j" in label]
+        require(rep_d[0]["stats"]["world"] == 3 and causes == ["crash"] and joined
+                and res_d[joined[0]][0] == 0,
+                f"elastic_ab block: world {rep_d[0]['stats']['world']}, causes {causes}, "
+                f"replacements {joined}")
+        report = dict(
+            procs=3, model="MLP 16-32-3 tanh/softmax mcxent", updater="Sgd(0.1)",
+            threshold=5e-3, global_batch=12, steps=cfg["steps"], kill_step=cfg["kill_step"],
+            heartbeat_s=cfg["heartbeat_s"], failure_deadline_s=cfg["failure_deadline_s"],
+            cause=rf["cause"], world_after=rf["world"],
+            generation_after=r0["stats"]["generation"], resume_step=rf["resume_step"],
+            detection_ms=rf["detection_ms"], resume_ms=rf["resume_ms"],
+            reformation_ms=reform_ms, final_loss_chaos=loss_a,
+            final_loss_uninterrupted=loss_b, loss_delta_rel=delta,
+            params_bitwise_b=rep_a[0]["state_sha256"] == rep_b[0]["state_sha256"],
+            wall_chaos_s=wall_a, wall_clean_s=wall_c, wall_overhead_s=wall_a - wall_c,
+            stale_frames=r0["stats"]["stale_frames"],
+            fused_dense_launches_per_step=launches,
+            gates=dict(detect_ms=cfg["failure_deadline_s"] * 1e3 + ELASTIC_DETECT_SLACK_MS,
+                       loss_delta_rel=ELASTIC_LOSS_RTOL, reformation_ms=ELASTIC_BUDGET_MS),
+            block=dict(world_final=rep_d[0]["stats"]["world"],
+                       generation_final=rep_d[0]["stats"]["generation"],
+                       reformations=rep_d[0]["reformations"], replacements=joined,
+                       wall_s=wall_d))
+        emit("elastic_ab", **report)
+        require(detect_ok and delta <= ELASTIC_LOSS_RTOL and reform_ms <= ELASTIC_BUDGET_MS,
+                f"elastic_ab: detection {rf['detection_ms']:.1f} ms, loss delta {delta}, "
+                f"reformation {reform_ms:.1f} ms against the gates")
+        require(all(v == 1 for v in launches.values()),
+                f"elastic_ab: fused_dense launches a step {launches}, want 1 on every rank")
+        return report
+    finally:
+        shutil.rmtree(td, ignore_errors=True)
+
+
+def phase_elastic_resnet50(multihost, dev, cfg=EL_R50, platform="cuda", timeout=900.0):
+    """Phase 55: BASELINE config 5's GradientSharing ResNet-50 at full
+    width under ``ElasticTrainer``: a gang of 3 (``--elastic-rank
+    resnet50``; one card each where there are 3, else all on card 0), a
+    global batch of 48, rank 2 killed at `kill_step` by ``PeerKiller``.
+    The failure deadline comes from a clean world-3 run's step time (C,
+    `clean_steps` steps); A must show exactly one ``crash`` reformation to
+    world 2, and rank 0's parameters, BatchNorm statistics and moments
+    equal those of B, a clean world-2 gang from A's resume checkpoint, bit
+    for bit; B re-forms never; 16 + 16 conv launches every step of every
+    rank."""
+    import shutil
+    import tempfile
+    td = tempfile.mkdtemp(prefix="elastic_resnet50_")
+    shape = (cfg["image"], cfg["classes"], cfg["global_batch"])
+    try:
+        hb = cfg["heartbeat_s"]
+        wall_c, rep_c, _ = _elastic_gang(multihost, "resnet50", td, "c", cfg["procs"],
+                                         cfg["clean_steps"], -1, 0, os.path.join(td, "ck_c"),
+                                         heartbeat_s=hb, deadline_s=60.0, platform=platform,
+                                         timeout=timeout, extra=shape)
+        require(all(r["reformations"] == [] for r in rep_c.values()),
+                "elastic_resnet50: the clean run re-formed")
+        clean_ms = max(statistics.median([s["ms"] for s in r["steps"][1:]] or
+                                         [s["ms"] for s in r["steps"]])
+                       for r in rep_c.values())
+        deadline = max(cfg["deadline_floor_s"],
+                       math.ceil(cfg["deadline_steps"] * clean_ms / 1e3))
+        ck_a = os.path.join(td, "ck_a")
+        wall_a, rep_a, res_a = _elastic_gang(multihost, "resnet50", td, "a", cfg["procs"],
+                                             cfg["steps"], 2, cfg["kill_step"], ck_a,
+                                             heartbeat_s=hb, deadline_s=deadline,
+                                             platform=platform, timeout=timeout, extra=shape)
+        r0 = rep_a[0]
+        require(len(r0["reformations"]) == 1, f"elastic_resnet50 A: reformations "
+                                              f"{r0['reformations']}, want 1")
+        rf = r0["reformations"][0]
+        require(rf["cause"] == "crash" and rf["world"] == 2 and res_a["r2"][0] == 9,
+                f"elastic_resnet50 A: {rf}, rank 2 rc {res_a['r2'][0]}")
+        ck_b = os.path.join(td, "ck_b")
+        _copy_up_to(ck_a, ck_b, rf["resume_step"])
+        shutil.rmtree(ck_a, ignore_errors=True)
+        wall_b, rep_b, _ = _elastic_gang(multihost, "resnet50", td, "b", 2, cfg["steps"], -1,
+                                         0, ck_b, heartbeat_s=hb, deadline_s=deadline,
+                                         platform=platform, timeout=timeout, extra=shape)
+        require(all(r["reformations"] == [] for r in rep_b.values()),
+                f"elastic_resnet50 B: re-formed {rep_b[0]['reformations']}")
+        bitwise = (r0["state_sha256"] == rep_b[0]["state_sha256"]
+                   and r0["opt_sha256"] == rep_b[0]["opt_sha256"])
+        # each rank's distinct (wgrad, dgrad) launch counts over its steps
+        conv = {tag: {r: sorted(set(zip(_launches_per_step(rep, 1), _launches_per_step(rep, 2))))
+                      for r, rep in reps.items()}
+                for tag, reps in (("a", rep_a), ("b", rep_b), ("c", rep_c))}
+        conv_ok = all(v == [(BODY_CONVS, BODY_CONVS)] for per in conv.values()
+                      for v in per.values())
+        steps0 = r0["steps"]
+        reform_at = rf["resume_step"]
+        before = [s["ms"] for s in steps0[1:cfg["kill_step"]]]
+        after = [s["ms"] for s in steps0[cfg["kill_step"] + 1:]]
+        report = dict(
+            model="ResNet50", compute_dtype="bfloat16",
+            input=f"{cfg['image']}x{cfg['image']}x3", classes=cfg["classes"],
+            updater="Nesterovs(0.1, 0.9)", sharing="threshold 1e-3 (default), elastic",
+            procs=cfg["procs"], global_batch=cfg["global_batch"], steps=cfg["steps"],
+            kill_step=cfg["kill_step"], cards=torch.cuda.device_count() if platform == "cuda"
+            else 0, heartbeat_s=hb, clean_step_ms=clean_ms, failure_deadline_s=deadline,
+            deadline_rule=f"max({cfg['deadline_floor_s']} s, ceil({cfg['deadline_steps']} x "
+                          "the clean run's slowest median step))",
+            cause=rf["cause"], world_after=rf["world"],
+            generation_after=r0["stats"]["generation"], resume_step=reform_at,
+            detection_ms=rf["detection_ms"], resume_ms=rf["resume_ms"],
+            rank0_bitwise_b=bitwise, b_reformations=0, conv_launches_per_step=conv,
+            step_ms_before_reform=before, step_ms_after_reform=after,
+            step_ms_b=[s["ms"] for s in rep_b[0]["steps"]],
+            checkpoint_snapshot_ms_per_step=r0["checkpoint_snapshot_ms"],
+            checkpoint_write_ms_mean=r0["checkpoint_write_ms_mean"],
+            checkpoint_bytes=r0["checkpoint_bytes"],
+            wire_bytes_per_step={r: rep["stats"]["last_wire_bytes"]
+                                 for r, rep in rep_a.items()},
+            stale_frames=r0["stats"]["stale_frames"],
+            max_memory_allocated_gb={r: rep["max_memory_allocated_gb"]
+                                     for r, rep in rep_a.items()},
+            wall_s=dict(a=wall_a, b=wall_b, c=wall_c))
+        emit("elastic_resnet50", **report)
+        require(bitwise, "elastic_resnet50: rank 0's state after the reform is not B's bit "
+                         "for bit")
+        require(conv_ok, f"elastic_resnet50: conv launches a step {conv}, want "
+                         f"{BODY_CONVS} + {BODY_CONVS}")
+        return report
+    finally:
+        shutil.rmtree(td, ignore_errors=True)
+
+
 def _dp_resnet50_entry(name, r):
     """A conv kernel's launches in phase 44: a replayed data-parallel block
     (its graph's nodes at world 1, else the profiler's count), and the
@@ -6292,6 +7211,11 @@ def main():
     gs_r50, gs_r50_ranks = phase_gs_resnet50(parallel, multihost, conv3x3, matmul, ResNet50,
                                              Nesterovs, dev)
     gs_comms = phase_gs_comms(multihost, dev)
+    # fault-tolerant and elastic training
+    ft_r50 = phase_ft_resnet50(train, data, conv3x3, matmul, ResNet50, Nesterovs, dev)
+    res_ab = phase_resilience_ab(dev)
+    el_ab = phase_elastic_ab(multihost, dev)
+    el_r50 = phase_elastic_resnet50(multihost, dev)
 
     emit("done", seconds=time.monotonic() - t_start)
     main_row = rows[("fc6", torch.float32)]
@@ -6329,6 +7253,20 @@ def main():
                               f"{GS_COMMS['steps']} steps a mode"},
         "gs_resnet50": {"launches_per_step": gs_r50["dense"]["launches_per_step"]["fused_dense"],
                         "shape": "not on this path: ResNet-50's head is a plain product"},
+        "resilience_ab": {"launches": res_ab["ab"]["fused_dense_launches_warmup_epochs"],
+                          "shape": f"M={RES_AB['batch']} K={RES_AB['n_in']} N=512 and K=512 "
+                                   "N=256 f32 relu; launches over the two sides' warm-up "
+                                   f"epochs of {RES_AB['n_batches']} steps"},
+        "early_stopping": {"launches": res_ab["early_stopping"]["fused_dense_launches"],
+                           "shape": f"LeNet M={ES_LENET['batch']} K=800 N=500 f32 relu; "
+                                    "launches over the EarlyStoppingTrainer run (a training "
+                                    "step and a validation batch each one)"},
+        "elastic_ab": {"launches_per_step": el_ab["fused_dense_launches_per_step"],
+                       "shape": "M=4 (6 after the shrink) K=16 N=32 f32 tanh; the median "
+                                "a step on each surviving rank of the gang of 3"},
+        "ft_resnet50": {"launches": ft_r50["launches_counted_at_warmup_and_capture"][
+                            "fused_dense"],
+                        "shape": "not on this path: ResNet-50's head is a plain product"},
         "tp_vgg16": {"launches": tp_vgg["launches_per_step"]["fused_dense"] * TP_VGG_STEPS,
                      "launch_shapes_per_step": tp_vgg["fused_dense_shapes_per_step"],
                      "world": tp_vgg["world"], "mesh": tp_vgg["mesh"],
@@ -6364,7 +7302,20 @@ def main():
                 m: gs_r50[m]["launches_per_step"][name] for m in ("dense", "compressed")},
                 "launches_per_step_gang_rank0": {
                 m: gs_r50_ranks[0][m]["launches_per_step"][name]
-                for m in ("dense", "compressed")}, "k": GS_R50_K}})
+                for m in ("dense", "compressed")}, "k": GS_R50_K},
+            "ft_resnet50": {
+                "counted_at_warmup_and_capture":
+                    ft_r50["launches_counted_at_warmup_and_capture"][name],
+                "launches_per_replayed_block": ft_r50["launches_per_replayed_block"][name],
+                "k": FT_R50["k"], "shape": "bf16 ResNet-50 batch 64 under "
+                                           "FaultTolerantTrainer, fused blocks of 5"},
+            "elastic_resnet50": {
+                "launches_per_step": {tag: {r: sorted({p[0 if name == "conv3x3_wgrad" else 1]
+                                                       for p in v})
+                                            for r, v in per.items()}
+                                      for tag, per in el_r50["conv_launches_per_step"].items()},
+                "shape": f"bf16 ResNet-50, {EL_R50['global_batch']} global rows over a gang "
+                         "of 3 then 2; every step of every rank"}})
     for name, (replaces, source), row, n_launched, shape in (
             ("flash_attn_fwd", ATTN_KERNEL, attn_rows[("t128", torch.float32)],
              bert_launches[0], "BERT-base q/k/v [64,12,128,64] f32"),
@@ -6456,4 +7407,8 @@ if __name__ == "__main__":
         sys.exit(gs_rank_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--mp-rank"]:
         sys.exit(mp_rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--elastic-rank"]:
+        sys.exit(elastic_rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--resilience-ab"]:
+        sys.exit(resilience_ab_main(sys.argv[2:]))
     sys.exit(main())

@@ -1,10 +1,12 @@
 """Cached metric handles for the port's hot paths (the port of
 ``monitor/instrument.py``, in part: the training, input-pipeline,
-data-parallel, gradient-sharing, quantization and decode bundles).
+data-parallel, gradient-sharing, quantization, decode, resilience and
+gang bundles).
 
 Each subsystem grabs its bundle once and records through plain attribute
 access; labeled children are created lazily and memoized.  The rest of the
-JAX module (resilience, fleet and ops bundles) is not ported yet.  A "compile" of the training bundle
+JAX module (the AOT-cache, arbiter, federation, fleet and ops bundles) is
+not ported yet.  A "compile" of the training bundle
 is a CUDA-graph capture of a fused k-step block (``utils/scan_fit.py``);
 the eager step compiles nothing.
 
@@ -43,6 +45,23 @@ the eager step compiles nothing.
   decode_kv_bytes{model=,dtype=}     bytes of KV pages in use
   decode_sequences_active{model=}    sequences holding KV pages
   decode_sequence_restarts_total{model=}  failover restarts (fleet)
+  resilience_checkpoint_save_ms      one checkpoint write (an async save's
+                                     background write, not the step stall)
+  resilience_checkpoint_bytes        payload bytes of the latest save
+  resilience_checkpoints_total       committed saves
+  resilience_checkpoint_gc_total     checkpoints removed by keep-last-K
+  resilience_restores_total          restores from a committed checkpoint
+  resilience_restore_fallbacks_total restores that skipped a damaged one
+  resilience_rollbacks_total         divergence-guard rollbacks
+  resilience_divergence_events_total steps the divergence guard flagged
+  resilience_preemptions_total       preemption signals honored
+  gang_generation                    membership generation of the gang
+  gang_members                       live ranks in the gang
+  gang_detection_ms                  silence on a peer when declared lost
+  gang_resume_ms                     reformation caught to training resumed
+  gang_stale_frames_total            stale-generation data frames fenced
+  gang_reformations_total{cause=}    reformations (crash|partition|
+                                     straggler|join|shrink)
 """
 from __future__ import annotations
 
@@ -330,7 +349,112 @@ class DecodeInstruments:
         self.restarts(model).inc()
 
 
+class ResilienceInstruments:
+    """Fault-tolerance handles (``train/resilience.py``,
+    ``utils/chaos.py``)."""
+
+    def __init__(self, registry_: Optional[MetricsRegistry] = None):
+        reg = registry_ if registry_ is not None else registry()
+        self.checkpoint_save_ms = reg.histogram(
+            "resilience_checkpoint_save_ms",
+            help="wall time of one checkpoint save (ms); for async saves "
+            "this is the background write, NOT the step-loop stall")
+        self.checkpoint_bytes = reg.gauge(
+            "resilience_checkpoint_bytes",
+            help="payload bytes of the most recent checkpoint save")
+        self.checkpoints = reg.counter(
+            "resilience_checkpoints_total",
+            help="checkpoint saves committed (manifest written)")
+        self.checkpoint_gc = reg.counter(
+            "resilience_checkpoint_gc_total",
+            help="checkpoints removed by keep-last-K retention GC")
+        self.restores = reg.counter(
+            "resilience_restores_total",
+            help="successful restores from a committed checkpoint")
+        self.restore_fallbacks = reg.counter(
+            "resilience_restore_fallbacks_total",
+            help="restores that skipped a torn or checksum-corrupt newer "
+            "checkpoint and fell back to an older intact one")
+        self.rollbacks = reg.counter(
+            "resilience_rollbacks_total",
+            help="divergence-guard rollbacks to the last checkpoint")
+        self.divergence_events = reg.counter(
+            "resilience_divergence_events_total",
+            help="steps the divergence guard flagged (NaN/inf/spike)")
+        self.preemptions = reg.counter(
+            "resilience_preemptions_total",
+            help="preemption signals honored with a checkpoint-and-exit")
+
+    def record_save(self, dt_s: float, nbytes: int) -> None:
+        if not enabled():
+            return
+        self.checkpoint_save_ms.observe(dt_s * 1000.0)
+        self.checkpoint_bytes.set(int(nbytes))
+        self.checkpoints.inc()
+
+
+class GangInstruments:
+    """Elastic gang-membership handles (``parallel/transport.py``'s
+    elastic mesh and ``train/resilience.py``'s ElasticTrainer).  One
+    unlabeled series set a process: a process is one gang member."""
+
+    def __init__(self, registry_: Optional[MetricsRegistry] = None):
+        reg = registry_ if registry_ is not None else registry()
+        self._reg = reg
+        self.generation = reg.gauge(
+            "gang_generation",
+            help="current membership generation of the gradient-mesh gang "
+            "(bumped by every reformation; stale-generation traffic is "
+            "fenced)")
+        self.members = reg.gauge(
+            "gang_members", help="live ranks in the gradient-mesh gang")
+        self.detection_ms = reg.histogram(
+            "gang_detection_ms",
+            help="silence observed on a peer at the moment it was declared "
+            "lost (ms): the failure-detection latency the heartbeat "
+            "deadline bounds")
+        self.resume_ms = reg.histogram(
+            "gang_resume_ms",
+            help="wall time from catching a reformation to training "
+            "resumed: sharing rebuild + checkpoint restore + iterator "
+            "fast-forward (ms)")
+        self.stale_frames = reg.counter(
+            "gang_stale_frames_total",
+            help="stale-generation data frames fenced and dropped: "
+            "traffic from a previous membership generation that must "
+            "never be summed into gradients")
+        self._reformations: dict = {}
+
+    def reformations(self, cause: str):
+        c = self._reformations.get(cause)
+        if c is None:
+            c = self._reg.counter(
+                "gang_reformations_total",
+                help="gang membership reformations, by cause "
+                "(crash|partition|straggler|join)",
+                labels={"cause": cause})
+            self._reformations[cause] = c
+        return c
+
+    def record_membership(self, generation: int, members: int) -> None:
+        if not enabled():
+            return
+        self.generation.set(int(generation))
+        self.members.set(int(members))
+
+    def record_reform(self, cause: str, detection_ms: Optional[float],
+                      generation: int, members: int) -> None:
+        if not enabled():
+            return
+        self.reformations(cause).inc()
+        if detection_ms is not None:
+            self.detection_ms.observe(float(detection_ms))
+        self.record_membership(generation, members)
+
+
 _pipeline: Optional[PipelineInstruments] = None
+_resilience: Optional[ResilienceInstruments] = None
+_gang: Optional[GangInstruments] = None
 _comms: Optional[CommsInstruments] = None
 _quant: Optional[QuantInstruments] = None
 _decode: Optional[DecodeInstruments] = None
@@ -366,3 +490,19 @@ def decode_instruments() -> DecodeInstruments:
     if _decode is None:
         _decode = DecodeInstruments()
     return _decode
+
+
+def resilience_instruments() -> ResilienceInstruments:
+    """Process-wide resilience handle bundle (lazy singleton)."""
+    global _resilience
+    if _resilience is None:
+        _resilience = ResilienceInstruments()
+    return _resilience
+
+
+def gang_instruments() -> GangInstruments:
+    """Process-wide gang handle bundle (lazy singleton)."""
+    global _gang
+    if _gang is None:
+        _gang = GangInstruments()
+    return _gang

@@ -13,8 +13,14 @@ processes over TCP, dense or threshold-compressed.  The mesh's other axes:
 `sharding` (tensor parallelism over ``model``, through the wrapper's
 ``sharding_rules``), `ring_attention` (sequence parallelism over
 ``seq``), `pipeline` (GPipe stages over ``pipe``) and `composed` (dp x tp
-x pp in one step), over the collectives of `collectives`.  Not ported
-yet: the elastic runner and mesh, and a mesh over part of the ranks.
+x pp in one step), over the collectives of `collectives`.  Elastic
+training: `transport.ElasticGradientMesh` under
+``HierarchicalGradientSharing(elastic=True)`` re-forms a gang that loses
+a member, `multihost.ElasticLocalRunner` relaunches a job or supervises an
+elastic gang, `reshard_zero1` / `reshard_to_devices` move ZeRO-1's state
+to a new world, and `make_mesh(devices=)` (``workers(n)``) builds a mesh
+over part of the ranks.  Not ported yet: a gang member of more than one
+card (a host subgroup and its leader).
 """
 from deeplearning4j_tpu_torch.parallel.checkpoint import (  # noqa: F401
     ChecksumError, load_model_sharded, load_sharded, read_metadata,
@@ -23,12 +29,15 @@ from deeplearning4j_tpu_torch.parallel.hierarchical import (  # noqa: F401
     HierarchicalAllReduce, HierarchicalGradientSharing)
 from deeplearning4j_tpu_torch.parallel.mesh import (  # noqa: F401
     Mesh, MeshSpec, data_sharding, make_mesh, replicated)
-from deeplearning4j_tpu_torch.parallel.multihost import LocalLauncher  # noqa: F401
+from deeplearning4j_tpu_torch.parallel.multihost import (  # noqa: F401
+    ElasticLocalRunner, LocalLauncher, MultiHostParallelInference)
+from deeplearning4j_tpu_torch.parallel.transport import (  # noqa: F401
+    ElasticGradientMesh, GangEvictedError, GangReformed, PeerUnreachableError)
 from deeplearning4j_tpu_torch.parallel.wrapper import (  # noqa: F401
     DynamicBatchingInference, ParallelInference, ParallelWrapper)
 from deeplearning4j_tpu_torch.parallel.zero import (  # noqa: F401
     LeafPlan, Zero1Transform, build_plans, disable_zero1, enable_zero1,
-    opt_state_bytes_per_replica)
+    opt_state_bytes_per_replica, reshard_to_devices, reshard_zero1)
 from deeplearning4j_tpu_torch.parallel.sharding import (  # noqa: F401
     PartitionSpec, ShardingRules, shard_model_params)
 from deeplearning4j_tpu_torch.parallel.pipeline import (  # noqa: F401

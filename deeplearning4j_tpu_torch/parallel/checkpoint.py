@@ -381,15 +381,12 @@ def save_model_sharded(net, directory: str) -> None:
 
 
 @torch.no_grad()
-def load_model_sharded(net, directory: str):
-    """Restore into an ``init()``-ed network (every rank calls it): the
-    parameters, layer state and updater state are written into the
-    network's tensors in place (a captured fused block keeps replaying
-    them), each rank reading its own shards of a ZeRO-1 updater state.
-    Returns `net`."""
+def assign_model_tree(net, tree: Dict[str, Any]) -> None:
+    """Write a loaded ``{"params", "state", "opt"}`` tree (numpy, the JAX
+    package's layouts; under ZeRO-1 this rank's windows of the sharded
+    moments) into the network's own tensors, in place, so a captured fused
+    block keeps replaying them."""
     from deeplearning4j_tpu_torch import convert
-    tree = load_sharded(directory, _model_tree(net, template=True))
-    meta = read_metadata(directory)
     convert.params_from_jax(net, tree["params"])
     convert.state_from_jax(net, tree["state"])
     zt = getattr(net, "_step_transform", None)
@@ -400,7 +397,18 @@ def load_model_sharded(net, directory: str):
             got = torch.from_numpy(np.asarray(arr))
             t.copy_(pl.to_port(got) if pl is not None and pl.kind == "repl" else got)
         _map_marked(put, _marked_opt_state(net, zt), tree["opt"])
+
+
+@torch.no_grad()
+def load_model_sharded(net, directory: str):
+    """Restore into an ``init()``-ed network (every rank calls it): the
+    parameters, layer state and updater state are written into the
+    network's tensors in place (a captured fused block keeps replaying
+    them), each rank reading its own shards of a ZeRO-1 updater state.
+    Returns `net`."""
+    tree = load_sharded(directory, _model_tree(net, template=True))
+    meta = read_metadata(directory)
+    assign_model_tree(net, tree)
     net.iteration = meta["iteration"]
     net.epoch = meta["epoch"]
     return net
-

@@ -32,8 +32,14 @@ trip still runs.
 This slice supports a gang member of one card, or any wrapper world with
 a gang of world 1.  A wrapper world above 1 together with a gang world
 above 1 needs a host subgroup and a leader, which are not ported
-(:func:`check_composable` raises).  Elastic membership (``elastic=True``,
-the joiner and evict pass-throughs) waits for the elastic mesh.
+(:func:`check_composable` raises).  ``elastic=True`` forms the gang over
+``transport.ElasticGradientMesh`` instead: a member lost to a crash, a
+partition or a straggle re-forms the gang under a new generation, and the
+exchange raises ``GangReformed`` on every survivor for
+``train.resilience.ElasticTrainer`` to rewind; a replacement started with
+``join=True`` (``DL4J_TPU_JOIN=1``) is parked until the coordinator admits
+it, and the coordinator can evict a rank (the joiner and evict
+pass-throughs below).
 """
 from __future__ import annotations
 
@@ -54,9 +60,6 @@ ENV_GRAD_HOST = "DL4J_TPU_GRADIENT_HOST"
 ENV_HEARTBEAT = "DL4J_TPU_HEARTBEAT_S"
 ENV_DEADLINE = "DL4J_TPU_FAILURE_DEADLINE_S"
 ENV_JOIN = "DL4J_TPU_JOIN"
-
-_ELASTIC = ("elastic gang membership (ElasticGradientMesh) is not ported yet "
-            "(ROADMAP A5.4)")
 
 Tree = Any
 
@@ -99,6 +102,8 @@ class HierarchicalGradientSharing:
     port: Optional[int] = None        # default: env, else 49152
     host: Optional[str] = None        # default: env, else 127.0.0.1
     timeout: float = 60.0
+    # elastic gang membership: heartbeat failure detection and
+    # generation-fenced reformation instead of fail-stop
     elastic: bool = False
     heartbeat_interval_s: Optional[float] = None   # env, else 0.25
     failure_deadline_s: Optional[float] = None     # env, else 5.0
@@ -155,19 +160,19 @@ class HierarchicalAllReduce:
 
     def __init__(self, config: HierarchicalGradientSharing):
         self.config = config.resolve()
-        if self.config.elastic:
-            raise NotImplementedError(_ELASTIC)
         self._exchange = None          # CompressedGradientExchange
-        self._mesh = None              # TcpGradientMesh
+        self._mesh = None              # TcpGradientMesh | ElasticGradientMesh
         self._ready = False
         self._instr = None
         self._template = None
+        self._resume_step_provider = None
         self._last_wire_bytes = 0
         self._last_ratio = 1.0
         self.exchanges = 0
 
     @property
     def rank(self) -> int:
+        # an elastic reformation remaps the rank in place
         return self._mesh.rank if self._mesh is not None else self.config.rank
 
     @property
@@ -177,6 +182,14 @@ class HierarchicalAllReduce:
     @property
     def mesh(self):
         return self._mesh
+
+    def set_resume_step_provider(self, fn) -> None:
+        """Coordinator side: the callable returning the checkpoint step
+        every member resumes from after a reformation (``ElasticTrainer``
+        wires ``CheckpointManager.latest_step``)."""
+        self._resume_step_provider = fn
+        if self._mesh is not None and hasattr(self._mesh, "resume_step_provider"):
+            self._mesh.resume_step_provider = fn
 
     def _ensure(self, grads: Tree) -> None:
         if self._ready:
@@ -188,7 +201,26 @@ class HierarchicalAllReduce:
             treedef, [np.zeros(np.shape(g), np.float32) for g in leaves])
         if self.config.compressed:
             self._build_exchange()
-        if self.config.world > 1:
+        if self.config.elastic:
+            from deeplearning4j_tpu_torch.parallel.transport import (ElasticGradientMesh,
+                                                                     GangReformed)
+            c = self.config
+            self._mesh = ElasticGradientMesh(
+                rank=c.rank, world=c.world, port=c.port, host=c.host, timeout=c.timeout,
+                heartbeat_interval=c.heartbeat_interval_s,
+                failure_deadline=c.failure_deadline_s, join=bool(c.join),
+                resume_step_provider=self._resume_step_provider)
+            if c.join and self._mesh.join_info is not None:
+                # a replacement learns its resume point only at admission:
+                # surface it as a reformation, so the trainer restores the
+                # checkpoint the survivors rewound to
+                self._ready = True
+                raise GangReformed({
+                    "generation": self._mesh.generation, "world": self._mesh.world,
+                    "rank": self._mesh.rank, "rank_map": {self._mesh.rank: self._mesh.rank},
+                    "lost": [], "cause": "join",
+                    "resume_step": self._mesh.join_info.get("resume_step", 0)})
+        elif self.config.world > 1:
             from deeplearning4j_tpu_torch.parallel.transport import TcpGradientMesh
             self._mesh = TcpGradientMesh(
                 rank=self.config.rank, world=self.config.world, port=self.config.port,
@@ -229,7 +261,7 @@ class HierarchicalAllReduce:
             ratio = 1.0
         if mesh is not None:
             self._last_wire_bytes = mesh.bytes_sent + mesh.bytes_received - sent0
-        w = self.world
+        w = self.world                 # changes under elastic membership
         if self.config.combine == "mean" and w > 1:
             inv = np.float32(1.0 / w)
             leaves, treedef = tree_flatten(total)
@@ -266,27 +298,37 @@ class HierarchicalAllReduce:
         from deeplearning4j_tpu_torch.parallel.compression import allreduce_dense
         return allreduce_dense(self._mesh, host_grads)
 
-    # ---- elastic membership: the resume step, joiners, eviction (not ported) ----
-    def set_resume_step_provider(self, fn) -> None:
-        raise NotImplementedError(_ELASTIC)
-
+    # ---- elastic joiner admission and eviction (coordinator only) ----
     def has_pending_joiner(self) -> bool:
-        raise NotImplementedError(_ELASTIC)
+        return self._mesh is not None and \
+            getattr(self._mesh, "has_pending_joiner", lambda: False)()
 
     def wait_for_joiner(self, timeout: float) -> bool:
-        raise NotImplementedError(_ELASTIC)
+        if self._mesh is None or not hasattr(self._mesh, "wait_for_joiner"):
+            return False
+        return self._mesh.wait_for_joiner(timeout)
 
     def admit_joiners(self, resume_step: int):
-        raise NotImplementedError(_ELASTIC)
+        """Admit parked replacements (the generation moves on and the peers
+        raise ``GangReformed``).  Returns the reform info, or None; the
+        caller (``ElasticTrainer``) rebuilds the codecs and restores the
+        checkpoint on the coordinator itself."""
+        if self._mesh is None or not hasattr(self._mesh, "admit_joiners"):
+            return None
+        return self._mesh.admit_joiners(resume_step)
 
     def request_evict(self, rank: int, resume_step=None, cause: str = "shrink"):
-        raise NotImplementedError(_ELASTIC)
+        """Coordinated shrink: evict `rank` at an agreed resume step.
+        Returns the reform info, or None when the gang is not elastic."""
+        if self._mesh is None or not hasattr(self._mesh, "request_evict"):
+            return None
+        return self._mesh.request_evict(rank, resume_step=resume_step, cause=cause)
 
     def stats(self) -> dict:
         """The last exchange's numbers (what bench.py's ``--comms``
         aggregates)."""
         mesh = self._mesh
-        return {
+        out = {
             "rank": self.rank,
             "world": self.world,
             "compressed": self.config.compressed,
@@ -296,6 +338,11 @@ class HierarchicalAllReduce:
             "bytes_sent_total": mesh.bytes_sent if mesh else 0,
             "bytes_received_total": mesh.bytes_received if mesh else 0,
         }
+        if self.config.elastic and mesh is not None:
+            out["generation"] = mesh.generation
+            out["reformations"] = mesh.reformations
+            out["stale_frames"] = mesh.stale_frames
+        return out
 
     def close(self) -> None:
         if self._mesh is not None:

@@ -21,6 +21,14 @@ axis that spans the whole world is the default group itself.  ``with mesh:``
 makes it the :func:`current_mesh` that ``ring_attention`` and the pipeline
 read when no mesh is passed, as JAX's ``with mesh:`` does.
 
+A mesh over part of the ranks (``make_mesh(axes, devices=ranks)``) is built
+the same way on every rank of the default group, since ``dist.new_group``
+is collective over it: its lines' subgroups and :attr:`Mesh.group_all`,
+the subgroup of its ranks, in place of the default group.  Only its ranks
+take part in its collectives; on a rank outside it the mesh is a
+non-member (:attr:`Mesh.member` False), and a mesh over one rank runs no
+collective at all.
+
 With no process group, :func:`make_mesh` is the one-rank mesh of this
 process's device (``jax.devices()`` in one process); the device rule of
 every entry point holds (``"cuda"`` unless the caller asks for the CPU).
@@ -59,11 +67,13 @@ class MeshSpec:
 class Mesh:
     """Named axes over `ranks` of the default process group (None: no
     group, one rank).  ``shape`` maps axis names to sizes, ``size`` is the
-    number of ranks, ``rank`` this process's place in ``ranks`` and
-    ``device`` the device this process computes on."""
+    number of ranks, ``rank`` this process's place in ``ranks`` (-1 on a
+    rank outside them), ``device`` the device this process computes on and
+    ``group_all`` the process group of the mesh's ranks (None: the default
+    group)."""
 
     def __init__(self, axes: Dict[str, int], ranks: Sequence[int], rank: int,
-                 device: torch.device, distributed: bool, groups=None):
+                 device: torch.device, distributed: bool, groups=None, group_all=None):
         self.shape: Dict[str, int] = dict(axes)
         self.axis_names: Tuple[str, ...] = tuple(axes)
         self.ranks: Tuple[int, ...] = tuple(ranks)
@@ -71,10 +81,22 @@ class Mesh:
         self.device = device
         self.distributed = bool(distributed)
         self._groups = dict(groups or {})
+        self.group_all = group_all
 
     @property
     def size(self) -> int:
         return len(self.ranks)
+
+    @property
+    def member(self) -> bool:
+        """Whether this process is one of the mesh's ranks."""
+        return self.rank >= 0
+
+    @property
+    def src(self) -> int:
+        """The global rank of the mesh's first rank (a broadcast's
+        source)."""
+        return self.ranks[0]
 
     def group(self, axis: str):
         """This rank's process subgroup along `axis` (None: the default
@@ -87,7 +109,7 @@ class Mesh:
     def line(self, axis: str) -> Tuple[int, ...]:
         """The global ranks of this rank's line along `axis`, in axis
         order."""
-        return _line(self.shape, self.rank, axis)
+        return tuple(self.ranks[p] for p in _line(self.shape, self.rank, axis))
 
     def __enter__(self) -> "Mesh":
         _current.stack = getattr(_current, "stack", []) + [self]
@@ -134,19 +156,20 @@ def _line(shape: Dict[str, int], rank: int, axis: str) -> Tuple[int, ...]:
     return tuple(int(r) for r in grid[idx])
 
 
-def _axis_groups(shape: Dict[str, int], rank: int, world: int) -> Dict[str, object]:
+def _axis_groups(shape: Dict[str, int], ranks: Sequence[int], whole, rank: int):
     """One ``dist.new_group`` for each line of the mesh along each axis
     wider than 1, in axis order then line order (the same calls on every
-    rank); returns this rank's group for each such axis.  A ``data`` axis
-    over the whole world is the default group (None)."""
+    rank of the default group); returns this rank's group for each such
+    axis.  A ``data`` axis over all of the mesh's ranks is `whole`, the
+    mesh's own group (None: the default group)."""
     import torch.distributed as dist
-    grid = np.arange(world).reshape(tuple(shape.values()))
+    grid = np.asarray(ranks).reshape(tuple(shape.values()))
     out = {}
     for i, (axis, n) in enumerate(shape.items()):
         if n == 1:
             continue
-        if n == world and axis == "data":
-            out[axis] = None
+        if n == len(ranks) and axis == "data":
+            out[axis] = whole
             continue
         lines = np.moveaxis(grid, i, -1).reshape(-1, n)
         for line in lines:
@@ -178,8 +201,10 @@ def make_mesh(axes: Optional[Dict[str, int]] = None,
     """A Mesh over the ranks `devices` (default: every rank of the default
     process group).  With no axes given, a pure data-parallel mesh over
     them.  With no process group, the one-rank mesh of `device` (``"cuda"``
-    by default; ``"cpu"`` where the caller asks).  Every rank calls it with
-    the same axes: an axis wider than 1 builds its subgroups here."""
+    by default; ``"cpu"`` where the caller asks).  Every rank of the
+    default group calls it with the same axes and ranks: an axis wider
+    than 1 builds its subgroups here, and a mesh over part of the ranks
+    its own group too (a rank outside it gets a non-member mesh)."""
     import torch.distributed as dist
     distributed = dist.is_available() and dist.is_initialized()
     world = dist.get_world_size() if distributed else 1
@@ -190,15 +215,21 @@ def make_mesh(axes: Optional[Dict[str, int]] = None,
     if spec.total() != len(ranks):
         raise ValueError(f"Mesh axes {axes} require {spec.total()} ranks, "
                          f"have {len(ranks)}")
-    if ranks != list(range(world)):
-        raise NotImplementedError(
-            f"a mesh over ranks {ranks} of a world of {world}: only a mesh over "
-            "every rank of the default process group is ported")
-    if distributed:
-        dev = _group_device(dist.get_backend(), device)
-        rank = dist.get_rank()
-        return Mesh(axes, ranks, rank, dev, True, _axis_groups(dict(axes), rank, world))
-    return Mesh(axes, ranks, 0, resolve_device(device), False)
+    if sorted(set(ranks)) != sorted(ranks) or any(not 0 <= r < world for r in ranks):
+        raise ValueError(f"mesh ranks {ranks}: want distinct ranks of a world of {world}")
+    if not distributed:
+        return Mesh(axes, ranks, 0, resolve_device(device), False)
+    dev = _group_device(dist.get_backend(), device)
+    me = dist.get_rank()
+    pos = ranks.index(me) if me in ranks else -1
+    if ranks == list(range(world)):
+        return Mesh(axes, ranks, pos, dev, True, _axis_groups(dict(axes), ranks, None, me))
+    if len(ranks) == 1:
+        # one rank: no collective, so no group (nothing is called on the others)
+        return Mesh(axes, ranks, pos, dev, False)
+    whole = dist.new_group(ranks)
+    return Mesh(axes, ranks, pos, dev, True, _axis_groups(dict(axes), ranks, whole, me),
+                group_all=whole)
 
 
 @dataclasses.dataclass(frozen=True)

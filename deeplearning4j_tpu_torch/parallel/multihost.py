@@ -16,19 +16,32 @@ gang=True)`` starts one, each rank told the mesh's port by
 ``DL4J_TPU_GRADIENT_HOST``, 127.0.0.1 by default).  A gang forms no NCCL
 group, so its ranks may share a card.
 
-Not ported yet: ``ElasticLocalRunner`` and ``MultiHostParallelInference``
-(the elastic runner).
+:class:`ElasticLocalRunner` supervises such launches.  ``run`` relaunches
+the whole job after a retryable failure, each attempt on a fresh
+rendezvous (and gradient-mesh) port, the workers resuming from
+``DL4J_TPU_CHECKPOINT_DIR``.  ``torch.distributed`` has no coordination
+service to stop the survivors of a dead rank (a survivor blocks in its
+collective until the group's timeout), so the launcher stops them at the
+first failure, and the failure taxonomy reads what the first failing rank
+printed.  ``run_elastic`` supervises an elastic gang
+(``HierarchicalGradientSharing(elastic=True)`` under
+``train.resilience.ElasticTrainer``) process by process and starts a
+replacement with ``DL4J_TPU_JOIN=1`` for a member that died.
+:class:`MultiHostParallelInference` runs each process's own request rows
+through the replicated model.
 """
 from __future__ import annotations
 
 import datetime
 import os
+import random
+import shutil
 import socket
 import subprocess
 import sys
 import tempfile
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +54,8 @@ ENV_NPROC = "DL4J_TPU_NUM_PROCESSES"
 ENV_PID = "DL4J_TPU_PROCESS_ID"
 ENV_LOCAL = "DL4J_TPU_LOCAL_RANK"
 ENV_PLATFORM = "DL4J_TPU_PLATFORM"
+# the checkpoint directory a resilience-aware worker resumes from
+ENV_CKPT = "DL4J_TPU_CHECKPOINT_DIR"
 # the TCP gradient mesh of hierarchical gradient sharing (read by
 # parallel/hierarchical.py; a gang needs no process group)
 ENV_GRAD_PORT = "DL4J_TPU_GRADIENT_PORT"
@@ -112,8 +127,8 @@ def shard_host_local_batch(mesh, batch, axis: str = "data", batch_dim: int = 0):
         if mesh.distributed and mesh.size > 1:
             import torch.distributed as dist
             lo, hi = n.clone(), n.clone()
-            dist.all_reduce(lo, op=dist.ReduceOp.MIN)
-            dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+            dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=mesh.group_all)
+            dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=mesh.group_all)
             if int(lo) != int(hi):
                 raise ValueError(f"host-local batches differ in size over the ranks: "
                                  f"{int(lo)} to {int(hi)} rows")
@@ -253,3 +268,267 @@ class LocalLauncher:
             tail = outs[rank] + ("\n<rank timed out>" if rc == -9 else "")
             raise RuntimeError(f"rank {rank} failed (rc={rc}):\n{tail[-4000:]}")
         return outs
+
+
+# ---------------------------------------------------------------------------
+# failure detection and elastic restart
+# ---------------------------------------------------------------------------
+
+#: what a rank prints when it fails because another rank died: a gloo or
+#: NCCL collective losing its peer, the gang mesh losing its coordinator,
+#: or a collective timing out (lower case)
+PEER_LOSS_MARKERS = (
+    "connection closed by peer", "connection reset by peer", "broken pipe",
+    "peerunreachableerror", "gang coordinator", "peer dead or stalled",
+    "remote process exited", "nccl communicator was aborted",
+    "watchdog caught collective operation timeout", "timed out in call to",
+    "gloo connectfullmesh failed")
+
+
+class ElasticLocalRunner:
+    """Failure detection and elastic restart (reference analog: Spark task
+    retry around SharedTraining workers).
+
+    ``run`` relaunches the whole job after a retryable failure, and the
+    worker script resumes from its latest checkpoint
+    (``train.resilience``).  ``torch.distributed`` has no coordination
+    service to stop the survivors of a dead rank, so the launcher stops
+    them at the first failure it sees (``LocalLauncher`` polls every
+    rank).  ``run_elastic`` supervises an elastic gang member by member
+    instead: the gang re-forms without the dead member and a replacement
+    joins it.  ``platform`` is where the ranks compute: ``"cuda"`` (the
+    default) or ``"cpu"`` where the caller asks for it."""
+
+    def __init__(self, num_processes: int, platform: str = "cuda", max_restarts: int = 2,
+                 backoff_base_s: float = 1.0, backoff_cap_s: float = 30.0,
+                 jitter_seed: Optional[int] = None):
+        self.num_processes = int(num_processes)
+        self.platform = platform
+        self.max_restarts = max_restarts
+        self.restarts = 0
+        self.backoff_base_s = backoff_base_s
+        self.backoff_cap_s = backoff_cap_s
+        # decorrelated-jitter state: a seeded PRNG (not the clock), so
+        # tests are deterministic while real fleets still spread out
+        self._rng = random.Random(jitter_seed)
+        self._prev_backoff: Optional[float] = None
+        #: (attempt, kind, message tail) a failure; kind is crash | hang |
+        #: peer-loss | corrupt (see `_classify_failure`)
+        self.failure_history: List[tuple] = []
+
+    @staticmethod
+    def _classify_failure(message: str) -> str:
+        """Failure taxonomy of a failed rank's output: `corrupt` = a rank
+        failed restoring a checkpoint whose bytes do not match their
+        checksum (NOT retryable: a relaunch reads the same bytes); `hang`
+        = a rank outlived the launch's timeout; `peer-loss` = a rank
+        failed because another rank died (its collective or the gang mesh
+        lost the peer, or timed out waiting for it: a secondary casualty);
+        `crash` = a rank exited nonzero on its own."""
+        low = message.lower()
+        if "checksummismatch" in low.replace(" ", "") or "checksumerror" in low:
+            return "corrupt"
+        if "<rank timed out>" in message:
+            return "hang"
+        if any(m in low for m in PEER_LOSS_MARKERS):
+            return "peer-loss"
+        return "crash"
+
+    def backoff_s(self, attempt: int) -> float:
+        """Decorrelated-jitter backoff before restart `attempt` (1-based):
+        sleep ~ U(base, 3 * previous sleep), capped.  Relaunches on one
+        host draw different sleeps and stop stampeding one port; the
+        jitter PRNG is seeded (`jitter_seed`)."""
+        if attempt <= 1 or self._prev_backoff is None:
+            self._prev_backoff = self.backoff_base_s
+            return self._prev_backoff
+        v = self._rng.uniform(self.backoff_base_s,
+                              max(self._prev_backoff * 3.0, self.backoff_base_s))
+        self._prev_backoff = min(v, self.backoff_cap_s)
+        return self._prev_backoff
+
+    def run(self, script: str, args: Sequence[str] = (), timeout: float = 300.0,
+            checkpoint_dir: Optional[str] = None,
+            gradient_mesh: bool = False) -> List[str]:
+        """Run the job, relaunching after retryable failures.  Each attempt
+        is a new `LocalLauncher` run, so a new rendezvous port; with
+        `checkpoint_dir=` every attempt exports it as
+        ``DL4J_TPU_CHECKPOINT_DIR`` so a resilience-aware worker resumes
+        from the last committed checkpoint; with `gradient_mesh=True` the
+        ranks are a gang (no process group) and every attempt exports a
+        fresh ``DL4J_TPU_GRADIENT_PORT`` (the dead gang's socket may
+        linger in TIME_WAIT).  A `corrupt` failure aborts at once."""
+        extra_env = {} if checkpoint_dir is None else {ENV_CKPT: checkpoint_dir}
+        last_error: Optional[RuntimeError] = None
+        for attempt in range(self.max_restarts + 1):
+            launcher = LocalLauncher(self.num_processes, self.platform, gang=gradient_mesh)
+            try:
+                return launcher.run(script, args, timeout, extra_env=extra_env,
+                                    gradient_port=free_port() if gradient_mesh else None)
+            except RuntimeError as e:
+                last_error = e
+                kind = self._classify_failure(str(e))
+                self.failure_history.append((attempt, kind, str(e)[-500:]))
+                if kind == "corrupt":
+                    raise RuntimeError(
+                        "checkpoint restore failed with a checksum mismatch: not "
+                        "retryable (a relaunch reads the same corrupt bytes); restore an "
+                        "older intact checkpoint or repair storage") from e
+                self.restarts = min(attempt + 1, self.max_restarts)
+                if attempt < self.max_restarts:
+                    time.sleep(self.backoff_s(attempt + 1))
+        kinds = [k for _, k, _ in self.failure_history]
+        raise RuntimeError(f"training failed after {self.max_restarts} restarts "
+                           f"(failure kinds: {kinds})") from last_error
+
+    def run_elastic(self, script: str, args: Sequence[str] = (), timeout: float = 600.0,
+                    checkpoint_dir: Optional[str] = None, policy: str = "shrink",
+                    heartbeat_s: float = 0.25, failure_deadline_s: float = 2.0,
+                    max_replacements: int = 2, relaunch: bool = True,
+                    extra_env: Optional[Dict[str, str]] = None
+                    ) -> Dict[str, Tuple[int, str]]:
+        """Supervise an ELASTIC gang process by process.
+
+        Workers run ``HierarchicalGradientSharing(elastic=True)`` under
+        ``ElasticTrainer``; when a member other than the coordinator dies
+        the gang re-forms itself and trains on, and with `relaunch=True`
+        this supervisor starts a REPLACEMENT after a jittered backoff with
+        ``DL4J_TPU_JOIN=1`` on the same gradient port and checkpoint
+        directory: it parks until admitted (at once under ``"block"``, at
+        the next epoch boundary under ``"shrink"``) and enters at a fresh
+        generation.  The coordinator's (rank 0's) death is fatal to the
+        gang (the star has no other hub) and raises with its output's
+        tail; wrap an elastic worker in :meth:`run` where a whole-gang
+        restart is the recovery wanted for that.  On the card the members
+        share the cards (rank r on card r % cards): a gang forms no NCCL
+        group.
+
+        Returns ``{label: (returncode, output)}``, labels ``"r<rank>"`` for
+        the initial gang and ``"r<rank>+j<n>"`` for replacements.  The run
+        succeeds when rank 0 exits 0; a member's death is recorded in
+        `failure_history`, not raised."""
+        if policy not in ("shrink", "block"):
+            raise ValueError(f"policy must be 'shrink' or 'block', got {policy!r}")
+        port = free_port()
+        base_env = {
+            ENV_GRAD_PORT: str(port),
+            "DL4J_TPU_HEARTBEAT_S": str(heartbeat_s),
+            "DL4J_TPU_FAILURE_DEADLINE_S": str(failure_deadline_s),
+            "DL4J_TPU_ELASTIC_POLICY": policy,
+        }
+        if checkpoint_dir is not None:
+            base_env[ENV_CKPT] = checkpoint_dir
+        if extra_env:
+            base_env.update(extra_env)
+        coordinator = f"127.0.0.1:{free_port()}"   # no process group in a gang
+        cards = torch.cuda.device_count() if self.platform == "cuda" else 0
+        logdir = tempfile.mkdtemp(prefix="elastic-gang-")
+
+        def spawn(rank: int, label: str, join: bool):
+            env = child_env(coordinator, self.num_processes, rank, self.platform,
+                            rank % cards if cards else None)
+            env.update(base_env)
+            if join:
+                env["DL4J_TPU_JOIN"] = "1"
+            path = os.path.join(logdir, f"{label}.log")
+            f = open(path, "w")
+            p = subprocess.Popen([sys.executable, "-u", script, *map(str, args)],
+                                 stdout=f, stderr=subprocess.STDOUT, text=True, env=env)
+            return (p, f, path)
+
+        alive: Dict[str, tuple] = {}
+        for rank in range(self.num_processes):
+            alive[f"r{rank}"] = spawn(rank, f"r{rank}", join=False)
+        results: Dict[str, Tuple[int, str]] = {}
+        replacements = 0
+        rank0_rc: Optional[int] = None
+        deadline = time.monotonic() + timeout
+        grace_deadline: Optional[float] = None
+
+        def reap(label: str, p, f, path) -> Tuple[int, str]:
+            f.close()
+            with open(path, "r") as rf:
+                out = rf.read()
+            results[label] = (p.returncode, out)
+            return results[label]
+
+        try:
+            while alive:
+                now = time.monotonic()
+                if now > deadline or (grace_deadline is not None and now > grace_deadline):
+                    for label, (p, f, path) in alive.items():
+                        p.kill()
+                        p.wait()
+                        rc, out = reap(label, p, f, path)
+                        results[label] = (rc, out + "\n<rank timed out>")
+                    alive.clear()
+                    if now > deadline:
+                        raise RuntimeError(f"elastic gang timed out after {timeout:.0f}s "
+                                           f"(results so far: {sorted(results)})")
+                    break
+                exited = [(label, t) for label, t in alive.items() if t[0].poll() is not None]
+                for label, (p, f, path) in exited:
+                    del alive[label]
+                    rc, out = reap(label, p, f, path)
+                    if label == "r0":
+                        rank0_rc = rc
+                        if rc != 0:
+                            raise RuntimeError(f"elastic gang coordinator (rank 0) failed "
+                                               f"(rc={rc}):\n{out[-4000:]}")
+                        # the coordinator is done: the peers must wind down
+                        # on their own within the failure deadline
+                        grace_deadline = time.monotonic() + max(failure_deadline_s * 3, 5.0)
+                    elif rc != 0:
+                        kind = self._classify_failure(out)
+                        self.failure_history.append((replacements, kind, out[-500:]))
+                        if relaunch and rank0_rc is None and replacements < max_replacements:
+                            replacements += 1
+                            time.sleep(self.backoff_s(replacements))
+                            base = label.split("+")[0]
+                            jl = f"{base}+j{replacements}"
+                            alive[jl] = spawn(int(base[1:]), jl, join=True)
+                time.sleep(0.05)
+        finally:
+            for label, (p, f, path) in alive.items():
+                p.kill()
+                p.wait()
+                reap(label, p, f, path)
+            shutil.rmtree(logdir, ignore_errors=True)   # the outputs are in `results`
+        self.restarts = replacements
+        return results
+
+
+# ---------------------------------------------------------------------------
+# multi-process inference
+# ---------------------------------------------------------------------------
+
+class MultiHostParallelInference:
+    """Inference over the processes of a job: every process submits its
+    own request rows (the same count on every process), the replicated
+    model runs them on this process's device, and each process receives
+    exactly its own rows back; no result crosses between processes.  The
+    model's parameters and layer state are made equal on every rank at
+    construction (rank 0's, broadcast), the replication the JAX package
+    states with a replicated sharding."""
+
+    def __init__(self, model, mesh=None, data_axis: str = "data"):
+        from deeplearning4j_tpu_torch.parallel.wrapper import _broadcast_tensors
+        self.model = model
+        self.mesh = mesh if mesh is not None else global_mesh(device=model.device)
+        self.data_axis = data_axis
+        if self.mesh.distributed and self.mesh.size > 1:
+            from deeplearning4j_tpu_torch.train.updaters import tree_leaves
+            tensors = [t for tree in (model.params_, model.state_)
+                       for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+            with torch.no_grad():
+                _broadcast_tensors(tensors, self.mesh)
+
+    def output(self, x_local):
+        """x_local: this process's ``[b_local, ...]`` request batch (equal
+        sizes on every process).  Returns this process's ``[b_local,
+        ...]`` predictions as numpy."""
+        x = shard_host_local_batch(self.mesh, np.asarray(x_local), self.data_axis)
+        out = self.model.output(x)
+        if isinstance(out, (list, tuple)):   # ComputationGraph
+            out = out[0]
+        return out.detach().cpu().numpy()

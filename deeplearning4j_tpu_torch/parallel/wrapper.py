@@ -111,7 +111,7 @@ def _any_rank_has(listeners, mesh: Mesh) -> bool:
     """Whether any rank of the mesh holds listeners (collective)."""
     import torch.distributed as dist
     n = torch.tensor([len(listeners)], device=mesh.device)
-    dist.all_reduce(n, op=dist.ReduceOp.MAX)
+    dist.all_reduce(n, op=dist.ReduceOp.MAX, group=mesh.group_all)
     return bool(n.item())
 
 
@@ -231,9 +231,11 @@ class ParallelWrapper:
                         raise ValueError(
                             f"workers({self._workers}) exceeds the world of {mesh.size} "
                             "rank(s): start one process a worker (multihost.LocalLauncher)")
-                    raise NotImplementedError(
-                        f"workers({self._workers}) below the world of {mesh.size}: a "
-                        "mesh over part of the ranks is not ported")
+                    # the first n ranks (every rank of the group calls this);
+                    # the others are not workers and train nothing
+                    mesh = make_mesh({"data": self._workers},
+                                     devices=list(range(self._workers)),
+                                     device=self._model.device)
             return ParallelWrapper(self._model, mesh, training_mode=self._mode,
                                    sharding_rules=self._rules,
                                    optimizer_sharding=self._zero1,
@@ -294,10 +296,10 @@ class ParallelWrapper:
             m._tp = None
         if mesh.distributed:
             import torch.distributed as dist
-            dist.all_reduce(torch.zeros(1, device=mesh.device))
+            dist.all_reduce(torch.zeros(1, device=mesh.device), group=mesh.group_all)
             if mesh.size > 1:
                 zero.disable_zero1(m)
-                _broadcast_tensors(_model_tensors(m))
+                _broadcast_tensors(_model_tensors(m), mesh)
                 coord = mesh.coordinate(self.data_axis)
                 if coord and m._dp is None and getattr(m, "_rng", None) is not None:
                     m._rng.manual_seed(m.conf.seed * 1_000_003 + coord)
@@ -419,7 +421,10 @@ class ParallelWrapper:
     def fit(self, data, labels=None, *, epochs: int = 1) -> "ParallelWrapper":
         """fit(x, y) on a global batch, fit(DataSet/MultiDataSet), or
         fit(iterator, epochs=N): each rank trains on its rows of every batch
-        array (features, labels, masks)."""
+        array (features, labels, masks).  On a rank outside the mesh
+        (``workers(n)`` below the world) it returns at once."""
+        if not self.mesh.member:
+            return self
         self._place_model()
         m = self.model
         with self._listening():
@@ -460,6 +465,8 @@ class ParallelWrapper:
         from deeplearning4j_tpu_torch.data.pipeline import DevicePrefetchIterator
         if zero1 is not None:
             self.optimizer_sharding(zero1)
+        if not self.mesh.member:
+            return self
         self._place_model()
         pf = DevicePrefetchIterator(iterator, depth=prefetch_depth or 2,
                                     placement=self.sharded_placement())
@@ -475,9 +482,11 @@ class ParallelWrapper:
         arrays (a stride-0 ``broadcast_to`` view included), this rank's rows
         of axis 1 through the model's `fit_steps` (one CUDA-graph replay on
         the card, the collectives captured in it).  Returns the k global
-        losses."""
+        losses (None on a rank outside the mesh)."""
         if zero1 is not None:
             self.optimizer_sharding(zero1)
+        if not self.mesh.member:
+            return None
         self._place_model()
         xs, ys = self._local(xs, batch_dim=1), self._local(ys, batch_dim=1)
         t0 = time.perf_counter()
@@ -521,7 +530,7 @@ class ParallelWrapper:
             import torch.distributed as dist
             mine = torch.tensor(waits, dtype=torch.float64, device=self.mesh.device)
             got = [torch.empty_like(mine) for _ in range(self.mesh.size)]
-            dist.all_gather(got, mine)
+            dist.all_gather(got, mine, group=self.mesh.group_all)
             waits = [float(t) for t in got]
         skew = max(waits) - min(waits)
         self._instruments().replica_skew_ms.set(skew)
@@ -553,13 +562,13 @@ def _model_tensors(m) -> List[torch.Tensor]:
 
 
 @torch.no_grad()
-def _broadcast_tensors(tensors: List[torch.Tensor]) -> None:
-    """Rank 0's values into `tensors` on every rank: one broadcast a flat
-    bucket of one dtype."""
+def _broadcast_tensors(tensors: List[torch.Tensor], mesh: Mesh) -> None:
+    """The mesh's first rank's values into `tensors` on every rank of the
+    mesh: one broadcast a flat bucket of one dtype."""
     import torch.distributed as dist
     for bucket in bucketed(list(enumerate(tensors)), BUCKET_BYTES):
         flat = torch.cat([t.reshape(-1) for _, t in bucket])
-        dist.broadcast(flat, 0)
+        dist.broadcast(flat, mesh.src, group=mesh.group_all)
         off = 0
         for _, t in bucket:
             t.copy_(flat[off:off + t.numel()].view(t.shape))
@@ -604,7 +613,7 @@ class ParallelInference:
         if self.mesh.distributed and self.mesh.size > 1:
             import torch.distributed as dist
             full = out.new_empty((padded.shape[0],) + tuple(out.shape[1:]))
-            dist.all_gather_into_tensor(full, out)
+            dist.all_gather_into_tensor(full, out, group=self.mesh.group_all)
             out = full
         return out[: x.shape[0]].cpu().numpy()
 

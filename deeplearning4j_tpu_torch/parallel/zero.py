@@ -36,7 +36,12 @@ shard (:meth:`update_view`), then :meth:`restore`
 the parameter in place).  With no process group (a one-rank mesh) the
 collectives are copies.
 
-``reshard_zero1`` and ``reshard_to_devices`` wait for the elastic runner.
+:func:`reshard_zero1` moves the sharded state to another mesh when the
+world changes (a member left or joined): the moments are gathered to
+their true shapes over the old mesh (:func:`disable_zero1`, the portable
+layout) and cut again for the new one, in process, the same unpad-then-
+replan route the sharded checkpoint's loader takes from disk.
+:func:`reshard_to_devices` does it for a data-axis mesh over given ranks.
 """
 from __future__ import annotations
 
@@ -321,6 +326,44 @@ def disable_zero1(model) -> None:
                         for name, sub in model.opt_state_.items()}
     model._step_transform = None
     _invalidate_steps(model)
+
+
+def reshard_zero1(model, new_mesh, axis: str = "data",
+                  rules=None) -> Optional[Zero1Transform]:
+    """Re-shard a ZeRO-1 model onto a DIFFERENT mesh (an elastic world
+    change: the data axis shrank or grew).  Every rank of the old mesh
+    calls it: the old transform is torn down through `disable_zero1`
+    (the moments gathered and unpadded to their true shapes), then the
+    ranks of `new_mesh` enable it there, where `build_plans` derives the
+    shard/replicate decisions and the padding for the new axis size.  A
+    tensor-parallel model's split leaves keep their blocks, as in
+    `enable_zero1` (`rules` is accepted for the JAX package's signature;
+    the model's own tensor-parallel state names the leaves).  The step
+    counters are the model's tensors and stay where they are.  Returns
+    the new transform, or None on a rank outside `new_mesh`, which keeps
+    whole moments."""
+    disable_zero1(model)
+    if not new_mesh.member:
+        return None
+    tp = getattr(model, "_tp", None)
+    return enable_zero1(model, new_mesh, axis=axis,
+                        exclude=tp.leaf_keys() if tp is not None else frozenset())
+
+
+def reshard_to_devices(model, devices, axis: str = "data",
+                       rules=None) -> Optional[Zero1Transform]:
+    """A world change named by its ranks: re-shard the model's ZeRO-1
+    state onto a fresh data-axis mesh over exactly `devices` (the
+    surviving ranks after a shrink, or the grown world).  Every rank of
+    the default group calls it (the mesh's groups are made here).  Returns
+    the new transform, or None where ZeRO-1 was never enabled (a plain
+    data-parallel model has no sharded moments to move) or on a rank
+    outside `devices`."""
+    if getattr(model, "_step_transform", None) is None:
+        return None
+    from deeplearning4j_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh({axis: len(devices)}, devices=list(devices), device=model.device)
+    return reshard_zero1(model, mesh, axis=axis, rules=rules)
 
 
 def opt_state_bytes_per_replica(opt_state: Tree) -> int:

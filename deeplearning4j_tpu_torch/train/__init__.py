@@ -1,5 +1,7 @@
 """Training: the eleven updaters, gradient normalization, learning-rate
-schedules, listeners and evaluation."""
+schedules, listeners, evaluation, early stopping and fault-tolerant
+training (checkpoints, resume, preemption, divergence, the elastic
+gang)."""
 from deeplearning4j_tpu_torch.train.evaluation import (  # noqa: F401
     ROC, Evaluation, EvaluationBinary, EvaluationCalibration, ROCBinary,
     ROCMultiClass, RegressionEvaluation)
@@ -14,3 +16,6 @@ from deeplearning4j_tpu_torch.train.schedules import (  # noqa: F401
 from deeplearning4j_tpu_torch.train.updaters import (  # noqa: F401
     AdaDelta, AdaGrad, AdaMax, Adam, AdamW, AMSGrad, IUpdater, Nadam,
     Nesterovs, NoOp, RmsProp, Sgd, UPDATERS, apply_gradient_normalization)
+from deeplearning4j_tpu_torch.train.resilience import (  # noqa: F401
+    CheckpointManager, DivergenceError, DivergenceGuard, ElasticTrainer,
+    FaultTolerantTrainer, NoIntactCheckpointError, Preempted)

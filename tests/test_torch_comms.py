@@ -210,14 +210,14 @@ def test_config_resolves_from_the_launcher_env(monkeypatch):
     assert HierarchicalGradientSharing(port=7).resolve().host == "10.0.0.2"
     with pytest.raises(ValueError, match="combine"):
         HierarchicalGradientSharing(combine="max")
-    with pytest.raises(NotImplementedError, match="A5.4"):
-        HierarchicalAllReduce(HierarchicalGradientSharing(elastic=True, world=1))
+    # elastic membership is ported: the runtime builds, and without an
+    # elastic mesh the joiner and evict pass-throughs are the JAX no-ops
+    assert HierarchicalAllReduce(HierarchicalGradientSharing(elastic=True, world=1)) \
+        .config.elastic
     rt = HierarchicalAllReduce(_dense())
-    for call in (rt.has_pending_joiner, lambda: rt.wait_for_joiner(0.1),
-                 lambda: rt.set_resume_step_provider(lambda: 0),
-                 lambda: rt.admit_joiners(0), lambda: rt.request_evict(1)):
-        with pytest.raises(NotImplementedError, match="A5.4"):
-            call()
+    rt.set_resume_step_provider(lambda: 0)
+    assert (rt.has_pending_joiner(), rt.wait_for_joiner(0.1), rt.admit_joiners(0),
+            rt.request_evict(1)) == (False, False, None, None)
     with pytest.raises(TypeError, match="HierarchicalGradientSharing"):
         _net().set_gradient_sharing(True)
 

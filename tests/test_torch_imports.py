@@ -64,6 +64,8 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
         "import deeplearning4j_tpu_torch.parallel.sharding, deeplearning4j_tpu_torch.parallel.collectives\n"
         "import deeplearning4j_tpu_torch.parallel.ring_attention\n"
         "import deeplearning4j_tpu_torch.parallel.pipeline, deeplearning4j_tpu_torch.parallel.composed\n"
+        "import deeplearning4j_tpu_torch.train.resilience, deeplearning4j_tpu_torch.train.earlystopping\n"
+        "import deeplearning4j_tpu_torch.utils.chaos, deeplearning4j_tpu_torch.parallel.transport\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'deeplearning4j_tpu', 'tensorflow')]\n"
         "assert not bad, bad\n"

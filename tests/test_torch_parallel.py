@@ -302,6 +302,8 @@ def _task_mesh():
         except Exception as e:
             errors[name] = type(e).__name__ + ": " + str(e)
     out["workers2"] = ParallelWrapper.builder(net).workers(2).build().degree
+    out["part_member"] = mk({"data": 1}, devices=[0]).member
+    out["workers1_member"] = ParallelWrapper.builder(net).workers(1).build().mesh.member
     out["errors"] = errors
     from deeplearning4j_tpu_torch.parallel import multihost
     out["process"] = (multihost.process_index(), multihost.process_count())
@@ -429,11 +431,12 @@ def test_mesh_construction_and_its_errors(pool):
         assert out["device"] == "cpu" and out["workers2"] == 2
         e = out["errors"]
         assert e["three"].startswith("ValueError") and "require" in e["three"]
-        assert e["model"] is None       # the model axis is ported; a mesh over part
-        assert e["part"].startswith("NotImplementedError")  # of the ranks is not
+        assert e["model"] is None       # the model axis is ported, and a mesh over
+        assert e["part"] is None        # part of the ranks (rank 0 its member)
         assert e["cuda"] is not None
         assert e["workers3"].startswith("ValueError") and "exceeds" in e["workers3"]
-        assert e["workers1"].startswith("NotImplementedError")
+        assert e["workers1"] is None
+        assert out["part_member"] == out["workers1_member"] == (r == 0)
         assert out["process"] == (r, 2) and out["gathered"] == [[0.0, 0.0], [1.0, 1.0]]
 
 
