@@ -638,6 +638,44 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    coordinator's checkpoint ms a step, wire bytes a step, peak memory a
    rank.
 
+56. gs_hosts_comms — bench.py's ``bench_comms`` as ``bench.py:829-900``
+   defines it: 2 hosts (``LocalLauncher(2, d, "cuda", gang=True)``,
+   ``--hosts-rank comms``), 32 rows a host split over the host's d ranks
+   by ``ParallelWrapper``, 150 steps, threshold 5e-3, MLP 16-32-3,
+   Sgd(0.1); d = 2 at 4 cards, 1 (both hosts on a shared card) below.
+   Gates as phase 48: at least 5x fewer bytes on the wire (counted on the
+   leaders) and the final loss within 1%; every rank of every host ends
+   with the same first-layer W, bitwise; a rank other than its host's
+   leader opens no gang socket; ``fused_dense`` launches on every rank.
+57. gs_hosts_resnet50 — config 5's GradientSharing ResNet-50 (bf16, 224
+   px, Nesterovs(0.1, 0.9)) as hosts: at 4 cards 2 hosts x 2 cards
+   (``--hosts-rank resnet50``), a global batch of 64 (32 a host, 16 a
+   rank), k steps dense, then threshold 1e-3, then dense under ZeRO-1;
+   every rank's parameters bitwise equal after each mode, dense under
+   ZeRO-1 bitwise dense, dense against a 1-host world-4
+   ``ParallelWrapper`` twin from the same parameters (its BatchNorm
+   statistics are over 64 rows, the hosts' over 32) as ``dp_resnet50``
+   holds world 4 against world 1: the first loss within 1e-3, the second
+   within 2e-2, the parameters' gap and the update's cosine reported; 16 + 16
+   conv launches a step on every rank; ms a step by part (grad half, the
+   leader's gather, D2H, exchange, H2D, broadcast or scatter).  At 1
+   card 1 host x 1 card at k = 2 in this process, dense bitwise its plain
+   wrapper twin.
+58. tp_infer — ``ParallelInference`` over {data: w/2, model: 2} (at 1
+   card {data: 1}) serving VGG16 f32 (outputs within the f32 bound of
+   the one-card ``output``), and the weight-only int8 VGG16 with its
+   leaves placed by ``shard_model_params`` on that mesh (q and scale
+   split alike; the quantized ``q_matmul`` column-parallel), within
+   phase ``quant_slice``'s bound of the unsharded quantized output;
+   ``fused_dense`` and ``q_matmul`` launches a forward on every rank,
+   with their (M, K, N).
+59. dp_sd_zero1 — phase 43's SameDiff graph (BERT-base width, 2 layers,
+   batch 32, T 128, Adam(1e-4)) under ``enable_zero1`` at world ranks
+   (``--hosts-rank sd_zero1`` above 1), every rank feeding the whole
+   batch: losses and variables within rtol 1e-5 of the replicated fit
+   (bitwise at world 1), updater bytes a rank on each side, flash and
+   LayerNorm launches a step on every rank.
+
 Then the kernels line (each entry with ``share_of_bound``; ``fused_dense``
 and the conv pair carry ``vgg16_train``, ``zoo_train``, ``fused_resnet50``
 and ``fused_lenet`` entries, the conv pair ``zoo_graphs`` and
@@ -663,9 +701,11 @@ import contextlib
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -855,6 +895,15 @@ GS_R50_K = 3
 GS_COMMS = dict(steps=150, rows=32, n_in=16, hidden=32, threshold=5e-3)
 GS_MIN_BYTES_X = 5.0
 GS_MAX_LOSS_REL = 0.01
+# phase 57's steps at 1 card.  Its dense 2 x 2 hosts part from the 1-host
+# world-4 twin as dp_resnet50's world 4 parts from world 1 (bf16 gradients
+# rounded before the ranks' sum; here also BatchNorm over a host's 32 rows
+# against the twin's 64): the first loss is held to BF16_LOSS_RTOL, the
+# second to DP_BF16_STEP2_RTOL, the parameters and the update's direction
+# reported (at world 1: bitwise)
+GS_HOSTS_K1 = 2
+# phase 59: ZeRO-1 against the replicated SameDiff fit (the JAX test's bound)
+SD_ZERO1_RTOL = 1e-5
 FUSED_LENET_K = 10
 FUSED_LENET_BATCHES = 23
 #: StepSchedule(1e-3, 0.5, 4): the lr halves at steps 4 and 8 of the first
@@ -5708,7 +5757,7 @@ def gs_rank_main(argv):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
     dispatch.set_dispatch_mode("auto")
-    dev = torch.device("cuda", int(os.environ[multihost.ENV_LOCAL]))
+    dev = torch.device("cuda", int(os.environ[multihost.ENV_CARD]))
     torch.cuda.set_device(dev)
     rank, world = int(os.environ[multihost.ENV_PID]), int(os.environ[multihost.ENV_NPROC])
     port = int(os.environ[multihost.ENV_GRAD_PORT])
@@ -6837,7 +6886,7 @@ def elastic_rank_main(argv):
     mlp|resnet50 <out dir> <steps> <kill rank> <kill step> [<image> <classes>
     <global batch>]``), started by
     ``multihost.ElasticLocalRunner.run_elastic``: its card is
-    ``DL4J_TPU_LOCAL_RANK`` (members share the cards: a gang forms no NCCL
+    ``DL4J_TPU_CARD`` (members share the cards: a gang forms no NCCL
     group); ``DL4J_TPU_PLATFORM=cpu`` runs it on the CPU."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from deeplearning4j_tpu_torch.ops.kernels import dispatch
@@ -6852,7 +6901,7 @@ def elastic_rank_main(argv):
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cudnn.deterministic = True
         dispatch.set_dispatch_mode("auto")
-        dev = torch.device("cuda", int(os.environ.get(multihost.ENV_LOCAL, "0")))
+        dev = torch.device("cuda", int(os.environ.get(multihost.ENV_CARD, "0")))
         torch.cuda.set_device(dev)
     kind, out_dir, steps, kill_rank, kill_step = argv[:5]
     shape = tuple(int(v) for v in argv[5:8]) or None
@@ -7074,6 +7123,585 @@ def phase_elastic_resnet50(multihost, dev, cfg=EL_R50, platform="cuda", timeout=
         shutil.rmtree(td, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# gang members of several cards, SameDiff under ZeRO-1 (phases 56 to 59)
+# ---------------------------------------------------------------------------
+
+def _hosts_layout(cards, tag):
+    """(hosts, ranks a host) of phases 56 and 57 at `cards` cards; prints
+    the layout line."""
+    if cards >= 4:
+        hosts, d = 2, 2
+    elif cards >= 2 or tag == "gs_hosts_comms":   # phase 56 shares one card at 1
+        hosts, d = 2, 1
+    else:
+        hosts, d = 1, 1
+    emit(f"{tag}_layout", hosts=hosts, devices_per_process=d, cards=cards,
+         shared_card=hosts * d > cards)
+    return hosts, d
+
+
+def _gs_hosts_comms_rank(nn, parallel, matmul, Sgd, dev, hosts, ports, cfg=GS_COMMS):
+    """One rank of phase 56: `tests/mh_worker_comms.py`'s loop as a host's
+    rank, its host's strided rows of the stream through
+    ``ParallelWrapper`` (which takes this rank's part of them), dense over
+    the mesh on ``ports[0]`` then threshold over one on ``ports[1]``."""
+    from deeplearning4j_tpu_torch.parallel import multihost
+    host = multihost.host_of_env()[0]
+    HGS = parallel.HierarchicalGradientSharing
+    out = {}
+    for mode, port in zip(("dense", "compressed"), ports):
+        net = _comms_mlp(nn, Sgd, dev, cfg)
+        pw = parallel.ParallelWrapper(net, gradient_sharing=HGS(
+            compressed=mode == "compressed", threshold=cfg["threshold"], port=port))
+        pw._place_model()
+        rng = np.random.RandomState(0)
+        losses, step_ms = [], []
+        matmul.LAUNCHES.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(cfg["steps"]):
+            t1 = time.perf_counter()
+            xg = rng.randn(hosts * cfg["rows"], cfg["n_in"]).astype(np.float32)
+            labels = (xg[:, 0] > 0).astype(int) + (xg[:, 1] > 0).astype(int)
+            yg = np.eye(3, dtype=np.float32)[labels]
+            pw.fit(xg[host::hosts], yg[host::hosts])
+            losses.append(net.score())           # reads the loss: synchronizes
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+        dt = time.perf_counter() - t0
+        launches = matmul.LAUNCHES.value
+        rt = net.gradient_sharing
+        stats, opened = rt.stats(), rt.mesh is not None
+        pw.gradient_sharing(None)
+        import hashlib
+        w0 = net.params_["layer_0"]["W"].detach().cpu().numpy()
+        out[mode] = dict(losses=losses, wall_s=dt, steps_per_sec=cfg["steps"] / dt,
+                         first_step_ms=step_ms[0], median_step_ms=statistics.median(step_ms),
+                         stats=stats, opened_gang_socket=opened,
+                         fused_dense_launches=launches,
+                         fused_dense_shape=[cfg["rows"] // pw.degree, cfg["n_in"],
+                                            cfg["hidden"]],
+                         w0_sha256=hashlib.sha256(w0.tobytes()).hexdigest())
+    return out
+
+
+def phase_gs_hosts_comms(multihost, dev, cfg=GS_COMMS, ranks=None, layout=None):
+    """Phase 56 (the module docstring)."""
+    tag = "gs_hosts_comms"
+    cards = torch.cuda.device_count()
+    hosts, d = layout or _hosts_layout(cards, tag)
+    if ranks is None:
+        outs = multihost.LocalLauncher(hosts, d, "cuda", gang=True).run(
+            os.path.abspath(__file__), ["--hosts-rank", "comms", str(hosts),
+                                        str(multihost.free_port())],
+            timeout=300, gradient_port=multihost.free_port())
+        ranks = [_rank_report(o, "HOSTS_RANK") for o in outs]
+    leaders = ranks[::d]
+    res = {}
+    for mode in ("dense", "compressed"):
+        require(len({r[mode]["w0_sha256"] for r in ranks}) == 1,
+                f"{tag}: the ranks' first-layer W differ ({mode})")
+        for i, r in enumerate(ranks):
+            lead = i % d == 0
+            require(r[mode]["opened_gang_socket"] == lead
+                    and (r[mode]["stats"]["bytes_sent_total"] > 0) == (lead and hosts > 1),
+                    f"{tag}: rank {i} ({'a leader' if lead else 'not a leader'}) opened a "
+                    f"gang socket: {r[mode]['opened_gang_socket']}, stats {r[mode]['stats']}")
+            require(r[mode]["fused_dense_launches"] > 0,
+                    f"{tag}: fused_dense never launched on rank {i} ({mode})")
+            require(r[mode]["losses"] == leaders[i // d][mode]["losses"],
+                    f"{tag}: rank {i} reports another loss than its host's leader")
+        curves = np.mean([r[mode]["losses"] for r in leaders], axis=0)
+        res[mode] = dict(
+            wire_bytes=sum(r[mode]["stats"]["bytes_sent_total"]
+                           + r[mode]["stats"]["bytes_received_total"] for r in leaders),
+            final_loss=float(curves[-1]),
+            compression_ratio_last=max(r[mode]["stats"]["last_compression_ratio"]
+                                       for r in leaders),
+            wall_s=max(r[mode]["wall_s"] for r in ranks),
+            steps_per_sec=min(r[mode]["steps_per_sec"] for r in ranks),
+            first_step_ms=max(r[mode]["first_step_ms"] for r in ranks),
+            median_step_ms=max(r[mode]["median_step_ms"] for r in ranks),
+            fused_dense_launches_per_step=[r[mode]["fused_dense_launches"] / cfg["steps"]
+                                           for r in ranks],
+            fused_dense_shape=ranks[0][mode]["fused_dense_shape"],
+            loss_curve_every_10=[round(float(v), 5) for v in curves[::10]])
+    reduction = res["dense"]["wire_bytes"] / max(res["compressed"]["wire_bytes"], 1)
+    parity = (abs(res["compressed"]["final_loss"] - res["dense"]["final_loss"])
+              / max(abs(res["dense"]["final_loss"]), 1e-9))
+    report = dict(hosts=hosts, devices_per_process=d, cards=cards,
+                  shared_card=hosts * d > cards, model="MLP 16-32-3 tanh/softmax mcxent",
+                  updater="Sgd(0.1)", threshold=cfg["threshold"], steps=cfg["steps"],
+                  rows_per_host=cfg["rows"], bytes_reduction_x=reduction,
+                  loss_parity_rel=parity, gates={"bytes_reduction_x": GS_MIN_BYTES_X,
+                                                 "loss_parity_rel": GS_MAX_LOSS_REL},
+                  w0_bitwise_equal_over_ranks=True, gang_sockets_on_leaders_only=True,
+                  **res)
+    emit(tag, **report)
+    require(reduction >= GS_MIN_BYTES_X and parity <= GS_MAX_LOSS_REL,
+            f"{tag}: bytes reduction {reduction:.2f}x (want >= {GS_MIN_BYTES_X}), loss "
+            f"parity {parity:.5f} (want <= {GS_MAX_LOSS_REL})")
+    return report
+
+
+@contextlib.contextmanager
+def _host_clock():
+    """While open, the pieces of each split step on a host are timed, each
+    between two synchronizes: the grad half (``_grads``), the leader's
+    gather (``HostLink.gather``), D2H (``hierarchical._host_f32``), the
+    gang exchange (``_exchange_tree``: D2H, codec, TCP), the send back
+    (``HostLink.send_back``: H2D of the leader's buffers and the broadcast
+    or scatter) and its collective alone (``HostLink._deliver``).  Yields
+    {piece: [ms, ...]}."""
+    from deeplearning4j_tpu_torch.nn import ComputationGraph, MultiLayerNetwork
+    from deeplearning4j_tpu_torch.parallel import hierarchical
+    times = {}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            times.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+    spots = [(ComputationGraph, "_grads", "grad_half"),
+             (MultiLayerNetwork, "_grads", "grad_half"),
+             (hierarchical.HostLink, "gather", "gather"),
+             (hierarchical, "_host_f32", "d2h"),
+             (hierarchical.HierarchicalAllReduce, "_exchange_tree", "exchange"),
+             (hierarchical.HostLink, "send_back", "send_back"),
+             (hierarchical.HostLink, "_deliver", "broadcast")]
+    saved = [getattr(owner, attr) for owner, attr, _ in spots]
+    for (owner, attr, name), fn in zip(spots, saved):
+        setattr(owner, attr, timed(name, fn))
+    try:
+        yield times
+    finally:
+        for (owner, attr, _), fn in zip(spots, saved):
+            setattr(owner, attr, fn)
+
+
+def _host_parts_ms(times, steps):
+    """Per step: each piece's ms; h2d is the send back less its
+    collective, and the exchange is counted without its D2H."""
+    per = {k: sum(v) / steps for k, v in times.items()}
+    for k in ("gather", "d2h", "exchange", "send_back", "broadcast", "grad_half"):
+        per.setdefault(k, 0.0)
+    per["h2d"] = per["send_back"] - per["broadcast"]
+    per["exchange_less_d2h"] = per["exchange"] - per["d2h"]
+    return per
+
+
+GS_HOSTS_MODES = (("dense", False, False), ("compressed", True, False),
+                  ("dense_zero1", False, True))
+
+
+def _gs_hosts_r50_rank(parallel, conv3x3, matmul, ResNet50, Nesterovs, dev, hosts, k, ports,
+                       save_dir=None, batch=64, image=224, classes=1000):
+    """One rank of phase 57 (or the whole phase at 1 card): its host's rows
+    of the global batch through ``ParallelWrapper(net,
+    optimizer_sharding=, gradient_sharing=)``, a fresh network (the same
+    seed on every rank) a mode: a block of k steps through ``fit_steps``
+    (the main path: launch counts set to 0 just before and read just
+    after; it steps one by one), then a block with the step's parts
+    timed.  Rank 0 of each host saves its dense parameters after the first
+    block in `save_dir`."""
+    from deeplearning4j_tpu_torch.parallel import multihost
+    host, local, _ = multihost.host_of_env()
+    HGS = parallel.HierarchicalGradientSharing
+    x, y = _r50_batch(dev, batch, image, classes)
+    rows = slice(host * batch // hosts, (host + 1) * batch // hosts)
+    xs = torch.broadcast_to(x[rows], (k,) + tuple(x[rows].shape))
+    ys = torch.broadcast_to(y[rows], (k,) + tuple(y[rows].shape))
+    out = {}
+    for (mode, compressed, z1), port in zip(GS_HOSTS_MODES, ports):
+        net = _resnet50(ResNet50, Nesterovs, dev, compute_dtype="bfloat16", image=image,
+                        classes=classes)
+        pw = parallel.ParallelWrapper(net, optimizer_sharding=z1, gradient_sharing=HGS(
+            compressed=compressed, port=port))
+        try:
+            pw._place_model()
+            _reset_counts(matmul, conv3x3)
+            losses, first_ms = _synced(lambda: pw.fit_steps(xs, ys))
+            counts = _step_counts(matmul, conv3x3)
+            rt = net.gradient_sharing
+            stats, opened = rt.stats(), rt.mesh is not None
+            if save_dir is not None and mode == "dense" and local == 0:
+                # the parameters after the k steps the twin takes
+                torch.save({n: p.detach().float().cpu() for n, p in net.named_parameters()},
+                           os.path.join(save_dir, f"hosts_{host}.pt"))
+            with _host_clock() as times:
+                _, clocked_ms = _synced(lambda: pw.fit_steps(xs, ys))
+            out[mode] = dict(
+                losses=[float(v) for v in losses.tolist()], first_block_ms=first_ms,
+                step_ms=clocked_ms / k, parts_ms=_host_parts_ms(times, k),
+                launches_per_step=dict(zip(("fused_dense", "conv3x3_wgrad", "conv3x3_dgrad"),
+                                           (c / k for c in counts))),
+                wire_bytes_per_step=stats["last_wire_bytes"],
+                compression_ratio=stats["last_compression_ratio"], stats=stats,
+                opened_gang_socket=opened, params_sha256=_weights_sha256(net),
+                state_sha256=_params_sha256(net), rows_per_rank=batch // hosts // pw.degree,
+                max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+        finally:
+            pw.gradient_sharing(None)            # closes the mesh's sockets
+        del net, pw
+        torch.cuda.empty_cache()
+    return out
+
+
+def _r50_twin_rank(parallel, ResNet50, Nesterovs, dev, k, save_dir, batch=64, image=224,
+                   classes=1000):
+    """The 1-host twin of phase 57: a plain ``ParallelWrapper`` over every
+    rank of the group on the whole global batch, k eager steps; rank 0
+    saves its initial and its final parameters in `save_dir`."""
+    from deeplearning4j_tpu_torch.parallel import multihost
+    x, y = _r50_batch(dev, batch, image, classes)
+    net = _resnet50(ResNet50, Nesterovs, dev, compute_dtype="bfloat16", image=image,
+                    classes=classes)
+    pw = parallel.ParallelWrapper(net)
+    pw._place_model()
+    if multihost.process_index() == 0:
+        torch.save({n: p.detach().float().cpu() for n, p in net.named_parameters()},
+                   os.path.join(save_dir, "init.pt"))
+    losses = []
+    for _ in range(k):                  # eager steps, as the sharing steps are
+        pw.fit(x, y)
+        losses.append(net.score())
+    if multihost.process_index() == 0:
+        torch.save({n: p.detach().float().cpu() for n, p in net.named_parameters()},
+                   os.path.join(save_dir, "twin.pt"))
+    return dict(losses=losses, params_sha256=_weights_sha256(net))
+
+
+def _max_param_diff(a, b):
+    return max((a[n] - b[n]).abs().max().item() for n in a)
+
+
+def _update_agreement(a, b, init):
+    """(cosine, norm ratio a / b) of two runs' whole updates from `init`."""
+    ua = torch.cat([(a[n] - init[n]).reshape(-1).double() for n in init])
+    ub = torch.cat([(b[n] - init[n]).reshape(-1).double() for n in init])
+    return (float(torch.dot(ua, ub) / (ua.norm() * ub.norm()).clamp_min(1e-300)),
+            float(ua.norm() / ub.norm().clamp_min(1e-300)))
+
+
+def phase_gs_hosts_resnet50(parallel, multihost, conv3x3, matmul, ResNet50, Nesterovs, dev,
+                            k=GS_R50_K, batch=64, image=224, classes=1000):
+    """Phase 57 (the module docstring)."""
+    tag = "gs_hosts_resnet50"
+    cards = torch.cuda.device_count()
+    hosts, d = _hosts_layout(cards, tag)
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True   # bitwise twins (phase 34's note)
+    tmp = tempfile.mkdtemp(prefix="gs_hosts_")
+    try:
+        if hosts * d == 1:
+            k = GS_HOSTS_K1
+            ranks = [_gs_hosts_r50_rank(parallel, conv3x3, matmul, ResNet50, Nesterovs, dev,
+                                        1, k, [None] * 3, tmp, batch, image, classes)]
+            twin = _r50_twin_rank(parallel, ResNet50, Nesterovs, dev, k, tmp, batch, image,
+                                  classes)
+        else:
+            outs = multihost.LocalLauncher(hosts, d, "cuda", gang=True).run(
+                os.path.abspath(__file__),
+                ["--hosts-rank", "resnet50", str(hosts), str(k), tmp]
+                + [str(multihost.free_port()) for _ in GS_HOSTS_MODES], timeout=600)
+            ranks = [_rank_report(o, "HOSTS_RANK") for o in outs]
+            outs = multihost.LocalLauncher(hosts * d, 1, "cuda").run(
+                os.path.abspath(__file__), ["--hosts-rank", "r50twin", str(k), tmp],
+                timeout=400)
+            twin = _rank_report(outs[0], "HOSTS_RANK")
+        for mode, _, _ in GS_HOSTS_MODES:
+            hashes = {r[mode]["params_sha256"] for r in ranks}
+            require(len(hashes) == 1, f"{tag}: {mode} parameters differ over the ranks")
+            for i, r in enumerate(ranks):
+                c = r[mode]["launches_per_step"]
+                require(c["conv3x3_wgrad"] == BODY_CONVS and c["conv3x3_dgrad"] == BODY_CONVS,
+                        f"{tag}: rank {i} {mode} launches a step {c}, want {BODY_CONVS} + "
+                        f"{BODY_CONVS} conv")
+                require(all(math.isfinite(v) for v in r[mode]["losses"]),
+                        f"{tag}: rank {i} {mode} losses {r[mode]['losses']}")
+                require(r[mode]["opened_gang_socket"] == (i % d == 0 and hosts > 1),
+                        f"{tag}: rank {i} {mode} gang socket {r[mode]['opened_gang_socket']}")
+        require(ranks[0]["dense_zero1"]["params_sha256"] == ranks[0]["dense"]["params_sha256"]
+                and ranks[0]["dense_zero1"]["losses"] == ranks[0]["dense"]["losses"],
+                f"{tag}: dense under ZeRO-1 is not bitwise dense")
+        host_params = torch.load(os.path.join(tmp, "hosts_0.pt"))
+        twin_params = torch.load(os.path.join(tmp, "twin.pt"))
+        init = torch.load(os.path.join(tmp, "init.pt"))
+        diff = _max_param_diff(host_params, twin_params)
+        worst = max(host_params, key=lambda n: (host_params[n] - twin_params[n]).abs().max())
+        scale = max(p.abs().max().item() for p in twin_params.values())
+        cosine, norm_ratio = _update_agreement(host_params, twin_params, init)
+        dense_losses = np.mean([r["dense"]["losses"] for r in ranks[::d]], axis=0).tolist()
+        rel = _rel(dense_losses, twin["losses"])
+        if hosts * d == 1:
+            require(diff == 0.0 and rel == [0.0] * k,
+                    f"{tag}: world-1 dense sharing is not bitwise its plain twin ({diff})")
+        else:
+            require(rel[0] <= BF16_LOSS_RTOL and rel[1] <= DP_BF16_STEP2_RTOL,
+                    f"{tag}: dense hosts against the 1-host twin: losses rel {rel} (bounds "
+                    f"{BF16_LOSS_RTOL} then {DP_BF16_STEP2_RTOL})")
+        emit(tag, model="ResNet50", compute_dtype="bfloat16", input=f"{image}x{image}x3",
+             classes=classes, updater="Nesterovs(0.1, 0.9)", global_batch=batch, k=k,
+             hosts=hosts, devices_per_process=d, cards=cards, shared_card=hosts * d > cards,
+             cudnn_deterministic=True, ranks_params_bitwise_equal=True,
+             zero1_bitwise_dense=True, twin_losses=twin["losses"], dense_host_losses=dense_losses,
+             twin_loss_rel=rel, twin_param_max_abs_diff=diff, twin_worst_leaf=worst,
+             param_max_abs=scale, twin_update_cosine=cosine, twin_update_norm_ratio=norm_ratio,
+             twin_bounds={"loss_rel_step1": BF16_LOSS_RTOL,
+                          "loss_rel_step2": DP_BF16_STEP2_RTOL},
+             rank0=ranks[0], other_ranks_step_ms=[{m: r[m]["step_ms"] for m, _, _ in
+                                                   GS_HOSTS_MODES} for r in ranks[1:]])
+        return ranks
+    finally:
+        torch.backends.cudnn.deterministic = prev
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _tp_infer_rank(parallel, quant, matmul, VGG16, dev, axes, rows=16, image=224,
+                   classes=1000):
+    """One rank of phase 58: VGG16 f32 through ``ParallelInference`` over a
+    mesh of `axes` (its one-card ``output`` first), then its weight-only
+    int8 version with the leaves placed by ``shard_model_params`` on that
+    mesh, run inside ``with mesh:``; launches and (M, K, N) of the first
+    forward of each, ms of a second."""
+    from deeplearning4j_tpu_torch import convert
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((rows, image, image, 3), dtype=np.float32)
+    xt = torch.as_tensor(x, device=dev)
+    net = VGG16(input_shape=(image, image, 3), n_classes=classes).init_model(device=dev)
+    mesh = parallel.make_mesh(axes, device=dev)
+    pi = parallel.ParallelInference(net, mesh)      # rank 0's parameters everywhere
+    with torch.inference_mode():
+        plain = net.output(xt).float().cpu().numpy()
+    shapes, put_back = _record_dense_shapes(matmul)
+    try:
+        matmul.LAUNCHES.reset()
+        got = pi.output(x)
+        f32_launches = matmul.LAUNCHES.value
+    finally:
+        put_back()
+    f32_shapes = list(shapes)
+    _, ms = _synced(lambda: pi.output(x))
+    err = float(np.abs(got - plain).max())
+    top = float(np.abs(plain).max())
+    qm = quant.quantize_model(net)
+    with torch.inference_mode():
+        want = qm.output(xt).float().cpu().numpy()
+    layouts = {name: convert._layer_or_layout(net, name).TORCH_LAYOUT or {}
+               for name in net.params_}
+    whole_params = qm.params_
+    qm.params_ = parallel.shard_model_params(whole_params, mesh, parallel.ShardingRules(),
+                                             layouts)
+    fc = [n for n in qm.params_ if isinstance(qm.params_[n].get("W"), quant.QTensor)
+          and qm.params_[n]["W"].q.dim() == 2]
+    q_shapes, orig = [], matmul.q_matmul
+
+    def rec(x, wq, w_scale, bias=None, acc_dtype=None):
+        q_shapes.append((int(x.numel() // x.shape[-1]), int(wq.shape[0]), int(wq.shape[1])))
+        return orig(x, wq, w_scale, bias=bias, acc_dtype=acc_dtype)
+    matmul.q_matmul = rec
+    try:
+        for c in (matmul.Q_LAUNCHES, matmul.LAUNCHES):
+            c.reset()
+        with mesh:
+            q_got = qm.output(xt).float().cpu().numpy()
+        q_launches, q_fd = matmul.Q_LAUNCHES.value, matmul.LAUNCHES.value
+    finally:
+        matmul.q_matmul = orig
+    with mesh:
+        _, q_ms = _synced(lambda: qm.output(xt))
+    blocks = {n: [list(qm.params_[n]["W"].q.shape), str(qm.params_[n]["W"].q.dtype),
+                  list(qm.params_[n]["W"].scale.shape)] for n in fc}
+    q_err = float(np.abs(q_got - want).max())
+    q_top = float(np.abs(want).max())
+    import hashlib
+    return dict(axes=axes, rows=rows, max_abs_err=err, max_abs_ref=top, forward_ms=ms,
+                fused_dense_launches=f32_launches, fused_dense_shapes=f32_shapes,
+                quantized_max_abs_err=q_err, quantized_max_abs_ref=q_top,
+                quantized_forward_ms=q_ms, q_matmul_launches=q_launches,
+                q_matmul_shapes=q_shapes, quantized_fused_dense_launches=q_fd,
+                fc_blocks=blocks, output_sha256=hashlib.sha256(got.tobytes()).hexdigest())
+
+
+def phase_tp_infer(parallel, quant, multihost, matmul, VGG16, dev, ranks=None):
+    """Phase 58 (the module docstring)."""
+    tag = "tp_infer"
+    world = torch.cuda.device_count()
+    axes = {"data": world // 2, "model": 2} if world >= 2 and world % 2 == 0 \
+        else {"data": 1}
+    emit(f"{tag}_layout", hosts=1, devices_per_process=world, cards=world,
+         shared_card=False, mesh=axes)
+    if ranks is None:
+        if world == 1:
+            ranks = [_tp_infer_rank(parallel, quant, matmul, VGG16, dev, axes)]
+        else:
+            outs = multihost.LocalLauncher(world, 1, "cuda").run(
+                os.path.abspath(__file__), ["--hosts-rank", "tp_infer", json.dumps(axes)],
+                timeout=300)
+            ranks = [_rank_report(o, "HOSTS_RANK") for o in outs]
+    m = axes.get("model", 1)
+    for i, r in enumerate(ranks):
+        require(r["max_abs_err"] <= F32_RTOL * r["max_abs_ref"],
+                f"{tag}: rank {i} ParallelInference differs from the one-card output by "
+                f"{r['max_abs_err']} > {F32_RTOL * r['max_abs_ref']}")
+        require(r["quantized_max_abs_err"] <= F32_RTOL * r["quantized_max_abs_ref"],
+                f"{tag}: rank {i} sharded int8 differs from the unsharded by "
+                f"{r['quantized_max_abs_err']} > {F32_RTOL * r['quantized_max_abs_ref']}")
+        require(r["fused_dense_launches"] == 2 and r["q_matmul_launches"] == 3
+                and r["quantized_fused_dense_launches"] == 0,
+                f"{tag}: rank {i} launches a forward: fused_dense {r['fused_dense_launches']}"
+                f" (want 2), q_matmul {r['q_matmul_launches']} (want 3), fused_dense in "
+                f"the int8 forward {r['quantized_fused_dense_launches']} (want 0)")
+        require(all(s[2] in (4096 // m, 1000 // m) for s in r["q_matmul_shapes"]),
+                f"{tag}: rank {i} q_matmul shapes {r['q_matmul_shapes']}: not the "
+                f"column-parallel blocks over model {m}")
+        require(all(b[1] == "torch.int8" and b[0][1] == b[2][1] for b in r["fc_blocks"].values()),
+                f"{tag}: rank {i} int8 q and scale not split alike: {r['fc_blocks']}")
+    require(len({r["output_sha256"] for r in ranks}) == 1,
+            f"{tag}: the ranks return different outputs")
+    emit(tag, model="VGG16", input="224x224x3 f32", classes=1000, world=world, mesh=axes,
+         rows=ranks[0]["rows"], bound=f"{F32_RTOL} x max|ref|", rank0=ranks[0],
+         other_ranks=[{k: r[k] for k in ("max_abs_err", "quantized_max_abs_err",
+                                         "forward_ms", "quantized_forward_ms")}
+                      for r in ranks[1:]])
+    return ranks[0]
+
+
+def _sd_zero1_side(autodiff, Adam, parallel, attention, layer_norm, dev, sharded, shape):
+    """Phase 59's graph trained `steps` steps replicated or under ZeRO-1
+    over every rank (the one-rank mesh of `dev` without a group), the
+    whole batch on every rank: losses, host ms, launch counts a step,
+    updater bytes a rank and the variables."""
+    B, T, F, NH, layers, steps = shape
+    rs = np.random.RandomState(0)
+    x = torch.as_tensor(rs.randn(B, T, F).astype(np.float32), device=dev)
+    y = torch.as_tensor(rs.randn(B, T, F).astype(np.float32), device=dev)
+    sd = sd_kernels_graph(autodiff, Adam, dev, shape)
+    sd._ready()
+    if sharded:
+        parallel.enable_zero1(sd, parallel.make_mesh(device=dev))
+    nbytes = parallel.opt_state_bytes_per_replica(sd.opt_state_)
+    losses, ms, counts = _train_steps(sd, lambda: (sd.fit(x, y), sd._score)[1],
+                                      _train_counters(attention, layer_norm), steps)
+    return dict(losses=losses, ms=ms, counts=counts, opt_bytes=nbytes,
+                vars={n: v.detach().clone() for n, v in sd.variables_.items()})
+
+
+def _sd_zero1_rank(autodiff, Adam, parallel, attention, layer_norm, dev, shape=SD_KERNELS):
+    repl = _sd_zero1_side(autodiff, Adam, parallel, attention, layer_norm, dev, False, shape)
+    z1 = _sd_zero1_side(autodiff, Adam, parallel, attention, layer_norm, dev, True, shape)
+    rel = max(max(_rel(z1["losses"], repl["losses"])),
+              max(((z1["vars"][n] - v).abs().max()
+                   / v.abs().max().clamp_min(1e-30)).item() for n, v in repl["vars"].items()))
+    bitwise = (z1["losses"] == repl["losses"]
+               and all(torch.equal(z1["vars"][n], v) for n, v in repl["vars"].items()))
+    import hashlib
+    h = hashlib.sha256()
+    for n in sorted(z1["vars"]):
+        h.update(z1["vars"][n].cpu().numpy().tobytes())
+    return dict(losses=z1["losses"], replicated_losses=repl["losses"], max_rel_diff=rel,
+                bitwise_replicated=bitwise, step_ms=statistics.median(z1["ms"][1:]),
+                replicated_step_ms=statistics.median(repl["ms"][1:]),
+                opt_bytes_zero1=z1["opt_bytes"], opt_bytes_replicated=repl["opt_bytes"],
+                launches_per_step=z1["counts"], vars_sha256=h.hexdigest())
+
+
+def phase_dp_sd_zero1(autodiff, Adam, parallel, multihost, attention, layer_norm, dev,
+                      shape=SD_KERNELS):
+    """Phase 59 (the module docstring)."""
+    tag = "dp_sd_zero1"
+    world = torch.cuda.device_count()
+    B, T, F, NH, layers, steps = shape
+    if world == 1:
+        ranks = [_sd_zero1_rank(autodiff, Adam, parallel, attention, layer_norm, dev, shape)]
+    else:
+        outs = multihost.LocalLauncher(world, 1, "cuda").run(
+            os.path.abspath(__file__), ["--hosts-rank", "sd_zero1"], timeout=300)
+        ranks = [_rank_report(o, "HOSTS_RANK") for o in outs]
+    want = [layers, layers, layers, 2 * layers, 2 * layers]
+    for i, r in enumerate(ranks):
+        require(all(list(c) == want for c in r["launches_per_step"]),
+                f"{tag}: rank {i} launches a step {r['launches_per_step']}, want {want}")
+        require(r["max_rel_diff"] <= SD_ZERO1_RTOL,
+                f"{tag}: rank {i} ZeRO-1 against replicated: rel {r['max_rel_diff']}")
+        require(r["opt_bytes_zero1"] <= r["opt_bytes_replicated"],
+                f"{tag}: rank {i} keeps more updater bytes under ZeRO-1")
+    require(len({r["vars_sha256"] for r in ranks}) == 1,
+            f"{tag}: the variables differ over the ranks")
+    if world == 1:
+        require(ranks[0]["bitwise_replicated"],
+                f"{tag}: at world 1 ZeRO-1 is not the plain fit bit for bit")
+    emit(tag, world=world, batch=B, T=T, features=F, heads=NH, layers=layers, steps=steps,
+         updater="Adam(1e-4)", rtol=SD_ZERO1_RTOL,
+         launches_per_step=dict(zip(("flash_attn_fwd", "flash_attn_bwd_dq",
+                                     "flash_attn_bwd_dkv", "layer_norm_fwd",
+                                     "layer_norm_bwd"), want)),
+         rank0=ranks[0], other_ranks=[{k: r[k] for k in ("max_rel_diff", "step_ms",
+                                                         "opt_bytes_zero1")}
+                                      for r in ranks[1:]])
+    return ranks[0]
+
+
+def _sd_zero1_entry(name, sd_z1):
+    """A kernel's launches a step on rank 0 of phase 59."""
+    i = ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv", "layer_norm_fwd",
+         "layer_norm_bwd").index(name)
+    return {"launches_per_step": [c[i] for c in sd_z1["launches_per_step"]],
+            "shape": "phase 43's SameDiff graph under ZeRO-1, rank 0, a step"}
+
+
+def hosts_rank_main(argv):
+    """One rank of phases 56 to 59 (``--hosts-rank comms <hosts> <port>``,
+    ``--hosts-rank resnet50 <hosts> <k> <dir> <port> <port> <port>``,
+    ``--hosts-rank r50twin <k> <dir>``, ``--hosts-rank tp_infer <axes
+    json>`` or ``--hosts-rank sd_zero1``), started by
+    ``multihost.LocalLauncher``: a host of more
+    than one rank, or a job of more than one rank, joins its group over
+    NCCL.  Prints its report as one ``HOSTS_RANK`` line."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from deeplearning4j_tpu_torch import autodiff, nn, parallel
+    from deeplearning4j_tpu_torch.ops.kernels import (attention, conv3x3, dispatch,
+                                                      layer_norm, matmul)
+    from deeplearning4j_tpu_torch.parallel import multihost
+    from deeplearning4j_tpu_torch.train import Adam, Nesterovs, Sgd
+    from deeplearning4j_tpu_torch.zoo import ResNet50
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    dispatch.set_dispatch_mode("auto")
+    size, _ = multihost.group_of_env()
+    if size > 1:
+        dev = multihost.initialize(timeout_s=300)   # a stuck collective fails the rank
+    else:
+        dev = torch.device("cuda", int(os.environ[multihost.ENV_CARD]))
+        torch.cuda.set_device(dev)
+    port = os.environ.get(multihost.ENV_GRAD_PORT)
+    if argv[0] == "comms":
+        out = _gs_hosts_comms_rank(nn, parallel, matmul, Sgd, dev, int(argv[1]),
+                                   [int(port), int(argv[2])])
+    elif argv[0] == "resnet50":
+        out = _gs_hosts_r50_rank(parallel, conv3x3, matmul, ResNet50, Nesterovs, dev,
+                                 int(argv[1]), int(argv[2]), [int(p) for p in argv[4:7]],
+                                 argv[3])
+    elif argv[0] == "r50twin":
+        out = _r50_twin_rank(parallel, ResNet50, Nesterovs, dev, int(argv[1]), argv[2])
+    elif argv[0] == "tp_infer":
+        from deeplearning4j_tpu_torch import quant
+        from deeplearning4j_tpu_torch.zoo import VGG16
+        out = _tp_infer_rank(parallel, quant, matmul, VGG16, dev, json.loads(argv[1]))
+    else:
+        out = _sd_zero1_rank(autodiff, Adam, parallel, attention, layer_norm, dev)
+    print("HOSTS_RANK " + json.dumps(out), flush=True)
+    os._exit(0)       # no NCCL teardown (phase 44's note)
+
+
 def _dp_resnet50_entry(name, r):
     """A conv kernel's launches in phase 44: a replayed data-parallel block
     (its graph's nodes at world 1, else the profiler's count), and the
@@ -7216,6 +7844,12 @@ def main():
     res_ab = phase_resilience_ab(dev)
     el_ab = phase_elastic_ab(multihost, dev)
     el_r50 = phase_elastic_resnet50(multihost, dev)
+    # gang members of several cards; SameDiff under ZeRO-1
+    gs_hosts = phase_gs_hosts_comms(multihost, dev)
+    gs_hosts_r50 = phase_gs_hosts_resnet50(parallel, multihost, conv3x3, matmul, ResNet50,
+                                           Nesterovs, dev)
+    tp_inf = phase_tp_infer(parallel, quant, multihost, matmul, VGG16, dev)
+    sd_z1 = phase_dp_sd_zero1(autodiff, Adam, parallel, multihost, attention, layer_norm, dev)
 
     emit("done", seconds=time.monotonic() - t_start)
     main_row = rows[("fc6", torch.float32)]
@@ -7253,6 +7887,15 @@ def main():
                               f"{GS_COMMS['steps']} steps a mode"},
         "gs_resnet50": {"launches_per_step": gs_r50["dense"]["launches_per_step"]["fused_dense"],
                         "shape": "not on this path: ResNet-50's head is a plain product"},
+        "tp_infer": {"launches_per_forward": tp_inf["fused_dense_launches"],
+                     "launch_shapes": tp_inf["fused_dense_shapes"], "mesh": tp_inf["axes"],
+                     "shape": "VGG16 f32 through ParallelInference, rank 0, one forward of "
+                              f"{tp_inf['rows']} rows"},
+        "gs_hosts_comms": {"launches_per_step_each_rank": {
+            m: gs_hosts[m]["fused_dense_launches_per_step"] for m in ("dense", "compressed")},
+            "hosts": gs_hosts["hosts"], "devices_per_process": gs_hosts["devices_per_process"],
+            "shape": "M={} K={} N={} f32 tanh; every rank over {} steps a mode".format(
+                *gs_hosts["dense"]["fused_dense_shape"], GS_COMMS["steps"])},
         "resilience_ab": {"launches": res_ab["ab"]["fused_dense_launches_warmup_epochs"],
                           "shape": f"M={RES_AB['batch']} K={RES_AB['n_in']} N=512 and K=512 "
                                    "N=256 f32 relu; launches over the two sides' warm-up "
@@ -7303,6 +7946,11 @@ def main():
                 "launches_per_step_gang_rank0": {
                 m: gs_r50_ranks[0][m]["launches_per_step"][name]
                 for m in ("dense", "compressed")}, "k": GS_R50_K},
+            "gs_hosts_resnet50": {"launches_per_step_each_rank": [
+                {m: r[m]["launches_per_step"][name] for m, _, _ in GS_HOSTS_MODES}
+                for r in gs_hosts_r50], "rows_per_rank": gs_hosts_r50[0]["dense"]["rows_per_rank"],
+                "shape": "bf16 ResNet-50 as hosts; every rank, dense, threshold and dense "
+                         "under ZeRO-1"},
             "ft_resnet50": {
                 "counted_at_warmup_and_capture":
                     ft_r50["launches_counted_at_warmup_and_capture"][name],
@@ -7330,6 +7978,7 @@ def main():
                 "simt_bound_ms": row["simt_bound_ms"]} if "route" in row else {}),
             "fused_bert": _fused_bert_entries(name, fused_bert),
             "sd_kernels": _sd_kernels_entry(name, sd_kern),
+            "dp_sd_zero1": _sd_zero1_entry(name, sd_z1),
             **({"seq_attention": _seq_attention_entry(name, seq_attn),
                 "ring_flash": {"launches_per_call": {c: r["launches"]
                                                      for c, r in ring["cases"].items()},
@@ -7359,6 +8008,7 @@ def main():
                if "route" in row else {}),
             "fused_bert": _fused_bert_entries(name, fused_bert),
             "sd_kernels": _sd_kernels_entry(name, sd_kern),
+            "dp_sd_zero1": _sd_zero1_entry(name, sd_z1),
             **({"seq_attention": _seq_attention_entry(name, seq_attn)}
                if name.startswith("flash") else {}),
             "shape": shape + "; launches in one f32 MLM fit_batch step at batch 64, T 128"
@@ -7380,7 +8030,13 @@ def main():
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": n_launched, "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"], "shape": shape})
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"], "shape": shape,
+            **({"tp_infer": {"launches_per_forward": tp_inf["q_matmul_launches"],
+                             "launch_shapes": tp_inf["q_matmul_shapes"],
+                             "mesh": tp_inf["axes"],
+                             "shape": "weight-only int8 VGG16, leaves placed by "
+                                      "shard_model_params, rank 0, one forward"}}
+               if name == "q_matmul" else {})})
     row = paged_rows[("full", "int8")]
     kernels.append({
         "name": "paged_attention", "route": "cuda", "source": PAGED_KERNEL[1],
@@ -7407,6 +8063,8 @@ if __name__ == "__main__":
         sys.exit(gs_rank_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--mp-rank"]:
         sys.exit(mp_rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--hosts-rank"]:
+        sys.exit(hosts_rank_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--elastic-rank"]:
         sys.exit(elastic_rank_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--resilience-ab"]:

@@ -21,6 +21,14 @@ Typing follows JAX: a constant made from a Python scalar stays that scalar
 and is weakly typed (``x * 2.0`` keeps x's dtype); a loaded constant is an
 array, as it is in the JAX package after ``load``.
 
+Under ZeRO-1 (``parallel.zero.enable_zero1(sd, mesh)``) the step runs the
+JAX package's transform: every rank computes the loss and gradients of
+the same whole batch, keeps its rows of each sharded variable's gradient,
+runs the updater on its shard of the variables and moments, and the new
+shards are all-gathered into the variables (``fit_steps`` captures the
+collectives with the step on the card); ``save`` writes the moments
+gathered whole, so every rank of the mesh calls it.
+
 The zip is the JAX package's: ``graph.json`` (format
 ``deeplearning4j_tpu.samediff.v1``), ``variables.npz``, ``constants.npz``
 and ``updater.npz`` (the updater state's leaves in sorted-key tree order),
@@ -546,6 +554,7 @@ class SameDiff:
         self.epoch = 0
         self._score = None
         self._scan_step = None
+        self._step_transform = None                      # parallel/zero.py
         self._tick_names: Tuple[str, ...] = ()
         self._flow = _ControlFlow(self)
         self._init_gen = torch.Generator(device=self.device).manual_seed(0)
@@ -873,12 +882,19 @@ class SameDiff:
         loss, grads = self._loss_and_grads(feeds)
         it = self._iter_dev
         upd_cfg = self.training_config.updater
+        zt = self._step_transform
         with torch.no_grad():
             scalars = StepScalars(it, epoch, scalar_dtype(self.variables_)).of(upd_cfg)
+            view = self.variables_ if zt is None else zt.update_view(None, self.variables_)
+            if zt is not None:
+                grads = zt.scatter(None, grads)
             upd, _ = upd_cfg.apply(self.opt_state_, grads, it, epoch,
-                                   params=self.variables_, scalars=scalars)
-            for n, p in self.variables_.items():
-                p.sub_(upd[n])
+                                   params=view, scalars=scalars)
+            if zt is None:
+                for n, p in self.variables_.items():
+                    p.sub_(upd[n])
+            else:
+                zt.restore(None, self.variables_, view, upd)
             it.add_(1)
         return loss
 
@@ -1043,7 +1059,9 @@ class SameDiff:
             z.writestr("constants.npz", _npz_bytes(
                 {k: _numpy(v) for k, v in self._constants.items()}))
             if save_updater_state and self.opt_state_ is not None:
-                leaves = list(tree_leaves(self.opt_state_))
+                zt = self._step_transform
+                leaves = list(tree_leaves(self.opt_state_ if zt is None
+                                          else zt.gather_opt(None, self.opt_state_)))
                 z.writestr("updater.npz", _npz_bytes(
                     {str(i): _numpy(l) for i, l in enumerate(leaves)}))
 

@@ -51,11 +51,12 @@ the group between the backward and ``apply_updates``, and, with
 Without a wrapper both are None and the step is unchanged.
 
 ``set_gradient_sharing`` (``parallel/hierarchical.py``) splits the step in
-two around a host-side exchange across a gang of processes: the grad half
+two around a host-side exchange across a gang of hosts: the grad half
 (``_grads``: forward, backward, the data-parallel sum; under ZeRO-1 the
 reduce-scatter, ``Zero1Transform.reduce_scatter``), then
-``exchange_gradients`` (the tree in the JAX layouts to the host, combined
-over the gang, back in the port's layouts), then the apply half
+``exchange_gradients`` (the tree in the JAX layouts to the host, through
+the host's leader where the wrapper's mesh holds more than one rank,
+combined over the gang, back in the port's layouts), then the apply half
 (``apply_updates`` on the combined gradient: normalization sees the whole
 gradient, as JAX's apply half does).  That path runs eagerly, step by
 step: a host exchange cannot sit inside a CUDA-graph capture, so
@@ -282,27 +283,54 @@ def exchange_gradients(net, grads) -> Dict:
     ``net._grad_sharing.exchange`` and put back on the device in the
     port's layouts and the gradients' dtypes, each leaf contiguous.
     Under ZeRO-1 a reduce-scattered leaf is its shard, which is in the JAX
-    layout already."""
+    layout already.  In a data-parallel step over more than one rank the
+    wrapper's mesh is the host (``hierarchical.HostLink``): its leader
+    gathers the shards into the padded leaves, and a ZeRO-1-sharded leaf
+    the step all-reduced whole crosses padded too, so the leader's tree is
+    the JAX host's."""
+    from deeplearning4j_tpu_torch.parallel.hierarchical import host_link
     zt = net._step_transform
     skip = zt.scattered if zt is not None else frozenset()
+    host = host_link(net._dp.mesh) if net._dp is not None else None
+
+    def padded(name, path):
+        if zt is None or host is None or (name, ".".join(path)) in skip:
+            return 0
+        pl = zt.plans[name]
+        for k in path:
+            pl = pl[k]
+        return pl.pad if pl.kind == "shard" else 0
 
     def views(tree, name, layout, path=()):
         if isinstance(tree, dict):
             return {k: views(v, name, layout, path + (k,)) for k, v in tree.items()}
         if (name, ".".join(path)) in skip:
             return tree
-        return convert.jax_view(layout, path[-1], tree)
+        v = convert.jax_view(layout, path[-1], tree)
+        pad = padded(name, path)
+        return v if not pad else torch.cat([v, v.new_zeros((pad,) + tuple(v.shape[1:]))])
+
+    def marks(tree, name, path=()):
+        if isinstance(tree, dict):
+            return {k: marks(v, name, path + (k,)) for k, v in tree.items()}
+        return (name, ".".join(path)) in skip
 
     def back(tree, got, name, layout, path=()):
         if isinstance(tree, dict):
             return {k: back(v, got[k], name, layout, path + (k,)) for k, v in tree.items()}
-        t = torch.as_tensor(np.asarray(got, np.float32)).to(tree.device, tree.dtype)
+        t = got if isinstance(got, torch.Tensor) else torch.as_tensor(np.asarray(got, np.float32))
+        t = t.to(tree.device, tree.dtype)
+        pad = padded(name, path)
+        if pad:
+            t = t[:t.shape[0] - pad]
         perm = None if (name, ".".join(path)) in skip else layout.TORCH_LAYOUT.get(path[-1])
-        return t if perm is None else t.permute(*perm).contiguous()
+        return t.contiguous() if perm is None else t.permute(*perm).contiguous()
 
     layouts = {name: convert._layer_or_layout(net, name) for name in grads}
-    combined = net._grad_sharing.exchange(
-        {name: views(g, name, layouts[name]) for name, g in grads.items()})
+    tree = {name: views(g, name, layouts[name]) for name, g in grads.items()}
+    combined = (net._grad_sharing.exchange(tree) if host is None else
+                net._grad_sharing.exchange(tree, host,
+                                           {name: marks(g, name) for name, g in grads.items()}))
     return {name: back(g, combined[name], name, layouts[name]) for name, g in grads.items()}
 
 
@@ -312,8 +340,6 @@ def shared_step(net, batch) -> torch.Tensor:
     reduce-scatter of the leaves it shards), the layer state written, the
     exchange, then the apply half and the counter.  Returns the step's
     loss (the global mean in a data-parallel step)."""
-    from deeplearning4j_tpu_torch.parallel.hierarchical import check_composable
-    check_composable(net._dp.size if net._dp is not None else 1, net._grad_sharing)
     grads, loss, new_state = net._grads(batch)
     zt = net._step_transform
     if zt is not None:

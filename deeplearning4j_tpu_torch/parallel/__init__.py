@@ -1,5 +1,5 @@
 """Data-parallel training and inference over ``torch.distributed`` (the
-port of ``parallel/``, in part).
+port of ``parallel/``).
 
 One process a rank (NCCL with one card a rank on the card, gloo on the
 CPU): `multihost.initialize` joins the group, `make_mesh` names its axes,
@@ -9,7 +9,9 @@ with the ZeRO-1 sharded weight update (`zero`), `ParallelInference` serves
 it, and `checkpoint` saves and restores it sharded in the JAX package's
 format.  `hierarchical` (with `compression`, `transport` and the host
 codec in `native_ops`) combines a model's gradient across a gang of
-processes over TCP, dense or threshold-compressed.  The mesh's other axes:
+hosts over TCP, dense or threshold-compressed: a host is one process, or
+`devices_per_process` ranks (`multihost.LocalLauncher(n, d, gang=True)`)
+whose leader (`HostLink`) alone joins the gang.  The mesh's other axes:
 `sharding` (tensor parallelism over ``model``, through the wrapper's
 ``sharding_rules``), `ring_attention` (sequence parallelism over
 ``seq``), `pipeline` (GPipe stages over ``pipe``) and `composed` (dp x tp
@@ -19,14 +21,13 @@ training: `transport.ElasticGradientMesh` under
 a member, `multihost.ElasticLocalRunner` relaunches a job or supervises an
 elastic gang, `reshard_zero1` / `reshard_to_devices` move ZeRO-1's state
 to a new world, and `make_mesh(devices=)` (``workers(n)``) builds a mesh
-over part of the ranks.  Not ported yet: a gang member of more than one
-card (a host subgroup and its leader).
+over part of the ranks.
 """
 from deeplearning4j_tpu_torch.parallel.checkpoint import (  # noqa: F401
     ChecksumError, load_model_sharded, load_sharded, read_metadata,
     save_model_sharded, save_sharded, verify_checkpoint)
 from deeplearning4j_tpu_torch.parallel.hierarchical import (  # noqa: F401
-    HierarchicalAllReduce, HierarchicalGradientSharing)
+    HierarchicalAllReduce, HierarchicalGradientSharing, HostLink)
 from deeplearning4j_tpu_torch.parallel.mesh import (  # noqa: F401
     Mesh, MeshSpec, data_sharding, make_mesh, replicated)
 from deeplearning4j_tpu_torch.parallel.multihost import (  # noqa: F401

@@ -119,24 +119,31 @@ def treedef_str(tree) -> str:
     return f"PyTreeDef({render(tree)})"
 
 
-def _rank_world() -> Tuple[int, int]:
+def _rank_world(mesh=None) -> Tuple[int, int]:
+    """This rank's place and the number of ranks: the mesh's where one is
+    given (a mesh over part of the ranks, a host's), else the default
+    group's."""
+    if mesh is not None:
+        return (mesh.rank, mesh.size) if mesh.distributed else (0, 1)
     import torch.distributed as dist
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
     return 0, 1
 
 
-def _barrier(world: int) -> None:
+def _barrier(world: int, mesh=None) -> None:
     if world > 1:
         import torch.distributed as dist
-        dist.barrier()
+        dist.barrier(group=None if mesh is None else mesh.group_all)
 
 
-def save_sharded(directory: str, tree: Any, metadata: Optional[Dict[str, Any]] = None) -> None:
+def save_sharded(directory: str, tree: Any, metadata: Optional[Dict[str, Any]] = None,
+                 mesh=None) -> None:
     """Write `tree` as a sharded checkpoint; every rank of the process
-    group calls it with its own tree (its own windows of the sharded
-    leaves)."""
-    rank, world = _rank_world()
+    group (of `mesh`, where given) calls it with its own tree (its own
+    windows of the sharded leaves); the files are numbered by the rank's
+    place in that group."""
+    rank, world = _rank_world(mesh)
     os.makedirs(directory, exist_ok=True)
     chunks: Dict[str, np.ndarray] = {}
     index: List[Dict[str, Any]] = []
@@ -157,7 +164,7 @@ def save_sharded(directory: str, tree: Any, metadata: Optional[Dict[str, Any]] =
     np.savez(os.path.join(directory, f"shards-{rank}.npz"), **chunks)
     with open(os.path.join(directory, f"index-{rank}.json"), "w") as f:
         json.dump(index, f)
-    _barrier(world)
+    _barrier(world, mesh)
     if rank == 0:
         # leftovers of an earlier save on more ranks would merge stale chunks
         for name in os.listdir(directory):
@@ -174,7 +181,7 @@ def save_sharded(directory: str, tree: Any, metadata: Optional[Dict[str, Any]] =
         with open(tmp, "w") as f:
             json.dump(manifest, f)
         os.replace(tmp, os.path.join(directory, MANIFEST))
-    _barrier(world)
+    _barrier(world, mesh)
 
 
 def read_metadata(directory: str) -> Dict[str, Any]:
@@ -314,22 +321,31 @@ def verify_checkpoint(directory: str) -> None:
 
 def _marked_opt_state(net, zt) -> Dict[str, Any]:
     """Each layer's ZeRO-1 updater state with every tensor as (tensor,
-    plan): its parameter's `LeafPlan` where it mirrors one, None where
-    not (a step count)."""
+    plan, tensor-parallel split): its parameter's `LeafPlan` where it
+    mirrors one, None where not (a step count), and the parameter's
+    ``LeafShard`` where the sharding rules split it (None elsewhere)."""
     from deeplearning4j_tpu_torch.parallel.zero import _map_paths
     from deeplearning4j_tpu_torch.train.updaters import tree_map_like_params
+    tp = getattr(net, "_tp", None)
 
-    def mark(sub, plan_sub):
-        return _map_paths(lambda path, pl, t: (t, pl), plan_sub, sub)
-    return {name: tree_map_like_params(mark, sub, zt.plans[name],
-                                       lambda t: t if isinstance(t, tuple) else (t, None),
+    def split(name, path):
+        sub = tp.plans.get(name, {}) if tp is not None else {}
+        for k in path:
+            sub = sub.get(k) if isinstance(sub, dict) else None
+        return sub if sub is not None and not isinstance(sub, dict) else None
+
+    def mark(name):
+        return lambda sub, plan_sub: _map_paths(
+            lambda path, pl, t: (t, pl, split(name, path)), plan_sub, sub)
+    return {name: tree_map_like_params(mark(name), sub, zt.plans[name],
+                                       lambda t: t if isinstance(t, tuple) else (t, None, None),
                                        shape_of=lambda pl: pl.stored_shape)
             for name, sub in net.opt_state_.items()}
 
 
 def _map_marked(fn, marked, *rest):
-    """fn(tensor, plan, *rest leaves) over a marked tree's (tensor, plan)
-    pairs; empty states pass through."""
+    """fn(tensor, plan, split, *rest leaves) over a marked tree's triples;
+    empty states pass through."""
     if isinstance(marked, dict):
         return {k: _map_marked(fn, v, *(r[k] for r in rest)) for k, v in marked.items()}
     if not marked:
@@ -340,16 +356,16 @@ def _map_marked(fn, marked, *rest):
 def _opt_tree(net, template: bool):
     """The network's updater state in the JAX package's layouts: under
     ZeRO-1 each sharded moment is a :class:`ShardedLeaf` (this rank's rows
-    of the padded leaf), as the JAX package saves it on the same mesh."""
+    of the padded leaf), as the JAX package saves it on the same mesh, and
+    the moment of a leaf the sharding rules split is gathered whole (a
+    chunk rank 0 writes)."""
     from deeplearning4j_tpu_torch import convert
+    from deeplearning4j_tpu_torch.parallel.collectives import _gather
     zt = getattr(net, "_step_transform", None)
     if zt is None:
         return convert.opt_state_to_jax(net)
-    if getattr(net, "_tp", None) is not None:
-        raise NotImplementedError("a sharded checkpoint of a tensor-parallel network "
-                                  "under ZeRO-1 is not ported")
 
-    def leaf(t, pl):
+    def leaf(t, pl, ls):
         if pl is None:
             return _numpy(t)
         if pl.kind == "shard":
@@ -357,10 +373,10 @@ def _opt_tree(net, template: bool):
             window = [[lo, lo + pl.rows]] + [[0, d] for d in pl.shape[1:]]
             return ShardedLeaf(pl.padded_shape, _dtype(t), window,
                                None if template else _numpy(t))
+        if ls is not None:
+            t = _gather(t.contiguous(), net._tp.mesh, ls.axis, ls.dim)
         return _numpy(pl.to_jax(t).contiguous())
     return _map_marked(leaf, _marked_opt_state(net, zt))
-
-
 def _dtype(t) -> np.dtype:
     return np.dtype(str(t.dtype).replace("torch.", ""))
 
@@ -371,13 +387,22 @@ def _model_tree(net, template: bool = False) -> Dict[str, Any]:
             "opt": _opt_tree(net, template)}
 
 
+def _mesh_of(net):
+    """The mesh of the network's data-parallel step (a wrapper's), or None."""
+    dp = getattr(net, "_dp", None)
+    return None if dp is None else dp.mesh
+
+
 def save_model_sharded(net, directory: str) -> None:
     """Sharded save of a MultiLayerNetwork or ComputationGraph: parameters,
     layer state, updater state (ZeRO-1's shards as they are) and the
-    counters; the configuration travels in the manifest.  Every rank
-    calls it."""
+    counters; the configuration travels in the manifest.  Every rank of
+    the network's wrapper mesh calls it (of the default group without a
+    wrapper); a mesh over part of the ranks, or a host's, numbers the
+    files and meets at its barriers by its own ranks."""
     save_sharded(directory, _model_tree(net), metadata={
-        "config": net.conf.to_json(), "iteration": net.iteration, "epoch": net.epoch})
+        "config": net.conf.to_json(), "iteration": net.iteration, "epoch": net.epoch},
+        mesh=_mesh_of(net))
 
 
 @torch.no_grad()
@@ -393,9 +418,15 @@ def assign_model_tree(net, tree: Dict[str, Any]) -> None:
     if zt is None:
         convert.opt_state_from_jax(net, tree["opt"])
     else:
-        def put(t, pl, arr):
+        from deeplearning4j_tpu_torch.parallel.sharding import _block
+
+        def put(t, pl, ls, arr):
             got = torch.from_numpy(np.asarray(arr))
-            t.copy_(pl.to_port(got) if pl is not None and pl.kind == "repl" else got)
+            if pl is not None and pl.kind == "repl":
+                got = pl.to_port(got)
+                if ls is not None:
+                    got = _block(got, ls, net._tp.mesh.coordinate(ls.axis))
+            t.copy_(got)
         _map_marked(put, _marked_opt_state(net, zt), tree["opt"])
 
 

@@ -29,10 +29,32 @@ residual emits later, so the sum over steps of the applied gradients
 tracks the true sum.  ``world == 1`` needs no sockets: the codec round
 trip still runs.
 
-This slice supports a gang member of one card, or any wrapper world with
-a gang of world 1.  A wrapper world above 1 together with a gang world
-above 1 needs a host subgroup and a leader, which are not ported
-(:func:`check_composable` raises).  ``elastic=True`` forms the gang over
+**A host of several ranks.**  A JAX gang member is one process over a
+local mesh of ``devices_per_process`` devices; in the port it is a *host*
+(``multihost.LocalLauncher(n, d, gang=True)``): ``d`` one-card ranks with
+a process group of their own, over which the wrapper's mesh, its
+data-parallel sum and ZeRO-1 run unchanged.  The mesh's first rank, the
+host's local rank 0, is its *leader* (:class:`HostLink`): it alone builds
+the codecs (so the residuals live on it, as in the one JAX process) and
+joins the gang, as gang rank ``host_index``; the gang's world is the
+number of hosts.  A split step on a host (``exchange(grads, host=...)``):
+
+1. every rank runs the grad half (under ZeRO-1 the reduce-scatter);
+2. the leader gathers the host's shards of each reduce-scattered leaf
+   into the whole padded leaf (one ``gather`` of one flat buffer: what a
+   JAX host's ``np.asarray`` of a sharded global array gives), takes the
+   tree to the host as f32 in the JAX layouts and runs the exchange above,
+   so its frames are a JAX process's with the same local mesh;
+3. the combined gradient goes back to the host's ranks as one broadcast of
+   one flat f32 buffer, or under ZeRO-1 one scatter (each rank its rows of
+   the sharded leaves, and the whole of the others); a status word leads
+   the buffer, so a failed exchange (a lost peer) raises on every rank of
+   the host, not only on the leader.
+
+No other rank opens a gang socket or records the ``comms_*`` series.
+``elastic=True`` on a host of more than one rank raises
+``NotImplementedError``: the elastic gang's members are one-rank hosts.
+``elastic=True`` forms the gang over
 ``transport.ElasticGradientMesh`` instead: a member lost to a crash, a
 partition or a straggle re-forms the gang under a new generation, and the
 exchange raises ``GangReformed`` on every survivor for
@@ -62,6 +84,10 @@ ENV_DEADLINE = "DL4J_TPU_FAILURE_DEADLINE_S"
 ENV_JOIN = "DL4J_TPU_JOIN"
 
 Tree = Any
+
+#: the host layout of the launchers (``parallel/multihost.py``)
+ENV_DPP = "DL4J_TPU_DEVICES_PER_PROCESS"
+ENV_LOCAL = "DL4J_TPU_LOCAL_RANK"
 
 
 def _env_int(name: str, default: int) -> int:
@@ -149,6 +175,128 @@ def _host_f32(grads: Tree) -> Tree:
     return tree_unflatten(treedef, out)
 
 
+def _buffer_len(shapes) -> int:
+    """A send-back buffer's f32 words: the status word and every leaf."""
+    return 1 + sum(int(np.prod(s, dtype=np.int64)) for s in shapes)
+
+
+class HostLink:
+    """The ranks of one host as the gang sees them: a mesh over more than
+    one rank (the wrapper's), whose first rank leads.  Its collectives run
+    over the mesh's group on every rank of it; each moves one flat f32
+    buffer."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+
+    @property
+    def leader(self) -> bool:
+        return self.mesh.rank == 0
+
+    @property
+    def size(self) -> int:
+        return self.mesh.size
+
+    @torch.no_grad()
+    def gather(self, shards):
+        """Row shards of leaves (rank r holds block r of each leaf's dim 0,
+        every rank with the same shapes) to the leader as whole leaves, the
+        blocks in rank order; None on the other ranks."""
+        import torch.distributed as dist
+        flat = torch.cat([t.reshape(-1).to(torch.float32) for t in shards])
+        bufs = [torch.empty_like(flat) for _ in range(self.size)] if self.leader else None
+        dist.gather(flat, bufs, dst=self.mesh.src, group=self.mesh.group_all)
+        if not self.leader:
+            return None
+        out, off = [], 0
+        for t in shards:
+            n = t.numel()
+            out.append(torch.cat([b[off:off + n].view(tuple(t.shape)) for b in bufs]))
+            off += n
+        return out
+
+    @torch.no_grad()
+    def send_back(self, combined, shapes, rows, device):
+        """The leader's combined leaves (f32 numpy, the row-sharded ones
+        whole) to every rank of the host: each rank gets the whole of the
+        leaves with `rows` False and its own block of the others, at
+        `shapes` (this rank's).  One broadcast, or one scatter where any
+        leaf is row-sharded.  Returns this rank's leaves, f32 tensors on
+        `device`."""
+        bufs = (torch.from_numpy(self._payloads(combined, shapes, rows)).to(device)
+                if self.leader else None)
+        recv = self._deliver(bufs, shapes, rows, device)
+        if recv[0].item() != 0.0:
+            self._raise_failure()
+        out, off = [], 1
+        for s in shapes:
+            k = int(np.prod(s, dtype=np.int64))
+            out.append(recv[off:off + k].view(s))
+            off += k
+        return out
+
+    def _deliver(self, bufs, shapes, rows, device) -> torch.Tensor:
+        """The collective of `send_back` and `fail`: the leader's row of
+        `bufs` to every rank (broadcast), or row r to rank r (scatter)."""
+        import torch.distributed as dist
+        src, group = self.mesh.src, self.mesh.group_all
+        if not any(rows):
+            recv = bufs[0] if self.leader else torch.empty(
+                _buffer_len(shapes), dtype=torch.float32, device=device)
+            dist.broadcast(recv, src, group=group)
+            return recv
+        recv = torch.empty(_buffer_len(shapes), dtype=torch.float32, device=device)
+        dist.scatter(recv, list(bufs) if self.leader else None, src=src, group=group)
+        return recv
+
+    def _payloads(self, combined, shapes, rows) -> np.ndarray:
+        """[ranks, 1 + elements] f32 (one row where nothing is
+        row-sharded): a zero status word, then each leaf in order, whole
+        or the rank's block of its dim 0."""
+        ranks = self.size if any(rows) else 1
+        out = np.empty((ranks, _buffer_len(shapes)), np.float32)
+        out[:, 0] = 0.0
+        off = 1
+        for a, s, row in zip(combined, shapes, rows):
+            a = np.asarray(a, np.float32)
+            k = int(np.prod(s, dtype=np.int64))
+            for r in range(ranks):
+                out[r, off:off + k] = (a[r * s[0]:(r + 1) * s[0]] if row else a).reshape(-1)
+            off += k
+        return out
+
+    @torch.no_grad()
+    def fail(self, error: BaseException, shapes, rows, device) -> None:
+        """The leader's half of a failed exchange: buffers whose status
+        word is 1 (the collective the ranks wait in), then the error as an
+        object broadcast over the host."""
+        import torch.distributed as dist
+        bufs = torch.zeros((self.size if any(rows) else 1, _buffer_len(shapes)),
+                           dtype=torch.float32, device=device)
+        bufs[:, 0] = 1.0
+        self._deliver(bufs, shapes, rows, device)
+        dist.broadcast_object_list([f"{type(error).__name__}: {error}"], self.mesh.src,
+                                   group=self.mesh.group_all,
+                                   device=device if device.type == "cuda" else None)
+
+    def _raise_failure(self):
+        import torch.distributed as dist
+        got = [None]
+        dist.broadcast_object_list(got, self.mesh.src, group=self.mesh.group_all,
+                                   device=self.mesh.device
+                                   if self.mesh.device.type == "cuda" else None)
+        raise RuntimeError(f"the host's leader (global rank {self.mesh.src}) failed its "
+                           f"gang exchange: {got[0]}")
+
+
+def host_link(mesh) -> Optional[HostLink]:
+    """The host link of a data-parallel mesh: None for a one-rank mesh (the
+    process is its own host)."""
+    if mesh is None or not mesh.distributed or mesh.size == 1:
+        return None
+    return HostLink(mesh)
+
+
 class HierarchicalAllReduce:
     """The host-side exchange runtime one model owns.
 
@@ -194,6 +342,11 @@ class HierarchicalAllReduce:
     def _ensure(self, grads: Tree) -> None:
         if self._ready:
             return
+        if _env_int(ENV_DPP, 1) > 1 and _env_int(ENV_LOCAL, 0) != 0:
+            raise RuntimeError(
+                f"local rank {_env_int(ENV_LOCAL, 0)} of a host of {_env_int(ENV_DPP, 1)} "
+                "ranks: only the host's leader joins the gang (share gradients through "
+                "ParallelWrapper over the host's group)")
         from deeplearning4j_tpu_torch.monitor.instrument import comms_instruments
         self._instr = comms_instruments()
         leaves, treedef = tree_flatten(grads)
@@ -244,10 +397,47 @@ class HierarchicalAllReduce:
         if flush_residuals and old is not None:
             self._exchange.flush_into(old.residuals())
 
-    def exchange(self, grads: Tree) -> Tree:
-        """The host group's gradient tree (tensors or arrays, in the JAX
-        package's layouts) in, the gang-combined tree out (f32 numpy
-        leaves; the apply half puts them back on the device)."""
+    def exchange(self, grads: Tree, host: Optional[HostLink] = None, rows=None) -> Tree:
+        """The host's gradient tree (tensors or arrays, in the JAX
+        package's layouts) in, the gang-combined tree out.  Without `host`
+        (a one-rank host) the leaves come out as f32 numpy arrays (the apply
+        half puts them back on the device).  With `host`, every rank of it
+        calls this with its tree, `rows` (a tree of bools, or None) marking
+        the leaves it holds a dim-0 block of; the leader gathers, exchanges
+        and sends back (the module docstring), and the leaves come out as
+        f32 tensors on this rank's device, the marked ones as this rank's
+        block."""
+        if host is None:
+            return self._exchange_tree(grads)
+        return self._exchange_host(grads, host, rows)
+
+    def _exchange_host(self, grads: Tree, host: HostLink, rows) -> Tree:
+        if self.config.elastic:
+            raise NotImplementedError(
+                "elastic gradient sharing on a host of more than one rank is not "
+                "ported: an elastic gang's members are one-rank hosts")
+        leaves, treedef = tree_flatten(grads)
+        flags = [False] * len(leaves) if rows is None else [bool(r) for r in
+                                                            tree_flatten(rows)[0]]
+        shapes = [tuple(l.shape) for l in leaves]
+        device = host.mesh.device
+        marked = [i for i, f in enumerate(flags) if f]
+        whole = host.gather([leaves[i] for i in marked]) if marked else []
+        combined = None
+        if host.leader:
+            full = list(leaves)
+            for i, w in zip(marked, whole):
+                full[i] = w
+            try:
+                combined, _ = tree_flatten(self._exchange_tree(tree_unflatten(treedef, full)))
+            except BaseException as e:
+                host.fail(e, shapes, flags, device)
+                raise
+        else:
+            self.exchanges += 1
+        return tree_unflatten(treedef, host.send_back(combined, shapes, flags, device))
+
+    def _exchange_tree(self, grads: Tree) -> Tree:
         t0 = time.perf_counter()
         host_grads = _host_f32(grads)
         self._ensure(host_grads)
@@ -374,16 +564,3 @@ def as_runtime(sharing, current=None) -> Optional[HierarchicalAllReduce]:
     if current is not None and current is not new:
         current.close()
     return new
-
-
-def check_composable(dp_size: int, sharing: HierarchicalAllReduce) -> None:
-    """A data-parallel group of more than one rank under a gang of more
-    than one process would need a host subgroup and its leader, which are
-    not ported: refuse it."""
-    world = sharing.world
-    if dp_size > 1 and world > 1:
-        raise NotImplementedError(
-            f"gradient sharing over a gang of {world} processes with a data-parallel "
-            f"group of {dp_size} ranks in each needs host subgroups and a leader a "
-            "host, which are not ported (ROADMAP A5): run one card a gang member, or "
-            "a gang of world 1")

@@ -1,5 +1,5 @@
-"""Launching the ranks of a data-parallel job (the port of
-``parallel/multihost.py``, in part).
+"""Launching the ranks of a job, and the hosts of a gang (the port of
+``parallel/multihost.py``).
 
 The JAX package's control plane is ``jax.distributed`` and its data plane
 XLA's collectives inside one SPMD program.  The port's control plane is
@@ -9,12 +9,25 @@ data-parallel step: NCCL with one card a process on the card, gloo on the
 CPU.  :func:`initialize` joins the group from the ``DL4J_TPU_*``
 environment that :class:`LocalLauncher` sets for each process it starts.
 
-A gradient-sharing gang (``parallel/hierarchical.py``) is a set of
-processes coupled only by the TCP gradient mesh: ``LocalLauncher(n,
-gang=True)`` starts one, each rank told the mesh's port by
-``run(..., gradient_port=)`` (``DL4J_TPU_GRADIENT_PORT``; the host is
-``DL4J_TPU_GRADIENT_HOST``, 127.0.0.1 by default).  A gang forms no NCCL
-group, so its ranks may share a card.
+A JAX process drives ``devices_per_process`` devices.  In the port that
+process becomes a *host*: ``devices_per_process`` one-card ranks
+(``LocalLauncher(n, d)`` starts ``n * d`` processes; rank ``(h, j)`` is
+local rank ``j`` of host ``h``, on card ``h * d + j``).  The environment
+keeps the JAX meaning of the process count and index (``n`` hosts, this
+host ``h``), and adds the host's size and the local rank; inside a host
+of more than one rank :func:`process_index` and :func:`process_count` are
+the host's and the number of hosts, as JAX's are for processes.  Without a
+gang, the ``n * d`` ranks form one process group.
+
+A gradient-sharing gang (``parallel/hierarchical.py``) is a set of hosts
+coupled only by the TCP gradient mesh: ``LocalLauncher(n, d, gang=True)``
+starts one, each host with a rendezvous of its own, so the default process
+group of a rank is its host's (its wrapper, ZeRO-1 and sharding rules run
+over it); each host's local rank 0 leads it on the mesh, whose port
+``run(..., gradient_port=)`` exports (``DL4J_TPU_GRADIENT_PORT``; the host
+is ``DL4J_TPU_GRADIENT_HOST``, 127.0.0.1 by default).  The gang forms no
+group across hosts, so on the card hosts may share the cards (rank ``(h,
+j)`` on card ``(h * d + j) % cards``).
 
 :class:`ElasticLocalRunner` supervises such launches.  ``run`` relaunches
 the whole job after a retryable failure, each attempt on a fresh
@@ -26,7 +39,8 @@ first failure, and the failure taxonomy reads what the first failing rank
 printed.  ``run_elastic`` supervises an elastic gang
 (``HierarchicalGradientSharing(elastic=True)`` under
 ``train.resilience.ElasticTrainer``) process by process and starts a
-replacement with ``DL4J_TPU_JOIN=1`` for a member that died.
+replacement with ``DL4J_TPU_JOIN=1`` for a member that died (a gang of
+one-rank hosts: ``elastic=True`` on a host of more than one rank raises).
 :class:`MultiHostParallelInference` runs each process's own request rows
 through the replicated model.
 """
@@ -52,7 +66,12 @@ from deeplearning4j_tpu_torch.utils.devices import resolve_device
 ENV_COORD = "DL4J_TPU_COORDINATOR"
 ENV_NPROC = "DL4J_TPU_NUM_PROCESSES"
 ENV_PID = "DL4J_TPU_PROCESS_ID"
+# a host of several ranks: its size, this rank's place in it, the card of
+# this rank and whether the hosts are a gang (a process group each)
+ENV_DPP = "DL4J_TPU_DEVICES_PER_PROCESS"
 ENV_LOCAL = "DL4J_TPU_LOCAL_RANK"
+ENV_CARD = "DL4J_TPU_CARD"
+ENV_GANG = "DL4J_TPU_GANG"
 ENV_PLATFORM = "DL4J_TPU_PLATFORM"
 # the checkpoint directory a resilience-aware worker resumes from
 ENV_CKPT = "DL4J_TPU_CHECKPOINT_DIR"
@@ -68,29 +87,32 @@ def initialize(coordinator_address: Optional[str] = None,
                timeout_s: Optional[float] = None) -> torch.device:
     """Join the job's process group and return this process's device.
     Arguments default to the ``DL4J_TPU_*`` environment the launcher sets
-    (the platform too: ``DL4J_TPU_PLATFORM=cpu`` asks for the CPU).  On the
-    card (``"cuda"``, the default) the group is NCCL's, bound to card
-    ``DL4J_TPU_LOCAL_RANK`` (the process id by default) with its
-    communicator made at once, so it exists before any CUDA-graph capture;
-    on the CPU it is gloo's.  `timeout_s` bounds the rendezvous and each
-    collective (torch's default, 10 minutes, otherwise): a rank left
-    waiting then fails instead of hanging."""
+    (the platform too: ``DL4J_TPU_PLATFORM=cpu`` asks for the CPU): the
+    group of a gang's host is its ``devices_per_process`` ranks, else all
+    the job's ranks (:func:`group_of_env`).  On the card (``"cuda"``, the
+    default) the group is NCCL's, bound to card ``DL4J_TPU_CARD`` (the
+    rank by default) with its communicator made at once, so it exists
+    before any CUDA-graph capture; on the CPU it is gloo's.  `timeout_s`
+    bounds the rendezvous and each collective (torch's default, 10
+    minutes, otherwise): a rank left waiting then fails instead of
+    hanging."""
     import torch.distributed as dist
     coordinator_address = coordinator_address or os.environ.get(ENV_COORD)
     if coordinator_address is None:
         raise ValueError(f"no coordinator address: pass one or set {ENV_COORD}")
+    env_size, env_rank = group_of_env()
     if num_processes is None:
-        num_processes = int(os.environ.get(ENV_NPROC, "1"))
+        num_processes = env_size
     if process_id is None:
-        process_id = int(os.environ.get(ENV_PID, "0"))
+        process_id = env_rank
     if device is None:
         device = os.environ.get(ENV_PLATFORM)
     dev = resolve_device(device)
     init = f"tcp://{coordinator_address}"
     extra = {} if timeout_s is None else {"timeout": datetime.timedelta(seconds=timeout_s)}
     if dev.type == "cuda":
-        local = int(os.environ.get(ENV_LOCAL, process_id)) if dev.index is None else dev.index
-        dev = torch.device("cuda", local)
+        card = int(os.environ.get(ENV_CARD, process_id)) if dev.index is None else dev.index
+        dev = torch.device("cuda", card)
         torch.cuda.set_device(dev)
         dist.init_process_group("nccl", init_method=init, world_size=num_processes,
                                 rank=process_id, device_id=dev, **extra)
@@ -100,18 +122,52 @@ def initialize(coordinator_address: Optional[str] = None,
     return dev
 
 
+def _env_int(name: str, default: int) -> int:
+    v = os.environ.get(name)
+    return default if v in (None, "") else int(v)
+
+
+def host_of_env() -> Tuple[int, int, int]:
+    """(host index, local rank, ranks a host) of this process, from the
+    launcher's environment ((0, 0, 1) where unset)."""
+    return _env_int(ENV_PID, 0), _env_int(ENV_LOCAL, 0), _env_int(ENV_DPP, 1)
+
+
+def group_of_env() -> Tuple[int, int]:
+    """(size, rank) of this process's group from the environment: a gang's
+    host is a group of its own (``DL4J_TPU_GANG=1``), else the job's ``n *
+    d`` ranks form one, rank ``h * d + j``."""
+    h, j, d = host_of_env()
+    if os.environ.get(ENV_GANG) == "1":
+        return d, j
+    return _env_int(ENV_NPROC, 1) * d, h * d + j
+
+
+def _in_a_host() -> bool:
+    return _env_int(ENV_DPP, 1) > 1 and ENV_PID in os.environ
+
+
 def process_index() -> int:
+    """This process's host inside a host of more than one rank (JAX's
+    process index), else its rank in the group."""
+    if _in_a_host():
+        return host_of_env()[0]
     import torch.distributed as dist
     return dist.get_rank() if dist.is_initialized() else 0
 
 
 def process_count() -> int:
+    """The number of hosts where hosts hold more than one rank (JAX's
+    process count), else the group's size."""
+    if _in_a_host():
+        return _env_int(ENV_NPROC, 1)
     import torch.distributed as dist
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
 def global_mesh(axes: Optional[Dict[str, int]] = None, device=None):
-    """Mesh over every rank of the group (default: pure data parallel)."""
+    """Mesh over every rank of the group (default: pure data parallel); in
+    a gang that is this host's ranks."""
     from deeplearning4j_tpu_torch.parallel.mesh import make_mesh
     return make_mesh(axes, device=device)
 
@@ -179,11 +235,15 @@ def free_port(max_tries: int = 16) -> int:
 
 
 def child_env(coordinator: str, num_processes: int, process_id: int,
-              platform: str = "cpu", local_rank: Optional[int] = None) -> Dict[str, str]:
-    """Environment of one spawned rank: the repository first on
-    ``PYTHONPATH``, the rendezvous (coordinator, world size, rank), the
-    platform (``"cuda"``: one card a rank, card = `local_rank`, the rank by
-    default; ``"cpu"``: gloo) and one CPU thread a rank on the CPU."""
+              devices_per_process: int = 1, platform: str = "cuda",
+              local_rank: int = 0, card: Optional[int] = None,
+              gang: bool = False) -> Dict[str, str]:
+    """Environment of one spawned rank, local rank `local_rank` of host
+    `process_id` of `num_processes` hosts of `devices_per_process` ranks:
+    the repository first on ``PYTHONPATH``, the rendezvous of its group
+    (`coordinator`; with `gang` the host's own), the platform (``"cuda"``:
+    card `card`, the rank ``h * d + j`` by default; ``"cpu"``: gloo) and
+    one CPU thread a rank on the CPU."""
     env = dict(os.environ)
     repo_root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     inherited = [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]
@@ -191,7 +251,11 @@ def child_env(coordinator: str, num_processes: int, process_id: int,
     env[ENV_COORD] = coordinator
     env[ENV_NPROC] = str(num_processes)
     env[ENV_PID] = str(process_id)
-    env[ENV_LOCAL] = str(process_id if local_rank is None else local_rank)
+    env[ENV_DPP] = str(devices_per_process)
+    env[ENV_LOCAL] = str(local_rank)
+    rank = process_id * devices_per_process + local_rank
+    env[ENV_CARD] = str(rank if card is None else card)
+    env[ENV_GANG] = "1" if gang else "0"
     env[ENV_PLATFORM] = platform
     if platform == "cpu":
         env.setdefault("OMP_NUM_THREADS", "1")
@@ -199,44 +263,66 @@ def child_env(coordinator: str, num_processes: int, process_id: int,
 
 
 class LocalLauncher:
-    """Start a script as N localhost ranks and wait for them.  Each rank's
-    stdout and stderr are captured; a rank that fails (or outlives
-    `timeout`) makes `run` stop the others and raise with its output's
-    tail.  ``platform="cuda"`` gives each rank its own card (rank r on
-    card r); ``"cpu"`` runs gloo ranks.  ``gang=True`` starts the ranks of
-    a gradient-sharing gang, which form no NCCL group: on the card they may
-    outnumber the cards (rank r on card r % cards)."""
+    """Start a script as `num_processes` localhost hosts of
+    `devices_per_process` ranks each (one process a rank, ``n * d`` in
+    all) and wait for them.  Each rank's stdout and stderr are captured; a
+    rank that fails (or outlives `timeout`) makes `run` stop the others and
+    raise with its output's tail.  ``platform="cuda"`` gives rank ``(h, j)``
+    card ``h * d + j``; ``"cpu"`` runs gloo ranks.  Without a gang the
+    ranks form one process group; ``gang=True`` starts the hosts of a
+    gradient-sharing gang, each host a group of its own (its own
+    rendezvous) and the hosts coupled by the TCP gradient mesh only: on
+    the card they may outnumber the cards (rank ``(h, j)`` on card ``(h * d
+    + j) % cards``)."""
 
-    def __init__(self, num_processes: int, platform: str = "cpu", gang: bool = False):
+    def __init__(self, num_processes: int, devices_per_process: int = 1,
+                 platform: str = "cuda", gang: bool = False):
         if platform not in ("cpu", "cuda"):
             raise ValueError(f"platform {platform!r}: want 'cpu' or 'cuda'")
-        if platform == "cuda" and not gang and num_processes > torch.cuda.device_count():
-            raise ValueError(f"{num_processes} ranks need {num_processes} cards, "
+        if int(devices_per_process) < 1:
+            raise ValueError(f"devices_per_process {devices_per_process}: want at least 1")
+        ranks = int(num_processes) * int(devices_per_process)
+        if platform == "cuda" and not gang and ranks > torch.cuda.device_count():
+            raise ValueError(f"{ranks} ranks need {ranks} cards, "
                              f"this machine has {torch.cuda.device_count()}")
         self.num_processes = int(num_processes)
+        self.devices_per_process = int(devices_per_process)
         self.platform = platform
         self.gang = bool(gang)
 
-    def run(self, script: str, args: Sequence[str] = (), timeout: float = 300.0,
-            extra_env: Optional[Dict[str, str]] = None,
-            gradient_port: Optional[int] = None) -> List[str]:
-        """Each rank's output, in rank order.  The ranks are polled
-        together: the first to fail, or the deadline, stops them all (a
-        rank left waiting in a collective would otherwise hang).
-        `gradient_port` exports ``DL4J_TPU_GRADIENT_PORT`` so the ranks
-        form their TCP gradient mesh on a known port (``free_port()`` for a
-        fresh one a launch)."""
-        coordinator = f"127.0.0.1:{free_port()}"
+    def envs(self, extra_env: Optional[Dict[str, str]] = None,
+             gradient_port: Optional[int] = None) -> List[Dict[str, str]]:
+        """The environment of each rank, in ``(host, local)`` order: one
+        rendezvous for the job, or one a host in a gang."""
+        n, d = self.num_processes, self.devices_per_process
         cards = torch.cuda.device_count() if self.platform == "cuda" else 0
-        procs, logs = [], []
-        try:
-            for rank in range(self.num_processes):
-                env = child_env(coordinator, self.num_processes, rank, self.platform,
-                                rank % cards if self.gang and cards else None)
+        shared = f"127.0.0.1:{free_port()}"
+        out = []
+        for h in range(n):
+            coordinator = f"127.0.0.1:{free_port()}" if self.gang else shared
+            for j in range(d):
+                card = (h * d + j) % cards if self.gang and cards else None
+                env = child_env(coordinator, n, h, d, self.platform, j, card, self.gang)
                 if gradient_port is not None:
                     env[ENV_GRAD_PORT] = str(gradient_port)
                 if extra_env:
                     env.update(extra_env)
+                out.append(env)
+        return out
+
+    def run(self, script: str, args: Sequence[str] = (), timeout: float = 300.0,
+            extra_env: Optional[Dict[str, str]] = None,
+            gradient_port: Optional[int] = None) -> List[str]:
+        """Each rank's output, in ``(host, local)`` order (rank ``h * d +
+        j``).  The ranks are polled together: the first to fail, or the
+        deadline, stops them all (a rank left waiting in a collective would
+        otherwise hang).  `gradient_port` exports
+        ``DL4J_TPU_GRADIENT_PORT`` so the hosts' leaders form their TCP
+        gradient mesh on a known port (``free_port()`` for a fresh one a
+        launch)."""
+        procs, logs = [], []
+        try:
+            for env in self.envs(extra_env, gradient_port):
                 log = tempfile.TemporaryFile(mode="w+")
                 logs.append(log)
                 procs.append(subprocess.Popen(
@@ -296,13 +382,17 @@ class ElasticLocalRunner:
     them at the first failure it sees (``LocalLauncher`` polls every
     rank).  ``run_elastic`` supervises an elastic gang member by member
     instead: the gang re-forms without the dead member and a replacement
-    joins it.  ``platform`` is where the ranks compute: ``"cuda"`` (the
-    default) or ``"cpu"`` where the caller asks for it."""
+    joins it.  The job is `num_processes` hosts of `devices_per_process`
+    ranks, as ``LocalLauncher`` starts them; ``platform`` is where the
+    ranks compute: ``"cuda"`` (the default) or ``"cpu"`` where the caller
+    asks for it."""
 
-    def __init__(self, num_processes: int, platform: str = "cuda", max_restarts: int = 2,
+    def __init__(self, num_processes: int, devices_per_process: int = 1,
+                 platform: str = "cuda", max_restarts: int = 2,
                  backoff_base_s: float = 1.0, backoff_cap_s: float = 30.0,
                  jitter_seed: Optional[int] = None):
         self.num_processes = int(num_processes)
+        self.devices_per_process = int(devices_per_process)
         self.platform = platform
         self.max_restarts = max_restarts
         self.restarts = 0
@@ -361,7 +451,8 @@ class ElasticLocalRunner:
         extra_env = {} if checkpoint_dir is None else {ENV_CKPT: checkpoint_dir}
         last_error: Optional[RuntimeError] = None
         for attempt in range(self.max_restarts + 1):
-            launcher = LocalLauncher(self.num_processes, self.platform, gang=gradient_mesh)
+            launcher = LocalLauncher(self.num_processes, self.devices_per_process,
+                                     self.platform, gang=gradient_mesh)
             try:
                 return launcher.run(script, args, timeout, extra_env=extra_env,
                                     gradient_port=free_port() if gradient_mesh else None)
@@ -409,6 +500,11 @@ class ElasticLocalRunner:
         `failure_history`, not raised."""
         if policy not in ("shrink", "block"):
             raise ValueError(f"policy must be 'shrink' or 'block', got {policy!r}")
+        if self.devices_per_process > 1:
+            raise NotImplementedError(
+                "an elastic gang of hosts of several ranks (devices_per_process "
+                f"{self.devices_per_process}) is not ported: run_elastic supervises "
+                "one-rank hosts")
         port = free_port()
         base_env = {
             ENV_GRAD_PORT: str(port),
@@ -425,8 +521,8 @@ class ElasticLocalRunner:
         logdir = tempfile.mkdtemp(prefix="elastic-gang-")
 
         def spawn(rank: int, label: str, join: bool):
-            env = child_env(coordinator, self.num_processes, rank, self.platform,
-                            rank % cards if cards else None)
+            env = child_env(coordinator, self.num_processes, rank, 1, self.platform,
+                            0, rank % cards if cards else None, gang=True)
             env.update(base_env)
             if join:
                 env["DL4J_TPU_JOIN"] = "1"

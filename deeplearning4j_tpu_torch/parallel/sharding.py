@@ -105,30 +105,53 @@ def _inverse(perm):
     return tuple(sorted(range(len(perm)), key=lambda i: perm[i]))
 
 
+def _split_dims(spec: PartitionSpec, shape_port: Tuple[int, ...], perm, mesh,
+                path: str) -> List[Tuple[int, Tuple[str, ...]]]:
+    """(port-layout dim, mesh axes) of each dim that the JAX-layout `spec`
+    splits over axes wider than 1, as ``NamedSharding`` reads a spec: an
+    entry is an axis name or a tuple of them (the dim split over their
+    product, row-major)."""
+    parts = list(spec) + [None] * (len(shape_port) - len(spec))
+    out = []
+    for d_jax, entry in enumerate(parts):
+        if entry is None:
+            continue
+        axes = tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+        for a in axes:
+            if a not in mesh.shape:
+                raise ValueError(f"{path}: spec {spec!r} names axis {a!r}, not on the mesh "
+                                 f"{mesh.shape}")
+        axes = tuple(a for a in axes if mesh.shape[a] > 1)
+        if not axes:
+            continue
+        d = d_jax if perm is None else list(perm).index(d_jax)
+        n = 1
+        for a in axes:
+            n *= mesh.shape[a]
+        if shape_port[d] % n:
+            raise ValueError(f"{path}: dim of size {shape_port[d]} does not split over "
+                             f"axes {axes} of size {n}")
+        out.append((d, axes))
+    return out
+
+
 def leaf_shard(spec: PartitionSpec, shape_port: Tuple[int, ...], perm, mesh,
                path: str) -> Optional[LeafShard]:
     """The split of one leaf whose JAX-layout spec is `spec` (None where
-    it is replicated on the mesh).  A split over more than one dim, over a
-    tuple of axes, or over another axis than the leaf's one sharded axis,
-    is not ported."""
-    parts = list(spec) + [None] * (len(shape_port) - len(spec))
-    dims = [(d, a) for d, a in enumerate(parts) if a is not None]
-    dims = [(d, a) for d, a in dims if not (isinstance(a, str) and mesh.shape.get(a, 1) == 1)]
+    it is replicated on the mesh), for the wrapper's tensor parallelism,
+    which computes with a leaf split on one dim over one axis: a split
+    over two dims or over a tuple of axes raises (``shard_model_params``
+    places any spec)."""
+    dims = _split_dims(spec, shape_port, perm, mesh, path)
     if not dims:
         return None
-    if len(dims) > 1 or not isinstance(dims[0][1], str):
+    if len(dims) > 1 or len(dims[0][1]) > 1:
         raise NotImplementedError(f"{path}: spec {spec!r} splits more than one dim or "
-                                  "over a tuple of axes; one axis on one dim is ported")
-    d_jax, axis = dims[0]
-    if axis not in mesh.shape:
-        raise ValueError(f"{path}: spec {spec!r} names axis {axis!r}, not on the mesh "
-                         f"{mesh.shape}")
-    d = d_jax if perm is None else list(perm).index(d_jax)
-    n = mesh.shape[axis]
-    if shape_port[d] % n:
-        raise ValueError(f"{path}: dim of size {shape_port[d]} does not split over "
-                         f"axis {axis!r} of size {n}")
-    return LeafShard(spec, d, axis, n, tuple(shape_port))
+                                  "over a tuple of axes: the wrapper's tensor parallelism "
+                                  "computes with one axis on one dim (shard_model_params "
+                                  "places the spec)")
+    d, (axis,) = dims[0]
+    return LeafShard(spec, d, axis, mesh.shape[axis], tuple(shape_port))
 
 
 def _jax_shape(t: torch.Tensor, perm) -> Tuple[int, ...]:
@@ -155,8 +178,10 @@ def plan_shards(net, mesh, rules: Optional[ShardingRules] = None) -> Dict[str, D
             ls = leaf_shard(spec, tuple(v.shape), perm, mesh, p)
             if ls is not None:
                 if ls.axis == "data":
-                    raise NotImplementedError(f"{p}: a parameter split over the data "
-                                              "axis is ZeRO-1's (optimizer_sharding)")
+                    raise NotImplementedError(
+                        f"{p}: the wrapper's tensor parallelism does not split a parameter "
+                        "over the data axis (its rows differ there); shard_model_params "
+                        "places such a spec, and optimizer_sharding shards the update")
                 out[k] = ls
         return out
 
@@ -177,26 +202,66 @@ def _block(t: torch.Tensor, ls: LeafShard, coord: int) -> torch.Tensor:
 def shard_model_params(params: Any, mesh, rules: Optional[ShardingRules] = None,
                        layouts: Optional[Dict[str, Dict]] = None) -> Any:
     """This rank's block of every leaf of a ``{layer: {key: tensor}}``
-    tree under the rules (copies; replicated leaves as they are).
+    tree under the rules (copies; replicated leaves as they are), for any
+    spec JAX's ``NamedSharding`` takes: several split dims, a dim split
+    over a tuple of axes (row-major over them), the ``data`` axis too.
     `layouts` gives each layer's ``TORCH_LAYOUT`` (default: every leaf in
-    the JAX layout)."""
+    the JAX layout).  A quantized leaf (``QTensor``) is a node of two
+    leaves, as in the JAX package's tree: its int8 ``q`` and its
+    per-channel ``scale`` each take their own rule (the default splits
+    both on the channel dim, so they split alike)."""
+    from deeplearning4j_tpu_torch.ops.quant_kernels import QTensor
     rules = rules or ShardingRules()
     layouts = layouts or {}
+
+    def one(v, name, path, perm):
+        p = path_str((name,) + path)
+        dims = _split_dims(rules.spec_for(p, _jax_shape(v, perm), mesh), tuple(v.shape),
+                           perm, mesh, p)
+        for d, axes in dims:
+            n, c = 1, 0
+            for a in axes:                       # row-major over the tuple's axes
+                n, c = n * mesh.shape[a], c * mesh.shape[a] + mesh.coordinate(a)
+            per = v.shape[d] // n
+            v = v.narrow(d, c * per, per)
+        return v.clone() if dims else v
 
     def walk(tree, name, path):
         out = {}
         for k, v in tree.items():
+            perm = layouts.get(name, {}).get(k)
             if isinstance(v, dict):
                 out[k] = walk(v, name, path + (k,))
-                continue
-            perm = layouts.get(name, {}).get(k)
-            p = path_str((name,) + path + (k,))
-            ls = leaf_shard(rules.spec_for(p, _jax_shape(v, perm), mesh), tuple(v.shape),
-                            perm, mesh, p)
-            out[k] = v if ls is None else _block(v, ls, mesh.coordinate(ls.axis)).clone()
+            elif isinstance(v, QTensor):
+                out[k] = QTensor(one(v.q, name, path + (k, "q"), perm),
+                                 one(v.scale, name, path + (k, "scale"), perm), v.axis)
+            else:
+                out[k] = one(v, name, path + (k,), perm)
         return out
     return {name: walk(sub, name, ()) if isinstance(sub, dict) else sub
             for name, sub in params.items()}
+
+
+def gathered_leaf(leaf, shape, mesh, axis: str = "model"):
+    """A leaf that `shard_model_params` may have cut (a tensor or a
+    ``QTensor``) made whole again at `shape` (the port layout's) by an
+    all-gather over `axis` on the dim it was cut on; whole leaves as they
+    are.  Collective over the axis where anything is gathered."""
+    from deeplearning4j_tpu_torch.ops.quant_kernels import QTensor
+    from deeplearning4j_tpu_torch.parallel.collectives import _gather
+
+    def whole(t):
+        if tuple(t.shape) == tuple(shape):
+            return t
+        d = next(i for i, (a, b) in enumerate(zip(t.shape, shape)) if a != b)
+        return _gather(t, mesh, axis, d)
+    if isinstance(leaf, QTensor):
+        if tuple(leaf.q.shape) == tuple(shape):
+            return leaf
+        d = next(i for i, (a, b) in enumerate(zip(leaf.q.shape, shape)) if a != b)
+        scale = leaf.scale if leaf.scale.shape[d] == 1 else _gather(leaf.scale, mesh, axis, d)
+        return QTensor(_gather(leaf.q, mesh, axis, d), scale, leaf.axis)
+    return whole(leaf)
 
 
 def _holder(net, name: str):

@@ -34,11 +34,17 @@ reductions run over the ``data`` subgroup only.  With
 
 ``gradient_sharing`` (a ``HierarchicalGradientSharing`` config) installs
 hierarchical gradient sharing on the model at placement
-(``parallel/hierarchical.py``): the wrapper's group is the host's
-data-parallel group (the JAX "ICI" role) and the gang of processes
-coupled by the TCP gradient mesh the "DCN" role.  A group of more than one
-rank under a gang of more than one process raises
-``NotImplementedError`` (host subgroups are not ported).
+(``parallel/hierarchical.py``): the wrapper's mesh is the host (the JAX
+"ICI" role: a gang launch makes each host's ranks a process group of
+their own), its first rank the leader that alone joins the gang of hosts
+coupled by the TCP gradient mesh (the "DCN" role), gathering the host's
+gradient and sending the combined one back to the host's ranks.  Sharing
+together with sharing rules on a mesh of more than one rank raises
+``NotImplementedError``: a host's split step runs over its data axis.
+
+``ParallelInference`` runs over any mesh: the parameters replicated on
+every rank (rank 0's, broadcast), the batch split over the ``data`` axis,
+every other axis computing the same rows again.
 """
 from __future__ import annotations
 
@@ -284,9 +290,11 @@ class ParallelWrapper:
         if getattr(m, "opt_state_", None) is None:
             raise ValueError("call init() on the model before wrapping it")
         if self._sharing_cfg is not None:
-            from deeplearning4j_tpu_torch.parallel.hierarchical import check_composable
+            if self._rules is not None and self.mesh.size > 1:
+                raise NotImplementedError(
+                    "gradient sharing with sharding rules on a mesh of more than one "
+                    "rank is not ported: a host's split step runs over its data axis")
             m.set_gradient_sharing(self._sharing_cfg)
-            check_composable(self.degree, m.gradient_sharing)
         elif getattr(m, "_grad_sharing", None) is not None:
             m.set_gradient_sharing(None)
         mesh = self.mesh
@@ -318,7 +326,8 @@ class ParallelWrapper:
             zero.disable_zero1(m)
         n = self.degree
         m._dp = DataParallelStep(n, distributed=mesh.distributed and (n > 1 or mesh.size == 1),
-                                 group=mesh.group(self.data_axis) if n > 1 else None)
+                                 group=mesh.group(self.data_axis) if n > 1 else None,
+                                 mesh=mesh)
         m._scan_step = None
         self._placed = True
         ins = self._instruments()
@@ -576,9 +585,13 @@ def _broadcast_tensors(tensors: List[torch.Tensor], mesh: Mesh) -> None:
 
 
 class ParallelInference:
-    """Data-parallel batched inference: each rank runs the forward on its
-    rows of the (padded) global batch and the outputs are all-gathered, so
-    every rank returns the whole answer.  A list of requests is
+    """Data-parallel batched inference over any mesh: the parameters and
+    layer state replicated on every rank (a tensor-parallel model's blocks
+    gathered whole, then rank 0's values broadcast: the JAX package's
+    replicated sharding), each data coordinate running the forward on its
+    rows of the (padded) global batch and the outputs all-gathered over
+    the ``data`` axis, so every rank returns the whole answer; the ranks of
+    any other axis compute the same rows.  A list of requests is
     concatenated, run once and split back."""
 
     def __init__(self, model, mesh: Optional[Mesh] = None, data_axis: str = "data"):
@@ -586,11 +599,16 @@ class ParallelInference:
         self.mesh = mesh if mesh is not None else make_mesh(device=model.device)
         self.data_axis = data_axis
         _check_model_device(model, self.mesh)
-        wide = {a: n for a, n in self.mesh.shape.items() if a != data_axis and n > 1}
-        if wide or getattr(model, "_tp", None) is not None:
-            raise NotImplementedError(
-                f"ParallelInference over mesh axes {wide or self.mesh.shape} or a "
-                "tensor-parallel model: inference under sharding rules is not ported")
+        if getattr(model, "_tp", None) is not None:
+            model._tp.unshard_(model)
+            model._tp = None
+        if self.mesh.distributed and self.mesh.size > 1 and self.mesh.member:
+            from deeplearning4j_tpu_torch.train.updaters import tree_leaves
+            tensors = [t.data if isinstance(t, torch.nn.Parameter) else t
+                       for tree in (model.params_, model.state_)
+                       for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+            with torch.no_grad():
+                _broadcast_tensors(tensors, self.mesh)
 
     def output(self, x):
         """Single-request or list-of-requests inference (numpy out)."""
@@ -610,10 +628,10 @@ class ParallelInference:
         if isinstance(out, (list, tuple)):    # ComputationGraph
             out = out[0]
         out = out.contiguous()
-        if self.mesh.distributed and self.mesh.size > 1:
+        if self.mesh.distributed and n > 1:
             import torch.distributed as dist
             full = out.new_empty((padded.shape[0],) + tuple(out.shape[1:]))
-            dist.all_gather_into_tensor(full, out, group=self.mesh.group_all)
+            dist.all_gather_into_tensor(full, out, group=self.mesh.group(self.data_axis))
             out = full
         return out[: x.shape[0]].cpu().numpy()
 

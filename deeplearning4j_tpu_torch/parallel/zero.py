@@ -42,6 +42,17 @@ their true shapes over the old mesh (:func:`disable_zero1`, the portable
 layout) and cut again for the new one, in process, the same unpad-then-
 replan route the sharded checkpoint's loader takes from disk.
 :func:`reshard_to_devices` does it for a data-axis mesh over given ranks.
+
+A SameDiff graph takes the same transform over its ``variables_`` (one
+plan a variable, :meth:`Zero1Transform.scatter` and friends with the name
+None): every rank feeds the whole batch, so its gradients are equal on
+every rank and ``scatter`` slices this rank's rows without a sum, as the
+JAX graph's sharding constraint does.  Under hierarchical gradient
+sharing on a host of several ranks, the leader gathers the host's shards
+of each reduce-scattered leaf into the whole padded leaf before the gang
+exchange, and the combined gradient goes back as each rank's rows
+(``parallel/hierarchical.py`` ``HostLink``, ``nn/multilayer.py``
+``exchange_gradients``).
 """
 from __future__ import annotations
 
@@ -157,6 +168,11 @@ class Zero1Transform:
         self.scattered = frozenset(scattered)
         self.coord = mesh.coordinate(axis)
 
+    def _sub(self, name: Optional[str]) -> Tree:
+        """Layer `name`'s plans; None: the whole tree (a SameDiff graph's
+        variables)."""
+        return self.plans if name is None else self.plans[name]
+
     def _rows(self, pl: LeafPlan, full: torch.Tensor) -> torch.Tensor:
         return full[self.coord * pl.rows:(self.coord + 1) * pl.rows]
 
@@ -179,7 +195,7 @@ class Zero1Transform:
             if (name, ".".join(path)) in self.scattered:
                 return g if reduced else self._shard_of(pl, g)
             return self._rows(pl, self._padded(pl, g))
-        return _map_paths(one, self.plans[name], grads)
+        return _map_paths(one, self._sub(name), grads)
 
     def reduce_scatter(self, name: str, grads: Tree) -> Tree:
         """Layer `name`'s gradient with each leaf the step reduce-scatters
@@ -199,7 +215,7 @@ class Zero1Transform:
         """Layer `name`'s parameters as the updater sees them: this rank's
         rows of the padded JAX-layout leaf where sharded."""
         return _map_paths(lambda path, pl, p: self._rows(pl, self._padded(pl, p.detach()))
-                          if pl.kind == "shard" else p, self.plans[name], params)
+                          if pl.kind == "shard" else p, self._sub(name), params)
 
     @torch.no_grad()
     def restore(self, name: str, params: Tree, view: Tree, upd: Tree) -> None:
@@ -215,7 +231,7 @@ class Zero1Transform:
             self._all_gather(full, shard)
             p.copy_(pl.to_port(full[:pl.shape[0]]))
             return p
-        _map_paths(one, self.plans[name], params, view, upd)
+        _map_paths(one, self._sub(name), params, view, upd)
 
     def constrain_opt(self, name: str, opt_state: Tree) -> Tree:
         """Layer `name`'s updater state as this rank keeps it: each moment
@@ -224,7 +240,7 @@ class Zero1Transform:
         def cut(sub, plan_sub):
             return _map_paths(lambda path, pl, s: self._rows(pl, self._padded(pl, s)).clone()
                               if pl.kind == "shard" else s, plan_sub, sub)
-        return tree_map_like_params(cut, opt_state, self.plans[name], lambda s: s,
+        return tree_map_like_params(cut, opt_state, self._sub(name), lambda s: s,
                                     shape_of=lambda pl: pl.port_shape)
 
     def gather_opt(self, name: str, opt_state: Tree) -> Tree:
@@ -238,7 +254,7 @@ class Zero1Transform:
                 self._all_gather(full, s.contiguous())
                 return pl.to_port(full[:pl.shape[0]]).contiguous()
             return _map_paths(one, plan_sub, sub)
-        return tree_map_like_params(whole, opt_state, self.plans[name], lambda s: s,
+        return tree_map_like_params(whole, opt_state, self._sub(name), lambda s: s,
                                     shape_of=lambda pl: pl.stored_shape)
 
     def _group(self):
@@ -287,15 +303,34 @@ def _normalized_layers(model):
 
 
 def enable_zero1(model, mesh, axis: str = "data", exclude=frozenset()) -> Zero1Transform:
-    """Turn on the sharded weight update for a MultiLayerNetwork or
-    ComputationGraph: per-leaf plans, the moments cut to this rank's
-    shards, the transform installed and the captured steps dropped.
-    Idempotent for an unchanged (mesh, axis).  Every rank calls it.
-    `exclude`: the (layer, dotted key) of tensor-parallel leaves."""
+    """Turn on the sharded weight update for a MultiLayerNetwork,
+    ComputationGraph or SameDiff graph: per-leaf plans, the moments cut to
+    this rank's shards, the transform installed and the captured steps
+    dropped.  Idempotent for an unchanged (mesh, axis).  Every rank calls
+    it.  `exclude`: the (layer, dotted key) of tensor-parallel leaves.
+
+    A SameDiff graph is planned over its ``variables_`` (enable it once the
+    graph and its training configuration are final): every rank feeds the
+    same whole batch, as the JAX graph does under ``with mesh:``, so its
+    gradients are equal on every rank and ``scatter`` slices each rank's
+    rows of them (JAX's ``with_sharding_constraint``) without a sum."""
     existing = getattr(model, "_step_transform", None)
     if existing is not None and existing.mesh is mesh and existing.axis == axis:
         return existing
     disable_zero1(model)
+    if hasattr(model, "variables_"):
+        if model.opt_state_ is None:
+            cfg = model.training_config
+            if cfg is None or cfg.updater is None:
+                raise ValueError("optimizer sharding needs an updater: call "
+                                 "set_training_config(...) first")
+            model.opt_state_ = cfg.updater.init_state(model.variables_)
+        # one "layer" of variables, in the JAX layout
+        zt = Zero1Transform(mesh, axis, build_plans({None: model.variables_}, mesh, axis)[None])
+        model.opt_state_ = zt.constrain_opt(None, model.opt_state_)
+        model._step_transform = zt
+        _invalidate_steps(model)
+        return zt
     if getattr(model, "opt_state_", None) is None:
         raise ValueError("model must be initialized before optimizer sharding "
                          "(call init() first)")
@@ -322,8 +357,11 @@ def disable_zero1(model) -> None:
     zt = getattr(model, "_step_transform", None)
     if zt is None:
         return
-    model.opt_state_ = {name: zt.gather_opt(name, sub)
-                        for name, sub in model.opt_state_.items()}
+    if hasattr(model, "variables_"):
+        model.opt_state_ = zt.gather_opt(None, model.opt_state_)
+    else:
+        model.opt_state_ = {name: zt.gather_opt(name, sub)
+                            for name, sub in model.opt_state_.items()}
     model._step_transform = None
     _invalidate_steps(model)
 

@@ -26,8 +26,14 @@ kernel on CUDA) or, with ``quantize_activations`` and calibration, int8
 activations (``quantized_matmul_static``, the ``int8_matmul`` kernel); every
 other layer dequantizes its parameters and runs the stock layer.
 ComputationGraph models dequantize every parameter and run the stock graph.
-SameDiff graphs, Keras and ONNX imports are not ported, and a model of any
-other kind raises `TypeError`.
+A MultiLayerNetwork's quantized leaves may be placed by
+``parallel.shard_model_params`` on a mesh with a ``model`` axis (this
+rank's block of ``q`` and of its ``scale``): inside ``with mesh:`` a Dense
+layer whose ``W`` is cut on its output channels runs column-parallel (the
+product on the local block, then an all-gather of the output features
+over ``model``), and any other cut leaf is gathered whole where it is used.
+A quantized SameDiff graph is not ported (ROADMAP A4.2), nor are Keras and
+ONNX imports; a model of any other kind raises `TypeError`.
 """
 from __future__ import annotations
 
@@ -150,12 +156,11 @@ def model_kind(model) -> str:
         return "graph"
     if hasattr(model, "_nodes"):
         raise TypeError(
-            f"cannot serve a quantized {type(model).__name__}: SameDiff "
-            "graphs are not ported to PyTorch yet")
+            f"cannot serve a quantized {type(model).__name__}: the quantized "
+            "SameDiff kind is not ported (ROADMAP A4.2); SameDiff itself is")
     raise TypeError(
         f"cannot serve a quantized {type(model).__name__}: need a "
-        "MultiLayerNetwork or ComputationGraph (SameDiff graphs are not "
-        "ported to PyTorch yet)")
+        "MultiLayerNetwork or ComputationGraph")
 
 
 class QuantizedModel:
@@ -207,20 +212,28 @@ class QuantizedModel:
 
     def _forward_mln(self, params, state, x):
         from deeplearning4j_tpu_torch.nn.layers import DenseLayer
+        from deeplearning4j_tpu_torch.parallel.mesh import current_mesh
+        from deeplearning4j_tpu_torch.parallel.sharding import gathered_leaf
 
         acc = self.acc_dtype()
         if x.is_floating_point():
             x = x.to(acc)
+        mesh = current_mesh()
         new_state = dict(state)
         for i, layer in enumerate(self.conf.layers):
             name = self.conf.layer_name(i)
             lp = params[name]
+            shapes = {k: tuple(v.shape) for k, v in self.base.params_.get(name, {}).items()}
             w = lp.get("W")
             if isinstance(layer, DenseLayer) and isinstance(w, QTensor):
                 # flatten exactly as DenseLayer.apply does (NHWC order)
                 if x.ndim > 2 and x.ndim != 3:
                     x = x.reshape(x.shape[0], -1)
+                cols = tuple(w.q.shape) != shapes["W"]      # column-parallel block
                 b = lp.get("b")
+                if cols and b is not None and b.shape[-1] != w.q.shape[-1]:
+                    n = w.q.shape[-1]
+                    b = b.narrow(-1, mesh.coordinate("model") * n, n)
                 akey = f"{name}:in"
                 if (self.config.quantize_activations
                         and self.calibration is not None
@@ -231,8 +244,13 @@ class QuantizedModel:
                         y = y + b.to(acc)
                 else:
                     y = quantized_dense(x, w, b, acc_dtype=acc)
+                if cols:
+                    y = gathered_leaf(y, tuple(y.shape[:-1]) + (shapes["W"][-1],), mesh)
                 x = layer.act_fn()(y)
             else:
+                if mesh is not None:
+                    lp = {k: gathered_leaf(v, shapes[k], mesh) if k in shapes else v
+                          for k, v in lp.items()}
                 x, new_state[name] = layer.apply(_deq_tree(lp, acc),
                                                  state[name], x)
         return x, new_state

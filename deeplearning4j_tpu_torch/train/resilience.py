@@ -68,9 +68,8 @@ import torch
 from deeplearning4j_tpu_torch.monitor.instrument import (gang_instruments,
                                                          resilience_instruments)
 from deeplearning4j_tpu_torch.parallel.checkpoint import (
-    MANIFEST, ChecksumError, ShardedLeaf, _model_tree, assign_model_tree,
+    MANIFEST, ChecksumError, ShardedLeaf, _model_tree, _rank_world, assign_model_tree,
     load_sharded, read_metadata, save_sharded, verify_checkpoint)
-from deeplearning4j_tpu_torch.parallel.multihost import process_count, process_index
 from deeplearning4j_tpu_torch.train.earlystopping import MaxScoreIterationTerminationCondition
 
 
@@ -431,7 +430,7 @@ class CheckpointManager:
             except Exception:
                 pass                    # the configuration is advisory, not state
         target = self.checkpoint_path(step)
-        multi = process_count() > 1
+        multi = _rank_world()[1] > 1    # every rank of the group saves
         use_async = (self.async_save and not multi) if block is None else (not block)
         if use_async and multi:
             raise ValueError("async checkpoint saves are single-process only "
@@ -485,7 +484,7 @@ class CheckpointManager:
         committed ones and any uncommitted (torn) directory older than the
         newest committed step.  Returns the number removed.  In a
         multi-process job only rank 0 removes."""
-        if process_index() != 0:
+        if _rank_world()[0] != 0:
             return 0
         try:
             names = os.listdir(self.directory)

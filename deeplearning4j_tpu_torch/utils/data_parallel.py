@@ -136,12 +136,15 @@ class DataParallelStep:
     """One rank's part of a data-parallel training step over `group` (the
     default process group where None) of `size` ranks.  Without a process
     group (`distributed` False: a one-rank mesh, or a data axis of size 1
-    on a wider mesh) the collectives are the identity."""
+    on a wider mesh) the collectives are the identity.  `mesh` is the
+    wrapper's mesh the step belongs to (the host of gradient sharing's
+    split step)."""
 
-    def __init__(self, size: int, distributed: bool = True, group=None):
+    def __init__(self, size: int, distributed: bool = True, group=None, mesh=None):
         self.size = int(size)
         self.distributed = bool(distributed)
         self.group = group
+        self.mesh = mesh
         self.collectives = 0
         self.last_buckets = 0
 

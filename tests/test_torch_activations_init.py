@@ -14,6 +14,7 @@ bounds against the scheme's own formula, which the JAX package's sample
 meets too, at a dense and a conv shape.  ORTHOGONAL gives orthonormal
 columns (rows, when there are fewer rows) in the JAX layout.
 """
+import torch_test_threads  # noqa: F401  (first: one torch thread a worker)
 import math
 
 import jax

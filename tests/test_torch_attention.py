@@ -24,6 +24,7 @@ launches replaced by the plain versions, against `jax.grad` of
 `mha_reference` to 1e-5.  The CUDA kernels themselves are checked by the
 `cuda`-marked tests, which skip without a card.
 """
+import torch_test_threads  # noqa: F401  (first: one torch thread a worker)
 import math
 
 import jax

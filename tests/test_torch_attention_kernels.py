@@ -31,6 +31,7 @@ here:
 - ``chip_smoke.py``'s bounds on each kernel's product route, and
   ``attn_variants.py``'s edits of the sources.
 """
+import torch_test_threads  # noqa: F401  (first: one torch thread a worker)
 import itertools
 import math
 import re

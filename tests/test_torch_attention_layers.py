@@ -14,6 +14,7 @@ LearnedSelfAttentionLayer reach the port's ``fused_attention`` (the flash
 kernels on the card; with the dispatch forced to the kernel route here,
 its launchers see a mask of q's dtype), RecurrentAttentionLayer does not.
 """
+import torch_test_threads  # noqa: F401  (first: one torch thread a worker)
 import functools
 
 import jax

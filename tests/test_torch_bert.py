@@ -14,6 +14,7 @@ the card.  The model needs CUDA unless asked for the CPU.  BERT-base's
 parameter count is the JAX tree's.  Training is held to the JAX package's
 in `test_torch_bert_train.py`.
 """
+import torch_test_threads  # noqa: F401  (first: one torch thread a worker)
 import math
 
 import jax

@@ -20,6 +20,7 @@ as one CUDA graph, which `chip_smoke.py` holds to its eager twin), so:
 * A block on the kernel path (dispatch forced, launchers replaced by
   their plain versions and counted) launches k times a step's kernels.
 """
+import torch_test_threads  # noqa: F401  (first: one torch thread a worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -36,6 +36,7 @@ wrappers of both kernels (the counts a card shows: per MLM step of the
 6 LayerNorm backward launches) and its gradients equal reference mode's.
 The card itself is checked by the `cuda`-marked test, which skips here.
 """
+import torch_test_threads  # noqa: F401  (first: one torch thread a worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -12,6 +12,7 @@ max|ref|.  At full width the port's configuration is bench.py's
 weights (compared with the JAX package's by distribution), forget gate
 bias 1, Adam(1e-3).
 """
+import torch_test_threads  # noqa: F401  (first: one torch thread a worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

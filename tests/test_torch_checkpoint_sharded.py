@@ -11,6 +11,7 @@ the JAX package's format, across both packages (the rank pool of
 - An uncommitted checkpoint or a flipped payload byte is refused.
 - The manifest's tree structure is the string the JAX package writes.
 """
+import torch_test_threads  # noqa: F401  (first: one torch thread a worker)
 import json
 import os
 

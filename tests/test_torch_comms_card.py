@@ -11,6 +11,7 @@ series.
 Run on a machine with an H100: ``python -m pytest
 tests/test_torch_comms_card.py -q``.
 """
+import torch_test_threads  # noqa: F401  (first: one torch thread a worker)
 import numpy as np
 import pytest
 import torch

@@ -12,6 +12,7 @@ max-pool backward gives a window's gradient to its first maximum, as JAX's
 default does, on ReLU-zero ties.  The CUDA kernels themselves are checked
 by the `cuda`-marked test, which skips without a card.
 """
+import torch_test_threads  # noqa: F401  (first: one torch thread a worker)
 import math
 
 import jax

@@ -20,6 +20,7 @@ The CUDA kernel is held to its plain version by the ``cuda``-marked test
 (the cases above and lengths on its split boundaries, each call repeated
 bit for bit), which skips without a card.
 """
+import torch_test_threads  # noqa: F401  (first: one torch thread a worker)
 import threading
 import time
 from concurrent.futures import Future

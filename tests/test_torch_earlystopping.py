@@ -11,6 +11,7 @@ MultiLayerNetwork and a ComputationGraph; the in-memory saver (its best
 model written back into the live tensors) and the local-file saver (the
 shared zip, which the JAX package loads).
 """
+import torch_test_threads  # noqa: F401  (first: one torch thread a worker)
 import os
 
 import jax

@@ -19,6 +19,7 @@ ranks, ``utils/chaos.py``'s ``PeerKiller``, ``train/resilience.py``'s
   one ``crash`` reformation to world 2, and the survivors' parameters
   bitwise those of a clean world-2 gang from the resume checkpoint.
 """
+import torch_test_threads  # noqa: F401  (first: one torch thread a worker)
 import json
 import os
 import shutil

@@ -8,6 +8,7 @@ a CG whose parameters the JAX package initialized gives the same confusion
 matrix.  The listeners ride the same `fit(iterator, epochs=2)` in both
 packages (f64, scores within 1e-10 relative).
 """
+import torch_test_threads  # noqa: F401  (first: one torch thread a worker)
 import logging
 import os
 

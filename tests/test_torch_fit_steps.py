@@ -10,6 +10,7 @@ tensor); in f32 within 1e-5.  The port's `fit_steps` equals k of its own
 `fit` calls bitwise, keeps the address of every tensor it carries, and
 reads its learning rate and bias corrections from the device counters.
 """
+import torch_test_threads  # noqa: F401  (first: one torch thread a worker)
 import jax
 import numpy as np
 import pytest

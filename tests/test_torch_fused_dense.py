@@ -14,6 +14,7 @@ reads hand each lane, and the int32 split-K sum, exactly against
 The CUDA kernel itself is checked by the `cuda`-marked test, which skips
 without a card.
 """
+import torch_test_threads  # noqa: F401  (first: one torch thread a worker)
 import math
 import re
 from pathlib import Path

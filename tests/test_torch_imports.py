@@ -9,6 +9,7 @@ module, loaded lazily); and the entry points refuse to run without CUDA
 unless asked for the CPU (the decode engine's model and KV cache too), and
 BERT training runs on the device the model was asked for.
 """
+import torch_test_threads  # noqa: F401  (first: one torch thread a worker)
 import ast
 import pathlib
 import subprocess

@@ -11,6 +11,7 @@ on mask shapes (ndarray masks included) and never fuse mixed masks;
 the batches and bytes staged; the device counters are not written again in
 a steady fused loop.
 """
+import torch_test_threads  # noqa: F401  (first: one torch thread a worker)
 import threading
 import time
 

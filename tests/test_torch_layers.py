@@ -7,6 +7,7 @@ made from a seed.  f32, atol 1e-5.  The pooling cases use odd sizes and
 negative inputs, where lax's asymmetric SAME padding and its -inf fill
 decide the answer.
 """
+import torch_test_threads  # noqa: F401  (first: one torch thread a worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

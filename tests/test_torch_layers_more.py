@@ -13,6 +13,7 @@ parameter and a floating input.  All within 1e-10 relative (max|diff| <=
 1e-10 * max|ref|).  Small MLNs with these layers then take two `fit`
 steps in both packages, and their zips cross both ways.
 """
+import torch_test_threads  # noqa: F401  (first: one torch thread a worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -6,6 +6,7 @@
 gradient through the port's loss is held to ``jax.grad`` of the JAX
 package's at 1e-10 relative (max|diff| <= 1e-10 * max|ref|).
 """
+import torch_test_threads  # noqa: F401  (first: one torch thread a worker)
 import numpy as np
 import pytest
 import torch

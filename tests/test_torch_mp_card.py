@@ -10,6 +10,7 @@ runs ``fused_dense`` and equals its plain version within 1e-4 of the max.
 
 Run on a machine with an H100: ``python -m pytest tests/test_torch_mp_card.py -q``.
 """
+import torch_test_threads  # noqa: F401  (first: one torch thread a worker)
 import math
 
 import pytest

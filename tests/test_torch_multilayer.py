@@ -6,6 +6,7 @@ max|diff| <= 1e-5 * max(1, max|ref|) in f32.  LeNet runs at full size,
 VGG16 at 32x32x3 with 10 classes (same layers, a smaller first Dense).  A
 wrong flatten order (NCHW where the JAX package flattens NHWC) fails here.
 """
+import torch_test_threads  # noqa: F401  (first: one torch thread a worker)
 import jax
 import numpy as np
 import pytest

@@ -10,6 +10,7 @@ to the port as their JSON.  The first Dense layer before a BatchNorm has
 no bias: its gradient is zero by construction, and Adam-like updaters
 would turn the rounding noise in it into full steps.
 """
+import torch_test_threads  # noqa: F401  (first: one torch thread a worker)
 import jax
 import numpy as np
 import pytest

@@ -11,6 +11,7 @@ densities and the staging gathers agree bitwise too.  SameDiff's
 ``encode_threshold``/``decode_threshold`` ops share the codec's wire
 format in both packages.
 """
+import torch_test_threads  # noqa: F401  (first: one torch thread a worker)
 import numpy as np
 import pytest
 import torch

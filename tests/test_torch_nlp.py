@@ -8,6 +8,7 @@ on the same vocab, sentences and seeds: tokens, ids and decoded text equal,
 and every array a BertIterator yields equal (masked LM with sparse and
 one-hot labels, classification), also across ``reset()``.
 """
+import torch_test_threads  # noqa: F401  (first: one torch thread a worker)
 import numpy as np
 import pytest
 

@@ -21,6 +21,7 @@ card at BERT-base and picks the instance that holds a row, and the
 wrapper hands the library that plan.  The CUDA kernels themselves are
 checked by the `cuda`-marked tests, which skip without a card.
 """
+import torch_test_threads  # noqa: F401  (first: one torch thread a worker)
 import contextlib
 import re
 from pathlib import Path

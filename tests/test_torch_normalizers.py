@@ -2,6 +2,7 @@
 package's: the same batches (numpy, from a seed) give bitwise equal
 statistics, transforms, ``affine_stats`` and reverts, and the bytes of
 ``to_bytes`` load in the other package."""
+import torch_test_threads  # noqa: F401  (first: one torch thread a worker)
 import numpy as np
 import pytest
 

@@ -29,6 +29,7 @@ here:
 - ``paged_variants.py``'s grids with the chosen knobs are ``paged_plan``'s,
   and each of its source variants edits the kernel's source.
 """
+import torch_test_threads  # noqa: F401  (first: one torch thread a worker)
 import contextlib
 import importlib.util
 import inspect

@@ -16,6 +16,7 @@ partial batches to it.
 The worker functions (``_task_*``) run in the ranks; they import nothing
 of JAX, so this module imports JAX only inside the parent-side helpers.
 """
+import torch_test_threads  # noqa: F401  (first: one torch thread a worker)
 import importlib
 import multiprocessing
 import socket

@@ -9,6 +9,7 @@ a conv + BatchNorm network, replicated and with ZeRO-1.
 Run on a machine with an H100: ``python -m pytest
 tests/test_torch_parallel_card.py -q``.
 """
+import torch_test_threads  # noqa: F401  (first: one torch thread a worker)
 import numpy as np
 import pytest
 import torch

@@ -9,6 +9,7 @@ rounding of the same sums); the forward is exact.  With the switch off
 (the default in both packages) `max_pool2d` keeps autograd's backward,
 which gives a window's gradient to its first maximum.
 """
+import torch_test_threads  # noqa: F401  (first: one torch thread a worker)
 import os
 import subprocess
 import sys

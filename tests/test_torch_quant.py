@@ -26,6 +26,7 @@ Same numpy inputs, made from seeds, through both packages:
 The CUDA kernels are held to their plain versions by the ``cuda``-marked
 test, which skips without a card.
 """
+import torch_test_threads  # noqa: F401  (first: one torch thread a worker)
 import math
 
 import jax

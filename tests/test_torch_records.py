@@ -11,6 +11,7 @@ either package reads the other's.  `LocalTransformExecutor` runs its
 workers as subprocesses: each test that starts one gives it its own time
 limit.  Nothing here reads a file outside `tmp_path`.
 """
+import torch_test_threads  # noqa: F401  (first: one torch thread a worker)
 import gzip
 import json
 import os

@@ -14,6 +14,7 @@ before and after ``init()`` (Bidirectional sets its inner layers'
 non-contiguous mask and an all-padding row, and an RnnOutputLayer head of
 a ComputationGraph taking its labels mask.
 """
+import torch_test_threads  # noqa: F401  (first: one torch thread a worker)
 import functools
 import json
 

@@ -21,6 +21,7 @@ against the JAX package.
   2-rank gloo job whose rank 1 crashes is relaunched by ``run`` and
   resumes from its sharded checkpoint (``tests/mh_worker_torch_elastic.py``).
 """
+import torch_test_threads  # noqa: F401  (first: one torch thread a worker)
 import importlib
 import os
 import signal

@@ -14,6 +14,7 @@ flash ring in f32 at 2e-5 for values and 1e-4 for gradients (the JAX
 kernel and the port's plain flash version step their online softmax over
 different key blocks).
 """
+import torch_test_threads  # noqa: F401  (first: one torch thread a worker)
 import functools
 
 import numpy as np

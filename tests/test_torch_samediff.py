@@ -23,6 +23,7 @@ own values; everything then agrees within 1e-10 relative:
   equals the JAX package, and the port's zip loaded by the JAX package
   likewise.
 """
+import torch_test_threads  # noqa: F401  (first: one torch thread a worker)
 import numpy as np
 import pytest
 import torch

@@ -16,6 +16,7 @@ round differently; near the end of a decay the difference of two close
 numbers (1 - t / max_iter) makes one ulp of an input many ulps of a small
 result, hence the scale of the largest value.
 """
+import torch_test_threads  # noqa: F401  (first: one torch thread a worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -12,6 +12,7 @@ device, and the file imports no JAX).
 Run on a machine with an H100: ``python -m pytest
 tests/test_torch_sd_card.py -q``.
 """
+import torch_test_threads  # noqa: F401  (first: one torch thread a worker)
 import numpy as np
 import pytest
 import torch

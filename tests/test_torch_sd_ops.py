@@ -16,6 +16,7 @@ op of the port has a case, that the port's table is a subset of the JAX
 package's, and that every op the port's TF mappers and SD namespaces emit
 is in the port's table.
 """
+import torch_test_threads  # noqa: F401  (first: one torch thread a worker)
 import dataclasses
 import pathlib
 import re

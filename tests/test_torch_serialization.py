@@ -10,6 +10,7 @@ iteration counter all come back).  For one net written by both packages
 the member names and manifest JSON are equal and the three binary members
 are bitwise equal.
 """
+import torch_test_threads  # noqa: F401  (first: one torch thread a worker)
 import json
 import zipfile
 

@@ -5,6 +5,7 @@ carried across); concurrent mixed-size requests must get the same answers
 (f32, max|diff| <= 1e-5).  Also: the bucket ladder, hit/miss counts after
 warmup, readiness, draining shutdown, and the options not ported yet.
 """
+import torch_test_threads  # noqa: F401  (first: one torch thread a worker)
 import threading
 from concurrent.futures import ThreadPoolExecutor
 

@@ -16,7 +16,9 @@ its forward against JAX ``composed_apply`` and 1e-4 for two SGD steps
 against JAX ``composed_oracle``'s trajectory (the JAX package's own
 ``tests/test_composed.py`` bounds are 1e-4 and 1e-3).
 """
+import torch_test_threads  # noqa: F401  (first: one torch thread a worker)
 import copy
+import os
 
 import numpy as np
 import pytest
@@ -462,3 +464,226 @@ def test_composed_apply_steps_and_facade_match_jax(pool):
         assert la == lb and diff == 0.0 and exchanges == 2
         lc, compressed = out["threshold"]
         assert np.isfinite(lc) and compressed
+
+
+# ---------------------------------------------------------------------------
+# inference under sharding rules
+# ---------------------------------------------------------------------------
+
+def _task_parallel_inference(conf_json, params, x, tp):
+    """ParallelInference over {data: 2, model: 2} of the network (with
+    `tp`, first placed tensor-parallel by a wrapper with the default
+    rules): the whole output on every rank, and the network's own."""
+    from deeplearning4j_tpu_torch.parallel import (ParallelInference, ParallelWrapper,
+                                                   ShardingRules, make_mesh)
+    net = port_net(conf_json, params)
+    plain = net.output(torch.as_tensor(x)).detach().numpy()
+    mesh = make_mesh({"data": 2, "model": 2}, device="cpu")
+    if tp:
+        ParallelWrapper(net, mesh, sharding_rules=ShardingRules())._place_model()
+        assert net._tp is not None
+    pi = ParallelInference(net, mesh)
+    return pi.output(x), pi.output([x[:3], x[3:]]), plain, net._tp is None
+
+
+@pytest.mark.parametrize("tp", [False, True])
+def test_parallel_inference_over_a_model_axis_equals_the_jax_one(pool, tp):
+    """The JAX ParallelInference on a {data: 2, model: 2} mesh (parameters
+    replicated, the batch split over data) against the port's on 4 gloo
+    ranks, f64 at 1e-10, a 7-row batch padded over the data axis; a
+    tensor-parallel network is made whole first, as the JAX replicated
+    placement does."""
+    jax, jnn, jpar, jupd = _jax()
+    conf = (jnn.NeuralNetConfiguration.builder().seed(3).updater(jupd.Sgd(0.1))
+            .dtype("float64")
+            .list([jnn.DenseLayer(n_out=8, activation="tanh"),
+                   jnn.OutputLayer(n_out=4, loss="mcxent", activation="softmax")])
+            .set_input_type(jnn.InputType.feed_forward(6)).build())
+    jnet = jnn.MultiLayerNetwork(conf).init()
+    params = jax.tree_util.tree_map(np.asarray, jnet.params_)
+    x = np.random.RandomState(4).randn(7, 6)
+    want = jpar.ParallelInference(
+        jnet, jpar.make_mesh({"data": 2, "model": 2}, jax.devices()[:4])).output(x)
+    got = pool.run(_task_parallel_inference, conf.to_json(), params, x, tp)
+    for whole, parts, plain, replicated in got:
+        close(whole, want, RTOL, "output")
+        close(np.concatenate(parts), want, RTOL, "batched output")
+        close(plain, want, RTOL, "one-rank output")
+        assert replicated
+
+
+def _task_quantized_tp(conf_json, params, x):
+    """The JAX test's quantized MLP in the port: the unsharded output, the
+    leaves `shard_model_params` places on {data: 2, model: 2} (rank's q
+    and scale blocks) and the sharded forward inside ``with mesh:``."""
+    from deeplearning4j_tpu_torch.parallel import ShardingRules, make_mesh, shard_model_params
+    from deeplearning4j_tpu_torch.quant import quantize_model
+    net = port_net(conf_json, params)
+    qm = quantize_model(net)
+    whole = qm.output(x).numpy()
+    mesh = make_mesh({"data": 2, "model": 2}, device="cpu")
+    sharded = shard_model_params(qm.params_, mesh, ShardingRules())
+    w0 = sharded["layer_0"]["W"]
+    blocks = {name: (sub["W"].q.numpy(), sub["W"].scale.numpy())
+              for name, sub in sharded.items()}
+    qm.params_ = sharded
+    with mesh:
+        got = qm.output(x).numpy()
+    return whole, got, str(w0.q.dtype), blocks, mesh.coordinate("model")
+
+
+def test_quantized_inference_under_tp_sharding_rules(pool):
+    """The JAX test of that name, in the port: the Megatron default splits
+    each Dense W's output dim over ``model``; the int8 ``q`` and its
+    per-channel scale split alike (each rank's blocks equal the JAX
+    shards on its model coordinate, bitwise), and the column-parallel
+    quantized forward matches the unsharded one (rtol 1e-4, atol 1e-5, the
+    JAX test's bound) and the JAX quantized output."""
+    import jax
+    from deeplearning4j_tpu.parallel import ShardingRules as JRules
+    from deeplearning4j_tpu.parallel import make_mesh as jmake_mesh
+    from deeplearning4j_tpu.parallel import shard_model_params as jshard
+    from deeplearning4j_tpu.quant import quantize_model as jquantize
+    from test_quant import _fit, _mlp
+    jnet = _mlp()
+    x = _fit(jnet)
+    params = jax.tree_util.tree_map(np.asarray, jnet.params_)
+    jqm = jquantize(jnet)
+    want = np.asarray(jqm.output(x))
+    jmesh = jmake_mesh({"data": 2, "model": 2}, jax.devices()[:4])
+    jsharded = jshard(jqm.params_, jmesh, JRules())
+    got = pool.run(_task_quantized_tp, jnet.conf.to_json(), params, x)
+    for whole, sharded_out, dtype, blocks, coord in got:
+        assert dtype == "torch.int8"
+        np.testing.assert_allclose(sharded_out, whole, rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(sharded_out, want, rtol=1e-4, atol=1e-5)
+        for name, (q, scale) in blocks.items():
+            jw = jsharded[name]["W"]
+            for mine, theirs in ((q, jw.q), (scale, jw.scale)):
+                n = mine.shape[-1]
+                full = np.asarray(theirs)
+                np.testing.assert_array_equal(mine, full[..., coord * n:(coord + 1) * n])
+                assert theirs.sharding.spec == jax.sharding.PartitionSpec(None, "model")
+
+
+def test_two_dim_tuple_of_axes_and_data_specs_place_as_jax_does():
+    """``shard_model_params`` under specs JAX's ``NamedSharding`` takes
+    and the wrapper's tensor parallelism does not: a W split on both dims
+    (data, model), a W split on one dim over the tuple (data, model), a
+    bias over data.  On a {data: 4, model: 2} mesh each of the 8 ranks'
+    blocks equal the JAX shard on the device at its place, bitwise."""
+    jax, jnn, jpar, jupd = _jax()
+    from jax.sharding import PartitionSpec as JP
+    from deeplearning4j_tpu.parallel.sharding import ShardingRules as JRules
+    from deeplearning4j_tpu_torch.parallel import (PartitionSpec as P, ShardingRules,
+                                                   shard_model_params)
+    from deeplearning4j_tpu_torch.parallel.mesh import Mesh
+    rng = np.random.RandomState(0)
+    params = {"layer_0": {"W": rng.randn(8, 16), "b": rng.randn(16)},
+              "layer_1": {"W": rng.randn(16, 8), "b": rng.randn(8)}}
+    jrules = (JRules().add(r"layer_0/W", JP("data", "model"))
+              .add(r"layer_1/W", JP(("data", "model"))).add(r"layer_1/b", JP("data")))
+    rules = (ShardingRules().add(r"layer_0/W", P("data", "model"))
+             .add(r"layer_1/W", P(("data", "model"))).add(r"layer_1/b", P("data")))
+    devices = jax.devices()[:8]
+    jmesh = jpar.make_mesh({"data": 4, "model": 2}, devices)
+    placed = jpar.shard_model_params(params, jmesh, jrules)
+    torch_params = {n: {k: torch.as_tensor(v) for k, v in sub.items()}
+                    for n, sub in params.items()}
+    for r in range(8):
+        mesh = Mesh({"data": 4, "model": 2}, range(8), r, torch.device("cpu"), False)
+        mine = shard_model_params(torch_params, mesh, rules)
+        for name, sub in placed.items():
+            for key, arr in sub.items():
+                shard = next(s for s in arr.addressable_shards if s.device == devices[r])
+                np.testing.assert_array_equal(mine[name][key].numpy(), np.asarray(shard.data),
+                                              err_msg=f"rank {r} {name}/{key}")
+    with pytest.raises(NotImplementedError, match="one axis on one dim"):
+        from deeplearning4j_tpu_torch.parallel.sharding import leaf_shard
+        leaf_shard(P("data", "model"), (8, 16), None,
+                   Mesh({"data": 4, "model": 2}, range(8), 0, torch.device("cpu"), False),
+                   "layer_0/W")
+
+
+# ---------------------------------------------------------------------------
+# sharded checkpoints under sharding rules and on part of the ranks
+# ---------------------------------------------------------------------------
+
+def _local(net):
+    from deeplearning4j_tpu_torch.parallel.wrapper import _model_tensors
+    return [t.detach().clone() for t in _model_tensors(net)]
+
+
+def _task_tp_zero1_checkpoint(conf_json, params, x, y, directory):
+    """A tensor-parallel network under ZeRO-1 on {data: 2, model: 2}: 3
+    steps, a sharded save, a twin loaded from it; whether each rank's
+    tensors (blocks and shards) are equal, and both after 2 more steps."""
+    from deeplearning4j_tpu_torch.parallel import (ParallelWrapper, ShardingRules,
+                                                   load_model_sharded, make_mesh,
+                                                   save_model_sharded)
+    mesh = make_mesh({"data": 2, "model": 2}, device="cpu")
+    nets = []
+    for _ in range(2):
+        net = port_net(conf_json, params)
+        pw = ParallelWrapper(net, mesh, sharding_rules=ShardingRules(),
+                             optimizer_sharding=True)
+        pw._place_model()
+        nets.append((net, pw))
+    (net, pw), (twin, tpw) = nets
+    for _ in range(3):
+        pw.fit(x, y)
+    save_model_sharded(net, directory)
+    load_model_sharded(twin, directory)
+    loaded = all(torch.equal(a, b) for a, b in zip(_local(net), _local(twin)))
+    for _ in range(2):
+        pw.fit(x, y)
+        tpw.fit(x, y)
+    resumed = all(torch.equal(a, b) for a, b in zip(_local(net), _local(twin)))
+    return loaded, resumed, twin.iteration, net._tp is not None
+
+
+def _task_partial_mesh_checkpoint(conf_json, params, x, y, directory):
+    """``workers(2)`` of the 4 ranks under ZeRO-1: the two workers save
+    and load sharded by their own group (files numbered by their places
+    on the mesh), the other two take no part."""
+    from deeplearning4j_tpu_torch.parallel import (ParallelWrapper, load_model_sharded,
+                                                   save_model_sharded)
+    net = port_net(conf_json, params)
+    pw = ParallelWrapper.builder(net).workers(2).optimizer_sharding(True).build()
+    twin = port_net(conf_json, params)
+    tpw = ParallelWrapper(twin, pw.mesh, optimizer_sharding=True)
+    if not pw.mesh.member:
+        return None
+    pw.fit(x, y)
+    tpw._place_model()
+    save_model_sharded(net, directory)
+    load_model_sharded(twin, directory)
+    return all(torch.equal(a, b) for a, b in zip(_local(net), _local(twin)))
+
+
+def test_sharded_checkpoints_of_a_tp_network_under_zero1_and_of_part_of_the_ranks(
+        pool, tmp_path):
+    """A tensor-parallel network under ZeRO-1 saves sharded (its split
+    leaves' moments gathered whole, ZeRO-1's moments as their rows) and a
+    twin loads every rank's blocks and shards bitwise and trains on
+    bitwise; a mesh over 2 of the 4 ranks saves and loads by its own
+    group (before, its barrier waited on the other two)."""
+    jax, jnn, jpar, jupd = _jax()
+    conf = (jnn.NeuralNetConfiguration.builder().seed(5).updater(jupd.Adam(1e-2))
+            .dtype("float64")
+            .list([jnn.DenseLayer(n_out=8, activation="tanh"),
+                   jnn.DenseLayer(n_out=6, activation="relu"),
+                   jnn.OutputLayer(n_out=4, loss="mcxent", activation="softmax")])
+            .set_input_type(jnn.InputType.feed_forward(6)).build())
+    params = jax.tree_util.tree_map(np.asarray, jnn.MultiLayerNetwork(conf).init().params_)
+    rng = np.random.RandomState(9)
+    x = rng.randn(8, 6)
+    y = np.eye(4)[rng.randint(0, 4, 8)]
+    got = pool.run(_task_tp_zero1_checkpoint, conf.to_json(), params, x, y,
+                   str(tmp_path / "tp"))
+    assert all(r == (True, True, 5, True) for r in got), got
+    got = pool.run(_task_partial_mesh_checkpoint, conf.to_json(), params, x, y,
+                   str(tmp_path / "part"))
+    assert got == [True, True, None, None]
+    assert sorted(os.listdir(tmp_path / "part")) == [
+        "index-0.json", "index-1.json", "manifest.json", "shards-0.npz", "shards-1.npz"]

@@ -19,6 +19,7 @@ import (the only port test that imports TensorFlow; it skips without it).
 - The op cases whose golden is TensorFlow's (``test_torch_sd_ops.TF_GOLDEN``)
   pass the port's ``validate_case`` with that golden.
 """
+import torch_test_threads  # noqa: F401  (first: one torch thread a worker)
 import os
 
 import numpy as np

@@ -10,6 +10,7 @@ Pallas conv backward kernels switched on in interpret mode (the
 `CONV_BWD_PALLAS` gate, set with monkeypatch.setitem) and with the gate
 off (XLA's conv backward).
 """
+import torch_test_threads  # noqa: F401  (first: one torch thread a worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -11,6 +11,7 @@
 Both start from the JAX package's initial parameters, in f64, and agree
 within 1e-10 relative per tensor (parameters, layer state, updater state).
 """
+import torch_test_threads  # noqa: F401  (first: one torch thread a worker)
 import jax
 import numpy as np
 import pytest

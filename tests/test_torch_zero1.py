@@ -10,7 +10,15 @@ a ComputationGraph hold the JAX package's numbers; each rank keeps the
 moments of its rows only, and `opt_state_bytes_per_replica` equals the JAX
 value for the same network on the same mesh, a conv network (whose
 kernels the port keeps in another layout) included.
+
+A SameDiff graph under ZeRO-1 (the JAX ``test_zero1_samediff_parity``:
+MLP 4-16-3, Adam(1e-2), 10 steps of the same 32 rows on every rank):
+its variables equal the JAX graph's on a 2-device mesh at rtol 1e-5 and
+the replicated port graph's bit for bit; its plans are the JAX plans on
+that mesh; ``fit_steps`` equals the ``fit`` loop bitwise; ``save`` writes
+the moments whole; at world 1 it is the plain fit bit for bit.
 """
+import torch_test_threads  # noqa: F401  (first: one torch thread a worker)
 import numpy as np
 import pytest
 
@@ -175,3 +183,123 @@ def test_zero1_fit_steps_and_computation_graph(pool):
     want, _ = _jax_zero(J, cconf, 4, feats, labels, graph=True)
     same_as_jax(got[0][0][True][0], want)
     same_as_jax(got[0][0][True][0], got[0][0][False][0])
+
+
+# ---------------------------------------------------------------------------
+# SameDiff under ZeRO-1
+# ---------------------------------------------------------------------------
+
+def _sd_mlp(variables=None, device="cpu"):
+    """The JAX test's graph, in the port: `variables` (numpy) in place of
+    its initializers where given."""
+    from deeplearning4j_tpu_torch.autodiff import SameDiff, TrainingConfig
+    from deeplearning4j_tpu_torch.train import Adam
+    sd = SameDiff.create(device=device)
+    x = sd.placeholder("input", shape=(-1, 4))
+    y = sd.placeholder("label", shape=(-1, 3))
+    v = variables or {}
+    w0 = sd.var("w0", v.get("w0", "XAVIER"), 4, 16)
+    b0 = sd.var("b0", v.get("b0", np.zeros(16, np.float32)))
+    w1 = sd.var("w1", v.get("w1", "XAVIER"), 16, 3)
+    b1 = sd.var("b1", v.get("b1", np.zeros(3, np.float32)))
+    h = sd.nn.tanh(sd.nn.linear(x, w0, b0))
+    logits = sd.nn.linear(h, w1, b1, name="logits")
+    sd.loss.softmax_cross_entropy(y, logits, name="loss")
+    sd.set_loss_variables("loss")
+    sd.set_training_config(TrainingConfig(updater=Adam(1e-2),
+                                          data_set_feature_mapping=["input"],
+                                          data_set_label_mapping=["label"]))
+    return sd
+
+
+def _sd_vars(sd):
+    return {k: v.detach().cpu().numpy() for k, v in sd.variables_.items()}
+
+
+def _task_sd_zero1(variables, x, y, steps, out_dir):
+    """The graph replicated, under ZeRO-1 through `fit`, and under ZeRO-1
+    through one `fit_steps` block: variables, losses, plans, moment
+    shapes and bytes a rank; the ZeRO-1 graph saved to `out_dir` (every
+    rank saves: the moments are gathered)."""
+    import os
+    import torch.distributed as dist
+    from deeplearning4j_tpu_torch.parallel import make_mesh
+    out = {}
+    for side in ("repl", "zero1", "block"):
+        sd = _sd_mlp(variables)
+        zt = None
+        if side != "repl":
+            zt = zero.enable_zero1(sd, make_mesh(device="cpu"))
+        if side == "block":
+            losses = sd.fit_steps({"input": np.broadcast_to(x, (steps,) + x.shape),
+                                   "label": np.broadcast_to(y, (steps,) + y.shape)}).tolist()
+        else:
+            losses = []
+            for _ in range(steps):
+                sd.fit(x, y)
+                losses.append(sd.score())
+        res = {"vars": _sd_vars(sd), "losses": losses,
+               "bytes": zero.opt_state_bytes_per_replica(sd.opt_state_)}
+        if zt is not None:
+            res["kinds"] = {k: pl.kind for k, pl in zt.plans.items()}
+            res["m_shapes"] = {k: tuple(t.shape) for k, t in sd.opt_state_["m"].items()}
+        if side == "zero1":
+            sd.save(os.path.join(out_dir, f"sd_{dist.get_rank()}.zip"))
+        out[side] = res
+    return out
+
+
+def test_zero1_samediff_parity(pool, tmp_path):
+    import jax
+    from deeplearning4j_tpu.autodiff import SameDiff as JSameDiff
+    from deeplearning4j_tpu.parallel import make_mesh as jmake_mesh
+    from deeplearning4j_tpu.parallel import zero as jzero
+    from test_zero1 import _data, _mlp_sd
+    x, y = _data(n=32, n_in=4)
+    ref, z = _mlp_sd(), _mlp_sd()
+    variables = {k: np.asarray(v) for k, v in ref.variables_.items()}
+    z.variables_ = {k: jax.numpy.asarray(v) for k, v in variables.items()}
+    mesh = jmake_mesh({"data": 2}, jax.devices()[:2])
+    jzt = jzero.enable_zero1(z, mesh)
+    with mesh:
+        for _ in range(10):
+            z.fit(x, y)
+    got = pool.run(_task_sd_zero1, variables, x, y, 10, str(tmp_path))
+    for rank in got:
+        for k, v in rank["zero1"]["vars"].items():
+            np.testing.assert_allclose(v, np.asarray(z.variables_[k]), rtol=1e-5, atol=1e-6,
+                                       err_msg=k)
+            np.testing.assert_array_equal(v, rank["repl"]["vars"][k], err_msg=k)
+            np.testing.assert_array_equal(v, rank["block"]["vars"][k], err_msg=k)
+        assert rank["zero1"]["losses"] == rank["repl"]["losses"] == rank["block"]["losses"]
+        jkinds = {k: pl.kind for k, pl in jzt.plans.items()}
+        assert rank["zero1"]["kinds"] == jkinds == {"b0": "shard", "b1": "shard",
+                                                    "w0": "shard", "w1": "shard"}
+        # each rank keeps its rows of the padded moments: b1 (3,) pads to 4
+        assert rank["zero1"]["m_shapes"] == {"b0": (8,), "b1": (2,), "w0": (2, 16),
+                                             "w1": (8, 3)}
+        assert rank["zero1"]["bytes"] < rank["repl"]["bytes"]
+    ranks_equal([r["zero1"]["vars"] for r in got])
+    # the saved moments are whole: the JAX package loads them next to its own
+    loaded = JSameDiff.load(str(tmp_path / "sd_1.zip"))
+    jzero.disable_zero1(z)
+    for k in ("m", "v"):
+        for n, a in loaded.opt_state_[k].items():
+            np.testing.assert_allclose(np.asarray(a), np.asarray(z.opt_state_[k][n]),
+                                       rtol=1e-5, atol=1e-7, err_msg=f"{k}.{n}")
+
+
+def test_zero1_samediff_at_world_1_is_the_plain_fit():
+    from deeplearning4j_tpu_torch.parallel import make_mesh
+    x, y = (a.astype(np.float32) for a in mlp_data(16, n_in=4))
+    plain = _sd_mlp()
+    z = _sd_mlp(_sd_vars(plain))
+    zero.enable_zero1(z, make_mesh(device="cpu"))
+    for _ in range(4):
+        plain.fit(x, y)
+        z.fit(x, y)
+        assert z.score() == plain.score()
+    equal_trees(_sd_vars(z), _sd_vars(plain))
+    disable_zero1(z)
+    equal_trees({k: v.numpy() for k, v in z.opt_state_["m"].items()},
+                {k: v.numpy() for k, v in plain.opt_state_["m"].items()})

@@ -12,6 +12,7 @@ gradients near zero, where Adam's g / (|g| + eps) turns their rounding
 into 1e-8 relative parameter differences (the Adam step is held to the
 JAX package's by SimpleCNN's three steps in `test_torch_zoo_train.py`).
 """
+import torch_test_threads  # noqa: F401  (first: one torch thread a worker)
 from deeplearning4j_tpu import zoo as jzoo
 from deeplearning4j_tpu.train import updaters as jupd
 

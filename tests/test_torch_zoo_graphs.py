@@ -19,6 +19,7 @@ once per such conv whose input needs a gradient: SqueezeNet 8 and 8 (its
 stride-2 stem is no kernel shape), U-Net 18 and 17 (its first conv reads
 the data).
 """
+import torch_test_threads  # noqa: F401  (first: one torch thread a worker)
 import jax
 import numpy as np
 import pytest

@@ -14,6 +14,7 @@ into steps of ~1e-12 that differ between the packages in relative terms.
 They are held to 1e-9 absolute (their values are ~1e-11), and the
 BatchNorm running means they shift by as much to 1e-9 absolute too.
 """
+import torch_test_threads  # noqa: F401  (first: one torch thread a worker)
 import math
 
 import jax
