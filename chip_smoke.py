@@ -675,6 +675,40 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    batch: losses and variables within rtol 1e-5 of the replicated fit
    (bitwise at world 1), updater bytes a rank on each side, flash and
    LayerNorm launches a step on every rank.
+60. onnx_bert — right after phase 42: its BERT-base encoder (the same
+   weights, ``SD_BERT``) written as an ONNX export would write it
+   (``bert_onnx_model``: 8 + 33 a layer nodes, opset-17
+   LayerNormalization, GELU as the Erf composition) through the port's
+   ``onnx_proto`` writer, imported by ``modelimport.import_onnx_model`` on
+   the card (trainable initializers): the encoder within 1e-4 x max|ref|
+   of ``bert_plain_forward`` (TF32 off), one ``layer_norm`` launch a
+   LayerNormalization node in a forward; then phase 42's head, Adam(1e-4)
+   and ``SD_BERT_K`` ``sd.fit`` steps: the first loss within 1e-5
+   relative of phase 42's independent step, 24 + 24 LayerNorm launches a
+   step, step ms, tokens/s and peak memory; write and import seconds.
+61. onnx_resnet50 — after phase 43: the port's zoo ResNet-50 (224 px,
+   1000 classes, seeded init; each residual branch's last BatchNorm scale
+   drawn from [0.1, 0.3]; every BatchNorm's running statistics calibrated
+   on the batch and perturbed from a seed, ``calibrate_bn_stats``; the
+   head imprinted with the batch's 16 classes at logit 8,
+   ``imprint_head``) written as an NCHW ONNX graph
+   (``resnet50_onnx_model``: 'Same' windows as explicit, uneven pads),
+   imported: batch 16's probabilities and logits within 1e-4 x max|ref|
+   of the ComputationGraph's on the same images (NHWC there), its argmax
+   the imprinted classes, no probability above 0.9; ``quantize_model``
+   gives the ``samediff`` kind, ``parity_check`` delta <= 0.01, the int8
+   logits within 10% (L2) of the f32 ones; ``ModelServer(max_batch=16)``
+   deploys it warmed at ``input_shape=(3, 224, 224)`` and serves 64
+   single-row requests through ``submit`` (p50/p99; each answer a softmax
+   row with no probability above 0.9, the answers within 1e-4 x max of
+   one batched ``output``); int8 against f32 resident bytes;
+   ``deploy("raw", onnx=...)`` registers with source "onnx" and its first
+   request raises ``UnservableGraphError``.
+62. qmha — ``quantized_mha`` at BERT-base width (x [8, 128, 768], 12
+   heads, int8 ``w_qkv`` [768, 2304] and ``w_out`` [768, 768], biases)
+   against itself in ``reference`` mode: f32 within 1e-4 x max|ref|, bf16
+   within ``Q_BF16_ULPS`` bf16 ulps; 2 ``q_matmul`` and 1 flash launches a
+   call; ms a call in each mode.
 
 Then the kernels line (each entry with ``share_of_bound``; ``fused_dense``
 and the conv pair carry ``vgg16_train``, ``zoo_train``, ``fused_resnet50``
@@ -693,7 +727,9 @@ and ``dp_zero1`` count the launches of one
 replayed block by the graph's kernel nodes, beside the profiler's counts
 of traced replays and the Python counts made at the warm-up and the
 capture; the attention and LayerNorm kernels also carry ``sd_kernels``
-entries, their launches a step in phase 43), nvidia-smi's line, and the last line ``{"ok": true, "device": {...}}``.  Exits
+entries, their launches a step in phase 43; the LayerNorm pair
+``onnx_bert`` entries, ``q_matmul`` and ``flash_attn_fwd`` ``qmha`` ones),
+nvidia-smi's line, and the last line ``{"ok": true, "device": {...}}``.  Exits
 non-zero, printing no result, without CUDA or outside a checkout of the
 repository.
 """
@@ -4646,6 +4682,25 @@ def phase_seq_attention(nn, train, dispatch, attention, matmul, dev, shape=SEQ_A
 # SameDiff: bench.py's TF-import fine-tune, and graphs that reach the kernels
 # ---------------------------------------------------------------------------
 
+def bert_weights(t=128, layers=12, hidden=768, vocab=30522):
+    """bench.py's BERT weights: ``RandomState(0)`` draws in its order, by its
+    names (LayerNorm gains one, biases zero)."""
+    rs = np.random.RandomState(0)
+    H = hidden
+    w = {"tok_emb": rs.randn(vocab, H).astype(np.float32) * 0.02,
+         "pos_emb": rs.randn(t, H).astype(np.float32) * 0.02}
+    for l in range(layers):
+        for k in ["wq", "wk", "wv", "wo"]:
+            w[f"{l}.{k}"] = rs.randn(H, H).astype(np.float32) * 0.02
+        w[f"{l}.w1"] = rs.randn(H, 4 * H).astype(np.float32) * 0.02
+        w[f"{l}.w2"] = rs.randn(4 * H, H).astype(np.float32) * 0.02
+        w[f"{l}.g1"] = np.ones(H, np.float32)
+        w[f"{l}.b1"] = np.zeros(H, np.float32)
+        w[f"{l}.g2"] = np.ones(H, np.float32)
+        w[f"{l}.b2"] = np.zeros(H, np.float32)
+    return w
+
+
 def bert_graph_def(batch=32, t=128, layers=12, hidden=768, heads=12, vocab=30522):
     """The frozen GraphDef of ``bench.py``'s ``build_tf_bert_frozen``, written
     without TensorFlow through the port's protobuf encoder: the same ops (a
@@ -4659,20 +4714,8 @@ def bert_graph_def(batch=32, t=128, layers=12, hidden=768, heads=12, vocab=30522
     GraphDef, the weights by bench.py's names, the output node's name)."""
     from deeplearning4j_tpu_torch.modelimport import tf_proto as tp
 
-    rs = np.random.RandomState(0)
     H, NH, L, T, B = hidden, heads, layers, t, batch
-    w = {"tok_emb": rs.randn(vocab, H).astype(np.float32) * 0.02,
-         "pos_emb": rs.randn(T, H).astype(np.float32) * 0.02}
-    for l in range(L):
-        for k in ["wq", "wk", "wv", "wo"]:
-            w[f"{l}.{k}"] = rs.randn(H, H).astype(np.float32) * 0.02
-        w[f"{l}.w1"] = rs.randn(H, 4 * H).astype(np.float32) * 0.02
-        w[f"{l}.w2"] = rs.randn(4 * H, H).astype(np.float32) * 0.02
-        w[f"{l}.g1"] = np.ones(H, np.float32)
-        w[f"{l}.b1"] = np.zeros(H, np.float32)
-        w[f"{l}.g2"] = np.ones(H, np.float32)
-        w[f"{l}.b2"] = np.zeros(H, np.float32)
-
+    w = bert_weights(t, layers, hidden, vocab)
     nodes, counts = [], {}
     F32, I32 = tp.DT_FLOAT, tp.DT_INT32
 
@@ -4943,6 +4986,449 @@ def phase_sd_tf_bert(autodiff, modelimport, Adam, dev, shape=SD_BERT, k=SD_BERT_
     return report
 
 
+#: phase 60: nodes of ``bert_onnx_model`` (6 Constants and the embedding
+#: pair, then 33 a layer, 2 of them LayerNormalization)
+ONNX_BERT_NODES = (8, 33)
+#: phase 61: the imported ResNet-50: batch and image of the parity check,
+#: classes, and single-row requests through ``submit``
+#: branch_gamma: the range of each residual branch's last BatchNorm scale;
+#: imprint_logit: an imprinted class's logit on its image; int8_logits_rel_l2:
+#: the bound on the int8 model's logits against the f32 ones, L2 relative
+ONNX_R50 = dict(batch=16, image=224, classes=1000, requests=64, branch_gamma=(0.1, 0.3),
+                imprint_logit=8.0, int8_logits_rel_l2=0.1)
+#: phase 62: ``quantized_mha`` at BERT-base width: x [B, T, F], heads
+QMHA = (8, 128, 768, 12)
+
+
+def bert_onnx_model(batch=32, t=128, layers=12, hidden=768, heads=12, vocab=30522):
+    """bench.py's BERT encoder (the weights of `bert_weights`, the math of
+    `bert_plain_forward`) as an ONNX exporter writes it, through the port's
+    ``onnx_proto`` writer: int64 ids, Gather, MatMul + Add projections (zero
+    biases), Reshape (0 copies a dim) and Transpose into heads (keys to [B,
+    H, dh, T]), MatMul, Div, Softmax, opset-17 LayerNormalization (axis -1,
+    epsilon 1e-6, as bench.py's), GELU as the Erf composition, and the
+    shapes and scalars as Constant nodes.  Returns (the serialized model,
+    the weights, the output's name)."""
+    from deeplearning4j_tpu_torch.modelimport import onnx_proto as op
+
+    H, NH, L, T, B = hidden, heads, layers, t, batch
+    dh = H // NH
+    w = bert_weights(t, layers, hidden, vocab)
+    inits = dict(w)
+    nodes = []
+
+    def node(op_type, ins, out, *attrs):
+        nodes.append(op.NodeProto(op_type=op_type, name=out, input=list(ins), output=[out],
+                                  attribute=list(attrs)))
+        return out
+
+    for name, value in (("heads_shape", np.asarray([0, 0, NH, dh], np.int64)),
+                        ("merge_shape", np.asarray([0, 0, H], np.int64)),
+                        ("sqrt_dh", np.float32(np.sqrt(dh))),
+                        ("sqrt2", np.float32(np.sqrt(2.0))),
+                        ("one", np.float32(1.0)), ("half", np.float32(0.5))):
+        node("Constant", [], name, op.attr_t("value", value))
+
+    def dense(x, wname, out):
+        inits[f"{wname}.bias"] = np.zeros(inits[wname].shape[1], np.float32)
+        return node("Add", [node("MatMul", [x, wname], f"{out}/MatMul"), f"{wname}.bias"], out)
+
+    def layer_norm(x, g, b, out):
+        return node("LayerNormalization", [x, g, b], out, op.attr_i("axis", -1),
+                    op.attr_f("epsilon", 1e-6))
+
+    x = node("Add", [node("Gather", ["tok_emb", "ids"], "emb", op.attr_i("axis", 0)),
+                     "pos_emb"], "x0")
+    for l in range(L):
+        p = f"l{l}"
+
+        def heads_of(k, perm):
+            r = node("Reshape", [dense(x, f"{l}.{k}", f"{p}/{k}"), "heads_shape"],
+                     f"{p}/{k}/heads")
+            return node("Transpose", [r], f"{p}/{k}/t", op.attr_ints("perm", perm))
+        q = heads_of("wq", [0, 2, 1, 3])
+        kt = heads_of("wk", [0, 2, 3, 1])
+        v = heads_of("wv", [0, 2, 1, 3])
+        s = node("Div", [node("MatMul", [q, kt], f"{p}/scores"), "sqrt_dh"], f"{p}/scaled")
+        pr = node("Softmax", [s], f"{p}/probs", op.attr_i("axis", -1))
+        ctx = node("Transpose", [node("MatMul", [pr, v], f"{p}/ctx")], f"{p}/ctx/t",
+                   op.attr_ints("perm", [0, 2, 1, 3]))
+        ctx = node("Reshape", [ctx, "merge_shape"], f"{p}/ctx/merged")
+        a = dense(ctx, f"{l}.wo", f"{p}/attn")
+        x = layer_norm(node("Add", [x, a], f"{p}/res1"), f"{l}.g1", f"{l}.b1", f"{p}/ln1")
+        h = dense(x, f"{l}.w1", f"{p}/ff1")
+        e = node("Erf", [node("Div", [h, "sqrt2"], f"{p}/ff1/div")], f"{p}/ff1/erf")
+        g = node("Mul", [h, node("Add", [e, "one"], f"{p}/ff1/add")], f"{p}/ff1/mul")
+        h = dense(node("Mul", [g, "half"], f"{p}/gelu"), f"{l}.w2", f"{p}/ff2")
+        x = layer_norm(node("Add", [x, h], f"{p}/res2"), f"{l}.g2", f"{l}.b2", f"{p}/ln2")
+    graph = op.GraphProto(
+        name="bert", node=nodes,
+        initializer=[op.TensorProto.from_array(a, name=k) for k, a in inits.items()],
+        input=[op.ValueInfoProto(name="ids", elem_type=op.INT64, shape=[B, T])],
+        output=[op.ValueInfoProto(name=x, shape=[B, T, H])])
+    return op.ModelProto(graph=graph).serialize(), w, x
+
+
+def phase_onnx_bert(modelimport, autodiff, layer_norm, Adam, dev, sd_bert, shape=SD_BERT,
+                    k=SD_BERT_K):
+    """BERT-base imported from ONNX and fine-tuned (phase 60 of the module
+    docstring); `sd_bert` is phase 42's report."""
+    from deeplearning4j_tpu_torch.modelimport import onnx_proto
+    tag = "onnx_bert"
+    B, T, L, H, NH, V = shape
+    t0 = time.perf_counter()
+    model_bytes, w, enc = bert_onnx_model(B, T, L, H, NH, V)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sd = modelimport.import_onnx_model(model_bytes, device=dev)
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    graph = onnx_proto.load_model(model_bytes).graph
+    n_nodes = len(graph.node)
+    n_ln = sum(n.op_type == "LayerNormalization" for n in graph.node)
+    want_nodes = ONNX_BERT_NODES[0] + ONNX_BERT_NODES[1] * L
+    require(n_nodes == want_nodes and n_ln == 2 * L,
+            f"{tag}: the model has {n_nodes} nodes ({n_ln} LayerNormalization), want "
+            f"{want_nodes} ({2 * L})")
+    del graph
+    rs = np.random.RandomState(0)
+    ids = torch.as_tensor(rs.randint(0, V, (B, T)).astype(np.int64), device=dev)
+    lab = torch.as_tensor(rs.randint(0, V, (B, T)).astype(np.int32), device=dev)
+
+    # the imported encoder against the plain forward on the same weights
+    layer_norm.LAUNCHES.reset()
+    got = sd.output({"ids": ids}, enc)[enc]
+    torch.cuda.synchronize()
+    fwd_launches = int(layer_norm.LAUNCHES.value)
+    ref = bert_plain_forward(w, ids, L, NH)
+    enc_err = (got - ref).abs().max().item()
+    enc_max = ref.abs().max().item()
+    require(got.shape == (B, T, H) and got.dtype == torch.float32
+            and bool(torch.isfinite(got).all()) and enc_err <= F32_RTOL * enc_max,
+            f"{tag}: encoder {tuple(got.shape)} {got.dtype} max|diff| {enc_err} against "
+            f"the plain forward's max {enc_max}")
+    require(fwd_launches == n_ln, f"{tag}: {fwd_launches} layer_norm launches in a forward, "
+            f"want one a LayerNormalization node ({n_ln})")
+    del got, ref
+
+    # phase 42's head on the imported (trainable) encoder
+    w_head = sd.var("head_w", "XAVIER", H, V)
+    logits = sd.op("matmul", sd.get_variable(enc), w_head, name="logits")
+    labv = sd.placeholder("lab", (B, T))
+    sd.loss.sparse_softmax_cross_entropy(labv, logits, name="loss")
+    sd.set_loss_variables("loss")
+    sd.set_training_config(autodiff.TrainingConfig(
+        updater=Adam(1e-4), data_set_feature_mapping=["ids"], data_set_label_mapping=["lab"]))
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms, counts = _train_steps(sd, lambda: (sd.fit(ids, lab), sd._score)[1],
+                                      (layer_norm.LAUNCHES, layer_norm.BWD_LAUNCHES), k)
+    peak = torch.cuda.max_memory_allocated()
+    ref_loss = sd_bert["first_loss_reference"]
+    loss_rel = abs(losses[0] - ref_loss) / abs(ref_loss)
+    require(loss_rel <= 1e-5 and all(math.isfinite(v) for v in losses),
+            f"{tag}: first loss {losses[0]} against phase sd_tf_bert's independent step "
+            f"{ref_loss} (rel {loss_rel}); losses {losses}")
+    require(all(c == (n_ln, n_ln) for c in counts),
+            f"{tag}: layer_norm launches a step (fwd, bwd) {counts}, want ({n_ln}, {n_ln})")
+    steady = ms[1:]
+    report = dict(
+        onnx_nodes=n_nodes, onnx_nodes_formula=f"{ONNX_BERT_NODES[0]} + {ONNX_BERT_NODES[1]} x "
+        f"{L} layers", layer_norm_nodes=n_ln, samediff_nodes=len(sd._nodes),
+        model_bytes=len(model_bytes), write_s=write_s, import_s=import_s,
+        trainable_variables=len(sd.variables_),
+        trainable_params=sum(v.numel() for v in sd.variables_.values()),
+        encoder_max_abs_err=enc_err, encoder_max_abs_ref=enc_max,
+        layer_norm_fwd_launches_per_forward=fwd_launches,
+        layer_norm_launches_per_step={"fwd": counts[0][0], "bwd": counts[0][1]},
+        layer_norm_launches_each_step=[list(c) for c in counts],
+        losses=losses, first_loss_reference=ref_loss, first_loss_rel=loss_rel,
+        step_ms=statistics.median(steady), step_ms_all=ms,
+        tokens_per_sec=B * T * len(steady) * 1e3 / sum(steady),
+        max_memory_allocated_gb=peak / 1e9)
+    emit(tag, model="BERT-base encoder as ONNX (bench.py's weights), + phase sd_tf_bert's head",
+         batch=B, T=T, layers=L, hidden=H, heads=NH, vocab=V, dtype="float32", tf32=False,
+         updater="Adam(1e-4)", **report)
+    del sd, model_bytes, w
+    torch.cuda.empty_cache()
+    return report
+
+
+def _same_pads(n, k, s):
+    """(out, lo, hi) of a 'Same' window over n: TensorFlow's rule, the
+    extra pad after."""
+    out = -(-n // s)
+    total = max((out - 1) * s + k - n, 0)
+    return out, total // 2, total - total // 2
+
+
+def calibrate_bn_stats(net, x, rs):
+    """Set each BatchNorm's running mean and variance of a zoo ResNet
+    (vertices ``<name>_conv`` -> ``<name>_bn``), in the graph's order, from
+    the inference forward of `x` through the layers already set: the
+    per-channel mean moved by up to half a standard deviation and the
+    variance scaled by 0.5 to 2, both drawn from `rs`.  Each BatchNorm's
+    output then has a mean within ~0.7 and a deviation within 0.7 to 1.4
+    on `x`, so the activations stay O(1) and the softmax unsaturated
+    (seeded statistics drawn without `x` let a random ResNet-50's logits
+    grow to ~2e4).  Returns the number of forwards."""
+    feeds = {"input": torch.as_tensor(x, device=net.device)}
+    bns = [k for k, st in net.state_.items() if "mean" in st and k.endswith("_bn")]
+    with torch.no_grad():
+        for bn in bns:
+            acts, _ = net._forward(net.params_, net.state_, feeds, train=False, rng=None)
+            h = acts[bn[:-len("_bn")] + "_conv"]
+            dims = tuple(range(h.ndim - 1))            # NHWC: over all but channels
+            m, v = h.mean(dims), h.var(dims, unbiased=False)
+            c = m.shape[0]
+            st = net.state_[bn]
+            st["mean"].copy_(m + v.sqrt() * torch.as_tensor(rs.uniform(-0.5, 0.5, c), dtype=m.dtype, device=m.device))
+            st["var"].copy_(v * torch.as_tensor(rs.uniform(0.5, 2.0, c), dtype=m.dtype, device=m.device))
+            del acts, h
+    return len(bns)
+
+
+def imprint_head(net, x, rs, scale):
+    """Imprint the output layer of a zoo ResNet for the images `x` (Qi et
+    al. 2018, imprinted weights): image i's class, drawn from `rs`, gets
+    the direction of its centred pooled feature, and a bias that centres
+    it, scaled so that its logit on image i is `scale`; the other classes
+    keep their seeded weights.  Returns the classes."""
+    out = net.params_["output"]
+    with torch.no_grad():
+        acts, _ = net._forward(net.params_, net.state_,
+                               {"input": torch.as_tensor(x, device=net.device)},
+                               train=False, rng=None)
+        f = acts["avgpool"]
+        centre = f.mean(0)
+        d = f - centre
+        w = scale * d / torch.linalg.vector_norm(d, dim=1, keepdim=True) ** 2
+        classes = rs.choice(out["W"].shape[1], f.shape[0], replace=False)
+        idx = torch.as_tensor(classes, device=f.device)
+        out["W"][:, idx] = w.T
+        out["b"][idx] = -(w @ centre)
+    return classes
+
+
+def resnet50_onnx_model(net, stages, image=224):
+    """A zoo ResNet-50 ComputationGraph (the port's, NHWC) written as the
+    NCHW ONNX graph an exporter gives: Conv (OIHW weights, no bias; 'Same'
+    windows as explicit pads, uneven where the zoo pads unevenly),
+    BatchNormalization in inference form (the running statistics), Relu,
+    MaxPool, Add, GlobalAveragePool, Flatten, Gemm and Softmax.  Returns
+    the serialized model; input "x" [B, 3, image, image], output "probs"."""
+    from deeplearning4j_tpu_torch.modelimport import onnx_proto as op
+
+    nodes, inits = [], {}
+
+    def host(t):
+        return t.detach().float().cpu().numpy()
+
+    def node(op_type, ins, out, *attrs):
+        nodes.append(op.NodeProto(op_type=op_type, name=out, input=list(ins), output=[out],
+                                  attribute=list(attrs)))
+        return out
+
+    def conv_bn(name, x, n, stride, relu=True):
+        wt = net.params_[f"{name}_conv"]["W"]
+        k = int(wt.shape[2])
+        out, lo, hi = _same_pads(n, k, stride)
+        inits[f"{name}_conv.W"] = host(wt)
+        y = node("Conv", [x, f"{name}_conv.W"], f"{name}_conv",
+                 op.attr_ints("kernel_shape", [k, k]), op.attr_ints("strides", [stride] * 2),
+                 op.attr_ints("pads", [lo, lo, hi, hi]))
+        bn = f"{name}_bn"
+        for key, src in (("gamma", net.params_), ("beta", net.params_),
+                         ("mean", net.state_), ("var", net.state_)):
+            inits[f"{bn}.{key}"] = host(src[bn][key])
+        y = node("BatchNormalization", [y] + [f"{bn}.{key}" for key in
+                                              ("gamma", "beta", "mean", "var")], bn,
+                 op.attr_f("epsilon", net.layer_by_name(bn).eps))
+        return (node("Relu", [y], f"{name}_relu") if relu else y), out
+
+    x, n = conv_bn("stem", "x", image, 2)
+    n, lo, hi = _same_pads(n, 3, 2)
+    x = node("MaxPool", [x], "stem_pool", op.attr_ints("kernel_shape", [3, 3]),
+             op.attr_ints("strides", [2, 2]), op.attr_ints("pads", [lo, lo, hi, hi]))
+    for si, (blocks, _) in enumerate(stages):
+        for bi in range(blocks):
+            name, stride = f"s{si}b{bi}", 2 if (bi == 0 and si > 0) else 1
+            y, m = conv_bn(f"{name}_a", x, n, stride)
+            y, _ = conv_bn(f"{name}_b", y, m, 1)
+            y, _ = conv_bn(f"{name}_c", y, m, 1, relu=False)
+            short = conv_bn(f"{name}_proj", x, n, stride, relu=False)[0] if bi == 0 else x
+            x = node("Relu", [node("Add", [y, short], f"{name}_add")], f"{name}_relu")
+            n = m
+    flat = node("Flatten", [node("GlobalAveragePool", [x], "avgpool")], "flat",
+                op.attr_i("axis", 1))
+    inits["output.W"], inits["output.b"] = (host(net.params_["output"][k]) for k in ("W", "b"))
+    y = node("Softmax", [node("Gemm", [flat, "output.W", "output.b"], "logits")], "probs",
+             op.attr_i("axis", -1))
+    graph = op.GraphProto(
+        name="resnet50", node=nodes,
+        initializer=[op.TensorProto.from_array(a, name=k) for k, a in inits.items()],
+        input=[op.ValueInfoProto(name="x", shape=[None, 3, image, image])],
+        output=[op.ValueInfoProto(name=y, shape=[None, net.params_["output"]["b"].shape[0]])])
+    return op.ModelProto(graph=graph).serialize()
+
+
+def phase_onnx_resnet50(modelimport, quant, ModelServer, ResNet50, dev, cfg=ONNX_R50):
+    """The port's zoo ResNet-50 through ONNX into a quantized server (phase
+    61 of the module docstring)."""
+    from deeplearning4j_tpu_torch.modelimport import onnx_proto
+    from deeplearning4j_tpu_torch.serving import UnservableGraphError
+    tag = "onnx_resnet50"
+    B, image, classes = cfg["batch"], cfg["image"], cfg["classes"]
+    zoo = ResNet50(n_classes=classes, input_shape=(image, image, 3))
+    net = zoo.init_model(device=dev)
+    x = np.random.default_rng(0).standard_normal((B, image, image, 3), dtype=np.float32)
+    x_nchw = np.ascontiguousarray(x.transpose(0, 3, 1, 2))
+    # a classifier the int8 parity bound means something for: each residual
+    # branch's last BatchNorm scale drawn small (zero-gamma residual init,
+    # Goyal et al. 2017: a random BatchNorm ResNet at unit gamma is chaotic,
+    # and 1% of weight noise moves its logits as much as they are), running
+    # statistics calibrated on x, and the head imprinted with x's classes
+    rs = np.random.RandomState(5)
+    with torch.no_grad():
+        for name, p in net.params_.items():
+            if name.endswith("_c_bn"):
+                p["gamma"].copy_(torch.as_tensor(rs.uniform(*cfg["branch_gamma"], p["gamma"].shape)))
+    t0 = time.perf_counter()
+    bn_forwards = calibrate_bn_stats(net, x, rs)
+    imprinted = imprint_head(net, x, rs, cfg["imprint_logit"])
+    torch.cuda.synchronize()
+    calibrate_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model_bytes = resnet50_onnx_model(net, type(zoo).STAGES, image)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sd = modelimport.import_onnx_model(model_bytes, device=dev)
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    with torch.no_grad():
+        acts, _ = net._forward(net.params_, net.state_, {"input": torch.as_tensor(x, device=dev)},
+                               train=False, rng=None)
+        out = net.params_["output"]
+        refs = {"probs": acts["output"], "logits": acts["avgpool"] @ out["W"] + out["b"]}
+        gots = sd.output({"x": x_nchw}, "probs", "logits")
+    errs = {}
+    for k, ref in refs.items():
+        got = gots[k]
+        errs[k] = ((got - ref).abs().max().item(), ref.abs().max().item())
+        require(got.shape == (B, classes) and bool(torch.isfinite(got).all())
+                and errs[k][0] <= F32_RTOL * errs[k][1],
+                f"{tag}: imported {k} {tuple(got.shape)} max|diff| {errs[k][0]} against the "
+                f"zoo graph's (max {errs[k][1]})")
+    top = refs["probs"].max(-1)
+    top_prob = top.values.max().item()
+    require(bool((top.indices.cpu() == torch.as_tensor(imprinted)).all()) and top_prob <= 0.9,
+            f"{tag}: argmax {top.indices.tolist()} against the imprinted classes "
+            f"{imprinted.tolist()}, top probability {top_prob} (want <= 0.9: not one-hot)")
+    del acts, refs, gots, net
+    f32_bytes = sum(v.numel() * v.element_size() for v in sd.variables_.values())
+
+    qm = quant.quantize_model(sd)
+    require(qm.kind == "samediff", f"{tag}: quantized kind {qm.kind}")
+    par = quant.parity_check(sd, qm, x_nchw)
+    require(par["delta"] <= 0.01, f"{tag}: parity delta {par['delta']} > 0.01")
+    with torch.no_grad():          # the int8 model's logits, beside the f32 ones
+        feeds = {"x": torch.as_tensor(x_nchw, device=dev)}
+        lq = sd._eval_graph(feeds, quant.ptq._deq_tree(qm.params_, torch.float32),
+                            ["logits"])["logits"]
+        lf = sd.output(feeds, "logits")["logits"]
+        logits_rel_l2 = (torch.linalg.vector_norm(lq - lf)
+                         / torch.linalg.vector_norm(lf)).item()
+    require(logits_rel_l2 <= cfg["int8_logits_rel_l2"],
+            f"{tag}: the int8 logits differ from the f32 ones by {logits_rel_l2} (L2), "
+            f"over {cfg['int8_logits_rel_l2']}")
+    srv = ModelServer(max_batch=16, device=dev)
+    try:
+        t0 = time.monotonic()
+        entry = srv.deploy("r50_onnx", model=qm, input_shape=(3, image, image), warmup=True)
+        deploy_s = time.monotonic() - t0
+        reqs = np.random.default_rng(1).standard_normal(
+            (cfg["requests"], 1, 3, image, image), dtype=np.float32)
+        t0 = time.monotonic()
+        futs = [srv.submit("r50_onnx", r) for r in reqs]
+        outs = [f.result(timeout=600) for f in futs]
+        serve_s = time.monotonic() - t0
+        require(all(o.shape == (1, classes) and np.isfinite(o).all()
+                    and abs(float(o.sum()) - 1.0) <= 1e-4 and float(o.max()) <= 0.9
+                    for o in outs),
+                f"{tag}: an answer is not a finite, unsaturated softmax row")
+        want = qm.output(reqs[:, 0]).cpu().numpy()
+        served_err = float(np.abs(np.concatenate(outs) - want).max())
+        require(served_err <= F32_RTOL * float(np.abs(want).max()),
+                f"{tag}: served rows differ from one batched output by {served_err}")
+        stats = srv.stats()
+        require(stats["failed"] == 0, f"{tag}: {stats['failed']} failed requests")
+        raw = srv.deploy("raw", onnx=model_bytes)
+        try:
+            srv.output("raw", x_nchw[:1], timeout=600)
+            raised = None
+        except UnservableGraphError as e:
+            raised = str(e)
+        require(raw.source == "onnx" and raised is not None,
+                f"{tag}: raw graph source {raw.source!r}, first request raised {raised!r}")
+    finally:
+        srv.shutdown()
+    report = dict(
+        onnx_nodes=len(onnx_proto.load_model(model_bytes).graph.node),
+        model_bytes=len(model_bytes), write_s=write_s, import_s=import_s,
+        max_abs_err_vs_zoo={k: e for k, (e, _) in errs.items()},
+        max_abs_ref={k: t for k, (_, t) in errs.items()}, bn_calibration_forwards=bn_forwards,
+        calibrate_s=calibrate_s, imprinted_classes=imprinted.tolist(), top_prob=top_prob,
+        served_top_prob=float(max(o.max() for o in outs)), kind=qm.kind, dtypes=qm.describe()["dtypes"],
+        bytes_resident_int8=qm.bytes_resident(), bytes_f32=f32_bytes,
+        parity_check=par, int8_logits_rel_l2=logits_rel_l2, deploy_warmup_s=deploy_s, warmed_buckets=entry.warmed_buckets,
+        requests=cfg["requests"], serve_s=serve_s, served_max_abs_err=served_err,
+        latency_ms=stats["latency_ms"], dispatches=stats["dispatches"],
+        raw_source=raw.source, raw_first_request="UnservableGraphError: " + raised)
+    emit(tag, model="zoo ResNet-50 as NCHW ONNX", batch=B, image=image, classes=classes,
+         dtype="float32", tf32=False, **report)
+    del sd, qm, srv
+    torch.cuda.empty_cache()
+    return report
+
+
+def phase_qmha(ak, qk, dispatch, attention, matmul, dev, shape=QMHA):
+    """``quantized_mha`` at BERT-base width against its plain version in
+    ``reference`` mode (phase 62 of the module docstring)."""
+    tag = "qmha"
+    B, T, F, NH = shape
+    gen = torch.Generator(device=dev).manual_seed(11)
+    w_qkv = qk.quantize_tensor(torch.randn(F, 3 * F, generator=gen, device=dev) / math.sqrt(F))
+    w_out = qk.quantize_tensor(torch.randn(F, F, generator=gen, device=dev) / math.sqrt(F))
+    b_qkv = 0.1 * torch.randn(3 * F, generator=gen, device=dev)
+    b_out = 0.1 * torch.randn(F, generator=gen, device=dev)
+    x32 = torch.randn(B, T, F, generator=gen, device=dev)
+    res = {}
+    for dt in (torch.float32, torch.bfloat16):
+        x = x32.to(dt)
+
+        def call():
+            return ak.quantized_mha(x, w_qkv, w_out, NH, b_qkv=b_qkv, b_out=b_out)
+        with torch.inference_mode():
+            q0, f0 = matmul.Q_LAUNCHES.value, attention.LAUNCHES.value
+            y = call()
+            torch.cuda.synchronize()
+            launches = (matmul.Q_LAUNCHES.value - q0, attention.LAUNCHES.value - f0)
+            r = _in_reference_mode(dispatch, call)
+            err = (y.float() - r.float()).abs().max().item()
+            top = r.float().abs().max().item()
+            tol = F32_RTOL * top if dt == torch.float32 else Q_BF16_ULPS * bf16_ulp(top)
+            require(y.shape == (B, T, F) and y.dtype == dt and launches == (2, 1)
+                    and err <= tol,
+                    f"{tag} {dt}: {tuple(y.shape)} {y.dtype}, launches (q_matmul, flash) "
+                    f"{launches}, max|diff| {err} > tol {tol}")
+            ms = time_ms(call, dev)
+            plain_ms = _in_reference_mode(dispatch, lambda: time_ms(call, dev))
+        res[str(dt)[6:]] = dict(launches={"q_matmul": launches[0], "flash_attn_fwd": launches[1]},
+                                max_abs_err=err, max_abs_ref=top, tol=tol, ms=ms,
+                                plain_ms=plain_ms)
+    emit(tag, x=[B, T, F], heads=NH, w_qkv=[F, 3 * F], w_out=[F, F], bias=True, **res)
+    return res
+
+
 def _has_module(name):
     import importlib.util
     return importlib.util.find_spec(name) is not None
@@ -5012,6 +5498,31 @@ def phase_sd_kernels(autodiff, Adam, dispatch, attention, layer_norm, dev, shape
     del sd, twin
     torch.cuda.empty_cache()
     return report
+
+
+def _onnx_bert_entry(name, onnx_bert):
+    """A LayerNorm kernel's launches in phase 60: a forward and a step."""
+    fwd = name == "layer_norm_fwd"
+    per = onnx_bert["layer_norm_launches_per_step"]["fwd" if fwd else "bwd"]
+    each = [c[0 if fwd else 1] for c in onnx_bert["layer_norm_launches_each_step"]]
+    steps = len(each)
+    b, t, layers, h = SD_BERT[:4]
+    return {"launches_per_step": per, "launches": sum(each),
+            **({"launches_per_forward": onnx_bert["layer_norm_fwd_launches_per_forward"]}
+               if fwd else {}),
+            "shape": f"ONNX-imported BERT-base, {layers} layers, x [{b},{t},{h}] f32; "
+                     f"launches over {steps} sd.fit steps"}
+
+
+def _qmha_entry(name, qmha):
+    """A kernel's launches a quantized_mha call in phase 62, and the call's
+    ms."""
+    b, t, f, nh = QMHA
+    return {"launches_per_call": qmha["float32"]["launches"][name],
+            "call_ms": {dt: r["ms"] for dt, r in qmha.items()},
+            "call_plain_ms": {dt: r["plain_ms"] for dt, r in qmha.items()},
+            "shape": f"quantized_mha x [{b},{t},{f}], {nh} heads, int8 w_qkv [{f},{3 * f}] "
+                     f"and w_out [{f},{f}]; f32 and bf16"}
 
 
 def _sd_kernels_entry(name, sd_kern):
@@ -7818,8 +8329,11 @@ def main():
     paged_rows = phase_paged_times(pa, dev)
     phase_charlm(zoo, dispatch, dev)
     seq_attn = phase_seq_attention(nn, train, dispatch, attention, matmul, dev)
-    phase_sd_tf_bert(autodiff, modelimport, Adam, dev)
+    sd_bert = phase_sd_tf_bert(autodiff, modelimport, Adam, dev)
+    onnx_bert = phase_onnx_bert(modelimport, autodiff, layer_norm, Adam, dev, sd_bert)
     sd_kern = phase_sd_kernels(autodiff, Adam, dispatch, attention, layer_norm, dev)
+    phase_onnx_resnet50(modelimport, quant, ModelServer, ResNet50, dev)
+    qmha = phase_qmha(ak, qk, dispatch, attention, matmul, dev)
     # data parallel: one rank a card over NCCL; at world 1 this process is it
     import torch.distributed as dist
     if torch.cuda.device_count() == 1:
@@ -7979,6 +8493,8 @@ def main():
             "fused_bert": _fused_bert_entries(name, fused_bert),
             "sd_kernels": _sd_kernels_entry(name, sd_kern),
             "dp_sd_zero1": _sd_zero1_entry(name, sd_z1),
+            **({"onnx_bert": _onnx_bert_entry(name, onnx_bert)}
+               if name == "layer_norm_fwd" else {"qmha": _qmha_entry(name, qmha)}),
             **({"seq_attention": _seq_attention_entry(name, seq_attn),
                 "ring_flash": {"launches_per_call": {c: r["launches"]
                                                      for c, r in ring["cases"].items()},
@@ -8010,7 +8526,7 @@ def main():
             "sd_kernels": _sd_kernels_entry(name, sd_kern),
             "dp_sd_zero1": _sd_zero1_entry(name, sd_z1),
             **({"seq_attention": _seq_attention_entry(name, seq_attn)}
-               if name.startswith("flash") else {}),
+               if name.startswith("flash") else {"onnx_bert": _onnx_bert_entry(name, onnx_bert)}),
             "shape": shape + "; launches in one f32 MLM fit_batch step at batch 64, T 128"
                      + ("; plain and library compute dq, dk and dv together"
                         if name.startswith("flash") else "")})
@@ -8035,7 +8551,8 @@ def main():
                              "launch_shapes": tp_inf["q_matmul_shapes"],
                              "mesh": tp_inf["axes"],
                              "shape": "weight-only int8 VGG16, leaves placed by "
-                                      "shard_model_params, rank 0, one forward"}}
+                                      "shard_model_params, rank 0, one forward"},
+                "qmha": _qmha_entry(name, qmha)}
                if name == "q_matmul" else {})})
     row = paged_rows[("full", "int8")]
     kernels.append({

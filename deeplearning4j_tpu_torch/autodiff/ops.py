@@ -19,13 +19,16 @@ graph on the card runs the LayerNorm and flash-attention kernels; a 3x3
 stride-1 SAME ``conv2d`` without a bias takes ``conv3x3_same`` as the
 port's layers do.
 
-The table holds the core ops, the TF-import support ops and every op that
+The table holds the core ops, the TF-import support ops, the ONNX-layout
+ops (NCHW / OIHW, as ONNX lays them out: ``conv2d_nchw`` and
+``deconv2d_nchw`` are ``F.conv2d`` and ``F.conv_transpose2d``, ``gemm`` a
+``torch.matmul``, where the JAX package calls ``lax``) and every op that
 the namespaces of ``samediff.py`` and the mappers of
-``modelimport/tf_import.py`` emit.  The JAX table's other families
-(random, bitwise, segment, scatter, image, the rest of linalg, updater
-ops, TensorList) and its ONNX-layout ops are not ported yet; of its
-compression family ``encode_threshold`` and ``decode_threshold`` are;
-``register_op`` adds ops.
+``modelimport/tf_import.py`` and ``modelimport/onnx_import.py`` emit.
+The JAX table's other families (random, bitwise, segment, most of
+scatter, image, the rest of linalg, updater ops, TensorList) are not
+ported yet; of its compression family ``encode_threshold`` and
+``decode_threshold`` are; ``register_op`` adds ops.
 """
 from __future__ import annotations
 
@@ -354,8 +357,10 @@ def _slice(a, begin, size):
 
 
 def _gather(a, idx, axis=0):
-    idx = _t(idx).to(torch.int64)
+    """jnp.take: a negative index counts from the end."""
     axis = axis % a.ndim
+    idx = _t(idx).to(torch.int64)
+    idx = torch.where(idx < 0, idx + a.shape[axis], idx)
     out = a.index_select(axis, idx.reshape(-1))
     return out.reshape(a.shape[:axis] + idx.shape + a.shape[axis + 1:])
 
@@ -629,6 +634,129 @@ register_op("split_axis", lambda x, sizes, axis=0: tuple(
     torch.split(x, [int(s) for s in sizes], dim=axis)))
 
 
+# ---- ONNX-layout ops (NCHW / OIHW; modelimport.onnx_import) ----
+def _pads_lrtb(pads):
+    """ONNX pads (top, left, bottom, right) as F.pad's (left, right, top,
+    bottom)."""
+    return (int(pads[1]), int(pads[3]), int(pads[0]), int(pads[2]))
+
+
+def _bias_nchw(y, b):
+    return y if b is None else y + b.reshape(1, -1, 1, 1)
+
+
+@register_op("conv2d_nchw")
+def _conv2d_nchw(x, w, b=None, stride=(1, 1), pads=(0, 0, 0, 0),
+                 dilation=(1, 1), groups=1):
+    """lax.conv_general_dilated over NCHW x and OIHW w, zero pads (t, l, b,
+    r) as given (uneven included)."""
+    y = F.conv2d(F.pad(x, _pads_lrtb(pads)), w, None, tuple(stride), 0,
+                 tuple(dilation), int(groups))
+    return _bias_nchw(y, b)
+
+
+@register_op("max_pool2d_nchw")
+def _max_pool2d_nchw(x, kernel=(2, 2), stride=(2, 2), pads=(0, 0, 0, 0)):
+    """lax.reduce_window max over -inf pads (the integer minimum for
+    integers).  The gradient goes to the first maximum of each window in
+    row-major order, as JAX's select-and-scatter sends it."""
+    kernel, stride = tuple(kernel), tuple(stride)
+    if x.is_floating_point():
+        return F.max_pool2d(F.pad(x, _pads_lrtb(pads), value=float("-inf")),
+                            kernel, stride)
+    xp = F.pad(x, _pads_lrtb(pads), value=int(torch.iinfo(x.dtype).min))
+    return xp.unfold(2, kernel[0], stride[0]).unfold(3, kernel[1], stride[1]).amax((-2, -1))
+
+
+@register_op("avg_pool2d_nchw")
+def _avg_pool2d_nchw(x, kernel=(2, 2), stride=(2, 2), pads=(0, 0, 0, 0),
+                     count_include_pad=False):
+    """Window sums over zero pads, over the window's size (padding counted,
+    or no pads) or over the count of its elements inside the input."""
+    kernel, stride, lrtb = tuple(kernel), tuple(stride), _pads_lrtb(pads)
+    s = F.avg_pool2d(F.pad(x, lrtb), kernel, stride, divisor_override=1)
+    if count_include_pad or not any(pads):
+        return s / (kernel[0] * kernel[1])
+    ones = torch.ones_like(x[:1, :1])
+    return s / F.avg_pool2d(F.pad(ones, lrtb), kernel, stride, divisor_override=1)
+
+
+register_op("global_avg_pool_nchw", lambda x: torch.mean(x, dim=(2, 3), keepdim=True))
+
+
+@register_op("reshape_onnx")
+def _reshape_onnx(x, shape):
+    """ONNX Reshape: 0 copies the input's dim at that position, -1 is
+    inferred."""
+    return torch.reshape(x, [x.shape[i] if int(s) == 0 else int(s)
+                             for i, s in enumerate(shape)])
+
+
+@register_op("flatten2d")
+def _flatten2d(x, axis=1):
+    lead = 1
+    for d in x.shape[:axis]:
+        lead *= d
+    return torch.reshape(x, (lead, -1))
+
+
+def _reverse_axes(a):
+    return a.permute(tuple(range(a.ndim))[::-1])
+
+
+@register_op("gemm")
+def _gemm(a, b, c=None, alpha=1.0, beta=1.0, trans_a=0, trans_b=0):
+    """alpha * (op(a) @ op(b)) + beta * c, op a transpose where asked."""
+    a = _reverse_axes(a) if trans_a else a
+    b = _reverse_axes(b) if trans_b else b
+    out = OP_TABLE["mul"](alpha, _matmul(a, b))
+    return out if c is None else OP_TABLE["add"](out, OP_TABLE["mul"](beta, c))
+
+
+@register_op("batch_norm_nchw")
+def _batch_norm_nchw(x, scale, b, mean, var, eps=1e-5):
+    """Inference-form batch norm over axis 1 from the running statistics."""
+    shp = (1, -1) + (1,) * (x.ndim - 2)
+    inv = scale.reshape(shp) * torch.rsqrt(var.reshape(shp) + eps)
+    return (x - mean.reshape(shp)) * inv + b.reshape(shp)
+
+
+@register_op("deconv2d_nchw")
+def _deconv2d_nchw(x, w, b=None, stride=(1, 1), pads=(0, 0, 0, 0),
+                   dilation=(1, 1), output_padding=(0, 0), groups=1):
+    """ONNX ConvTranspose: x [B, Ci, H, W], w [Ci, Co, kh, kw] (IOHW), the
+    gradient form.  The full transposed convolution, then ONNX's pads (t,
+    l, b, r) cut from its borders and ``output_padding`` added as zeros
+    after its trailing edges."""
+    if groups != 1:
+        raise NotImplementedError(
+            "deconv2d_nchw: grouped ConvTranspose is not supported — "
+            "export with group=1")
+    y = F.conv_transpose2d(x, w, None, tuple(stride), 0, 0, 1, tuple(dilation))
+    t, l, bt, r = (int(p) for p in pads)
+    y = F.pad(y, (-l, -r + int(output_padding[1]), -t, -bt + int(output_padding[0])))
+    return _bias_nchw(y, b)
+
+
+@register_op("slice_onnx")
+def _slice_onnx(x, starts, ends, axes=None, steps=None):
+    """ONNX Slice: starts and ends clamped to the dims (INT64 sentinels
+    included), any step, negative ones too."""
+    axes = list(range(len(starts))) if axes is None else [int(a) % x.ndim for a in axes]
+    steps = [1] * len(starts) if steps is None else [int(s) for s in steps]
+    idx = [slice(None)] * x.ndim
+    for st, en, ax, sp in zip(starts, ends, axes, steps):
+        st, en = int(st), int(en)
+        dim = x.shape[ax]
+        st = max(st + dim, 0) if st < 0 else min(st, dim)
+        if en < 0:
+            en = max(en + dim, -1 if sp < 0 else 0)
+        else:
+            en = min(en, dim)
+        idx[ax] = slice(st, en if en != -1 else None, sp)
+    return _index(x, idx)
+
+
 # ---- TF-import support ops (modelimport.tf_import; BERT-class graphs) ----
 register_op("swap_last2", lambda a: a.transpose(-1, -2))
 register_op("split_equal", lambda a, num, axis=0: tuple(
@@ -661,6 +789,9 @@ register_op("floor_div", _jax_floor_div)     # int-preserving (TF FloorDiv)
 register_op("expm1", lambda a: torch.expm1(_float(a)))
 register_op("rsqrt", lambda a: torch.rsqrt(_float(a)))
 register_op("mod", _jax_mod)
+register_op("fmod", binary(torch.fmod))       # the dividend's sign, as jnp.fmod
+register_op("tril", lambda a, k=0: torch.tril(_t(a), int(k)))
+register_op("triu", lambda a, k=0: torch.triu(_t(a), int(k)))
 register_op("atan2", binary(torch.atan2))
 register_op("rint", unary(torch.round))
 
@@ -812,5 +943,80 @@ def _decode_threshold(encoded, size, threshold=1e-3):
 # dropout's generator: the graph feeds one generator a step; a missing one
 # (inference) stays missing, which makes dropout the identity
 register_op("rng_fold_opt", lambda rng, tag=0: rng)
+
+
+# ---- further ops the ONNX mappers emit ----
+def _nd_index(idx):
+    """ScatterND's index tensor [..., k] as k index tensors."""
+    return tuple(_t(idx).to(torch.int64).movedim(-1, 0))
+
+
+register_op("scatter_nd_add", lambda a, idx, updates: _t(a).index_put(
+    _nd_index(idx), _t(updates).to(_t(a).dtype), accumulate=True))
+register_op("scatter_nd_update", lambda a, idx, updates: _t(a).index_put(
+    _nd_index(idx), _t(updates).to(_t(a).dtype)))
+register_op("broadcast_to", lambda a, shape: _t(a).broadcast_to(tuple(int(s) for s in shape)))
+register_op("prelu", lambda x, alpha: torch.where(_t(x) >= 0, *_pair(x, OP_TABLE["mul"](alpha, x))))
+# x * relu6(x + 3) / 6 with relu6's gradient 0 at 0 and 6, as jax.nn.hard_swish
+register_op("hard_swish", lambda a: _float(a) * _relu6(_float(a) + 3.0) / 6.0)
+# jnp.clip: a maximum then a minimum, each tie's gradient split in half
+register_op("clip_by_value", lambda a, lo, hi: OP_TABLE["minimum"](OP_TABLE["maximum"](a, lo), hi))
+
+
+@register_op("pad_mode")
+def _pad_mode(a, paddings, mode="constant", value=0.0):
+    """jnp.pad in its constant, reflect, symmetric and edge modes (numpy's
+    index rules, gathered dim by dim; the gradient sums the copies)."""
+    if mode == "constant":
+        return _pad(a, paddings, value)
+    for d, (lo, hi) in enumerate(paddings):
+        if lo or hi:
+            idx = np.pad(np.arange(a.shape[d]), (int(lo), int(hi)), mode=mode)
+            a = a.index_select(d, torch.as_tensor(idx, device=a.device))
+    return a
+
+
+def _bias(b):
+    return 0 if b is None else b
+
+
+def _gru_cell(x, h, w_ih, w_hh, b_ih=None, b_hh=None):
+    """One GRU step, gates [reset, update, new]."""
+    gi = x @ w_ih + _bias(b_ih)
+    gh = h @ w_hh + _bias(b_hh)
+    H = h.shape[-1]
+    r = torch.sigmoid(gi[..., :H] + gh[..., :H])
+    z = torch.sigmoid(gi[..., H:2 * H] + gh[..., H:2 * H])
+    n = torch.tanh(gi[..., 2 * H:] + r * gh[..., 2 * H:])
+    return (1 - z) * n + z * h
+
+
+@register_op("gru_layer")
+def _gru_layer(x, h0, w_ih, w_hh, b_ih=None, b_hh=None):
+    """[B, T, F] -> [B, T, H]: the GRU step over T."""
+    h, ys = h0, []
+    for t in range(x.shape[1]):
+        h = _gru_cell(x[:, t], h, w_ih, w_hh, b_ih, b_hh)
+        ys.append(h)
+    return torch.stack(ys, dim=1)
+
+
+@register_op("lstm_layer_full")
+def _lstm_layer_full(x, w_ih, w_hh, b=None, h0=None, c0=None):
+    """The reference lstmLayer's full output, gates IFCO: (the h sequence
+    [B, T, H], the last h, the last c)."""
+    H = w_hh.shape[0]
+    zeros = torch.zeros((x.shape[0], H), dtype=x.dtype, device=x.device)
+    h = zeros if h0 is None else h0
+    c = zeros if c0 is None else c0
+    ys = []
+    for t in range(x.shape[1]):
+        g = x[:, t] @ w_ih + h @ w_hh + _bias(b)
+        i, f = torch.sigmoid(g[..., :H]), torch.sigmoid(g[..., H:2 * H])
+        cc, o = torch.tanh(g[..., 2 * H:3 * H]), torch.sigmoid(g[..., 3 * H:])
+        c = f * c + i * cc
+        h = o * torch.tanh(c)
+        ys.append(h)
+    return torch.stack(ys, dim=1), h, c
 
 del _n

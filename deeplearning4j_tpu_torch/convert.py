@@ -296,9 +296,16 @@ def _qtensor_to_jax(layer, key: str, qt) -> Dict[str, object]:
 def quant_params_to_jax(qm) -> Dict:
     """A QuantizedModel's parameters as a JAX-layout tree of numpy arrays;
     quantized leaves as ``{"q", "scale", "axis"}``, bf16 leaves widened to
-    f32."""
+    f32.  A SameDiff graph's tree is flat, ``{name: leaf}``, in the layout
+    both packages share."""
     from deeplearning4j_tpu_torch.ops.quant_kernels import QTensor
 
+    if qm.kind == "samediff":
+        return {n: ({"q": v.q.detach().cpu().numpy(), "scale": v.scale.detach().cpu().numpy(),
+                     "axis": int(v.axis)} if isinstance(v, QTensor)
+                    else v.detach().float().cpu().numpy() if v.dtype == torch.bfloat16
+                    else v.detach().cpu().numpy())
+                for n, v in qm.params_.items()}
     out: Dict = {}
     for name, sub in qm.params_.items():
         out[name] = {}
@@ -320,6 +327,18 @@ def quant_params_from_jax(qm, tree: Dict) -> None:
     params = qm.params_
     if set(tree) != set(params):
         raise ValueError(f"layer names differ: {sorted(tree)} vs {sorted(params)}")
+    if qm.kind == "samediff":
+        for name, leaf in tree.items():
+            if isinstance(leaf, dict):
+                q = torch.tensor(np.asarray(leaf["q"]))
+                params[name] = QTensor(q.to(qm.device),
+                                       torch.tensor(np.asarray(leaf["scale"], np.float32)
+                                                    ).to(qm.device),
+                                       axis=int(leaf["axis"]) % q.ndim)
+            else:
+                params[name] = torch.tensor(np.asarray(leaf)).to(
+                    device=qm.device, dtype=params[name].dtype)
+        return
     for name, sub in params.items():
         if set(tree[name]) != set(sub):
             raise ValueError(f"{name}: param keys differ: "

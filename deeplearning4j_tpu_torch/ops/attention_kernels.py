@@ -25,6 +25,10 @@
   copied.  For CPU tensors, or in ``reference`` mode, it runs
   :func:`mha_reference`, or :func:`blockwise_attention` above 2 GB of
   scores, as the JAX package does off the TPU.
+* :func:`quantized_projection` and :func:`quantized_mha`: attention with
+  int8 weights for serving: the four projections through
+  ``quant_kernels.quantized_matmul`` (the ``q_matmul`` kernel on the card)
+  and the scores through :func:`fused_attention` (the flash kernel).
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ import torch
 from deeplearning4j_tpu_torch.ops.kernels import attention as _kernel
 from deeplearning4j_tpu_torch.ops.kernels import dispatch
 from deeplearning4j_tpu_torch.ops.kernels.tiles import DEFAULT_TILES
+from deeplearning4j_tpu_torch.ops.quant_kernels import quantized_matmul
 
 NEG_INF = -1e30
 #: beyond ~2 GB of scores the plain path runs blockwise, as in the JAX package
@@ -178,3 +183,38 @@ def fused_attention(q, k, v, mask=None, causal: bool = False, scale=None):
     if B * H * T * k.shape[2] * q.element_size() <= _SCORE_BYTES_MAX:
         return mha_reference(q, k, v, mask, causal, scale)
     return blockwise_attention(q, k, v, mask, causal, scale)
+
+
+# ---------------------------------------------------------------------------
+# Quantized inference projections (the quant subsystem's attention path)
+# ---------------------------------------------------------------------------
+
+def quantized_projection(x, qt, b=None, acc_dtype=None):
+    """[B, T, F] @ int8 [F, O] with per-output-channel scales: the scale
+    multiplies the product, then the bias is added in the product's dtype
+    (the q/k/v/out projections hold an attention block's weight bytes, so
+    they are what quantization shrinks)."""
+    y = quantized_matmul(x, qt, acc_dtype=acc_dtype)
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y
+
+
+def quantized_mha(x, w_qkv, w_out, n_heads: int, b_qkv=None, b_out=None,
+                  mask=None, causal=False, acc_dtype=None):
+    """Self-attention with its projections served from int8 weights
+    (`w_qkv`: QTensor [F, 3F']; `w_out`: QTensor [F', F_out]) and the
+    score, softmax and value math in the accumulating dtype through
+    :func:`fused_attention`: two ``q_matmul`` launches and one flash
+    launch a call on the card."""
+    B, T, _ = x.shape
+    qkv = quantized_projection(x, w_qkv, b=b_qkv, acc_dtype=acc_dtype)
+    q, k, v = torch.split(qkv, qkv.shape[-1] // 3, dim=-1)
+    d = q.shape[-1] // n_heads
+
+    def heads(a):          # [B, T, H*D] -> [B, H, T, D]
+        return a.reshape(B, T, n_heads, d).transpose(1, 2)
+
+    o = fused_attention(heads(q), heads(k), heads(v), mask=mask, causal=causal)
+    o = o.transpose(1, 2).reshape(B, T, n_heads * d)
+    return quantized_projection(o, w_out, b=b_out, acc_dtype=acc_dtype)

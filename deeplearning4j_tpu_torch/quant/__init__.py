@@ -9,9 +9,10 @@
                 accuracy gate
 
 The kernels are in ``ops.quant_kernels`` and ``ops/kernels/matmul.py``
-(``q_matmul``, ``int8_matmul``).  The fleet integration
-(``ModelFleet.quantize``) and the quantized Keras/ONNX/SameDiff kinds are
-not ported yet.
+(``q_matmul``, ``int8_matmul``).  A SameDiff graph (an imported ONNX model)
+quantizes as the ``samediff`` kind.  The fleet integration
+(``ModelFleet.quantize``) and the quantized Keras kind are not ported
+yet.
 """
 from deeplearning4j_tpu_torch.ops.quant_kernels import (  # noqa: F401
     QTensor, dequantize, quantize_tensor)

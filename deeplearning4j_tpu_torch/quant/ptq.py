@@ -19,21 +19,26 @@ then stored in the port's layout on the model's device.
 
 `QuantizedModel` is serving-shaped: `conf` / `params_` / `state_` /
 `device` and `_forward(params, state, x, train=False)`, the contract the
-bucket cache runs, so `ModelServer` serves it unmodified.  MultiLayerNetwork
+bucket cache runs, so `ModelServer` serves it unmodified.  It wraps a
+MultiLayerNetwork, a single-input ComputationGraph or a SameDiff graph (an
+imported ONNX model, the way the port serves one).  MultiLayerNetwork
 models send their Dense layers (the Output layer included) through the
 quantized products: weight-only int8 (``quantized_dense``, the ``q_matmul``
 kernel on CUDA) or, with ``quantize_activations`` and calibration, int8
 activations (``quantized_matmul_static``, the ``int8_matmul`` kernel); every
 other layer dequantizes its parameters and runs the stock layer.
-ComputationGraph models dequantize every parameter and run the stock graph.
+ComputationGraph models dequantize every parameter and run the stock graph;
+SameDiff graphs quantize their ``variables_`` (each leaf as the JAX package
+judges it: the graph's arrays have the same layout in both packages),
+dequantize them to f32 and run the graph from its one placeholder to its
+first op that no other op consumes.
 A MultiLayerNetwork's quantized leaves may be placed by
 ``parallel.shard_model_params`` on a mesh with a ``model`` axis (this
 rank's block of ``q`` and of its ``scale``): inside ``with mesh:`` a Dense
 layer whose ``W`` is cut on its output channels runs column-parallel (the
 product on the local block, then an all-gather of the output features
 over ``model``), and any other cut leaf is gathered whole where it is used.
-A quantized SameDiff graph is not ported (ROADMAP A4.2), nor are Keras and
-ONNX imports; a model of any other kind raises `TypeError`.
+A model of any other kind raises `TypeError`.
 """
 from __future__ import annotations
 
@@ -99,6 +104,30 @@ def _quantize_leaf(layer, key: str, t: torch.Tensor) -> QTensor:
                    axis=perm.index(t.ndim - 1))
 
 
+def _rewrite(view: torch.Tensor, leaf: torch.Tensor, quantize, config: QuantConfig):
+    """(new leaf, the dtype the report names) of a leaf judged in the JAX
+    layout `view`; `quantize()` gives its QTensor."""
+    plan = _leaf_plan(view, config)
+    if plan == "int8":
+        return quantize(), "int8"
+    if plan == "bf16":
+        return leaf.to(torch_dtype(config.fallback_dtype)), config.fallback_dtype
+    return leaf, dtype_name(leaf.dtype)
+
+
+def _quantize_leaves(params, config: QuantConfig):
+    """A SameDiff graph's flat {name: tensor} variables, whose layout is the
+    JAX package's; returns (new_tree, report) with the JAX tree paths
+    (``['w']``)."""
+    report: Dict[str, str] = {}
+    tree: Dict[str, Any] = {}
+    for name in sorted(params):
+        leaf = params[name].detach()
+        tree[name], report[f"[{name!r}]"] = _rewrite(
+            leaf, leaf, lambda: quantize_tensor(leaf, axis=-1), config)
+    return tree, report
+
+
 def _quantize_tree(model, params, config: QuantConfig):
     """Rewrite a {name: {key: tensor}} parameter tree; returns (new_tree,
     report) where report maps the JAX tree path of each leaf (``['layer_0']
@@ -112,18 +141,10 @@ def _quantize_tree(model, params, config: QuantConfig):
             leaf = params[name][key]
             if isinstance(leaf, QTensor):
                 raise ValueError("model is already quantized")
-            path = f"[{name!r}][{key!r}]"
-            plan = _leaf_plan(jax_view(layer, key, leaf.detach()), config)
-            if plan == "int8":
-                tree[name][key] = _quantize_leaf(layer, key, leaf)
-                report[path] = "int8"
-            elif plan == "bf16":
-                tree[name][key] = leaf.detach().to(
-                    torch_dtype(config.fallback_dtype))
-                report[path] = config.fallback_dtype
-            else:
-                tree[name][key] = leaf.detach()
-                report[path] = dtype_name(leaf.dtype)
+            leaf = leaf.detach()
+            tree[name][key], report[f"[{name!r}][{key!r}]"] = _rewrite(
+                jax_view(layer, key, leaf), leaf,
+                lambda: _quantize_leaf(layer, key, leaf), config)
     return tree, report
 
 
@@ -149,24 +170,35 @@ def _tree_bytes(tree) -> int:
 
 
 def model_kind(model) -> str:
-    """'mln' or 'graph'; raises TypeError for any other model."""
+    """'mln', 'graph' or 'samediff'; raises TypeError for any other
+    model."""
     if is_mln(model):
         return "mln"
     if hasattr(model, "_as_input_dict"):
         return "graph"
     if hasattr(model, "_nodes"):
-        raise TypeError(
-            f"cannot serve a quantized {type(model).__name__}: the quantized "
-            "SameDiff kind is not ported (ROADMAP A4.2); SameDiff itself is")
+        return "samediff"
     raise TypeError(
         f"cannot serve a quantized {type(model).__name__}: need a "
-        "MultiLayerNetwork or ComputationGraph")
+        "MultiLayerNetwork, ComputationGraph or SameDiff model")
+
+
+def samediff_io(sd) -> Tuple[list, list]:
+    """A graph's served inputs and outputs: its placeholders (dropout's
+    generator feed aside) and the ops no other op consumes, in graph
+    order."""
+    from deeplearning4j_tpu_torch.autodiff.samediff import RNG_FEED
+    nodes = sd._nodes
+    consumed = {i for node in nodes.values() if node.kind == "op" for i in node.inputs}
+    ins = [n for n, node in nodes.items() if node.kind == "placeholder" and n != RNG_FEED]
+    outs = [n for n, node in nodes.items() if node.kind == "op" and n not in consumed]
+    return ins, outs
 
 
 class QuantizedModel:
     """Serving-shaped wrapper holding a quantized parameter tree of a
-    MultiLayerNetwork or a single-input ComputationGraph, on the base
-    model's device."""
+    MultiLayerNetwork, a single-input ComputationGraph or a SameDiff graph,
+    on the base model's device."""
 
     is_quantized = True
 
@@ -182,6 +214,8 @@ class QuantizedModel:
         self.config = config
         self.calibration = calibration
         self.report = report
+        if self.kind == "samediff":
+            self._sd_inputs, self._sd_outputs = samediff_io(base)
 
     # ---- dtype plumbing ----
     def acc_dtype(self) -> torch.dtype:
@@ -200,6 +234,15 @@ class QuantizedModel:
             raise ValueError("a quantized model serves inference only")
         if self.kind == "mln":
             return self._forward_mln(params, state, x)
+        if self.kind == "samediff":
+            if len(self._sd_inputs) != 1 or not self._sd_outputs:
+                raise ValueError(
+                    f"quantized serving needs one placeholder and at least "
+                    f"one output; graph has inputs {self._sd_inputs}, "
+                    f"outputs {self._sd_outputs}")
+            out = self._sd_outputs[0]
+            deq = _deq_tree(params, torch.float32)
+            return self.base._eval_graph({self._sd_inputs[0]: x}, deq, [out])[out], state
         names = list(self.conf.network_inputs)
         if len(names) != 1:
             raise ValueError(
@@ -308,13 +351,14 @@ def quantize_model(model, calibration: Optional[CalibrationStats] = None,
     bit-identical QTensors."""
     if getattr(model, "is_quantized", False):
         raise ValueError("model is already quantized")
-    model_kind(model)
+    kind = model_kind(model)
     config = config if config is not None else QuantConfig()
-    params = getattr(model, "params_", None)
+    params = getattr(model, "variables_" if kind == "samediff" else "params_", None)
     if params is None:
-        raise TypeError(f"{type(model).__name__} has no params_ to quantize")
+        raise TypeError(f"{type(model).__name__} has no parameters to quantize")
     f32_bytes = _tree_bytes(params)
-    qparams, report = _quantize_tree(model, params, config)
+    qparams, report = (_quantize_leaves(params, config) if kind == "samediff"
+                       else _quantize_tree(model, params, config))
     qm = QuantizedModel(model, qparams, config, calibration, report)
     saved = f32_bytes - _tree_bytes(qparams)
     quant_instruments().record_model(qm.dominant_dtype(), max(saved, 0))
@@ -333,7 +377,11 @@ def _host(t) -> np.ndarray:
 
 @torch.inference_mode()
 def _base_forward(model, x) -> np.ndarray:
-    """f32 forward of a servable model (quantized or not)."""
+    """f32 forward of a servable model (quantized or not); a SameDiff graph
+    from its one placeholder to its first unconsumed op."""
+    if not getattr(model, "is_quantized", False) and hasattr(model, "_nodes"):
+        ins, outs = samediff_io(model)
+        return _host(model.output({ins[0]: x}, outs[0])[outs[0]])
     return _host(model.output(x))
 
 

@@ -24,5 +24,5 @@ from deeplearning4j_tpu_torch.serving.compile_cache import (  # noqa: F401
     BucketedCompileCache, bucket_for, bucket_sizes)
 from deeplearning4j_tpu_torch.serving.metrics import ServingMetrics  # noqa: F401
 from deeplearning4j_tpu_torch.serving.registry import (  # noqa: F401
-    ModelEntry, ModelRegistry)
+    ModelEntry, ModelRegistry, UnservableGraphError)
 from deeplearning4j_tpu_torch.serving.server import ModelServer  # noqa: F401

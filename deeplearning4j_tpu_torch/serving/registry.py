@@ -7,6 +7,9 @@ The single place a `ModelServer` resolves (name, version) → model:
                                   anything with `params_`/`state_`/
                                   `_forward` and a `device`)
 * `register_zoo(name, "VGG16")` — build from the zoo catalog on `device`
+* `register_onnx(name, src)`    — import an ONNX model (path or bytes)
+                                  as a SameDiff graph on `device`; a raw
+                                  graph serves once quantized
 * `register_quantized(name, calibration=, config=)` — quantize a registered
                                   version (`quant.quantize_model`) and
                                   register the int8 model as the next one
@@ -14,8 +17,8 @@ The single place a `ModelServer` resolves (name, version) → model:
 Versions are integers; `get(name)` returns the highest version, so a
 re-registration under the same name is a zero-downtime model roll.  Each
 name has a re-entrant version lock (`name_lock`), held by every
-registration of that name.  Keras and ONNX registration are not ported
-yet.
+registration of that name.  Keras registration is not ported yet (it
+reads HDF5 through ``h5py``; ROADMAP A9).
 """
 from __future__ import annotations
 
@@ -25,6 +28,11 @@ import time
 from typing import Any, Dict, List, Optional, Tuple
 
 
+class UnservableGraphError(TypeError):
+    """A raw imported graph asked to serve: a SameDiff graph has no
+    serving forward until it is quantized."""
+
+
 @dataclasses.dataclass
 class ModelEntry:
     """One (name, version) deployment unit."""
@@ -32,7 +40,7 @@ class ModelEntry:
     name: str
     version: int
     model: Any
-    source: str = "direct"              # direct | zoo | quant
+    source: str = "direct"              # direct | zoo | onnx | quant
     input_shape: Optional[Tuple[int, ...]] = None   # trailing dims (no batch)
     input_dtype: str = "float32"
     registered_at: float = 0.0
@@ -42,6 +50,16 @@ class ModelEntry:
     def key(self) -> str:
         """Stable cache/grouping key for this deployment unit."""
         return f"{self.name}:v{self.version}"
+
+    def require_servable(self) -> None:
+        """Raise `UnservableGraphError` for a raw ONNX import, which has no
+        serving forward (the JAX package's raw graph fails its first
+        request with AttributeError)."""
+        if self.source == "onnx":
+            raise UnservableGraphError(
+                f"'{self.key}' is a raw {type(self.model).__name__} graph, which has "
+                "no serving forward; serve quant.quantize_model(graph) instead (one "
+                "placeholder in, the first unconsumed op out)")
 
 
 def infer_input_shape(model) -> Optional[Tuple[int, ...]]:
@@ -108,6 +126,19 @@ class ModelRegistry:
         return self.register(name, z.init_model(device=device), version=version,
                              source="zoo")
 
+    def register_onnx(self, name: str, src, version: Optional[int] = None,
+                      device=None) -> ModelEntry:
+        """Import an ONNX model (path or bytes) on `device` (``"cuda"`` by
+        default) with frozen weights and register the SameDiff graph.
+        Served raw, its first request or warm-up raises
+        `UnservableGraphError`.  `register_quantized` rolls it to a version
+        that serves, with the frozen weights (constants) still f32, as in
+        the JAX package; int8 weights need a trainable import through
+        `quant.quantize_model`, then `register`."""
+        from deeplearning4j_tpu_torch.modelimport import import_onnx_model
+        model = import_onnx_model(src, trainable=False, device=device)
+        return self.register(name, model, version=version, source="onnx")
+
     def register_quantized(self, name: str, calibration=None, config=None,
                            base_version: Optional[int] = None,
                            version: Optional[int] = None) -> ModelEntry:
@@ -160,6 +191,7 @@ class ModelRegistry:
         possible, otherwise pass `input_shape`."""
         import numpy as np
         entry = self.get(name, version)
+        entry.require_servable()
         shape = tuple(input_shape) if input_shape is not None \
             else entry.input_shape
         if shape is None:

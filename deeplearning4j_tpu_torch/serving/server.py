@@ -21,9 +21,13 @@ Example:
     y = fut.result()
     srv.shutdown()           # graceful: drains in-flight futures
 
+`deploy(name, onnx=path_or_bytes)` imports an ONNX model on the server's
+device; a raw graph serves only once quantized (`deploy(name,
+model=quant.quantize_model(graph), input_shape=...)`).
+
 Not ported yet: sharded serving (`mesh=`, which raises
 `NotImplementedError`), the persistent executable cache, autotuned
-schedules and Keras/ONNX deployment (no parameter takes them yet).
+schedules and Keras deployment (`keras=` raises `NotImplementedError`).
 """
 from __future__ import annotations
 
@@ -87,22 +91,32 @@ class ModelServer:
         return entry
 
     def deploy(self, name: str, model=None, *, zoo: Optional[str] = None,
+               keras: Optional[str] = None, onnx=None,
                version: Optional[int] = None, warmup: bool = False,
                input_shape: Optional[Tuple[int, ...]] = None,
                **kwargs) -> ModelEntry:
         """Register a model under `name` from exactly one source (a built
-        model instance, which runs on its own device, or a `zoo=` catalog
-        name, built on the server's device) and optionally warm every
-        bucket."""
-        if (model is None) == (zoo is None):
-            raise ValueError("deploy() needs exactly one of: model=, zoo=")
+        model instance, which runs on its own device, a `zoo=` catalog
+        name, or an `onnx=` path or bytes, either built on the server's
+        device) and optionally warm every bucket."""
+        sources = [s for s in (model, zoo, keras, onnx) if s is not None]
+        if len(sources) != 1:
+            raise ValueError(
+                "deploy() needs exactly one of: model=, zoo=, keras=, onnx=")
+        if keras is not None:
+            raise NotImplementedError(
+                "deploy(keras=) is not ported to PyTorch yet: Keras import reads "
+                "HDF5 through h5py, which the port does not depend on (ROADMAP A9)")
         if model is not None:
             entry = self.registry.register(name, model, version=version,
                                            input_shape=input_shape,
                                            **kwargs)
-        else:
+        elif zoo is not None:
             entry = self.registry.register_zoo(name, zoo, version=version,
                                                device=self.device, **kwargs)
+        else:
+            entry = self.registry.register_onnx(name, onnx, version=version,
+                                                device=self.device)
         return self._track(entry, warmup, input_shape)
 
     # ---- request path ----
@@ -110,12 +124,13 @@ class ModelServer:
                priority: int = 0,
                deadline_ms: Optional[float] = None) -> Future:
         """Enqueue one request; returns a Future of the output rows.
-        Raises `KeyError` for an unknown model, `RejectedError` when load
-        is shed; the Future raises `DeadlineExceededError` if the deadline
+        Raises `KeyError` for an unknown model, `UnservableGraphError` for
+        a raw ONNX graph, `RejectedError` when load is shed; the Future raises `DeadlineExceededError` if the deadline
         passes in queue."""
         if self._closed:
             raise RejectedError("ModelServer is shut down")
         entry = self.registry.get(name, version)
+        entry.require_servable()
         with self._entries_lock:
             self._entries.setdefault(entry.key, entry)
         x = np.asarray(x)

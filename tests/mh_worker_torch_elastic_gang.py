@@ -21,6 +21,7 @@ argv: out_dir steps_per_epoch epochs kill_rank kill_step [kill_mode]
 import json
 import os
 import sys
+import time
 
 import numpy as np
 
@@ -93,6 +94,13 @@ def main(out_dir, steps_per_epoch, epochs, kill_rank, kill_step, kill_mode="kill
              iteration=np.int64(net.iteration), score=np.float64(net.score()))
     with open(os.path.join(out_dir, f"elastic_{rank}.json"), "w") as f:
         json.dump({"stats": stats, "reformations": trainer.reformations}, f)
+    # a peer that closes its sockets while the coordinator still writes its
+    # last checkpoint reads as a crash there and re-forms the gang once more:
+    # leave only once the coordinator has read its stats
+    deadline = time.monotonic() + 60.0
+    while (rank != 0 and time.monotonic() < deadline
+           and not os.path.exists(os.path.join(out_dir, "elastic_0.json"))):
+        time.sleep(0.01)
     net.set_gradient_sharing(None)           # close the gang's sockets
     print(f"rank {rank}: done at iteration {net.iteration} "
           f"(world={stats['world']}, generation={stats['generation']})", flush=True)

@@ -546,10 +546,12 @@ def _gang_mlp():
 
 
 def _member(out, key, rank, world, port, ck, steps, epochs, join=False, hooks=(),
-            control_dir=None):
+            control_dir=None, leave=None):
     """One gang member on a thread: dense elastic sharing under
     ElasticTrainer; `out[key]` gets (how it ended, net, trainer, worlds
-    seen at its step ends)."""
+    seen at its step ends).  With a `leave` barrier the member closes its
+    sockets only once every member has ended (a peer that leaves first
+    reads as a crash to one still in its last step)."""
     from deeplearning4j_tpu_torch.parallel import HierarchicalGradientSharing
     from deeplearning4j_tpu_torch.train.resilience import CheckpointManager, ElasticTrainer
     net = _gang_mlp().set_gradient_sharing(HierarchicalGradientSharing(
@@ -570,6 +572,11 @@ def _member(out, key, rank, world, port, ck, steps, epochs, join=False, hooks=()
     except Exception as e:                          # pragma: no cover
         out[key] = (repr(e), net, tr, worlds)
     finally:
+        if leave is not None:
+            try:
+                leave.wait(60)
+            except threading.BrokenBarrierError:    # pragma: no cover
+                pass
         net.set_gradient_sharing(None)
 
 
@@ -623,17 +630,19 @@ def test_joiner_admitted_at_the_epoch_boundary_grows_the_gang(tmp_path):
     checkpoint; every member (the joiner too) rewinds to that step and the
     gang of 3 ends with equal parameters."""
     port, ck = free_port(), str(tmp_path / "ck")
-    out = {}
+    out, leave = {}, threading.Barrier(3)
     joiner = threading.Thread(
-        target=lambda: _member(out, "j", 2, 3, port, ck, 3, 2, join=True), daemon=True)
+        target=lambda: _member(out, "j", 2, 3, port, ck, 3, 2, join=True, leave=leave),
+        daemon=True)
 
     def start_joiner(t):
         if t.model.iteration == 1 and not joiner.is_alive() and "j" not in out:
             joiner.start()
         if t.model.iteration == 2:              # the joiner is parked before the boundary
             assert _wait_until(t.model.gradient_sharing.has_pending_joiner, 10.0)
-    _run_threads(lambda: _member(out, 0, 0, 2, port, ck, 3, 2, hooks=[start_joiner]),
-                 lambda: _member(out, 1, 1, 2, port, ck, 3, 2))
+    _run_threads(lambda: _member(out, 0, 0, 2, port, ck, 3, 2, hooks=[start_joiner],
+                                 leave=leave),
+                 lambda: _member(out, 1, 1, 2, port, ck, 3, 2, leave=leave))
     joiner.join(60)
     assert not joiner.is_alive()
     assert {k: v[0] for k, v in out.items()} == {0: "done", 1: "done", "j": "done"}

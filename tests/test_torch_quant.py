@@ -21,7 +21,17 @@ Same numpy inputs, made from seeds, through both packages:
   pool, two Dense layers and an Output layer): every QTensor bitwise after
   ``convert.quant_params_to_jax``, the report equal, and the outputs of the
   weight-only and the static-activation configs within 1e-5 of max|ref|;
-- ``register_quantized`` through a CPU ``ModelServer``.
+- ``register_quantized`` through a CPU ``ModelServer``;
+- the ``samediff`` kind, on a graph imported from ONNX bytes by both
+  packages (Gemm, Relu, a range-hostile Gemm for the bf16 fallback): the
+  same report, every QTensor bitwise, the output within 1e-5 relative,
+  ``parity_check`` within 0.01 in both, a JAX-quantized tree loaded by
+  ``convert.quant_params_from_jax``; ``quantized_projection`` and
+  ``quantized_mha`` against the JAX functions (f32, within 1e-5 of
+  max|ref|); the quantized graph served by a CPU ``ModelServer``, and a
+  raw ``deploy(onnx=)`` registering with source "onnx" and failing its
+  first request with ``UnservableGraphError`` (the JAX package's raw graph
+  fails there too, with an AttributeError).
 
 The CUDA kernels are held to their plain versions by the ``cuda``-marked
 test, which skips without a card.
@@ -45,7 +55,7 @@ from deeplearning4j_tpu_torch import nn as tnn
 from deeplearning4j_tpu_torch import quant as tquant
 from deeplearning4j_tpu_torch.ops import quant_kernels as tqk
 from deeplearning4j_tpu_torch.ops.kernels import dispatch, matmul
-from deeplearning4j_tpu_torch.serving import ModelServer
+from deeplearning4j_tpu_torch.serving import ModelServer, UnservableGraphError
 
 SMALL_MM = JaxTileConfig(block_m=8, block_n=128, block_k=128)
 
@@ -397,10 +407,13 @@ def test_graph_kind_and_unknown_models():
 
     class SameDiffLike:
         _nodes = {}
-        params_ = {}
-    with pytest.raises(TypeError, match="SameDiff"):
-        tquant.quantize_model(SameDiffLike())
-    with pytest.raises(TypeError, match="MultiLayerNetwork or ComputationGraph"):
+        variables_ = {}
+        device = torch.device("cpu")
+    qs = tquant.quantize_model(SameDiffLike())
+    assert qs.kind == "samediff"
+    with pytest.raises(ValueError, match="one placeholder"):
+        qs.output(np.zeros((1, 2), np.float32))
+    with pytest.raises(TypeError, match="MultiLayerNetwork, ComputationGraph or SameDiff"):
         tquant.quantize_model(object())
     with pytest.raises(ValueError, match="already quantized"):
         tquant.quantize_model(qm)
@@ -429,6 +442,158 @@ def test_register_quantized_rolls_through_a_cpu_server(nets):
             np.testing.assert_allclose(np.concatenate(got), want, rtol=1e-5, atol=1e-6)
             assert tquant.parity_check(tnet, e.model, x)["delta"] <= 0.25
         assert srv.stats()["failed"] == 0
+    finally:
+        srv.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# the samediff kind: a graph imported from ONNX
+# ---------------------------------------------------------------------------
+
+def _onnx_mlp(seed=3):
+    from deeplearning4j_tpu.modelimport.onnx_proto import attr_i
+    from tests.test_onnx_import import _N, _model, _vi
+    r = np.random.RandomState(seed)
+    w2 = r.randn(160, 8).astype(np.float32) * 0.1
+    w2[:, 3] = 0.01
+    w2[0, 3] = 50.0                   # one spiky channel: range-hostile, bf16
+    inits = {"w1": r.randn(16, 160).astype(np.float32) * 0.3, "b1": np.zeros(160, np.float32),
+             "w2": w2, "b2": r.randn(8).astype(np.float32),
+             "w3": r.randn(8, 40).astype(np.float32), "w0": r.randn(16, 4).astype(np.float32)}
+    nodes = [_N("Gemm", ["x", "w1", "b1"], ["h"]), _N("Relu", ["h"], ["a"]),
+             _N("Gemm", ["a", "w2", "b2"], ["z"], attr_i("transB", 0)),
+             _N("MatMul", ["z", "w3"], ["y"])]
+    return _model(nodes, [_vi("x", (None, 16))], [_vi("y", ())], inits).serialize()
+
+
+@pytest.fixture(scope="module")
+def sd_quantized():
+    from deeplearning4j_tpu.modelimport.onnx_import import import_onnx_model as jimport
+    from deeplearning4j_tpu_torch.modelimport import import_onnx_model
+    b = _onnx_mlp()
+    jsd, tsd = jimport(b), import_onnx_model(b, device="cpu")
+    x = np.random.RandomState(4).randn(12, 16).astype(np.float32)
+    return b, jsd, tsd, jquant.quantize_model(jsd), tquant.quantize_model(tsd), x
+
+
+def test_samediff_kind_report_and_qtensors_equal_jax(sd_quantized):
+    _, _, tsd, jq, tq, _ = sd_quantized
+    assert tq.kind == jq.kind == "samediff"
+    assert tq.report == jq.report
+    assert set(tq.report.values()) == {"int8", "bfloat16", "float32"}
+    tree = convert.quant_params_to_jax(tq)
+    assert set(tree) == set(jq.params_)
+    for name, leaf in jq.params_.items():
+        got = tree[name]
+        if isinstance(leaf, jqk.QTensor):
+            assert got["axis"] == leaf.axis
+            np.testing.assert_array_equal(got["q"], np.asarray(leaf.q))
+            np.testing.assert_array_equal(got["scale"], np.asarray(leaf.scale))
+        else:
+            np.testing.assert_array_equal(got, np.asarray(leaf).astype(got.dtype))
+    assert tq.bytes_resident() < sum(v.numel() * 4 for v in tsd.variables_.values())
+    assert tq.quant_fingerprint()["report"] == jq.quant_fingerprint()["report"]
+
+
+def test_samediff_output_and_parity_match_jax(sd_quantized):
+    _, jsd, tsd, jq, tq, x = sd_quantized
+    want = np.asarray(jq.output(x))
+    got = tq.output(x)
+    assert got.device.type == "cpu" and got.shape == (12, 40)
+    assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+    tp, jp = tquant.parity_check(tsd, tq, x), jquant.parity_check(jsd, jq, x)
+    assert (tp["task"], tp["delta"], tp["n"]) == (jp["task"], jp["delta"], jp["n"])
+
+
+def test_samediff_parity_within_one_percent_as_the_jax_test():
+    """The JAX package's test_onnx_import_parity_within_one_percent (Gemm,
+    Relu, Gemm) through the port: the relative L2 error and the parity
+    delta (top-1 disagreement) within 0.01."""
+    from deeplearning4j_tpu_torch.modelimport import import_onnx_model
+    from tests.test_onnx_import import _N, _model, _vi
+    r = np.random.RandomState(3)
+    w1, w2 = r.randn(16, 32).astype(np.float32) * 0.3, r.randn(32, 8).astype(np.float32) * 0.3
+    x = r.randn(12, 16).astype(np.float32)
+    nodes = [_N("Gemm", ["x", "w1", "b1"], ["h"]), _N("Relu", ["h"], ["a"]),
+             _N("Gemm", ["a", "w2", "b2"], ["y"])]
+    b = _model(nodes, [_vi("x", x.shape)], [_vi("y", ())],
+               {"w1": w1, "b1": np.zeros(32, np.float32), "w2": w2,
+                "b2": np.zeros(8, np.float32)}).serialize()
+    sd = import_onnx_model(b, device="cpu")
+    qm = tquant.quantize_model(sd)
+    ref = sd.output({"x": x}, "y")["y"].numpy()
+    rel = np.linalg.norm(qm.output(x).numpy() - ref) / np.linalg.norm(ref)
+    assert qm.kind == "samediff" and rel <= 0.01
+    assert tquant.parity_check(sd, qm, x)["delta"] <= 0.01
+
+
+def test_samediff_quant_params_cross_from_jax(sd_quantized):
+    from deeplearning4j_tpu_torch.modelimport import import_onnx_model
+    _, _, _, jq, _, x = sd_quantized
+    tq = tquant.quantize_model(import_onnx_model(_onnx_mlp(seed=9), device="cpu"))
+    tree = {n: ({"q": np.asarray(v.q), "scale": np.asarray(v.scale), "axis": v.axis}
+                if isinstance(v, jqk.QTensor) else np.asarray(v).astype(np.float32))
+            for n, v in jq.params_.items()}
+    convert.quant_params_from_jax(tq, tree)
+    want = np.asarray(jq.output(x))
+    assert np.abs(tq.output(x).numpy() - want).max() <= 1e-5 * np.abs(want).max()
+
+
+def test_quantized_mha_and_projection_match_jax():
+    from deeplearning4j_tpu.ops import attention_kernels as jak
+    from deeplearning4j_tpu_torch.ops import attention_kernels as tak
+    r = np.random.RandomState(6)
+    B, T, F, NH = 2, 10, 32, 4
+    x = r.randn(B, T, F).astype(np.float32)
+    w_qkv, w_out = r.randn(F, 3 * F).astype(np.float32) * 0.2, r.randn(F, F).astype(np.float32)
+    b_qkv, b_out = r.randn(3 * F).astype(np.float32), r.randn(F).astype(np.float32)
+    mask = (np.arange(T)[None] < np.array([[T], [T - 3]])).astype(np.float32)
+    jq = [jqk.quantize_tensor(w) for w in (w_qkv, w_out)]
+    tq = [tqk.quantize_tensor(torch.from_numpy(w)) for w in (w_qkv, w_out)]
+    got = tak.quantized_projection(torch.from_numpy(x), tq[0], b=torch.from_numpy(b_qkv))
+    want = np.asarray(jak.quantized_projection(jnp.asarray(x), jq[0], b=jnp.asarray(b_qkv)))
+    assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+    for kw in (dict(), dict(causal=True), dict(mask=mask)):
+        tkw = {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v for k, v in kw.items()}
+        got = tak.quantized_mha(torch.from_numpy(x), tq[0], tq[1], NH,
+                                b_qkv=torch.from_numpy(b_qkv), b_out=torch.from_numpy(b_out),
+                                **tkw)
+        want = np.asarray(jak.quantized_mha(jnp.asarray(x), jq[0], jq[1], NH,
+                                            b_qkv=jnp.asarray(b_qkv),
+                                            b_out=jnp.asarray(b_out), **kw))
+        assert got.shape == (B, T, F)
+        assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max(), kw
+
+
+def test_samediff_serves_and_a_raw_import_fails_its_first_request(sd_quantized):
+    b, _, _, _, tq, x = sd_quantized
+    srv = ModelServer(max_batch=8, device="cpu")
+    try:
+        e = srv.deploy("q", model=tq, input_shape=(16,), warmup=True)
+        assert e.warmed_buckets == [1, 2, 4, 8]
+        got = np.concatenate([srv.output("q", x[i:i + n], timeout=60)
+                              for i, n in ((0, 3), (3, 8), (11, 1))])
+        np.testing.assert_allclose(got, tq.output(x).numpy(), rtol=1e-5, atol=1e-6)
+        raw = srv.deploy("raw", onnx=b)
+        assert raw.source == "onnx" and not raw.model.variables_
+        assert raw.model.device == srv.device
+        with pytest.raises(UnservableGraphError, match="quantize_model"):
+            srv.output("raw", x[:2], timeout=60)
+        with pytest.raises(UnservableGraphError, match="quantize_model"):
+            srv.registry.warmup("raw", srv.cache, input_shape=(16,))
+        # the registry's quantized roll serves; the frozen import holds its
+        # weights as constants, so, as in the JAX package, none is quantized
+        from deeplearning4j_tpu.modelimport.onnx_import import import_onnx_model as jimport
+        rolled = srv.registry.register_quantized("raw")
+        assert (rolled.source, rolled.version) == ("quant", 2)
+        jrolled = jquant.quantize_model(jimport(b, trainable=False))
+        assert rolled.model.report == jrolled.report == {}
+        np.testing.assert_allclose(srv.output("raw", x[:2], timeout=60),
+                                   np.asarray(jrolled.output(x[:2])), rtol=1e-5, atol=1e-6)
+        with pytest.raises(NotImplementedError, match="h5py"):
+            srv.deploy("k", keras="model.h5")
+        with pytest.raises(ValueError, match="exactly one of"):
+            srv.deploy("two", model=tq, onnx=b)
     finally:
         srv.shutdown()
 
